@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases device,build,kernels,train]
 
-Drives the port's serving path (``src/repro_torch``) on the card and checks
-it, phase by phase; any failure raises and the script exits non-zero:
+Drives the port's serving and training paths (``src/repro_torch``) on the
+card and checks them, phase by phase; any failure raises and the script
+exits non-zero:
 
   1. device   — a CUDA card or exit 1; print its nvidia-smi name and power
                 limit; TF32 off for the parity phases.
   2. build    — compile the CUDA kernels (one nvcc per source, together).
-  3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes (qwen2-7b: S=16 slots, H=28, KVh=4, hd=128,
-                BS=16, MB=34, NB=1025; ragged lengths incl. 0, dead table
-                entries aimed at a NaN-poisoned free block), in bf16 and
-                fp32; kernel, plain and library-call times with CUDA events.
+  3. kernels  — each kernel against its plain PyTorch version, with kernel,
+                plain and library-call times from CUDA events:
+                the paged-KV kernels at the fleet's shapes (qwen2-7b: S=16
+                slots, H=28, KVh=4, hd=128, BS=16, MB=34, NB=1025; ragged
+                lengths incl. 0, dead table entries aimed at a NaN-poisoned
+                free block), in bf16 and fp32; the four loss kernels (CE
+                and CE + distill, forward and backward, mse and kl, dt
+                written and skipped) at the training main path's shape
+                (T=4096, V=152064, bf16) and at ragged ones (T=37, V=1000
+                fp32, also with v_real < V; V=700 bf16 with unaligned rows).
   4. fleet    — qwen2-7b at full width and depth (28 layers, bf16 weights
                 and pools, seeded random weights), 2 peers, 24 bursty
                 requests through ``FleetRouter.run`` on the fused path,
@@ -23,6 +29,18 @@ it, phase by phase; any failure raises and the script exits non-zero:
   5. parity   — reduced qwen2-7b in fp32: the port on the card and on the
                 CPU (plain versions) with the same weights and workload;
                 teacher-forced logits within 1e-4, equal ``FleetReport``s.
+  6. train    — qwen1.5-0.5b at full width and depth (24 layers, d_model
+                1024, V=152064; fp32 master weights from a seeded
+                generator, bf16 activations): 2 codistilling peers, 10 steps
+                of mse codistillation with AdamW at batch 8 x seq 512 per
+                peer (task loss must fall), a codist eval, 2 all-reduce
+                steps and 2 kl codist steps, launch counts checked per run;
+                ms per step, device-busy share and top kernels from
+                torch.profiler, peak memory.
+  7. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps (mse and
+                kl) on the card through the kernels and on the CPU through
+                their plain versions, same weights and batches; per-step
+                losses within 1e-4 relative.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of the JAX reference.
@@ -42,7 +60,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "fleet", "parity")
+PHASES = ("device", "build", "kernels", "fleet", "parity", "train",
+          "train_parity")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
 # num_blocks=1025, max_blocks_per_slot=34))
@@ -62,7 +81,26 @@ SOURCES = {
                      "src/repro/kernels/paged_cache.py:60"),
     "paged_attention_decode": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:101"),
+    "fused_cross_entropy_parts": ("src/repro_torch/csrc/fused_losses.cu",
+                                  "src/repro/kernels/fused_ce.py:177"),
+    "fused_cross_entropy_grad": ("src/repro_torch/csrc/fused_losses.cu",
+                                 "src/repro/kernels/fused_ce.py:219"),
+    "fused_ce_distill_parts": ("src/repro_torch/csrc/fused_losses.cu",
+                               "src/repro/kernels/combined_loss.py:119"),
+    "fused_ce_distill_grad": ("src/repro_torch/csrc/fused_losses.cu",
+                              "src/repro/kernels/combined_loss.py:195"),
 }
+
+# training main path (qwen1.5-0.5b, 2 peers, batch 8 x seq 512 per peer):
+# T tokens per peer, padded vocab V
+TRAIN_T, TRAIN_V = 4096, 152064
+# the loss kernels' shapes: the main path's, a ragged fp32 one, the same
+# with v_real < V, and a bf16 one whose rows are not 16-byte aligned, with
+# the target a view off any 16-byte boundary (the all-scalar path)
+LOSS_SHAPES = [("main", TRAIN_T, TRAIN_V, torch.bfloat16, 0),
+               ("ragged", 37, 1000, torch.float32, 0),
+               ("v_real<V", 37, 1000, torch.float32, 900),
+               ("unaligned", 37, 700, torch.bfloat16, 0)]
 
 
 class SmokeFailure(RuntimeError):
@@ -191,6 +229,25 @@ def bf16_ulp(x: torch.Tensor) -> float:
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 2.0 ** -133
 
 
+def bf16_grad_misses(k: torch.Tensor, p: torch.Tensor, rows: int = 256) -> int:
+    """Elements of a bf16 gradient ``k`` farther from its plain version
+    ``p`` than one bf16 ulp at the element's own magnitude plus a floor of
+    2^-23 max|p|. Both sides round an fp32 value once, and the two fp32
+    values sum the same terms in other orders, so they differ by a few fp32
+    ulps of the largest term (at most max|p|): the floor covers that where
+    the terms cancel towards 0. A dropped or wrong term fails wherever it
+    is larger than the element's ulp. Compared ``rows`` rows at a time."""
+    floor = 2.0 ** -23 * float(p.float().abs().max())
+    misses = 0
+    for i in range(0, p.shape[0], rows):
+        pf, kf = p[i:i + rows].float(), k[i:i + rows].float()
+        m, e = torch.frexp(pf.abs())
+        ulp = torch.where(m > 0, torch.ldexp(torch.ones_like(m), e - 8),
+                          torch.zeros_like(m))
+        misses += int(((kf - pf).abs() > ulp + floor).sum())
+    return misses
+
+
 def phase_kernels(dev: torch.device, flush: torch.Tensor):
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain,
@@ -299,6 +356,191 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
             log(f"  {kname} bf16: kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
                 f"bound {r['bound_ms']:.5f} ms ({b_by})")
+    return results
+
+
+def loss_inputs(t: int, v: int, dtype, dev: torch.device, seed: int,
+                unaligned: bool = False):
+    """Student logits (N(0, 2^2)), a correlated target, labels spread over
+    all of V and three rows of per-token cotangents. ``unaligned`` puts the
+    target at a 2-byte offset from any 16-byte boundary."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((t, v), generator=gen, device=dev) * 2.0
+    tg = (x + 0.5 * torch.randn((t, v), generator=gen, device=dev)).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    g = torch.randn((3, t), generator=gen, device=dev)
+    if unaligned:
+        buf = torch.empty(t * v + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(tg.reshape(-1))
+        tg = buf[1:].view(t, v)
+    return x.to(dtype), tg, labels, g
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+# fp32 operations per logits element, for the operations bound: CE forward
+# (max, sub, exp, add, add), CE backward (sub, exp, mul, sub, sub, add),
+# and per distillation mode what it adds to each (mse: sub, mul, add;
+# kl: max, sub, exp, add, sub, mul-add / exp, sub, mul, sub, mul)
+LOSS_OPS = {"ce": (5, 6), "mse": (8, 10), "kl": (11, 12)}
+
+
+def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
+    """The four loss kernels against their plain versions at LOSS_SHAPES,
+    forward outputs and residuals and backward gradients (dt written and
+    dt skipped); times at the main-path shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (fused_ce_distill_grad,
+                                     fused_ce_distill_grad_plain,
+                                     fused_ce_distill_parts,
+                                     fused_ce_distill_parts_plain,
+                                     fused_cross_entropy_grad,
+                                     fused_cross_entropy_grad_plain,
+                                     fused_cross_entropy_parts,
+                                     fused_cross_entropy_parts_plain)
+    errs = {}
+    results = {}
+    for si, (label, t, v, dtype, v_real) in enumerate(LOSS_SHAPES):
+        x, tg, lb, g = loss_inputs(t, v, dtype, dev, 100 + si,
+                                   unaligned=label == "unaligned")
+        fp32 = dtype == torch.float32
+
+        def check(name, k, p, grad):
+            # per-token outputs: both accumulate in fp32 in other orders
+            # (~1e-7 relative); bf16 inputs: within 1e-3 of the output's
+            # scale. Gradients: fp32 within 1e-5; bf16 element by element,
+            # within one bf16 ulp of each element (bf16_grad_misses)
+            err = max_err(k, p)
+            require(bool(torch.isfinite(k).all()),
+                    f"{name} {label}: non-finite kernel output")
+            if grad and not fp32:
+                bad = bf16_grad_misses(k, p)
+                require(bad == 0, f"{name} {label}: {bad} gradient elements "
+                        f"beyond one bf16 ulp of the plain version (max "
+                        f"|kernel-plain| {err:.3e})")
+            else:
+                tol = 1e-5 if fp32 else 1e-3 * max(float(p.abs().max()),
+                                                    1e-30)
+                require(err <= tol, f"{name} {label}: max|kernel-plain| "
+                        f"{err:.3e} > tol {tol:.3e}")
+            if label == "main":
+                errs[name] = max(errs.get(name, 0.0), err)
+            return err
+
+        out_k = fused_cross_entropy_parts(x, lb, v_real)
+        out_p = fused_cross_entropy_parts_plain(x, lb, v_real)
+        e6 = max(check("fused_cross_entropy_parts", a, b, False)
+                 for a, b in zip(out_k, out_p))
+        logz = out_p[2]
+        dx_k = fused_cross_entropy_grad(x, lb, logz, g[0], g[1], v_real)
+        dx_p = fused_cross_entropy_grad_plain(x, lb, logz, g[0], g[1], v_real)
+        e7 = check("fused_cross_entropy_grad", dx_k, dx_p, True)
+        msg = [f"ce fwd {e6:.2e} bwd {e7:.2e}"]
+        for mode in ("mse", "kl"):
+            (o_k, r_k) = fused_ce_distill_parts(x, tg, lb, mode, v_real)
+            (o_p, r_p) = fused_ce_distill_parts_plain(x, tg, lb, mode, v_real)
+            e12 = max(check("fused_ce_distill_parts", a, b, False)
+                      for a, b in zip(o_k + r_k, o_p + r_p))
+            e13 = 0.0
+            for need_dt in (True, False):
+                ds_k, dt_k = fused_ce_distill_grad(
+                    x, tg, lb, r_p, g[0], g[1], g[2], mode, v_real, need_dt)
+                ds_p, dt_p = fused_ce_distill_grad_plain(
+                    x, tg, lb, r_p, g[0], g[1], g[2], mode, v_real, need_dt)
+                e13 = max(e13, check("fused_ce_distill_grad", ds_k, ds_p, True))
+                if need_dt:
+                    e13 = max(e13, check("fused_ce_distill_grad", dt_k, dt_p,
+                                         True))
+                else:
+                    require(dt_k is None, "dt returned though not asked for")
+            msg.append(f"{mode} fwd {e12:.2e} bwd {e13:.2e}")
+        sync(dev)
+        log(f"loss kernels {label} (T={t}, V={v}, v_real={v_real or v}, "
+            f"{str(dtype).replace('torch.', '')}): max|kernel-plain| "
+            + "; ".join(msg))
+        if label != "main":
+            continue
+
+        # ---- times at the main-path shape ----
+        es = x.element_size()
+        tv = t * v
+        lb64 = lb.long()
+        xr = x.detach().clone().requires_grad_(True)
+        lib_y = F.cross_entropy(xr, lb64, reduction="none")
+        (o_mse, r_mse) = fused_ce_distill_parts_plain(x, tg, lb, "mse")
+
+        def bound(n_bytes, n_ops):
+            tb = n_bytes / HBM_BPS * 1e3
+            tf = n_ops / PEAK_FLOPS[torch.float32] * 1e3
+            return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+        # bytes: each (T, V) operand read once, each output written once,
+        # plus the (T,) labels, residuals, cotangents and outputs (4 B each)
+        specs = {
+            "fused_cross_entropy_parts": (
+                lambda: fused_cross_entropy_parts(x, lb),
+                lambda: fused_cross_entropy_parts_plain(x, lb),
+                lambda: F.cross_entropy(x, lb64, reduction="none"),
+                bound(tv * es + 4 * t * 4, LOSS_OPS["ce"][0] * tv)),
+            "fused_cross_entropy_grad": (
+                lambda: fused_cross_entropy_grad(x, lb, logz, g[0], g[1]),
+                lambda: fused_cross_entropy_grad_plain(x, lb, logz, g[0], g[1]),
+                lambda: torch.autograd.grad(lib_y, xr, g[0], retain_graph=True),
+                bound(2 * tv * es + 4 * t * 4, LOSS_OPS["ce"][1] * tv)),
+            "fused_ce_distill_parts": (
+                lambda: fused_ce_distill_parts(x, tg, lb, "mse"),
+                lambda: fused_ce_distill_parts_plain(x, tg, lb, "mse"),
+                None,
+                bound(2 * tv * es + 5 * t * 4, LOSS_OPS["mse"][0] * tv)),
+            "fused_ce_distill_grad": (
+                lambda: fused_ce_distill_grad(x, tg, lb, r_mse, g[0], g[1],
+                                              g[2], "mse",
+                                              need_target_grad=False),
+                lambda: fused_ce_distill_grad_plain(x, tg, lb, r_mse, g[0],
+                                                    g[1], g[2], "mse",
+                                                    need_target_grad=False),
+                None,
+                bound(3 * tv * es + 5 * t * 4, LOSS_OPS["mse"][1] * tv)),
+        }
+        for kname, (kern, plain, lib, (b_ms, b_by)) in specs.items():
+            results[kname] = {
+                "ms": time_ms(kern, flush, iters=20),
+                "plain_ms": time_ms(plain, flush, iters=5, warmup=1),
+                "library_ms": None if lib is None else time_ms(lib, flush,
+                                                               iters=20),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": errs[kname]}
+            r = results[kname]
+            lib_txt = ("—" if r["library_ms"] is None
+                       else f"{r['library_ms']:.4f} ms")
+            log(f"  {kname} bf16 (mse): kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {lib_txt}  bound "
+                f"{b_ms:.4f} ms ({b_by})")
+        (_o, r_kl) = fused_ce_distill_parts_plain(x, tg, lb, "kl")
+        extra = {
+            "fused_ce_distill_parts kl": (
+                lambda: fused_ce_distill_parts(x, tg, lb, "kl"),
+                bound(2 * tv * es + 7 * t * 4, LOSS_OPS["kl"][0] * tv)),
+            "fused_ce_distill_grad kl": (
+                lambda: fused_ce_distill_grad(x, tg, lb, r_kl, g[0], g[1],
+                                              g[2], "kl",
+                                              need_target_grad=False),
+                bound(3 * tv * es + 7 * t * 4, LOSS_OPS["kl"][1] * tv)),
+            "fused_ce_distill_grad mse with dt": (
+                lambda: fused_ce_distill_grad(x, tg, lb, r_mse, g[0], g[1],
+                                              g[2], "mse"),
+                bound(4 * tv * es + 5 * t * 4, LOSS_OPS["mse"][1] * tv)),
+        }
+        for kname, (kern, (b_ms, b_by)) in extra.items():
+            log(f"  {kname} bf16: kernel {time_ms(kern, flush, iters=20):.4f}"
+                f" ms  bound {b_ms:.4f} ms ({b_by})")
+        del xr, lib_y
+    torch.cuda.empty_cache()
     return results
 
 
@@ -414,11 +656,18 @@ def phase_fleet(dev: torch.device, cfg):
 def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
     """Device time of ``n`` decode ticks by kernel (torch.profiler) against
     their wall time: the device's busy share of a tick."""
+    profile_device(lambda: eng.decode_logits(active, tokens), tick_ms, n,
+                   "tick")
+
+
+def profile_device(fn, wall_ms: float, n: int, unit: str) -> None:
+    """Device time of ``n`` calls of ``fn`` by kernel (torch.profiler)
+    against their wall time ``wall_ms`` per call: the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         for _ in range(n):
-            eng.decode_logits(active, tokens)
+            fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -433,8 +682,9 @@ def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
     if not rows:
         log("profile: the profiler reported no device time (not measured)")
         return
-    log(f"profile: device busy {busy_ms:.2f} ms of {tick_ms:.2f} ms wall per "
-        f"tick ({busy_ms / tick_ms:.1%}); top kernels by device time per tick:")
+    log(f"profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall per "
+        f"{unit} ({busy_ms / wall_ms:.1%}); top kernels by device time per "
+        f"{unit}:")
     for us, count, key in rows[:8]:
         log(f"  {us / 1e3 / n:8.3f} ms  {count // n:5d} calls  {key[:90]}")
 
@@ -502,6 +752,292 @@ def phase_parity(dev: torch.device):
 
 
 # ----------------------------------------------------------------------------
+# phase 6: full-width codistillation training
+# ----------------------------------------------------------------------------
+
+LOSS_KERNELS = ("fused_cross_entropy_parts", "fused_cross_entropy_grad",
+                "fused_ce_distill_parts", "fused_ce_distill_grad")
+
+
+def run_steps(bundle, state, batches, steps: int, dev, first: int = 0):
+    """``steps`` steps; returns (state, per-step metric floats, per-step
+    wall ms). Each step ends in a device sync (the metrics are read)."""
+    rows, walls = [], []
+    for k in range(first, first + steps):
+        b = batches(k)
+        sync(dev)
+        t0 = time.perf_counter()
+        state, met, _plan = bundle.apply(state, b, k)
+        vals = {m: float(met[m]) for m in ("loss", "task_loss",
+                                           "distill_loss") if m in met}
+        walls.append((time.perf_counter() - t0) * 1e3)
+        rows.append(vals)
+        require(all(math.isfinite(v) for v in vals.values()),
+                f"step {k}: non-finite metrics {vals}")
+    return state, rows, walls
+
+
+def stamped(batches, dev):
+    """Feed a training loop pre-made ``batches`` (a list), stamping the
+    host clock as the loop asks for each: the loop takes batch k + 1 right
+    after it has logged step k (reading the metrics syncs with the card),
+    so consecutive stamps bracket one step. Returns (fn(k), stamps)."""
+    sync(dev)
+    stamps = []
+
+    def fn(k):
+        stamps.append(time.perf_counter())
+        return batches[k]
+    return fn, stamps
+
+
+def finite_records(hist, name: str):
+    """The per-step records of a History, each metric finite."""
+    recs = [r for r in hist.records if "loss" in r]
+    for r in recs:
+        require(all(math.isfinite(v) for v in r.values()
+                    if isinstance(v, float)),
+                f"{name} step {r['step']}: non-finite metrics {r}")
+    return recs
+
+
+def phase_train(dev: torch.device):
+    """qwen1.5-0.5b at full width and depth, fp32 master weights, bf16
+    activations, through the training entry points ``train_codist`` and
+    ``train_allreduce`` (weights from a seeded generator on the card): 2
+    codistilling peers (mse, AdamW, cosine with warmup) for 10 steps at
+    batch 8 x seq 512 per peer with a codist eval at steps 0 and 9, 2
+    all-reduce steps and 2 codist steps with kl, launch counts checked per
+    run; then the training CLI on the card (its reduced config)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.train import (PredictionExchange, build_train_step,
+                                   stack_batches, train_allreduce,
+                                   train_codist)
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    b, s = TRAIN_T // 512, 512
+    require(cfg.padded_vocab == TRAIN_V, f"padded vocab {cfg.padded_vocab}")
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+
+    def lm_batch(step, seed=0):
+        return make_lm_batch(task, b, s, step, None, seed=seed, device=dev)
+
+    def codist_batches(steps, first=0):
+        return [stack_batches([lm_batch(k)] * 2)
+                for k in range(first, first + steps)]
+
+    def counts():
+        return {k: launch_counts[k] for k in LOSS_KERNELS}
+
+    tc = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=3,
+                     total_steps=10, optimizer="adamw")
+    launches = {}
+
+    # ---- 10 codist steps, mse, with a codist eval at steps 0 and 9 ----
+    cd = CodistConfig(n_models=2, distill_loss="mse")
+    feed, stamps = stamped(codist_batches(10), dev)
+    evals = codist_batches(1, first=10_000)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train_codist(model, cd, tc, feed,
+                               eval_batches=lambda k: evals[0], eval_every=9,
+                               log_every=1, device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches["codist"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in tree_leaves(state.params[0]))
+    log(f"train: qwen1.5-0.5b {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"V {cfg.padded_vocab}, {n_params / 1e6:.1f} M params per peer, 2 "
+        f"peers, train_codist 10 steps in {wall:.1f} s (init and 2 evals "
+        f"included)")
+    recs = finite_records(hist, "codist mse")
+    require([r["step"] for r in recs] == list(range(10)),
+            f"codist History steps {[r['step'] for r in recs]}")
+    # step k's wall: from the loop's request for batch k to that for k + 1
+    # (steps 1-8: step 0 holds the init and an eval, step 9 an eval)
+    walls = [(b1 - b0) * 1e3 for b0, b1 in zip(stamps[1:], stamps[2:])]
+    for r in recs:
+        w = walls[r["step"] - 1] if 1 <= r["step"] <= len(walls) else None
+        log(f"  codist mse step {r['step']}: loss {r['loss']:.4f} task "
+            f"{r['task_loss']:.4f} distill {r['distill_loss']:.5f}"
+            + (f"  {w:.1f} ms wall" if w is not None else "")
+            + (f"  eval loss {r['eval_loss']:.4f} accuracy "
+               f"{r['eval_accuracy']:.4f}" if "eval_loss" in r else ""))
+    step_ms = sum(walls) / len(walls)
+    log(f"codist mse: {step_ms:.1f} ms wall per step (steps 1-8 of "
+        f"train_codist, each ending in a sync), peak memory {peak:.1f} GiB, "
+        f"comm_bytes {recs[-1]['comm_bytes']:.0f} over "
+        f"{recs[-1]['comm_events']} exchanges, launches {launches['codist']}")
+    require(recs[-1]["task_loss"] < recs[0]["task_loss"],
+            f"codist task loss did not fall: {recs[0]['task_loss']} -> "
+            f"{recs[-1]['task_loss']}")
+    require(recs[-1]["comm_events"] == 10 and recs[-1]["comm_bytes"] > 0,
+            f"codist exchanges {recs[-1]['comm_events']}, bytes "
+            f"{recs[-1]['comm_bytes']}")
+    require(all("eval_loss" in recs[k] for k in (0, 9)),
+            "codist eval missing at steps 0 and 9")
+    # rows 12 and 13 once per peer and step; row 6 once per peer and eval
+    require(launches["codist"] == {"fused_cross_entropy_parts": 4,
+                                   "fused_cross_entropy_grad": 0,
+                                   "fused_ce_distill_parts": 20,
+                                   "fused_ce_distill_grad": 20},
+            f"codist launches {launches['codist']} != 2 x 10 of rows 12, 13 "
+            "and 2 x 2 of row 6")
+    # the device's busy share: 2 more steps of the same step function
+    bundle = build_train_step(model, tc, cd, PredictionExchange(cd))
+    fixed = codist_batches(1, first=10)[0]
+    profile_device(lambda: bundle.apply(state, fixed, 10), step_ms, 2,
+                   "step")
+    del state, hist, bundle
+    torch.cuda.empty_cache()
+
+    # ---- 2 all-reduce steps ----
+    tc2 = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=2,
+                      optimizer="adamw")
+    feed, stamps = stamped([lm_batch(k) for k in range(2)], dev)
+    reset_launch_counts()
+    state, hist = train_allreduce(model, tc2, (feed(k) for k in range(2)),
+                                  log_every=1, device=dev)
+    sync(dev)
+    w1 = (time.perf_counter() - stamps[1]) * 1e3
+    launches["allreduce"] = counts()
+    recs = finite_records(hist, "allreduce")
+    log(f"allreduce: task loss {[round(r['task_loss'], 4) for r in recs]}, "
+        f"{w1:.1f} ms wall (step 1), launches {launches['allreduce']}")
+    require(len(recs) == 2, f"allreduce History has {len(recs)} steps")
+    require(launches["allreduce"] == {"fused_cross_entropy_parts": 2,
+                                      "fused_cross_entropy_grad": 2,
+                                      "fused_ce_distill_parts": 0,
+                                      "fused_ce_distill_grad": 0},
+            f"allreduce launches {launches['allreduce']} != 2 of rows 6, 7")
+    del state, hist
+    torch.cuda.empty_cache()
+
+    # ---- 2 codist steps, kl ----
+    cd_kl = CodistConfig(n_models=2, distill_loss="kl")
+    feed, stamps = stamped(codist_batches(2), dev)
+    reset_launch_counts()
+    state, hist = train_codist(model, cd_kl, tc2, feed, log_every=1,
+                               device=dev)
+    sync(dev)
+    w1 = (time.perf_counter() - stamps[1]) * 1e3
+    launches["codist_kl"] = counts()
+    recs = finite_records(hist, "codist kl")
+    log(f"codist kl: loss {[round(r['loss'], 4) for r in recs]}, distill "
+        f"{[round(r['distill_loss'], 6) for r in recs]}, {w1:.1f} ms wall "
+        f"(step 1), launches {launches['codist_kl']}")
+    require(len(recs) == 2, f"codist kl History has {len(recs)} steps")
+    require(launches["codist_kl"]["fused_ce_distill_parts"] == 4
+            and launches["codist_kl"]["fused_ce_distill_grad"] == 4,
+            f"codist kl launches {launches['codist_kl']}")
+    del state, hist
+    torch.cuda.empty_cache()
+
+    # ---- the training CLI on the card (its --reduced default) ----
+    out = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(["--device", "cuda", "--mode", "codist", "--steps",
+                        "3", "--batch", "2", "--seq", "64", "--log-every",
+                        "1", "--eval-every", "2"])
+    lines = out.getvalue().splitlines()
+    launches["cli"] = counts()
+    log(f"training CLI (reduced, --device cuda): {lines[-1]}; launches "
+        f"{launches['cli']}")
+    require(len(lines) == 4 and lines[-1].startswith("done: 3 steps")
+            and lines[-1].endswith("on cuda"), f"CLI output {lines}")
+    require("nan" not in out.getvalue().lower(), f"CLI output {lines}")
+    require(launches["cli"] == {"fused_cross_entropy_parts": 4,
+                                "fused_cross_entropy_grad": 0,
+                                "fused_ce_distill_parts": 6,
+                                "fused_ce_distill_grad": 6},
+            f"CLI launches {launches['cli']}")
+    # the main path's launches: rows 12/13 and 6 from the codist run, rows
+    # 6/7 added from the all-reduce run
+    return {"fused_ce_distill_parts": launches["codist"]["fused_ce_distill_parts"],
+            "fused_ce_distill_grad": launches["codist"]["fused_ce_distill_grad"],
+            "fused_cross_entropy_parts":
+                launches["codist"]["fused_cross_entropy_parts"]
+                + launches["allreduce"]["fused_cross_entropy_parts"],
+            "fused_cross_entropy_grad":
+                launches["allreduce"]["fused_cross_entropy_grad"]}
+
+
+# ----------------------------------------------------------------------------
+# phase 7: fp32 training, card vs CPU
+# ----------------------------------------------------------------------------
+
+def phase_train_parity(dev: torch.device):
+    """Reduced qwen1.5-0.5b in fp32 (TF32 off): the same weights and
+    batches train 3 codist steps on the card (the kernels) and on the CPU
+    (their plain versions), for mse and kl; per-step losses within 1e-4
+    relative."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_reduced
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (PredictionExchange, build_train_step,
+                                   stack_batches)
+    from repro_torch.train.state import CodistState, trainable_params
+    from repro_torch.tree import tree_map
+    cfg = get_reduced("qwen1.5-0.5b")
+    model = build_model(cfg)
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=1,
+                    effective_vocab=256)
+    batches = [stack_batches([make_lm_batch(task, 4, 64, k, None, seed=1,
+                                            device="cpu")] * 2)
+               for k in range(3)]
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    init = [model.init(gen, device="cpu") for _ in range(2)]
+    worst = 0.0
+    for mode in ("mse", "kl"):
+        cd = CodistConfig(n_models=2, distill_loss=mode)
+        tc = TrainConfig(lr=1e-3, warmup_steps=0, total_steps=3,
+                         optimizer="adamw", label_smoothing=0.1,
+                         fused_losses=True)
+        losses = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            params = trainable_params(tree_map(
+                lambda p: p.detach().clone().to(d), init))
+            opt_init, _ = make_optimizer(tc.optimizer)
+            state = CodistState(params, opt_init(params), 0)
+            bundle = build_train_step(model, tc, cd, PredictionExchange(cd))
+            reset_launch_counts()
+            state, rows, _w = run_steps(
+                bundle, state, lambda k: {n: v.to(d) for n, v in
+                                          batches[k].items()}, 3, d)
+            losses[where] = rows
+            if where == "card":
+                require(launch_counts["fused_ce_distill_parts"] == 6
+                        and launch_counts["fused_ce_distill_grad"] == 6,
+                        f"card parity run launches {dict(launch_counts)}")
+        for k, (a, c) in enumerate(zip(losses["cpu"], losses["card"])):
+            for m in a:
+                rel = abs(c[m] - a[m]) / max(abs(a[m]), 1e-12)
+                worst = max(worst, rel)
+                require(rel <= 1e-4, f"train parity {mode} step {k} {m}: "
+                        f"card {c[m]} vs cpu {a[m]} (rel {rel:.2e})")
+        log(f"train parity {mode}: card vs CPU per-step loss/task/distill, "
+            f"3 steps: " + "; ".join(
+                f"{a['loss']:.6f}/{c['loss']:.6f}"
+                for a, c in zip(losses["cpu"], losses["card"])))
+    log(f"train parity: worst relative difference {worst:.2e} (tol 1e-4)")
+
+
+# ----------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -526,6 +1062,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
         kernel_rows = phase_kernels(dev, flush)
+        kernel_rows.update(phase_loss_kernels(dev, flush))
         del flush
         log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     launches = {}
@@ -538,6 +1075,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_parity(dev)
         log(f"phase parity: {time.perf_counter() - t0:.1f} s")
+    if "train" in phases:
+        t0 = time.perf_counter()
+        launches.update(phase_train(dev))
+        log(f"phase train: {time.perf_counter() - t0:.1f} s")
+    if "train_parity" in phases:
+        t0 = time.perf_counter()
+        phase_train_parity(dev)
+        log(f"phase train_parity: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})
@@ -549,8 +1094,10 @@ def main(argv=None) -> int:
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms")})
-    require(all(k["launches"] > 0 for k in kernels) or "fleet" not in phases,
-            "a kernel of the main path was never launched")
+    for k in kernels:
+        path = "train" if k["name"] in LOSS_KERNELS else "fleet"
+        require(k["launches"] > 0 or path not in phases,
+                f"{k['name']}: a kernel of the {path} path was never launched")
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

@@ -1,10 +1,15 @@
-"""PyTorch/CUDA port of the codistillation system, slice 1: fleet serving.
+"""PyTorch/CUDA port of the codistillation system.
 
 A second package beside the JAX reference (``repro``), which it never
-imports. This slice carries the serving path — ``launch/serve.py`` fleet
+imports. Slice 1 carries the serving path — ``launch/serve.py`` fleet
 mode, ``FleetRouter`` -> ``FleetEngine`` -> ``PagedCachePool`` ->
-``build_decode_step`` — for the dense attention LMs, with the three paged-KV
-kernels of that path written by hand in CUDA C++ for Hopper (``csrc/``).
+``build_decode_step`` — with the three paged-KV kernels of that path.
+Slice 2 carries training — ``launch/train.py`` in modes ``codist`` and
+``allreduce`` -> ``train/loop.py`` -> ``train/engine.py`` ->
+``core/codistillation.py`` ``codist_loss`` — with the four fused loss
+kernels of that path (CE and CE + distillation, forward and backward). The
+kernels are written by hand in CUDA C++ for Hopper (``csrc/``); the models
+are the dense attention LMs.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 asking for CUDA without a card raises (nothing falls back to the CPU). On a

@@ -5,6 +5,13 @@ The reference stacks per-layer parameters on a leading axis
 way: the two trees have the same keys, shapes and layouts, leaf for leaf, so
 the bridge is a leaf-wise conversion between numpy arrays and tensors.
 
+Training keeps fp32 master weights. The reference trains n codistilling
+peers as ONE tree with a leading peer axis; the port keeps a list of n
+trees, so ``peer_params_from_jax`` splits that axis and
+``peer_params_to_numpy`` stacks it back. ``opt_state_from_jax`` carries an
+``OptState`` (step, m, v) across, so both sides can start from one
+optimizer state.
+
 Serving holds weights in the activation dtype on the card. The reference
 keeps fp32 parameters and casts each weight to ``x.dtype`` inside every
 einsum (``attention.py:46-52``, ``ffn.py:35-39``, ``common.py:133,145``), so
@@ -68,3 +75,55 @@ def serving_params(params: PyTree, dtype: torch.dtype) -> PyTree:
         return t if is_norm else t.to(dtype)
 
     return _map(params, leaf)
+
+
+def _get(tree: PyTree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def peer_params_from_jax(stacked_tree: PyTree, n: int, device="cuda",
+                         dtype: Optional[torch.dtype] = None) -> list:
+    """A reference tree with a leading peer axis of size n -> a list of n
+    port trees (peer i is slice i of every leaf)."""
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    host = _map(stacked_tree, lambda _p, a: np.asarray(a))
+    for path, a in _flat_items(host):
+        if a.shape[:1] != (n,):
+            raise ValueError(f"leaf {'/'.join(path)} has shape {a.shape}: "
+                             f"no leading peer axis of size {n}")
+    return [params_from_jax(_map(host, lambda _p, a, i=i: a[i]), device, dtype)
+            for i in range(n)]
+
+
+def peer_params_to_numpy(peers: list) -> PyTree:
+    """The inverse of ``peer_params_from_jax``: n port trees -> one tree of
+    numpy arrays with a leading peer axis."""
+    trees = [params_to_numpy(p) for p in peers]
+    return _map(trees[0], lambda path, _a: np.stack([_get(t, path)
+                                                     for t in trees]))
+
+
+def _flat_items(tree: PyTree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_items(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def opt_state_from_jax(opt, n: int = 0, device="cuda"):
+    """A reference ``OptState(step, m, v)`` -> the port's. ``n`` > 0 splits
+    stacked moments into per-peer lists (codistillation states); 0 keeps
+    one tree (a single model)."""
+    from repro_torch.optim import OptState
+
+    def conv(tree):
+        if tree is None:
+            return None
+        return (peer_params_from_jax(tree, n, device) if n
+                else params_from_jax(tree, device))
+
+    return OptState(int(np.asarray(opt.step)), conv(opt.m), conv(opt.v))

@@ -1,7 +1,7 @@
 """Architecture config registry.
 
 Knows every arch id of the reference's registry, so ``--arch`` spells the
-same names; only the dense attention archs of the serving slice resolve.
+same names; only the dense attention archs of the port resolve.
 The others raise ``NotImplementedError`` naming the slice that ports them.
 """
 from __future__ import annotations
@@ -9,7 +9,8 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+from repro_torch.configs.base import (CodistConfig, ModelConfig,  # noqa: F401
+                                      TrainConfig, reduced)
 
 _PORTED = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",

@@ -1,14 +1,15 @@
-"""Model config dataclass and the reduced-variant rule.
+"""Model, codistillation and training configs, and the reduced-variant rule.
 
 The fields, ``padded_vocab``, ``resolved_head_dim`` and ``reduced()`` are
 those of the reference's ``configs/base.py``; ``activation_dtype`` is a
 ``torch.dtype`` here. Family-specific sub-configs (moe / ssm / rwkv) stay
-opaque: this slice serves the dense attention archs only.
+opaque: the port runs the dense attention archs only. ``CodistConfig`` and
+``TrainConfig`` are the reference's field for field, with its defaults.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -86,6 +87,61 @@ class ModelConfig:
         if self.moe is None:
             return False
         return (i % self.moe.layer_period) == (self.moe.layer_period - 1)
+
+
+@dataclass(frozen=True)
+class CodistConfig:
+    """Algorithm 1 + Section 3 implementation options."""
+    n_models: int = 2
+    # 'predictions' (coordinated sampling, logits exchange) or 'checkpoints'
+    mode: str = "predictions"
+    # communicate every T steps; off-steps drop the distillation term
+    # (predictions) or reuse the stale replica (checkpoints)
+    period: int = 1
+    # distillation loss D: 'mse' (paper's experiments), 'kl', or 'ce'
+    distill_loss: str = "mse"
+    # penalty coefficient schedule: alpha^k = alpha0 * growth^(epoch k)
+    alpha0: float = 1.0
+    alpha_growth: float = 1.0  # paper: 1.0 vision, 1.1/epoch NMT
+    steps_per_epoch: int = 1
+    # warm-up steps before the distillation term switches on
+    burn_in_steps: int = 0
+    # ---- beyond-paper exchange compression ----
+    # 'none' | 'topk' | 'bf16' | 'subsample'
+    compression: str = "none"
+    topk: int = 64
+    subsample: int = 0  # tokens per sequence used for the distill term
+    # beyond-paper: use previous step's peer logits (removes the sync point)
+    pipelined: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-3
+    lr_schedule: str = "cosine"  # 'step' | 'cosine' | 'constant'
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    step_milestones: Tuple[float, ...] = (0.5, 0.75, 0.9)  # fractions of total
+    step_decay: float = 0.1
+    weight_decay: float = 1e-4
+    # paper: decay WD at LR milestones (5e-4 -> 1e-5 -> 0)
+    weight_decay_schedule: Tuple[float, ...] = ()
+    label_smoothing: float = 0.0
+    label_smoothing_decay: bool = False
+    optimizer: str = "sgdm"  # 'sgdm' | 'adamw' (the CLI defaults to adamw)
+    momentum: float = 0.9
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    grad_clip: float = 0.0
+    seed: int = 0
+    microbatch: int = 0  # 0 => no gradient accumulation
+    remat: bool = False
+    opt_dtype: str = "float32"    # optimizer moment buffers
+    accum_dtype: str = "float32"  # microbatch gradient accumulators
+    # Every training-step loss (task CE + distill D) through the fused loss
+    # kernels of repro_torch.kernels.ops. None => auto: on for CUDA, off on
+    # the CPU, where forcing True runs the kernels' plain versions.
+    fused_losses: Optional[bool] = None
 
 
 def reduced(cfg: ModelConfig, **overrides: Any) -> ModelConfig:

@@ -1,0 +1,262 @@
+"""Codistillation (Algorithm 1): the task and distillation losses and the
+combined loss over n peers.
+
+The n codistilling models are a LIST of parameter trees, one per peer (the
+reference stacks them on a leading axis for vmap and pod sharding; the
+port's forward loops over peers instead, and a list keeps each peer's
+tensors its own leaves for autograd and the in-place optimizer).
+``stack_models`` / ``model_slice`` convert to and from the stacked layout.
+
+The total loss of one step is
+
+    L = (1/n) sum_i [ task(f_i(x_i), y_i)
+                      + alpha/(n-1) sum_{j!=i} D(f_i(x_i), sg(f_j(x_i))) ]
+
+With coordinated sampling every peer sees the same batch, and detaching
+the targets makes one backward pass compute the Algorithm-1 update of all
+peers at once.
+
+Loss math dispatches through the ``fused`` flag: None => on for CUDA
+tensors (the fused loss kernels of ``repro_torch.kernels.ops``), off on the
+CPU. With it on and two peers, each peer's task CE and distillation term
+come from ONE combined kernel call (``fused_ce_distill``); the off-step and
+eval CE from ``fused_cross_entropy_loss``. The unfused paths are the
+reference's own jnp losses, as plain torch.
+
+Not in this slice: the standalone fused distillation kernels (reached from
+the third peer on, and by ``subsample``), ``topk`` and ``subsample``
+compression, and the pod-mesh paths; each raises, naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import CodistConfig
+from repro_torch.kernels.ops import fused_losses_default
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+_ROWS_8_11 = ("the standalone fused distillation kernels (PERF.md rows 8-11, "
+              "ROADMAP Queue 2) are not ported yet: they serve a third peer "
+              "and subsample compression; run with fused=False "
+              "(--fused-losses off)")
+_LATER_COMPRESSION = ("compression {!r} comes with the rest of the exchange "
+                      "strategies (ROADMAP Queue 1 item 5)")
+
+
+def _fused_enabled(fused: Optional[bool], x: torch.Tensor) -> bool:
+    if fused is None:
+        return fused_losses_default(x.device)
+    return bool(fused)
+
+
+def _masked(per_tok: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is not None:
+        mask = mask.float()
+        return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return per_tok.mean()
+
+
+# ----------------------------------------------------------------------------
+# task losses
+# ----------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  label_smoothing=0.0, mask: Optional[torch.Tensor] = None,
+                  fused: Optional[bool] = None) -> torch.Tensor:
+    """Mean token-level CE with optional label smoothing and validity mask.
+
+    logits (..., V) float; labels (...) int; mask (...) broadcastable."""
+    if _fused_enabled(fused, logits):
+        from repro_torch.kernels.ops import fused_cross_entropy_loss
+        return fused_cross_entropy_loss(logits, labels, label_smoothing, mask)
+    logits = logits.float()
+    v = logits.shape[-1]
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.long(), v).to(logits.dtype)
+    true_logit = (logits * onehot).sum(dim=-1)
+    nll = logz - true_logit
+    ls = torch.as_tensor(label_smoothing, dtype=torch.float32,
+                         device=logits.device)
+    smooth = logz - logits.mean(dim=-1)
+    return _masked((1.0 - ls) * nll + ls * smooth, mask)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Argmax over the full (padded) vocab width, as the reference's."""
+    correct = (logits.argmax(dim=-1) == labels).float()
+    return _masked(correct, mask)
+
+
+# ----------------------------------------------------------------------------
+# distillation losses D(y, y')   (paper: MSE between UNCENTERED logits, A.3)
+# ----------------------------------------------------------------------------
+
+def distill_mse(logits: torch.Tensor, target_logits: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                fused: Optional[bool] = None) -> torch.Tensor:
+    """Mean squared error between logits — the paper's D."""
+    if _fused_enabled(fused, logits):
+        raise NotImplementedError(_ROWS_8_11)
+    d = (logits.float() - target_logits.float()) ** 2
+    return _masked(d.mean(dim=-1), mask)
+
+
+def distill_kl(logits: torch.Tensor, target_logits: torch.Tensor,
+               mask: Optional[torch.Tensor] = None, temperature: float = 1.0,
+               fused: Optional[bool] = None) -> torch.Tensor:
+    """KL(softmax(target) || softmax(logits)) — Zhang et al. / Anil et al."""
+    if temperature == 1.0 and _fused_enabled(fused, logits):
+        raise NotImplementedError(_ROWS_8_11)
+    lt = target_logits.float() / temperature
+    ls = logits.float() / temperature
+    p = torch.softmax(lt, dim=-1)
+    per_tok = (p * (torch.log_softmax(lt, dim=-1)
+                    - torch.log_softmax(ls, dim=-1))).sum(dim=-1)
+    return _masked(per_tok, mask)
+
+
+def distill_ce(logits: torch.Tensor, target_logits: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Soft cross-entropy against the peer's softmax (plain torch only, as
+    the reference's is jnp only)."""
+    p = torch.softmax(target_logits.float(), dim=-1)
+    per_tok = -(p * torch.log_softmax(logits.float(), dim=-1)).sum(dim=-1)
+    return _masked(per_tok, mask)
+
+
+_DISTILL = {"mse": distill_mse, "kl": distill_kl, "ce": distill_ce}
+
+
+def distill_pair(kind: str, logits: torch.Tensor, target_logits: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 fused: Optional[bool] = None) -> torch.Tensor:
+    if kind in ("mse", "kl"):
+        return _DISTILL[kind](logits, target_logits, mask, fused=fused)
+    return _DISTILL[kind](logits, target_logits, mask)
+
+
+# ----------------------------------------------------------------------------
+# compressed prediction exchange (none and bf16 in this slice)
+# ----------------------------------------------------------------------------
+
+def _check_compression(cfg: CodistConfig) -> None:
+    if cfg.compression not in ("none", "bf16"):
+        raise NotImplementedError(_LATER_COMPRESSION.format(cfg.compression))
+
+
+def compress_targets(cfg: CodistConfig, target_logits: torch.Tensor) -> Dict:
+    """The wire a peer sends: its logits, or their bf16 rounding."""
+    _check_compression(cfg)
+    if cfg.compression == "bf16":
+        return {"vals": target_logits.to(torch.bfloat16)}
+    return {"vals": target_logits}
+
+
+def distill_vs_compressed(cfg: CodistConfig, logits: torch.Tensor, wire: Dict,
+                          mask: Optional[torch.Tensor] = None,
+                          fused: Optional[bool] = None) -> torch.Tensor:
+    _check_compression(cfg)
+    return distill_pair(cfg.distill_loss, logits, wire["vals"], mask,
+                        fused=fused)
+
+
+# ----------------------------------------------------------------------------
+# Algorithm 1: the combined codistillation loss over the peers' logits
+# ----------------------------------------------------------------------------
+
+def codist_loss(cfg: CodistConfig,
+                logits_all: Sequence[torch.Tensor],   # n x (..., V)
+                labels_all: torch.Tensor,             # (n, ...)
+                alpha, label_smoothing=0.0,
+                mask_all: Optional[torch.Tensor] = None,
+                peer_logits_all: Optional[Sequence[torch.Tensor]] = None,
+                fused: Optional[bool] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean over peers of (task + alpha * mean_peers D(own, sg(peer))).
+
+    ``logits_all`` is a sequence of the n peers' logits (a list, or a
+    stacked tensor). ``peer_logits_all`` overrides the targets; default is
+    the live logits (prediction mode with coordinated sampling). With
+    ``fused`` on and a full-width first peer wire, each peer's task CE and
+    first distillation term come from the combined kernel. The single-device
+    path of the reference; its pod-mesh branch is not in the port."""
+    n = len(logits_all)
+    targets = peer_logits_all if peer_logits_all is not None else logits_all
+    wires_all = [compress_targets(cfg, t.detach()) for t in targets]
+    use_fused = n > 0 and _fused_enabled(fused, logits_all[0])
+
+    task_losses: List[torch.Tensor] = []
+    distill_losses: List[torch.Tensor] = []
+    for i in range(n):
+        m_i = None if mask_all is None else mask_all[i]
+        wires_i = [wires_all[j] for j in range(n) if j != i]
+        combined = (use_fused and wires_i
+                    and cfg.distill_loss in ("mse", "kl")
+                    and wires_i[0]["vals"].shape == logits_all[i].shape)
+        if combined:
+            from repro_torch.kernels.ops import fused_ce_distill
+            task_i, d0 = fused_ce_distill(
+                logits_all[i], wires_i[0]["vals"], labels_all[i],
+                mode=cfg.distill_loss, label_smoothing=label_smoothing,
+                mask=m_i)
+            wire_d = [d0] + [distill_vs_compressed(cfg, logits_all[i], w,
+                                                   m_i, fused=use_fused)
+                             for w in wires_i[1:]]
+        else:
+            task_i = cross_entropy(logits_all[i], labels_all[i],
+                                   label_smoothing, m_i, fused=use_fused)
+            wire_d = [distill_vs_compressed(cfg, logits_all[i], w, m_i,
+                                            fused=use_fused)
+                      for w in wires_i]
+        task_losses.append(task_i)
+        distill_losses.append(
+            sum(wire_d) / (n - 1) if wire_d
+            else torch.zeros((), dtype=torch.float32, device=task_i.device))
+
+    task = torch.stack(task_losses)
+    dist = torch.stack(distill_losses)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=task.device)
+    total = (task + alpha * dist).mean()
+    metrics = {
+        "loss": total,
+        "task_loss": task.mean(),
+        "distill_loss": dist.mean(),
+        "task_loss_per_model": task,
+        "distill_loss_per_model": dist,
+        "alpha": alpha,
+    }
+    return total, metrics
+
+
+# ----------------------------------------------------------------------------
+# peer-tree helpers
+# ----------------------------------------------------------------------------
+
+def init_stacked(init_fn: Callable[..., PyTree], generator: torch.Generator,
+                 n: int, **kw) -> List[PyTree]:
+    """n independent inits, drawn one after another from ``generator``: a
+    list of n parameter trees (the reference stacks them)."""
+    return [init_fn(generator, **kw) for _ in range(n)]
+
+
+def model_slice(stacked: PyTree, i: int) -> PyTree:
+    """Peer i of a stacked tree (leading peer axis), as views."""
+    return tree_map(lambda x: x[i], stacked)
+
+
+def stack_models(trees: List[PyTree]) -> PyTree:
+    """A list of peer trees -> one tree with a leading peer axis."""
+    return tree_map(lambda *xs: torch.stack([x.detach() for x in xs]), *trees)
+
+
+@torch.no_grad()
+def param_distance_from(params: PyTree, ref: PyTree) -> torch.Tensor:
+    """||theta - theta_0||_2 (the Fig. 7 regularization-effect study)."""
+    sq = [((a.float() - b.float()) ** 2).sum()
+          for a, b in zip(tree_leaves(params), tree_leaves(ref))]
+    return torch.sqrt(torch.stack(sq).sum())

@@ -1,0 +1,446 @@
+// Fused cross-entropy and CE + distillation losses, forward and backward
+// (sm_90a).
+//
+// Replaces the TPU kernels of the reference's kernels/fused_ce.py and
+// kernels/combined_loss.py:
+//   repro_fused_loss_fwd mode 0 <- fused_cross_entropy_parts (_ce_parts_kernel)
+//                        mode 1 <- fused_ce_distill_parts, mse (_combined_mse_kernel)
+//                        mode 2 <- fused_ce_distill_parts, kl  (_combined_kl_kernel)
+//   repro_fused_loss_bwd mode 0 <- fused_cross_entropy_grad (_ce_grad_kernel)
+//                        mode 1 <- fused_ce_distill_grad, mse (_combined_mse_grad_kernel)
+//                        mode 2 <- fused_ce_distill_grad, kl  (_combined_kl_grad_kernel)
+//
+// Inputs: student logits x (T, V) and, for modes 1 and 2, target logits t
+// (T, V), both contiguous and of one dtype (fp32 or bf16, a runtime code);
+// labels (T,) int32. Any T and V: nothing is padded, each kernel masks its
+// own ragged edge. v_real <= V bounds the columns of the
+// smoothing mean and of the mse; every column enters the logsumexps, as in
+// the reference (whose block-padding columns hold -1e30 and add nothing).
+//
+// Forward. One CTA per token row streams the row's V columns once, 16-byte
+// vector loads in the middle and scalar loads for the unaligned head and
+// the tail. Each thread keeps the online state of the columns it saw: the
+// student's running max m and sum s of exp(x - m), the sum of x over
+// columns < v_real, and for mse the sum of (x - t)^2 over those columns,
+// for kl the target's (m_t, s_t) and U = sum exp(t - m_t) (t - x). A warp
+// shuffle and then a shared-memory pass over the warps merge the states,
+// rescaling s, s_t and U by exp(m_old - m_new). This loop inside the CTA
+// replaces the reference's sequential vocab grid axis (pl.program_id(1)
+// carrying VMEM scratch from tile to tile), which has no order on the GPU.
+// Thread 0 reads the true logit x[label] itself. The outputs are fp32
+// (K, T) rows: mode 0 [nll, smooth, logZ]; mode 1 [nll, smooth, dist,
+// logZ_s]; mode 2 [nll, smooth, dist, logZ_s, logZ_t, E] with E = U / s_t
+// and dist = E - logZ_t + logZ_s, the reference's formulas.
+//
+// Backward. Elementwise given the (T,) residuals and the (T,) cotangents:
+// grid (T, ceil(V / chunk)), chunk = 256 threads x one 16-byte vector.
+// Each thread rebuilds softmax(x) = exp(x - logZ_s) and, for kl,
+// p = exp(t - logZ_t), and writes ds (and dt unless its pointer is null)
+// in the logits' dtype, rounded once from fp32:
+//   ds = (g_nll + g_smooth) q - g_nll onehot - g_smooth [c < v_real] / v_real
+//        + mse: g_dist 2 (x - t)[c < v_real] / v_real   | kl: g_dist (q - p)
+//   dt = mse: -g_dist 2 (x - t)[c < v_real] / v_real   | kl: g_dist p ((t - x) - E)
+//
+// What bounds them on an H100: bytes. The forward reads each logits
+// element once and does a handful of fp32 operations and one or two exps
+// on it; the backward reads x (and t) once and writes ds (and dt) once. At
+// the main-path shape (T = 4096, V = 152064, bf16) that is 1.25 GB per
+// (T, V) operand, 0.37 ms at 3.35 TB/s. The design reads nothing twice and
+// keeps every (T, V) intermediate in registers. Not yet done: cp.async/TMA
+// staging, more loads in flight per thread, and splitting a row over CTAs
+// when T is small (T CTAs of the forward leave most of the card idle for
+// T < ~500).
+//
+// Each entry point launches on the caller's stream and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int kFwdThreads = 512;
+constexpr int kBwdThreads = 256;
+constexpr float kNeg = -1e30f;
+
+enum Mode { kCE = 0, kMSE = 1, kKL = 2 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+
+// elements of T in one 16-byte vector
+template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[Vec<T>::n]) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::n; ++i) out[i] = to_f(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const float (&in)[Vec<T>::n]) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::n; ++i) e[i] = from_f<T>(in[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// Leading elements of a row before its first 16-byte boundary (the scalar
+// head), or the whole row when the vector path is off.
+template <typename T>
+__device__ __forceinline__ int row_head(const T* row, int V, int vec) {
+  if (!vec) return V;
+  const int mis = (int)((reinterpret_cast<uintptr_t>(row) % 16) / sizeof(T));
+  return min(V, mis ? Vec<T>::n - mis : 0);
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+struct State {
+  float m, s;       // student running max, sum exp(x - m)
+  float xs;         // sum of x over columns < v_real
+  float acc;        // mse: sum (x - t)^2 over columns < v_real
+  float mt, st, u;  // kl: target running max, sum exp(t - mt), sum exp(t - mt)(t - x)
+};
+
+__device__ __forceinline__ State empty_state() {
+  State a;
+  a.m = kNeg; a.s = 0.f; a.xs = 0.f; a.acc = 0.f;
+  a.mt = kNeg; a.st = 0.f; a.u = 0.f;
+  return a;
+}
+
+template <int MODE, int N>
+__device__ __forceinline__ void visit(State& a, const float (&x)[N],
+                                      const float (&t)[N], int c0, int v_real) {
+  float vmax = x[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) vmax = fmaxf(vmax, x[i]);
+  if (vmax > a.m) {
+    a.s *= expf(a.m - vmax);
+    a.m = vmax;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    a.s += expf(x[i] - a.m);
+    if (c0 + i < v_real) a.xs += x[i];
+  }
+  if (MODE == kMSE) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (c0 + i < v_real) {
+        const float d = x[i] - t[i];
+        a.acc += d * d;
+      }
+    }
+  }
+  if (MODE == kKL) {
+    float tmax = t[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i) tmax = fmaxf(tmax, t[i]);
+    if (tmax > a.mt) {
+      const float r = expf(a.mt - tmax);
+      a.st *= r;
+      a.u *= r;
+      a.mt = tmax;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float w = expf(t[i] - a.mt);
+      a.st += w;
+      a.u += w * (t[i] - x[i]);
+    }
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ void merge(State& a, const State& b) {
+  const float m = fmaxf(a.m, b.m);
+  a.s = a.s * expf(a.m - m) + b.s * expf(b.m - m);
+  a.m = m;
+  a.xs += b.xs;
+  if (MODE == kMSE) a.acc += b.acc;
+  if (MODE == kKL) {
+    const float mt = fmaxf(a.mt, b.mt);
+    const float ra = expf(a.mt - mt), rb = expf(b.mt - mt);
+    a.st = a.st * ra + b.st * rb;
+    a.u = a.u * ra + b.u * rb;
+    a.mt = mt;
+  }
+}
+
+__device__ __forceinline__ State shfl_xor(const State& a, int mask) {
+  State b;
+  b.m = __shfl_xor_sync(0xffffffffu, a.m, mask);
+  b.s = __shfl_xor_sync(0xffffffffu, a.s, mask);
+  b.xs = __shfl_xor_sync(0xffffffffu, a.xs, mask);
+  b.acc = __shfl_xor_sync(0xffffffffu, a.acc, mask);
+  b.mt = __shfl_xor_sync(0xffffffffu, a.mt, mask);
+  b.st = __shfl_xor_sync(0xffffffffu, a.st, mask);
+  b.u = __shfl_xor_sync(0xffffffffu, a.u, mask);
+  return b;
+}
+
+template <int MODE>
+__device__ __forceinline__ State warp_merge(State a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) merge<MODE>(a, shfl_xor(a, off));
+  return a;
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kFwdThreads)
+fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
+           const int* __restrict__ labels, float* __restrict__ out,
+           int n_tok, int V, int v_real, int vec) {
+  constexpr int N = Vec<T>::n;
+  const int row = blockIdx.x;
+  const T* xr = x + (size_t)row * V;
+  const T* tr = MODE == kCE ? nullptr : tg + (size_t)row * V;
+  const int head = row_head(xr, V, vec);
+  const int nvec = (V - head) / N;
+  const int tail0 = head + nvec * N;
+
+  State a = empty_state();
+  for (int c = threadIdx.x; c < head; c += blockDim.x) {
+    const float xa[1] = {to_f(xr[c])};
+    const float ta[1] = {MODE == kCE ? 0.f : to_f(tr[c])};
+    visit<MODE, 1>(a, xa, ta, c, v_real);
+  }
+  for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
+    const int c0 = head + k * N;
+    float xa[N], ta[N];
+    load_vec(xr + c0, xa);
+    if (MODE == kCE) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) ta[i] = 0.f;
+    } else {
+      load_vec(tr + c0, ta);
+    }
+    visit<MODE, N>(a, xa, ta, c0, v_real);
+  }
+  for (int c = tail0 + threadIdx.x; c < V; c += blockDim.x) {
+    const float xa[1] = {to_f(xr[c])};
+    const float ta[1] = {MODE == kCE ? 0.f : to_f(tr[c])};
+    visit<MODE, 1>(a, xa, ta, c, v_real);
+  }
+
+  __shared__ State warps[kFwdThreads / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  a = warp_merge<MODE>(a);
+  if (lane == 0) warps[warp] = a;
+  __syncthreads();
+  if (warp != 0) return;
+  a = lane < (int)(blockDim.x / 32) ? warps[lane] : empty_state();
+  a = warp_merge<MODE>(a);
+  if (lane != 0) return;
+
+  const int lb = labels[row];
+  const float true_logit = (lb >= 0 && lb < V) ? to_f(xr[lb]) : 0.f;
+  const float logz = a.m + logf(a.s);
+  out[row] = logz - true_logit;                              // nll
+  out[(size_t)n_tok + row] = logz - a.xs / (float)v_real;    // smooth
+  if (MODE == kCE) {
+    out[2 * (size_t)n_tok + row] = logz;
+  } else if (MODE == kMSE) {
+    out[2 * (size_t)n_tok + row] = a.acc / (float)v_real;    // dist
+    out[3 * (size_t)n_tok + row] = logz;
+  } else {
+    const float logzt = a.mt + logf(a.st);
+    const float e = a.u / a.st;
+    out[2 * (size_t)n_tok + row] = e - logzt + logz;         // dist = KL
+    out[3 * (size_t)n_tok + row] = logz;
+    out[4 * (size_t)n_tok + row] = logzt;
+    out[5 * (size_t)n_tok + row] = e;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+struct Row {
+  float logzs, logzt, e, gn, gs, gd, inv_v, two_inv_v;
+  int label, v_real;
+};
+
+template <int MODE>
+__device__ __forceinline__ void grad_elem(const Row& r, float x, float t,
+                                          int c, float& ds, float& dt) {
+  const float q = expf(x - r.logzs);
+  const float ce = (r.gn + r.gs) * q - (c == r.label ? r.gn : 0.f)
+                   - (c < r.v_real ? r.gs * r.inv_v : 0.f);
+  if (MODE == kCE) {
+    ds = ce;
+  } else if (MODE == kMSE) {
+    const float d = c < r.v_real ? x - t : 0.f;
+    const float dd = r.gd * r.two_inv_v * d;
+    ds = ce + dd;
+    dt = -dd;
+  } else {
+    const float p = expf(t - r.logzt);
+    ds = ce + r.gd * (q - p);
+    dt = r.gd * p * ((t - x) - r.e);
+  }
+}
+
+template <typename T, int MODE>
+__device__ __forceinline__ void grad_scalar(const Row& r, const T* xr,
+                                            const T* tr, T* dsr, T* dtr, int c) {
+  float ds, dt = 0.f;
+  grad_elem<MODE>(r, to_f(xr[c]), MODE == kCE ? 0.f : to_f(tr[c]), c, ds, dt);
+  dsr[c] = from_f<T>(ds);
+  if (MODE != kCE && dtr != nullptr) dtr[c] = from_f<T>(dt);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
+           const int* __restrict__ labels, const float* __restrict__ res,
+           const float* __restrict__ g, T* __restrict__ ds, T* __restrict__ dt,
+           int n_tok, int V, int v_real, float inv_v, float two_inv_v, int vec) {
+  constexpr int N = Vec<T>::n;
+  const int row = blockIdx.x;
+  const size_t base = (size_t)row * V;
+  const T* xr = x + base;
+  const T* tr = MODE == kCE ? nullptr : tg + base;
+  T* dsr = ds + base;
+  T* dtr = (MODE == kCE || dt == nullptr) ? nullptr : dt + base;
+  Row r;
+  r.logzs = res[row];
+  r.logzt = MODE == kKL ? res[(size_t)n_tok + row] : 0.f;
+  r.e = MODE == kKL ? res[2 * (size_t)n_tok + row] : 0.f;
+  r.gn = g[row];
+  r.gs = g[(size_t)n_tok + row];
+  r.gd = MODE == kCE ? 0.f : g[2 * (size_t)n_tok + row];
+  r.inv_v = inv_v;
+  r.two_inv_v = two_inv_v;
+  r.label = labels[row];
+  r.v_real = v_real;
+
+  const int head = row_head(xr, V, vec);
+  const int nvec = (V - head) / N;
+  if (blockIdx.y == 0) {
+    for (int c = threadIdx.x; c < head; c += blockDim.x)
+      grad_scalar<T, MODE>(r, xr, tr, dsr, dtr, c);
+    for (int c = head + nvec * N + threadIdx.x; c < V; c += blockDim.x)
+      grad_scalar<T, MODE>(r, xr, tr, dsr, dtr, c);
+  }
+  const int k = blockIdx.y * blockDim.x + threadIdx.x;
+  if (k >= nvec) return;
+  const int c0 = head + k * N;
+  float xa[N], ta[N], da[N], ea[N];
+  load_vec(xr + c0, xa);
+  if (MODE != kCE) load_vec(tr + c0, ta);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    ea[i] = 0.f;
+    grad_elem<MODE>(r, xa[i], MODE == kCE ? 0.f : ta[i], c0 + i, da[i], ea[i]);
+  }
+  store_vec(dsr + c0, da);
+  if (dtr != nullptr) store_vec(dtr + c0, ea);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// the 16-byte vector path needs every (T, V) operand's base at the same
+// offset mod 16 (rows then share their misalignment, handled by the head)
+int same_mod16(const void* a, const void* b, const void* c, const void* d) {
+  const uintptr_t m = reinterpret_cast<uintptr_t>(a) % 16;
+  const void* rest[3] = {b, c, d};
+  for (const void* p : rest)
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != m) return 0;
+  return 1;
+}
+
+template <typename T>
+int launch_fwd(int mode, const void* x, const void* t, const int* labels,
+               float* out, int n_tok, int V, int v_real, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  const T* tp = static_cast<const T*>(t);
+  const int vec = same_mod16(x, t, nullptr, nullptr);
+  switch (mode) {
+    case kCE: fwd_kernel<T, kCE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, n_tok, V, v_real, vec); break;
+    case kMSE: fwd_kernel<T, kMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, n_tok, V, v_real, vec); break;
+    case kKL: fwd_kernel<T, kKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, n_tok, V, v_real, vec); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(int mode, const void* x, const void* t, const int* labels,
+               const float* res, const float* g, void* ds, void* dt,
+               int n_tok, int V, int v_real, float inv_v, float two_inv_v,
+               cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  const T* tp = static_cast<const T*>(t);
+  T* dsp = static_cast<T*>(ds);
+  T* dtp = static_cast<T*>(dt);
+  const int vec = same_mod16(x, t, ds, dt);
+  // chunks cover the vector columns; chunk 0 also takes the scalar head and
+  // tail (fewer than 2 * Vec<T>::n columns), so at least one chunk runs
+  const int per_chunk = kBwdThreads * Vec<T>::n;
+  const int chunks = V > 0 ? (V + per_chunk - 1) / per_chunk : 1;
+  const dim3 grid(n_tok, chunks);
+  switch (mode) {
+    case kCE: bwd_kernel<T, kCE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
+    case kMSE: bwd_kernel<T, kMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
+    case kKL: bwd_kernel<T, kKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16 (x and t share one).
+// x, t (T, V); labels (T,) i32; out (K, T) fp32 with K = 3, 4, 6 for modes
+// 0, 1, 2. t is unused (may be null) in mode 0.
+int repro_fused_loss_fwd(const void* x, const void* t, const int* labels,
+                         float* out, int n_tok, int V, int v_real, int mode,
+                         int dtype, void* stream) {
+  if (n_tok == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_fwd<float>(mode, x, t, labels, out, n_tok, V, v_real, st);
+    case 1: return launch_fwd<__nv_bfloat16>(mode, x, t, labels, out, n_tok, V, v_real, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// res (R, T) fp32: [logZ_s] (modes 0, 1) or [logZ_s, logZ_t, E] (mode 2);
+// g (G, T) fp32: [g_nll, g_smooth] (mode 0) or [g_nll, g_smooth, g_dist].
+// ds (T, V) in x's dtype; dt (T, V) or null (not written) in modes 1, 2.
+int repro_fused_loss_bwd(const void* x, const void* t, const int* labels,
+                         const float* res, const float* g, void* ds, void* dt,
+                         int n_tok, int V, int v_real, int mode, int dtype,
+                         float inv_v, float two_inv_v, void* stream) {
+  if (n_tok == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_bwd<float>(mode, x, t, labels, res, g, ds, dt, n_tok, V, v_real, inv_v, two_inv_v, st);
+    case 1: return launch_bwd<__nv_bfloat16>(mode, x, t, labels, res, g, ds, dt, n_tok, V, v_real, inv_v, two_inv_v, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,206 @@
+"""Fused cross-entropy, forward and backward: CUDA kernel wrappers + plain
+versions.
+
+``fused_cross_entropy_parts``  (T, V) logits, (T,) int32 labels
+    -> per-token (nll, smooth, logZ), fp32: ``nll = logZ - x[label]``,
+    ``smooth = logZ - mean_{v < v_real}(x)`` (the label-smoothing term),
+    and the ``logZ`` residual of the backward.
+``fused_cross_entropy_grad``   dlogits of ``g_nll * nll + g_smooth * smooth``
+    per token: ``(g_nll + g_smooth) softmax(x) - g_nll onehot(label)
+    - g_smooth [col < v_real] / v_real``, in the logits' dtype.
+
+The kernels (``csrc/fused_losses.cu``, modes 0) read each logits element
+once per direction and keep every (T, V) intermediate in registers. They
+take any T and V: the reference's callers pad T and V to block multiples
+(V with ``NEG``), the port pads nothing. ``v_real`` (default V) bounds the
+smoothing mean; every column enters ``logZ``, as in the reference. A label
+outside [0, V) has no true logit (0) and no one-hot column.
+
+On a CPU tensor each wrapper runs its plain version (fp32 ``logsumexp``
+and the closed-form gradient); on a CUDA tensor it launches the kernel or
+raises. The shared launch helpers serve ``combined_loss.py`` too.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_cache import _require, _same_device
+
+NEG = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MODES = {"ce": 0, "mse": 1, "kl": 2}
+# fp32 (K, T) rows the forward writes, per mode
+N_OUT = {"ce": 3, "mse": 4, "kl": 6}
+
+
+def _check_logits(x: torch.Tensor, name: str) -> Tuple[int, int]:
+    _require(x.dim() == 2, f"{name} must be (T, V), got {tuple(x.shape)}")
+    _require(x.dtype in _DTYPE_CODES,
+             f"{name} dtype {x.dtype} unsupported (fp32/bf16)")
+    _require(x.is_contiguous(), f"{name} must be contiguous")
+    return x.shape
+
+
+def _check_tok(t: torch.Tensor, n: int, name: str, dtype) -> None:
+    _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+    _require(tuple(t.shape) == (n,), f"{name} shape {tuple(t.shape)} != ({n},)")
+    _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def _resolve_v_real(v_real: int, v: int) -> int:
+    v_real = v_real or v
+    _require(0 < v_real <= v, f"v_real {v_real} outside (0, V={v}]")
+    return v_real
+
+
+def check_inputs(logits: torch.Tensor, labels: torch.Tensor,
+                 target: Optional[torch.Tensor] = None,
+                 v_real: int = 0) -> Tuple[torch.device, int, int, int]:
+    """Validate (T, V) logits [+ target], (T,) int32 labels; returns
+    (device, T, V, v_real)."""
+    tensors = (logits, labels) if target is None else (logits, target, labels)
+    dev = _same_device(*tensors)
+    t, v = _check_logits(logits, "logits")
+    if target is not None:
+        _check_logits(target, "target_logits")
+        _require(target.shape == logits.shape,
+                 f"target {tuple(target.shape)} != logits {tuple(logits.shape)}")
+        _require(target.dtype == logits.dtype,
+                 f"target dtype {target.dtype} != logits dtype {logits.dtype}")
+    _check_tok(labels, t, "labels", torch.int32)
+    return dev, t, v, _resolve_v_real(v_real, v)
+
+
+def launch_fwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
+               labels: torch.Tensor, v_real: int) -> torch.Tensor:
+    """The forward kernel; returns its fp32 (K, T) output rows."""
+    dev = logits.device
+    t, v = logits.shape
+    out = torch.empty((N_OUT[mode], t), dtype=torch.float32, device=dev)
+    if t == 0:
+        return out
+    lib = _build.load("fused_losses")
+    with torch.cuda.device(dev):
+        rc = lib.repro_fused_loss_fwd(
+            logits.data_ptr(), None if target is None else target.data_ptr(),
+            labels.data_ptr(), out.data_ptr(), t, v, v_real, MODES[mode],
+            _DTYPE_CODES[logits.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, f"fused loss forward ({mode})")
+    return out
+
+
+def launch_bwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
+               labels: torch.Tensor, residuals: Sequence[torch.Tensor],
+               grads: Sequence[torch.Tensor], v_real: int,
+               need_target_grad: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward kernel; returns (ds, dt or None) in the logits' dtype."""
+    dev = logits.device
+    t, v = logits.shape
+    res = torch.stack([r.float() for r in residuals]).contiguous()
+    g = torch.stack([x.float() for x in grads]).contiguous()
+    ds = torch.empty_like(logits)
+    dt = torch.empty_like(target) if need_target_grad else None
+    if t == 0:
+        return ds, dt
+    lib = _build.load("fused_losses")
+    with torch.cuda.device(dev):
+        rc = lib.repro_fused_loss_bwd(
+            logits.data_ptr(), None if target is None else target.data_ptr(),
+            labels.data_ptr(), res.data_ptr(), g.data_ptr(), ds.data_ptr(),
+            None if dt is None else dt.data_ptr(), t, v, v_real, MODES[mode],
+            _DTYPE_CODES[logits.dtype], 1.0 / v_real, 2.0 / v_real,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, f"fused loss backward ({mode})")
+    return ds, dt
+
+
+# ----------------------------------------------------------------------------
+# plain versions (fp32 inside, the kernels' formulas)
+# ----------------------------------------------------------------------------
+
+def _true_logit(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """x[t, labels[t]], or 0 for a label outside [0, V)."""
+    v = x.shape[-1]
+    lb = labels.long()
+    ok = (lb >= 0) & (lb < v)
+    got = x.gather(-1, lb.clamp(0, max(v - 1, 0))[:, None])[:, 0]
+    return torch.where(ok, got, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def fused_cross_entropy_parts_plain(logits: torch.Tensor, labels: torch.Tensor,
+                                    v_real: int = 0):
+    """Plain version of ``fused_cross_entropy_parts``."""
+    v_real = v_real or logits.shape[-1]
+    x = logits.float()
+    logz = torch.logsumexp(x, dim=-1)
+    nll = logz - _true_logit(x, labels)
+    smooth = logz - x[:, :v_real].sum(dim=-1) / v_real
+    return nll, smooth, logz
+
+
+def ce_grad_term(x: torch.Tensor, labels: torch.Tensor, logz: torch.Tensor,
+                 g_nll: torch.Tensor, g_smooth: torch.Tensor, v_real: int):
+    """fp32 (dL/dx, softmax) for ``g_nll * nll + g_smooth * smooth``, in the
+    kernel's order of operations: ``(gn + gs) q - gn [c == label]
+    - gs [c < v_real] / v_real``."""
+    t, v = x.shape
+    q = torch.exp(x - logz[:, None])
+    dx = (g_nll + g_smooth)[:, None] * q
+    lb = labels.long()
+    hit = torch.nonzero((lb >= 0) & (lb < v)).flatten()
+    dx[hit, lb[hit]] -= g_nll[hit]
+    inv_v = torch.tensor(1.0 / v_real, dtype=torch.float32, device=x.device)
+    dx[:, :v_real] -= g_smooth[:, None] * inv_v
+    return dx, q
+
+
+def fused_cross_entropy_grad_plain(logits: torch.Tensor, labels: torch.Tensor,
+                                   logz: torch.Tensor, g_nll: torch.Tensor,
+                                   g_smooth: torch.Tensor,
+                                   v_real: int = 0) -> torch.Tensor:
+    """Plain version of ``fused_cross_entropy_grad``."""
+    v_real = v_real or logits.shape[-1]
+    dx, _ = ce_grad_term(logits.float(), labels, logz.float(), g_nll.float(),
+                         g_smooth.float(), v_real)
+    return dx.to(logits.dtype)
+
+
+# ----------------------------------------------------------------------------
+# wrappers
+# ----------------------------------------------------------------------------
+
+def fused_cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
+                              v_real: int = 0):
+    """Per-token ``(nll, smooth, logZ)``, fp32. logits (T, V) fp32/bf16
+    contiguous; labels (T,) int32; ``v_real`` (default V) bounds the
+    smoothing mean."""
+    dev, _t, _v, v_real = check_inputs(logits, labels, v_real=v_real)
+    if dev.type == "cpu":
+        return fused_cross_entropy_parts_plain(logits, labels, v_real)
+    out = launch_fwd("ce", logits, None, labels, v_real)
+    _build.count_launch("fused_cross_entropy_parts")
+    return out[0], out[1], out[2]
+
+
+def fused_cross_entropy_grad(logits: torch.Tensor, labels: torch.Tensor,
+                             logz: torch.Tensor, g_nll: torch.Tensor,
+                             g_smooth: torch.Tensor,
+                             v_real: int = 0) -> torch.Tensor:
+    """dlogits (T, V) in the logits' dtype for ``g_nll * nll + g_smooth *
+    smooth``, from the forward's ``logZ`` residual."""
+    dev, t, _v, v_real = check_inputs(logits, labels, v_real=v_real)
+    _same_device(logits, logz, g_nll, g_smooth)
+    for name, x in (("logz", logz), ("g_nll", g_nll), ("g_smooth", g_smooth)):
+        _require(tuple(x.shape) == (t,), f"{name} shape {tuple(x.shape)} != ({t},)")
+    if dev.type == "cpu":
+        return fused_cross_entropy_grad_plain(logits, labels, logz, g_nll,
+                                              g_smooth, v_real)
+    dx, _ = launch_bwd("ce", logits, None, labels, (logz,), (g_nll, g_smooth),
+                       v_real, need_target_grad=False)
+    _build.count_launch("fused_cross_entropy_grad")
+    return dx

@@ -1,0 +1,163 @@
+"""Differentiable fused-loss entry points over the loss kernels.
+
+Drop-ins for the plain losses of ``core.codistillation``, dispatched there
+by the ``fused_losses`` flag:
+
+  * ``fused_cross_entropy_loss`` — masked, smoothed mean CE; the forward is
+    ``fused_cross_entropy_parts``, the backward rebuilds softmax from the
+    saved per-token ``logZ`` (``fused_cross_entropy_grad``);
+  * ``fused_ce_distill`` — the task CE and the distillation term of one
+    student against one target from ONE read of both logits
+    (``fused_ce_distill_parts`` / ``fused_ce_distill_grad``): the hot path
+    of ``--mode codist``.
+
+Two ``torch.autograd.Function``s take the place of the reference's
+``jax.custom_vjp`` primitives ``_ce_parts_p`` and ``_ce_distill_tokens_p``.
+Their boundary is per token, as there: flattening, label-smoothing mixing,
+masking and the mean stay in (T,)-sized torch, so no (T, V) fp32 temporary
+exists outside the kernels in either direction. The kernels take any T and
+V, so nothing is padded; ``v_real`` is the logits' own width (the
+reference's ``_flatten_pad`` passes ``v = logits.shape[-1]``, which counts
+the config's vocab-padding columns as real).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.combined_loss import (fused_ce_distill_grad,
+                                               fused_ce_distill_parts)
+from repro_torch.kernels.fused_ce import (fused_cross_entropy_grad,
+                                          fused_cross_entropy_parts)
+
+
+def fused_losses_default(device) -> bool:
+    """Default for the ``fused_losses`` flag: on for CUDA (the kernels), off
+    on the CPU, as the reference's is on for the TPU only."""
+    return torch.device(device).type == "cuda"
+
+
+def _zeros_if_none(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    if g is None:
+        return torch.zeros_like(like, dtype=torch.float32)
+    return g.float().contiguous()
+
+
+class _CEParts(torch.autograd.Function):
+    """(T, V) logits, (T,) labels -> per-token (nll, smooth)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v_real):
+        nll, smooth, logz = fused_cross_entropy_parts(logits, labels, v_real)
+        ctx.save_for_backward(logits, labels, logz)
+        ctx.v_real = v_real
+        return nll, smooth
+
+    @staticmethod
+    def backward(ctx, g_nll, g_smooth):
+        logits, labels, logz = ctx.saved_tensors
+        dx = fused_cross_entropy_grad(
+            logits, labels, logz, _zeros_if_none(g_nll, logz),
+            _zeros_if_none(g_smooth, logz), ctx.v_real)
+        return dx, None, None
+
+
+class _CEDistillTokens(torch.autograd.Function):
+    """(T, V) student and target logits, (T,) labels -> per-token (nll,
+    smooth, dist). The target's gradient is computed only when autograd
+    asks for it; ``codist_loss`` detaches the targets, so it never does."""
+
+    @staticmethod
+    def forward(ctx, logits, target, labels, mode, v_real):
+        (nll, smooth, dist), residuals = fused_ce_distill_parts(
+            logits, target, labels, mode, v_real)
+        ctx.save_for_backward(logits, target, labels, *residuals)
+        ctx.mode, ctx.v_real = mode, v_real
+        return nll, smooth, dist
+
+    @staticmethod
+    def backward(ctx, g_nll, g_smooth, g_dist):
+        logits, target, labels, *residuals = ctx.saved_tensors
+        like = residuals[0]
+        ds, dt = fused_ce_distill_grad(
+            logits, target, labels, residuals, _zeros_if_none(g_nll, like),
+            _zeros_if_none(g_smooth, like), _zeros_if_none(g_dist, like),
+            ctx.mode, ctx.v_real, need_target_grad=ctx.needs_input_grad[1])
+        return ds, dt, None, None, None
+
+
+# ----------------------------------------------------------------------------
+# public entry points (scalar, masked: drop-ins for the core losses)
+# ----------------------------------------------------------------------------
+
+def _masked_mean(per_tok: torch.Tensor, mask) -> torch.Tensor:
+    """``sum(loss * mask) / max(sum(mask), 1)`` with the ORIGINAL
+    (unbroadcast) mask in the denominator, as the reference's losses."""
+    if mask is not None:
+        m_flat, m_raw = mask
+        return ((per_tok * m_flat).sum()
+                / torch.clamp(m_raw.float().sum(), min=1.0))
+    return per_tok.mean()
+
+
+def _flat_mask(mask: Optional[torch.Tensor], lead: Tuple[int, ...], t: int):
+    """(broadcast-flattened fp32 mask, original mask) or None."""
+    if mask is None:
+        return None
+    return torch.broadcast_to(mask, lead).reshape(t).float(), mask
+
+
+def _flatten(logits: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    v = logits.shape[-1]
+    t = math.prod(logits.shape[:-1])
+    return logits.reshape(t, v).contiguous(), t, v
+
+
+def _flat_labels(labels: torch.Tensor, t: int) -> torch.Tensor:
+    return labels.reshape(t).to(torch.int32).contiguous()
+
+
+def _smoothed(nll: torch.Tensor, smooth: torch.Tensor,
+              label_smoothing) -> torch.Tensor:
+    ls = torch.as_tensor(label_smoothing, dtype=torch.float32,
+                         device=nll.device)
+    return (1.0 - ls) * nll + ls * smooth
+
+
+def fused_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                             label_smoothing=0.0,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable drop-in for ``codistillation.cross_entropy``.
+
+    logits (..., V) float; labels (...) int; mask (...) broadcastable."""
+    lg, t, v = _flatten(logits)
+    nll, smooth = _CEParts.apply(lg, _flat_labels(labels, t), v)
+    per_tok = _smoothed(nll, smooth, label_smoothing)
+    return _masked_mean(per_tok, _flat_mask(mask, logits.shape[:-1], t))
+
+
+def fused_ce_distill(logits: torch.Tensor, target_logits: torch.Tensor,
+                     labels: torch.Tensor, mode: str = "mse",
+                     label_smoothing=0.0,
+                     mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(task CE, distill) scalars from one read of each logits element:
+    ``(cross_entropy(logits, labels, ls, mask), distill_pair(mode, logits,
+    target_logits, mask))``.
+
+    A target of another dtype than the student (the ``bf16`` wire of an
+    fp32 model) is upcast, with the student, to the wider of the two before
+    the kernel: an exact conversion, so the result is the mixed-dtype
+    reference's, and the gradients return in each operand's own dtype."""
+    if mode not in ("mse", "kl"):
+        raise ValueError(f"fused_ce_distill mode {mode!r}: mse or kl")
+    wide = torch.promote_types(logits.dtype, target_logits.dtype)
+    lg, t, v = _flatten(logits.to(wide))
+    tg, _, _ = _flatten(target_logits.to(wide))
+    nll, smooth, dist = _CEDistillTokens.apply(lg, tg, _flat_labels(labels, t),
+                                               mode, v)
+    m = _flat_mask(mask, logits.shape[:-1], t)
+    return (_masked_mean(_smoothed(nll, smooth, label_smoothing), m),
+            _masked_mean(dist, m))

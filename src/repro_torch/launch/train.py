@@ -1,0 +1,213 @@
+"""Training launcher: codistillation (Algorithm 1) or its all-reduce
+baseline, on the card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --mode codist --codist-n 2 --steps 200 --batch 8 --seq 128
+
+The flags are the reference launcher's, plus ``--device`` (``cuda`` by
+default; ``cpu`` runs the loss kernels' plain versions). ``--mode`` maps
+onto the engine's exchange strategies:
+
+    allreduce   AllReduce            gradient sync baseline
+    codist      PredictionExchange   Algorithm 1 logits exchange
+
+As in the reference, ``--reduced`` is a ``store_true`` flag that defaults
+to on, so the CLI trains the reduced config; ``chip_smoke.py`` drives the
+full-size config through ``train_codist`` and ``train_allreduce``. Modes, compressions and
+flags of features the port has not reached exit with status 2 and name the
+slice that brings them. ``--out DIR`` writes ``DIR/history.json`` (the
+reference's record list); the final checkpoint waits for the port of
+``checkpoint/io.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import (CodistConfig, TrainConfig, get_config,
+                                 get_reduced, list_archs)
+from repro_torch.data import MarkovLM, make_lm_batch
+from repro_torch.models import build_model
+from repro_torch.train import stack_batches, train_allreduce, train_codist
+
+MODES = ["codist", "codist-ckpt", "codist-pipelined", "codist-shardmap",
+         "codist-async", "allreduce"]
+PORTED_MODES = ("codist", "allreduce")
+
+_STRATEGIES = ("the checkpoint, pipelined, shard_map and async exchange "
+               "strategies come with the rest of ROADMAP Queue 1 item 5 and "
+               "item 9 (async runtime)")
+_ASYNC = "the async runtime (faults, elastic peers) comes with ROADMAP Queue 1 item 9"
+_OBS = ("tracing, metrics and alerts come with the observability port "
+        "(ROADMAP Queue 1 item 11)")
+
+
+def _unported(args, defaults) -> list:
+    """(flag, reason) for every unported feature the arguments ask for."""
+    out = []
+    if args.mode not in PORTED_MODES:
+        out.append((f"--mode {args.mode}", _STRATEGIES))
+    for flag in ("faults", "elastic", "staleness_bound", "join_burn_in",
+                 "checkpoint_every", "recover_after"):
+        if getattr(args, flag) != defaults[flag]:
+            out.append(("--" + flag.replace("_", "-"), _ASYNC))
+    if args.compression in ("topk", "subsample"):
+        out.append((f"--compression {args.compression}",
+                    "top-k and subsample compression come with ROADMAP Queue "
+                    "1 item 5; subsample also needs the fused distillation "
+                    "kernels (Queue 2 rows 8-11)"))
+    if args.codist_n > 2 and args.fused_losses != "off":
+        out.append((f"--codist-n {args.codist_n}",
+                    "from the third peer on, the fused path needs the "
+                    "standalone distillation kernels (Queue 2 rows 8-11); "
+                    "use --fused-losses off"))
+    for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
+                      ("--alerts", args.alerts), ("--rules", args.rules),
+                      ("--flight-recorder", args.flight_recorder)):
+        if val:
+            out.append((flag, _OBS))
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
+    ap.add_argument("--mode", default="codist", choices=MODES)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--codist-n", type=int, default=2)
+    ap.add_argument("--period", type=int, default=1)
+    ap.add_argument("--alpha", type=float, default=1.0)
+    ap.add_argument("--alpha-growth", type=float, default=1.0)
+    ap.add_argument("--distill-loss", default="mse",
+                    choices=["mse", "kl", "ce"])
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "topk", "bf16", "subsample"])
+    ap.add_argument("--topk", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8, help="per-model batch")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--lr-schedule", default="cosine",
+                    choices=["cosine", "step", "constant"])
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--weight-decay", type=float, default=1e-4)
+    ap.add_argument("--wd-schedule", action="store_true",
+                    help="paper's decayed weight decay")
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgdm"])
+    ap.add_argument("--fused-losses", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="fused loss kernels (auto: on for CUDA; 'on' runs "
+                         "their plain versions on the CPU)")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--faults", default="")
+    ap.add_argument("--elastic", type=float, default=0.0)
+    ap.add_argument("--staleness-bound", type=int, default=-1)
+    ap.add_argument("--join-burn-in", type=int, default=5)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--recover-after", type=float, default=10.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eval-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--trace", default="")
+    ap.add_argument("--metrics", default="")
+    ap.add_argument("--alerts", default="")
+    ap.add_argument("--rules", default="")
+    ap.add_argument("--flight-recorder", default="")
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    unported = _unported(args, vars(ap.parse_args([])))
+    if unported:
+        for flag, why in unported:
+            print(f"{flag}: not in the port yet — {why}", file=sys.stderr)
+        sys.exit(2)
+    try:
+        cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    except NotImplementedError as e:
+        print(f"--arch {args.arch}: {e}", file=sys.stderr)
+        sys.exit(2)
+    device = resolve_device(args.device)
+    model = build_model(cfg)
+    vocab = min(cfg.vocab_size, 512)
+    task = MarkovLM(vocab=vocab, seed=args.seed,
+                    effective_vocab=min(vocab, 256))
+    tc = TrainConfig(
+        lr=args.lr, lr_schedule=args.lr_schedule, warmup_steps=args.warmup,
+        total_steps=args.steps, weight_decay=args.weight_decay,
+        weight_decay_schedule=(5e-4, 1e-5, 0.0) if args.wd_schedule else (),
+        optimizer=args.optimizer, seed=args.seed,
+        fused_losses={"auto": None, "on": True, "off": False}[
+            args.fused_losses])
+
+    def lm_batch(step, seed):
+        return make_lm_batch(task, args.batch, args.seq, step, None,
+                             seed=seed, device=device)
+
+    def eval_batches(step):
+        if args.mode == "allreduce":
+            return lm_batch(10_000 + step, args.seed + 1)
+        return stack_batches([lm_batch(10_000 + step, args.seed + 1)
+                              for _ in range(args.codist_n)])
+
+    t0 = time.time()
+    if args.mode == "allreduce":
+        def it():
+            s = 0
+            while True:
+                yield lm_batch(s, args.seed)
+                s += 1
+        state, hist = train_allreduce(model, tc, it(),
+                                      eval_batches=eval_batches,
+                                      eval_every=args.eval_every,
+                                      log_every=args.log_every, device=device)
+    else:
+        codist = CodistConfig(
+            n_models=args.codist_n, mode="predictions", period=args.period,
+            alpha0=args.alpha, alpha_growth=args.alpha_growth,
+            distill_loss=args.distill_loss, compression=args.compression,
+            topk=args.topk, steps_per_epoch=max(1, args.steps // 10))
+
+        def batches(step):
+            # coordinated sampling: every peer draws the same batch
+            return stack_batches([lm_batch(step, args.seed)
+                                  for _ in range(args.codist_n)])
+
+        state, hist = train_codist(model, codist, tc, batches,
+                                   eval_batches=eval_batches,
+                                   eval_every=args.eval_every,
+                                   log_every=args.log_every, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+
+    for rec in hist.records:
+        msg = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                       for k, v in rec.items()
+                       if k in ("step", "task_loss", "distill_loss",
+                                "eval_loss", "lr", "wd", "alpha",
+                                "comm_bytes"))
+        print(msg, flush=True)
+    print(f"done: {args.steps} steps in {dt:.1f}s "
+          f"({dt / args.steps * 1e3:.0f} ms/step) on {device}")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "history.json"), "w") as f:
+            json.dump(hist.records, f, indent=1)
+        print(f"wrote {args.out}/history.json (final checkpoint: not "
+              "written until checkpoint/io.py is ported, ROADMAP Queue 1 "
+              "item 1)")
+
+
+if __name__ == "__main__":
+    main()

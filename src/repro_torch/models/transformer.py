@@ -6,7 +6,12 @@ a Python loop over that axis, reading per-layer views (no copies).
 
 API:
     init(generator, device, weight_dtype) -> params
+    forward(params, batch, remat) -> (logits, aux)       (training)
     prefill(params, tokens, cap, cache_dtype) -> (last-token logits, cache)
+
+Weights may be fp32 masters: every op casts its weight to the activation
+dtype inside (as the reference does), so the gradient flows back through
+the cast to the fp32 leaf.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
@@ -62,17 +68,38 @@ def layer_params(layers: PyTree, idx: int) -> PyTree:
     return layers[idx]
 
 
+def unbind_layers(layers: PyTree, n: int) -> List[PyTree]:
+    """All n per-layer views of a stacked tree, from ONE ``unbind`` per
+    leaf. Its backward stacks the n layers' gradients once; taking each
+    layer with ``layer_params`` instead makes autograd write a full-size
+    zero gradient per layer and leaf and sum n of them."""
+    if isinstance(layers, dict):
+        subs = {k: unbind_layers(v, n) for k, v in layers.items()}
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(layers.unbind(0))
+
+
 def _sublayer_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor, cache: Dict[str, torch.Tensor]):
-    """Forward one attention + dense-FFN sub-layer, writing its roped K/V
-    into ``cache`` (this layer's views of the stacked buffers)."""
+                      positions: torch.Tensor,
+                      cache: Optional[Dict[str, torch.Tensor]] = None):
+    """Forward one attention + dense-FFN sub-layer over the full sequence,
+    writing its roped K/V into ``cache`` (this layer's views of the stacked
+    buffers) when one is given; the training forward passes none."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
     h, kv = attn.attention_forward(p["mix"], h, cfg, positions,
-                                   return_cache=True)
-    attn.prefill_into_cache(cache, kv)
+                                   return_cache=cache is not None)
+    if cache is not None:
+        attn.prefill_into_cache(cache, kv)
     x = x + h
     h2 = ffn_forward(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg)
     return x + h2
+
+
+def _layer_fwd(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    for i in range(len(_sub_kinds(cfg))):
+        x = _sublayer_prefill(lp[f"sub{i}"], x, cfg, positions)
+    return x
 
 
 # ----------------------------------------------------------------------------
@@ -138,6 +165,28 @@ class LM:
         return {"embed": embed,
                 "final_norm": {"scale": torch.ones(d, dtype=pdt, device=dev)},
                 "layers": layers}
+
+    def forward(self, params: PyTree, batch: Dict,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """batch["tokens"] (B,S) -> (logits (B,S,V) in the activation dtype,
+        aux). ``aux`` is the load-balancing loss of MoE layers: 0 for the
+        dense family. ``remat`` recomputes each layer in the backward
+        (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``
+        around its scan body."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)[None]
+        for lp in unbind_layers(params["layers"], _n_scan(cfg)):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _layer_fwd, lp, x, cfg, positions, use_reentrant=False)
+            else:
+                x = _layer_fwd(lp, x, cfg, positions)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return lm_head(params["embed"], x), aux
 
     def prefill(self, params: PyTree, tokens: torch.Tensor, cap: int,
                 cache_dtype=torch.float32) -> Tuple[torch.Tensor, PyTree]:

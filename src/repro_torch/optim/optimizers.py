@@ -1,0 +1,129 @@
+"""SGD-momentum and AdamW over parameter trees, updated in place.
+
+Weight decay is decoupled and passed per step, which is how the paper's
+codistillation-aware decay schedule enters the update. An optional
+``trainable`` mask (the same tree, 0/1 leaves) freezes parameters.
+
+The reference's updates are pure functions returning new trees. The port
+updates the parameter and moment tensors IN PLACE under ``torch.no_grad()``
+(a full-size AdamW state is 3x the weights; copying it each step would
+double that) and returns the same tree objects with a new ``OptState``.
+The math is the reference's: fp32 inside, cast back to the parameter's
+(and the moment buffer's) dtype; AdamW's bias corrections use t = step + 1.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+
+class OptState(NamedTuple):
+    step: int
+    m: PyTree              # momentum / first moment
+    v: Optional[PyTree]    # second moment (adamw only)
+
+
+def _zeros(params: PyTree, dtype) -> PyTree:
+    return tree_map(lambda p: torch.zeros_like(p, dtype=dtype,
+                                               requires_grad=False), params)
+
+
+def _leaf_triples(params, grads, state_trees, trainable):
+    """Flat (param, grad, *state, mask) tuples over matching trees."""
+    cols = [tree_leaves(params), tree_leaves(grads)]
+    cols += [tree_leaves(t) for t in state_trees]
+    cols.append(tree_leaves(trainable) if trainable is not None
+                else [None] * len(cols[0]))
+    n = len(cols[0])
+    if any(len(c) != n for c in cols):
+        raise ValueError("parameter, gradient and optimizer trees differ")
+    return zip(*cols)
+
+
+def _write(p: torch.Tensor, new32: torch.Tensor, mask) -> None:
+    if mask is not None:
+        new32 = torch.where(mask > 0, new32, p.float())
+    p.copy_(new32)
+
+
+# ----------------------------------------------------------------------------
+# SGD + momentum (the paper's vision optimizer)
+# ----------------------------------------------------------------------------
+
+def sgdm_init(params: PyTree, dtype=torch.float32) -> OptState:
+    return OptState(0, _zeros(params, dtype), None)
+
+
+@torch.no_grad()
+def sgdm_update(params: PyTree, grads: PyTree, state: OptState, lr,
+                weight_decay=0.0, momentum: float = 0.9,
+                trainable: Optional[PyTree] = None) -> Tuple[PyTree, OptState]:
+    lr, wd = float(lr), float(weight_decay)
+    for p, g, m, mask in _leaf_triples(params, grads, (state.m,), trainable):
+        p32 = p.float()
+        g32 = g.float() + wd * p32
+        m_new = momentum * m.float() + g32
+        _write(p, p32 - lr * m_new, mask)
+        m.copy_(m_new)
+    return params, OptState(state.step + 1, state.m, None)
+
+
+# ----------------------------------------------------------------------------
+# AdamW (the paper's NMT optimizer)
+# ----------------------------------------------------------------------------
+
+def adamw_init(params: PyTree, dtype=torch.float32) -> OptState:
+    return OptState(0, _zeros(params, dtype), _zeros(params, dtype))
+
+
+@torch.no_grad()
+def adamw_update(params: PyTree, grads: PyTree, state: OptState, lr,
+                 weight_decay=0.0, b1: float = 0.9, b2: float = 0.95,
+                 eps: float = 1e-8,
+                 trainable: Optional[PyTree] = None) -> Tuple[PyTree, OptState]:
+    lr, wd = float(lr), float(weight_decay)
+    t = float(state.step) + 1.0
+    bc1 = 1.0 - b1 ** t
+    bc2 = 1.0 - b2 ** t
+    for p, g, m, v, mask in _leaf_triples(params, grads, (state.m, state.v),
+                                          trainable):
+        g32 = g.float()
+        m_new = b1 * m.float() + (1 - b1) * g32
+        v_new = b2 * v.float() + (1 - b2) * g32 * g32
+        p32 = p.float()
+        upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + wd * p32
+        _write(p, p32 - lr * upd, mask)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    return params, OptState(state.step + 1, state.m, state.v)
+
+
+# ----------------------------------------------------------------------------
+# factory
+# ----------------------------------------------------------------------------
+
+_OPT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_optimizer(kind: str, **kw) -> Tuple[Callable, Callable]:
+    """(init_fn(params), update_fn(params, grads, state, lr, wd,
+    trainable=None)). ``dtype`` sets the moment-buffer dtype (fp32 default)."""
+    dtype = kw.get("dtype", torch.float32)
+    if isinstance(dtype, str):
+        dtype = _OPT_DTYPES[dtype]
+    if kind == "sgdm":
+        momentum = kw.get("momentum", 0.9)
+        return (lambda p: sgdm_init(p, dtype),
+                lambda p, g, s, lr, wd, trainable=None: sgdm_update(
+                    p, g, s, lr, wd, momentum, trainable))
+    if kind == "adamw":
+        b1, b2 = kw.get("b1", 0.9), kw.get("b2", 0.95)
+        return (lambda p: adamw_init(p, dtype),
+                lambda p, g, s, lr, wd, trainable=None: adamw_update(
+                    p, g, s, lr, wd, b1, b2, trainable=trainable))
+    raise ValueError(kind)

@@ -1,0 +1,426 @@
+"""Step engine: one ``build_train_step`` for every exchange mechanism.
+
+The paper compares synchronization mechanisms (Section 3). Each is an
+``ExchangeStrategy``; ``build_train_step`` threads the shared pieces through
+every strategy once: the LR / weight-decay / label-smoothing / alpha
+schedules of ``state.step``, microbatched gradient accumulation, and the
+optimizer update with its ``trainable`` mask. A strategy supplies what
+differs: ``plan(step)`` (which variant runs, whether an exchange happens),
+``loss``, ``post_update`` and ``comm_bytes``.
+
+    strategy = resolve_strategy(codist)
+    bundle   = build_train_step(model, tc, codist, strategy, trainable)
+    state    = strategy.init_state(model, tc, generator, opt_init, device=...)
+    state, metrics, plan = bundle.apply(state, batch, k)
+
+The port runs eagerly: a step variant is a Python function (forward,
+``torch.autograd.grad``, in-place optimizer update), not a compiled one.
+Metrics stay tensors on the device until the loop logs them.
+
+Strategies in this slice: ``AllReduce`` (the gradient-sync baseline: one
+model) and ``PredictionExchange`` (Algorithm 1 with coordinated sampling,
+"on" and "off" variants). ``CheckpointExchange``, ``PipelinedPredictions``,
+``ShardMapCompressed`` and ``AsyncPrediction`` come later: resolving them
+raises, naming ROADMAP Queue 1 item 5.
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import CodistConfig, TrainConfig, torch_dtype
+from repro_torch.core import codistillation as cd
+from repro_torch.core import comm_model as cm
+from repro_torch.core import schedules as sched
+from repro_torch.core.exchange import StepPlan
+from repro_torch.optim import make_optimizer
+from repro_torch.train.state import (CodistState, TrainState,
+                                     init_codist_state, init_train_state)
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+_LATER = ("the {} exchange strategy comes with the rest of Queue 1 item 5 "
+          "(ROADMAP): this slice ports AllReduce and PredictionExchange")
+
+
+# ----------------------------------------------------------------------------
+# schedule bundle (shared by every strategy)
+# ----------------------------------------------------------------------------
+
+class Schedules(NamedTuple):
+    lr: Callable
+    wd: Callable
+    ls: Callable
+    alpha: Callable
+
+
+def make_schedules(tc: TrainConfig, codist: Optional[CodistConfig] = None):
+    lr_fn = sched.make_lr_fn(tc.lr_schedule, tc.lr, tc.total_steps,
+                             tc.warmup_steps, tc.step_milestones, tc.step_decay)
+    if tc.weight_decay_schedule:
+        values = tuple(tc.weight_decay_schedule)
+        miles = tc.step_milestones[: len(values) - 1]
+
+        def wd_fn(s):
+            return sched.scheduled_weight_decay(s, tc.total_steps, values, miles)
+    else:
+        def wd_fn(s):
+            return sched.constant_weight_decay(s, tc.weight_decay)
+    if tc.label_smoothing_decay:
+        def ls_fn(s):
+            return sched.decayed_label_smoothing(s, tc.total_steps,
+                                                 tc.label_smoothing)
+    else:
+        def ls_fn(s):
+            return float(tc.label_smoothing)
+    if codist is not None:
+        def alpha_fn(s):
+            return sched.alpha_schedule(s, codist.alpha0, codist.alpha_growth,
+                                        codist.steps_per_epoch,
+                                        codist.burn_in_steps)
+    else:
+        def alpha_fn(s):
+            return 0.0
+    return lr_fn, wd_fn, ls_fn, alpha_fn
+
+
+# ----------------------------------------------------------------------------
+# shared forward / gradient-accumulation helpers
+# ----------------------------------------------------------------------------
+
+def _task_forward(model, params: PyTree, batch: Dict, remat: bool):
+    return model.forward(params, batch, remat=remat)
+
+
+def _peer_batch(batch_all: Dict, i: int) -> Dict:
+    return {k: v[i] for k, v in batch_all.items()}
+
+
+def _stacked_forward(model, peer_params, batch_all: Dict, remat: bool):
+    """Forward of each peer on its slice of ``batch_all`` (leading n axis):
+    a loop over peers where the reference vmaps. Returns (list of logits,
+    (n,) aux)."""
+    logits, aux = [], []
+    for i, params in enumerate(peer_params):
+        lg, a = _task_forward(model, params, _peer_batch(batch_all, i), remat)
+        logits.append(lg)
+        aux.append(a)
+    return logits, torch.stack(aux)
+
+
+def _detach_metrics(metrics: Dict) -> Dict:
+    return {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+            for k, v in metrics.items()}
+
+
+def _grads_metrics_aux(loss_fn, params: PyTree, batch: Dict, k: int,
+                       accum_dtype=torch.float32):
+    """Gradients of ``loss_fn(params, batch) -> (loss, (metrics, aux))``
+    with respect to every leaf of ``params``.
+
+    k > 1 accumulates over microbatches: every batch leaf carries a leading
+    (k, ...) axis, each microbatch's gradient is added in ``accum_dtype``
+    divided by k, and metrics are averaged over microbatches; ``aux`` is the
+    list of the microbatches' aux values."""
+    leaves = tree_leaves(params)
+    if k <= 1:
+        total, (metrics, aux) = loss_fn(params, batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return _unflatten(params, grads), _detach_metrics(metrics), aux
+
+    g_acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+             for p in leaves]
+    m_acc: Dict = {}
+    auxs = []
+    for j in range(k):
+        mb = {name: v[j] for name, v in batch.items()}
+        total, (m, aux) = loss_fn(params, mb)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        for acc, g in zip(g_acc, grads):
+            if g is not None:
+                acc.add_(g.to(accum_dtype) / k)
+        for name, v in _detach_metrics(m).items():
+            m_acc[name] = m_acc.get(name, 0.0) + v / k
+        auxs.append(aux)
+    return _unflatten(params, g_acc), m_acc, auxs
+
+
+def _unflatten(tree: PyTree, flat) -> PyTree:
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _param_bits(params: PyTree, n: int = 1) -> float:
+    """Bits of one model's parameter vector (a peer list carries n models)."""
+    total = sum(x.numel() * x.element_size() * 8 for x in tree_leaves(params))
+    return total / max(1, n)
+
+
+def _plain_task_metrics(codist, logits_all, batch, ls, fused):
+    """Task-only loss over the peers (the prediction off-step)."""
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    task = torch.stack([cd.cross_entropy(lg, labels[i], ls, mask[i],
+                                         fused=fused)
+                        for i, lg in enumerate(logits_all)])
+    total = task.mean()
+    zero = torch.zeros((), dtype=torch.float32, device=total.device)
+    metrics = {"loss": total, "task_loss": total, "distill_loss": zero,
+               "task_loss_per_model": task,
+               "distill_loss_per_model": torch.zeros_like(task),
+               "alpha": zero}
+    return total, metrics
+
+
+# ----------------------------------------------------------------------------
+# the strategy protocol
+# ----------------------------------------------------------------------------
+
+class ExchangeStrategy:
+    """Pluggable Section-3 synchronization mechanism. Host-side API:
+    ``init_state``, ``plan``, ``variant_for``, ``comm_bytes``,
+    ``make_eval``; per step: ``prepare``, ``loss``, ``post_update``."""
+
+    name = "base"
+    variants: Tuple[str, ...] = ("on",)
+    stacked = True   # CodistState with n peers (vs single TrainState)
+
+    def __init__(self, codist: Optional[CodistConfig] = None):
+        self.codist = codist
+
+    # ---- host side ---------------------------------------------------------
+    def init_state(self, model, tc: TrainConfig, generator, opt_init,
+                   example_batch: Optional[Dict] = None, device="cuda"):
+        return init_codist_state(model, generator, self.codist.n_models,
+                                 opt_init, device=device)
+
+    def plan(self, step: int) -> StepPlan:
+        raise NotImplementedError
+
+    def variant_for(self, plan: StepPlan) -> str:
+        return "on"
+
+    def comm_bytes(self, model, state, batch_all: Dict,
+                   microbatch: int = 0) -> float:
+        """Bytes crossing the slow (cross-pod) links per exchange EVENT."""
+        return 0.0
+
+    def make_eval(self, model, tc: TrainConfig) -> Callable:
+        return make_codist_eval_step(model, tc)
+
+    # ---- per step ----------------------------------------------------------
+    def prepare(self, state, batch_all: Dict, k: int):
+        """Microbatch axis in front of the peer axis: (n, k, B/k, ...) ->
+        (k, n, B/k, ...)."""
+        if k > 1:
+            return {name: v.transpose(0, 1) for name, v in batch_all.items()}
+        return batch_all
+
+    def loss(self, model, tc: TrainConfig, sch: Schedules, state, params,
+             batch: Dict, variant: str):
+        """``(total, metrics, aux)`` for one (micro)batch."""
+        logits_all, aux_all = _stacked_forward(model, params, batch, tc.remat)
+        if variant == "on":
+            total, metrics = cd.codist_loss(
+                self.codist, logits_all, batch["labels"],
+                sch.alpha(state.step), sch.ls(state.step), batch.get("mask"),
+                fused=tc.fused_losses)
+        else:
+            total, metrics = _plain_task_metrics(
+                self.codist, logits_all, batch, sch.ls(state.step),
+                tc.fused_losses)
+        total = total + aux_all.mean()
+        metrics["aux_loss"] = aux_all.mean()
+        metrics["accuracy"] = torch.stack([
+            cd.accuracy(lg.detach(), batch["labels"][i])
+            for i, lg in enumerate(logits_all)]).mean()
+        return total, metrics, None
+
+    def post_update(self, state, params, opt, batch_all: Dict, aux, k: int):
+        return CodistState(params, opt, state.step + 1, state.stale,
+                           state.peer)
+
+
+# ----------------------------------------------------------------------------
+# concrete strategies
+# ----------------------------------------------------------------------------
+
+class AllReduce(ExchangeStrategy):
+    """Data-parallel baseline: the gradient all-reduce crosses the pod links
+    every step (C_AR = 2 * b_model bits/iter, Section 3). One model."""
+
+    name = "all_reduce"
+    stacked = False
+
+    def init_state(self, model, tc, generator, opt_init, example_batch=None,
+                   device="cuda"):
+        return init_train_state(model, generator, opt_init, device=device)
+
+    def plan(self, step: int) -> StepPlan:
+        return StepPlan(distill=False, exchange=True)
+
+    def comm_bytes(self, model, state, batch_all, microbatch=0) -> float:
+        return 2.0 * _param_bits(state.params) / 8.0
+
+    def make_eval(self, model, tc):
+        return make_eval_step(model, tc)
+
+    def loss(self, model, tc, sch, state, params, batch, variant):
+        logits, aux = _task_forward(model, params, batch, tc.remat)
+        task = cd.cross_entropy(logits, batch["labels"], sch.ls(state.step),
+                                batch.get("mask"), fused=tc.fused_losses)
+        metrics = {"loss": task + aux, "task_loss": task, "aux_loss": aux,
+                   "accuracy": cd.accuracy(logits.detach(), batch["labels"],
+                                           batch.get("mask"))}
+        return task + aux, metrics, None
+
+    def prepare(self, state, batch_all, k):
+        # single-model batches already carry the (k, B/k, ...) layout
+        return batch_all
+
+    def post_update(self, state, params, opt, batch_all, aux, k):
+        return TrainState(params, opt, state.step + 1)
+
+
+class PredictionExchange(ExchangeStrategy):
+    """Algorithm 1 with coordinated sampling: on exchange steps every peer's
+    live logits are the distillation targets; off steps run a variant that
+    omits the distillation term (Section 3's periodic exchange)."""
+
+    name = "prediction"
+    variants = ("on", "off")
+
+    def plan(self, step: int) -> StepPlan:
+        return StepPlan.for_step(replace(self.codist, mode="predictions"),
+                                 step)
+
+    def variant_for(self, plan: StepPlan) -> str:
+        return "on" if plan.distill else "off"
+
+    def comm_bytes(self, model, state, batch_all, microbatch=0) -> float:
+        """(n-1) peers' fp32 logits of every sequence of the batch (the
+        port's models are LMs: labels (n, [k,] B, S))."""
+        cfg = self.codist
+        labels = batch_all["labels"]
+        seq = labels.shape[-1]
+        samples = labels.numel() // (cfg.n_models * seq)
+        b_pred = cm.prediction_bits_lm(model.cfg, seq, 32, cfg.compression,
+                                       cfg.topk, cfg.subsample)
+        return (cfg.n_models - 1) * b_pred * samples / 8.0
+
+
+def resolve_strategy(codist: Optional[CodistConfig],
+                     mesh=None) -> ExchangeStrategy:
+    """CodistConfig -> strategy, as the reference dispatches: None ->
+    AllReduce; ``pipelined``, ``mode="checkpoints"`` and a pod mesh pick
+    strategies of a later slice and raise."""
+    if codist is None:
+        return AllReduce()
+    if mesh is not None:
+        raise NotImplementedError(_LATER.format("shard_map compressed"))
+    if codist.pipelined:
+        raise NotImplementedError(_LATER.format("pipelined prediction"))
+    if codist.mode == "checkpoints":
+        raise NotImplementedError(_LATER.format("checkpoint"))
+    return PredictionExchange(codist)
+
+
+# ----------------------------------------------------------------------------
+# build_train_step: one step path for every strategy
+# ----------------------------------------------------------------------------
+
+class StepBundle:
+    """The step variants of one strategy plus the plan-driven dispatcher."""
+
+    def __init__(self, strategy: ExchangeStrategy,
+                 variants: Dict[str, Callable], eval_fn: Callable):
+        self.strategy = strategy
+        self.variants = variants
+        self.eval_fn = eval_fn
+
+    def apply(self, state, batch_all: Dict, step_idx: int):
+        """plan -> step variant. Returns ``(state, metrics, plan)``. (The
+        reference's host-side exchange hook serves the checkpoint strategy
+        of a later slice.)"""
+        plan = self.strategy.plan(step_idx)
+        state, metrics = self.variants[self.strategy.variant_for(plan)](
+            state, batch_all)
+        return state, metrics, plan
+
+
+def build_train_step(model, tc: TrainConfig, codist: Optional[CodistConfig],
+                     strategy: ExchangeStrategy,
+                     trainable: Optional[PyTree] = None) -> StepBundle:
+    """Every strategy's step variants share ONE schedules / optimizer /
+    microbatch / trainable path."""
+    codist = codist if codist is not None else strategy.codist
+    sch = Schedules(*make_schedules(tc, codist))
+    _, opt_update = make_optimizer(tc.optimizer, momentum=tc.momentum,
+                                   b1=tc.adam_b1, b2=tc.adam_b2,
+                                   dtype=tc.opt_dtype)
+    accum = torch_dtype(tc.accum_dtype)
+
+    def make_variant(variant: str) -> Callable:
+        def step(state, batch_all: Dict):
+            operand = strategy.prepare(state, batch_all, tc.microbatch)
+
+            def loss_fn(params, b):
+                total, metrics, aux = strategy.loss(model, tc, sch, state,
+                                                    params, b, variant)
+                return total, (metrics, aux)
+
+            grads, metrics, aux = _grads_metrics_aux(
+                loss_fn, state.params, operand, tc.microbatch, accum)
+            lr, wd = sch.lr(state.step), sch.wd(state.step)
+            params, opt = opt_update(state.params, grads, state.opt, lr, wd,
+                                     trainable)
+            metrics.update(lr=lr, wd=wd)
+            return strategy.post_update(state, params, opt, batch_all, aux,
+                                        tc.microbatch), metrics
+        return step
+
+    variants = {v: make_variant(v) for v in strategy.variants}
+    return StepBundle(strategy, variants, strategy.make_eval(model, tc))
+
+
+# ----------------------------------------------------------------------------
+# eval steps
+# ----------------------------------------------------------------------------
+
+def make_eval_step(model, tc: Optional[TrainConfig] = None) -> Callable:
+    fused = tc.fused_losses if tc is not None else None
+
+    @torch.no_grad()
+    def eval_step(params: PyTree, batch: Dict) -> Dict:
+        logits, _ = _task_forward(model, params, batch, False)
+        return {
+            "eval_loss": cd.cross_entropy(logits, batch["labels"], 0.0,
+                                          batch.get("mask"), fused=fused),
+            "eval_accuracy": cd.accuracy(logits, batch["labels"],
+                                         batch.get("mask")),
+        }
+    return eval_step
+
+
+def make_codist_eval_step(model, tc: Optional[TrainConfig] = None) -> Callable:
+    fused = tc.fused_losses if tc is not None else None
+
+    @torch.no_grad()
+    def eval_step(peer_params, batch_all: Dict) -> Dict:
+        logits_all, _ = _stacked_forward(model, peer_params, batch_all, False)
+        labels = batch_all["labels"]
+        loss = torch.stack([cd.cross_entropy(lg, labels[i], fused=fused)
+                            for i, lg in enumerate(logits_all)])
+        acc = torch.stack([cd.accuracy(lg, labels[i])
+                           for i, lg in enumerate(logits_all)])
+        return {"eval_loss": loss.mean(), "eval_loss_per_model": loss,
+                "eval_accuracy": acc.mean(), "eval_accuracy_per_model": acc}
+    return eval_step
