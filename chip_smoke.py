@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--phases device,build,kernels,train]
+    python3 chip_smoke.py [--phases device,build,kernels,train_peers]
 
 Drives the port's serving and training paths (``src/repro_torch``) on the
 card and checks them, phase by phase; any failure raises and the script
@@ -15,11 +15,13 @@ exits non-zero:
                 the paged-KV kernels at the fleet's shapes (qwen2-7b: S=16
                 slots, H=28, KVh=4, hd=128, BS=16, MB=34, NB=1025; ragged
                 lengths incl. 0, dead table entries aimed at a NaN-poisoned
-                free block), in bf16 and fp32; the four loss kernels (CE
-                and CE + distill, forward and backward, mse and kl, dt
-                written and skipped) at the training main path's shape
-                (T=4096, V=152064, bf16) and at ragged ones (T=37, V=1000
-                fp32, also with v_real < V; V=700 bf16 with unaligned rows).
+                free block), in bf16 and fp32; the eight loss kernels (CE,
+                CE + distill and distill alone, forward and backward, mse
+                and kl, the target gradient written and skipped) at the
+                training main path's shape (T=4096, V=152064, bf16) and at
+                ragged ones (T=37, V=1000 fp32, also with v_real < V; V=700
+                bf16 with unaligned rows); the distillation kernels also
+                at the subsample shape (T=512, V=152064, bf16).
   4. fleet    — qwen2-7b at full width and depth (28 layers, bf16 weights
                 and pools, seeded random weights), 2 peers, 24 bursty
                 requests through ``FleetRouter.run`` on the fused path,
@@ -37,10 +39,20 @@ exits non-zero:
                 steps and 2 kl codist steps, launch counts checked per run;
                 ms per step, device-busy share and top kernels from
                 torch.profiler, peak memory.
-  7. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps (mse and
-                kl) on the card through the kernels and on the CPU through
-                their plain versions, same weights and batches; per-step
-                losses within 1e-4 relative.
+  7. train_peers — the same model and batch through ``train_codist`` with
+                the other exchanges: (a) 3 peers, mse, 6 steps and an
+                eval, then 2 kl steps (task loss must fall); (b) 2 peers,
+                a subsample wire of 64 tokens, 2 mse and 2 kl steps; (c)
+                the checkpoint exchange, 2 peers, period 2, 3 steps; (d)
+                the pipelined exchange, 2 peers, 3 steps (alpha 0 on step
+                0); (e) a top-k wire of 64, 2 peers, 2 steps. Launch counts
+                per distilling step checked against codist_loss's loop;
+                ms per step, device-busy share, peak memory.
+  8. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps on the
+                card through the kernels and on the CPU through their plain
+                versions, same weights and batches: 2 peers mse and kl, 3
+                peers mse, a subsample wire, the checkpoint and the
+                pipelined exchange; per-step losses within 1e-4 relative.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of the JAX reference.
@@ -61,7 +73,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "train",
-          "train_parity")
+          "train_peers", "train_parity")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
 # num_blocks=1025, max_blocks_per_slot=34))
@@ -89,7 +101,26 @@ SOURCES = {
                                "src/repro/kernels/combined_loss.py:119"),
     "fused_ce_distill_grad": ("src/repro_torch/csrc/fused_losses.cu",
                               "src/repro/kernels/combined_loss.py:195"),
+    "fused_distill_loss": ("src/repro_torch/csrc/fused_losses.cu",
+                           "src/repro/kernels/distill_loss.py:136"),
+    "fused_distill_kl_parts": ("src/repro_torch/csrc/fused_losses.cu",
+                               "src/repro/kernels/distill_loss.py:171"),
+    "fused_distill_mse_grad": ("src/repro_torch/csrc/fused_losses.cu",
+                               "src/repro/kernels/distill_loss.py:217"),
+    "fused_distill_kl_grad": ("src/repro_torch/csrc/fused_losses.cu",
+                              "src/repro/kernels/distill_loss.py:240"),
 }
+# the paths each kernel belongs to (each must launch it where it ran)
+PATHS = {"paged_scatter": ("fleet",), "paged_gather": ("fleet",),
+         "paged_attention_decode": ("fleet",),
+         "fused_cross_entropy_parts": ("train", "train_peers"),
+         "fused_cross_entropy_grad": ("train", "train_peers"),
+         "fused_ce_distill_parts": ("train", "train_peers"),
+         "fused_ce_distill_grad": ("train", "train_peers"),
+         "fused_distill_loss": ("train_peers",),
+         "fused_distill_kl_parts": ("train_peers",),
+         "fused_distill_mse_grad": ("train_peers",),
+         "fused_distill_kl_grad": ("train_peers",)}
 
 # training main path (qwen1.5-0.5b, 2 peers, batch 8 x seq 512 per peer):
 # T tokens per peer, padded vocab V
@@ -101,6 +132,10 @@ LOSS_SHAPES = [("main", TRAIN_T, TRAIN_V, torch.bfloat16, 0),
                ("ragged", 37, 1000, torch.float32, 0),
                ("v_real<V", 37, 1000, torch.float32, 900),
                ("unaligned", 37, 700, torch.bfloat16, 0)]
+# the distillation kernels also see the subsample wire's tokens: 8
+# sequences x 64 of 512 (CodistConfig(subsample=64))
+SUB_T = 8 * 64
+DISTILL_SHAPES = LOSS_SHAPES + [("subsample", SUB_T, TRAIN_V, torch.bfloat16, 0)]
 
 
 class SmokeFailure(RuntimeError):
@@ -382,6 +417,32 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+def check_loss_output(name: str, label: str, k: torch.Tensor, p: torch.Tensor,
+                      grad: bool, fp32: bool, errs: dict) -> float:
+    """A loss kernel's output ``k`` against its plain version ``p``.
+    Per-token outputs: both accumulate in fp32 in other orders (~1e-7
+    relative), within 1e-5; from bf16 inputs within 1e-3 of the output's
+    scale. Gradients: fp32 within 1e-5; bf16 element by element, within one
+    bf16 ulp of each element (``bf16_grad_misses``). Keeps the largest
+    error at the main shape in ``errs[name]``. ``fp32``: the inputs'
+    dtype."""
+    err = max_err(k, p)
+    require(bool(torch.isfinite(k).all()),
+            f"{name} {label}: non-finite kernel output")
+    if grad and not fp32:
+        bad = bf16_grad_misses(k, p)
+        require(bad == 0, f"{name} {label}: {bad} gradient elements beyond "
+                f"one bf16 ulp of the plain version (max |kernel-plain| "
+                f"{err:.3e})")
+    else:
+        tol = 1e-5 if fp32 else 1e-3 * max(float(p.abs().max()), 1e-30)
+        require(err <= tol, f"{name} {label}: max|kernel-plain| {err:.3e} > "
+                f"tol {tol:.3e}")
+    if label == "main":
+        errs[name] = max(errs.get(name, 0.0), err)
+    return err
+
+
 # fp32 operations per logits element, for the operations bound: CE forward
 # (max, sub, exp, add, add), CE backward (sub, exp, mul, sub, sub, add),
 # and per distillation mode what it adds to each (mse: sub, mul, add;
@@ -408,29 +469,10 @@ def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
     for si, (label, t, v, dtype, v_real) in enumerate(LOSS_SHAPES):
         x, tg, lb, g = loss_inputs(t, v, dtype, dev, 100 + si,
                                    unaligned=label == "unaligned")
-        fp32 = dtype == torch.float32
 
         def check(name, k, p, grad):
-            # per-token outputs: both accumulate in fp32 in other orders
-            # (~1e-7 relative); bf16 inputs: within 1e-3 of the output's
-            # scale. Gradients: fp32 within 1e-5; bf16 element by element,
-            # within one bf16 ulp of each element (bf16_grad_misses)
-            err = max_err(k, p)
-            require(bool(torch.isfinite(k).all()),
-                    f"{name} {label}: non-finite kernel output")
-            if grad and not fp32:
-                bad = bf16_grad_misses(k, p)
-                require(bad == 0, f"{name} {label}: {bad} gradient elements "
-                        f"beyond one bf16 ulp of the plain version (max "
-                        f"|kernel-plain| {err:.3e})")
-            else:
-                tol = 1e-5 if fp32 else 1e-3 * max(float(p.abs().max()),
-                                                    1e-30)
-                require(err <= tol, f"{name} {label}: max|kernel-plain| "
-                        f"{err:.3e} > tol {tol:.3e}")
-            if label == "main":
-                errs[name] = max(errs.get(name, 0.0), err)
-            return err
+            return check_loss_output(name, label, k, p, grad,
+                                     dtype == torch.float32, errs)
 
         out_k = fused_cross_entropy_parts(x, lb, v_real)
         out_p = fused_cross_entropy_parts_plain(x, lb, v_real)
@@ -540,6 +582,148 @@ def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
             log(f"  {kname} bf16: kernel {time_ms(kern, flush, iters=20):.4f}"
                 f" ms  bound {b_ms:.4f} ms ({b_by})")
         del xr, lib_y
+    torch.cuda.empty_cache()
+    return results
+
+
+# fp32 operations per logits element of the distillation kernels: mse
+# forward (sub, mul, add) and backward (sub, mul, mul); kl forward (the
+# student's max, sub, exp, add and the target's max, sub, exp, add, sub,
+# mul, add) and backward (sub, exp, sub, exp, sub, mul, sub, sub, mul, mul)
+DISTILL_OPS = {"mse": (3, 3), "kl": (11, 10)}
+
+
+def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
+    """Rows 8-11, the distillation kernels alone, against their plain
+    versions at DISTILL_SHAPES: row 8 mse (with v_total < V at the
+    "v_real<V" shape) and kl, row 9's loss and residuals, rows 10 and 11
+    with the target gradient written and skipped; times at the main-path
+    shape (returned) and the subsample shape (printed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (fused_distill_kl_grad,
+                                     fused_distill_kl_grad_plain,
+                                     fused_distill_kl_parts,
+                                     fused_distill_kl_parts_plain,
+                                     fused_distill_loss,
+                                     fused_distill_loss_plain,
+                                     fused_distill_mse_grad,
+                                     fused_distill_mse_grad_plain)
+    errs = {}
+    results = {}
+    for si, (label, t, v, dtype, v_total) in enumerate(DISTILL_SHAPES):
+        x, tg, _lb, g = loss_inputs(t, v, dtype, dev, 200 + si,
+                                    unaligned=label == "unaligned")
+        gd = g[2].contiguous()
+
+        def check(name, k, p, grad):
+            return check_loss_output(name, label, k, p, grad,
+                                     dtype == torch.float32, errs)
+
+        e8 = max(check("fused_distill_loss",
+                       fused_distill_loss(x, tg, mode, v_total),
+                       fused_distill_loss_plain(x, tg, mode, v_total), False)
+                 for mode in ("mse", "kl"))
+        parts = fused_distill_kl_parts_plain(x, tg)
+        e9 = max(check("fused_distill_kl_parts", a, b, False)
+                 for a, b in zip(fused_distill_kl_parts(x, tg), parts))
+        res = parts[1:]
+        e10 = e11 = 0.0
+        for need in (True, False):
+            for name, kern, plain in (
+                    ("fused_distill_mse_grad", fused_distill_mse_grad,
+                     fused_distill_mse_grad_plain),
+                    ("fused_distill_kl_grad", fused_distill_kl_grad,
+                     fused_distill_kl_grad_plain)):
+                args = ((gd, v_total) if name == "fused_distill_mse_grad"
+                        else (*res, gd))
+                da, db = kern(x, tg, *args, need_target_grad=need)
+                pa, pb = plain(x, tg, *args, need_target_grad=need)
+                err = check(name, da, pa, True)
+                if need:
+                    err = max(err, check(name, db, pb, True))
+                else:
+                    require(db is None, f"{name}: dB returned though not "
+                            "asked for")
+                if name == "fused_distill_mse_grad":
+                    e10 = max(e10, err)
+                else:
+                    e11 = max(e11, err)
+        sync(dev)
+        log(f"distill kernels {label} (T={t}, V={v}, v_total={v_total or v}, "
+            f"{str(dtype).replace('torch.', '')}): max|kernel-plain| row 8 "
+            f"{e8:.2e}, row 9 {e9:.2e}, row 10 {e10:.2e}, row 11 {e11:.2e}")
+        if label not in ("main", "subsample"):
+            continue
+
+        # ---- times at the main-path and the subsample shapes ----
+        es = x.element_size()
+        tv = t * v
+        xr = x.detach().clone().requires_grad_(True)
+        lib_mse = F.mse_loss(xr, tg)
+
+        def bound(n_bytes, n_ops):
+            tb = n_bytes / HBM_BPS * 1e3
+            tf = n_ops / PEAK_FLOPS[torch.float32] * 1e3
+            return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+        # bytes: each (T, V) operand read once, each output written once,
+        # plus the (T,) outputs, residuals and cotangents (4 B each)
+        mse_ops, kl_ops = DISTILL_OPS["mse"], DISTILL_OPS["kl"]
+        specs = {
+            "fused_distill_loss": (
+                lambda: fused_distill_loss(x, tg, "mse"),
+                lambda: fused_distill_loss_plain(x, tg, "mse"),
+                lambda: F.mse_loss(x, tg),
+                bound(2 * tv * es + t * 4, mse_ops[0] * tv)),
+            "fused_distill_kl_parts": (
+                lambda: fused_distill_kl_parts(x, tg),
+                lambda: fused_distill_kl_parts_plain(x, tg),
+                None, bound(2 * tv * es + 4 * t * 4, kl_ops[0] * tv)),
+            "fused_distill_mse_grad": (
+                lambda: fused_distill_mse_grad(x, tg, gd,
+                                               need_target_grad=False),
+                lambda: fused_distill_mse_grad_plain(x, tg, gd,
+                                                     need_target_grad=False),
+                lambda: torch.autograd.grad(lib_mse, xr, retain_graph=True),
+                bound(3 * tv * es + t * 4, mse_ops[1] * tv)),
+            "fused_distill_kl_grad": (
+                lambda: fused_distill_kl_grad(x, tg, *res, gd,
+                                              need_target_grad=False),
+                lambda: fused_distill_kl_grad_plain(x, tg, *res, gd,
+                                                    need_target_grad=False),
+                None, bound(3 * tv * es + 4 * t * 4, kl_ops[1] * tv)),
+        }
+        for kname, (kern, plain, lib, (b_ms, b_by)) in specs.items():
+            r = {"ms": time_ms(kern, flush, iters=20),
+                 "plain_ms": time_ms(plain, flush, iters=5, warmup=1),
+                 "library_ms": None if lib is None else time_ms(lib, flush,
+                                                                iters=20),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "max_abs_err": errs[kname]}
+            if label == "main":
+                results[kname] = r
+            lib_txt = ("—" if r["library_ms"] is None
+                       else f"{r['library_ms']:.4f} ms")
+            log(f"  {kname} {label} (T={t}) bf16: kernel {r['ms']:.4f} ms  "
+                f"plain {r['plain_ms']:.4f} ms  library {lib_txt}  bound "
+                f"{b_ms:.4f} ms ({b_by})")
+        extra = {
+            "fused_distill_loss kl": (
+                lambda: fused_distill_loss(x, tg, "kl"),
+                bound(2 * tv * es + t * 4, kl_ops[0] * tv)),
+            "fused_distill_mse_grad with dB": (
+                lambda: fused_distill_mse_grad(x, tg, gd),
+                bound(4 * tv * es + t * 4, mse_ops[1] * tv)),
+            "fused_distill_kl_grad with dB": (
+                lambda: fused_distill_kl_grad(x, tg, *res, gd),
+                bound(4 * tv * es + 4 * t * 4, kl_ops[1] * tv)),
+        }
+        for kname, (kern, (b_ms, b_by)) in extra.items():
+            log(f"  {kname} {label} (T={t}) bf16: kernel "
+                f"{time_ms(kern, flush, iters=20):.4f} ms  bound {b_ms:.4f} "
+                f"ms ({b_by})")
+        del xr, lib_mse
     torch.cuda.empty_cache()
     return results
 
@@ -660,9 +844,11 @@ def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
                    "tick")
 
 
-def profile_device(fn, wall_ms: float, n: int, unit: str) -> None:
+def profile_device(fn, wall_ms: float, n: int, unit: str):
     """Device time of ``n`` calls of ``fn`` by kernel (torch.profiler)
-    against their wall time ``wall_ms`` per call: the device's busy share."""
+    against their wall time ``wall_ms`` per call: the device's busy share.
+    Returns the busy ms per call (None if the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -681,12 +867,13 @@ def profile_device(fn, wall_ms: float, n: int, unit: str) -> None:
     busy_ms = sum(r[0] for r in rows) / 1e3 / n
     if not rows:
         log("profile: the profiler reported no device time (not measured)")
-        return
+        return None
     log(f"profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall per "
         f"{unit} ({busy_ms / wall_ms:.1%}); top kernels by device time per "
         f"{unit}:")
     for us, count, key in rows[:8]:
         log(f"  {us / 1e3 / n:8.3f} ms  {count // n:5d} calls  {key[:90]}")
+    return busy_ms
 
 
 # ----------------------------------------------------------------------------
@@ -975,20 +1162,176 @@ def phase_train(dev: torch.device):
 
 
 # ----------------------------------------------------------------------------
+# phase 7: the other exchanges and wires at full width
+# ----------------------------------------------------------------------------
+
+DISTILL_KERNELS = ("fused_distill_loss", "fused_distill_kl_parts",
+                   "fused_distill_mse_grad", "fused_distill_kl_grad")
+ALL_LOSS_KERNELS = LOSS_KERNELS + DISTILL_KERNELS
+
+
+def expected_launches(n: int, mode: str, steps: int, *, combined: bool,
+                      task_ce: bool, standalone: int, evals: int = 0) -> dict:
+    """Loss-kernel launches of ``steps`` distilling steps of n peers, as
+    ``codist_loss``'s loop makes them: per peer, the task CE (rows 6, 7)
+    unless the first term is combined with it (rows 12, 13), and
+    ``standalone`` further terms from rows 8 (mse) or 9 (kl) forward and 10
+    or 11 backward; ``evals`` codist evals add row 6 once per peer."""
+    per = n * steps
+    out = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    if combined:
+        out["fused_ce_distill_parts"] = out["fused_ce_distill_grad"] = per
+    if task_ce:
+        out["fused_cross_entropy_parts"] = out["fused_cross_entropy_grad"] = per
+    fwd = "fused_distill_loss" if mode == "mse" else "fused_distill_kl_parts"
+    bwd = "fused_distill_mse_grad" if mode == "mse" else "fused_distill_kl_grad"
+    out[fwd] = out[bwd] = standalone * per
+    out["fused_cross_entropy_parts"] += n * evals
+    return out
+
+
+def phase_train_peers(dev: torch.device):
+    """qwen1.5-0.5b at full width and depth, batch 8 x seq 512 per peer,
+    AdamW, through ``train_codist`` with the exchanges and wires beyond
+    PR-12's two-peer prediction exchange. Each run's launches are counted
+    from 0 and checked per distilling step; returns the summed launches."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, resolve_strategy,
+                                   stack_batches, train_codist)
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    b, s = TRAIN_T // 512, 512
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+
+    def batches(n, steps, first=0, coordinated=True):
+        return [stack_batches([
+            make_lm_batch(task, b, s, k, None if coordinated else g, seed=0,
+                          device=dev) for g in range(n)])
+            for k in range(first, first + steps)]
+
+    total = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+
+    def run(name, cd, steps, want, eval_every=0, profile=False):
+        """``steps`` steps of ``train_codist``; checks finite losses and the
+        launches ``want``; returns the History's records."""
+        tc = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=2,
+                         total_steps=steps, optimizer="adamw")
+        feed, stamps = stamped(batches(cd.n_models, steps,
+                                       coordinated=cd.mode == "predictions"),
+                               dev)
+        evals = batches(cd.n_models, 1, first=10_000)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state, hist = train_codist(model, cd, tc, feed,
+                                   eval_batches=lambda k: evals[0],
+                                   eval_every=eval_every, log_every=1,
+                                   device=dev)
+        sync(dev)
+        t_end = time.perf_counter()
+        got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        recs = finite_records(hist, name)
+        require([r["step"] for r in recs] == list(range(steps)),
+                 f"{name}: History steps {[r['step'] for r in recs]}")
+        # step k's wall: from the loop's request for batch k to that for
+        # k + 1 (each step ends in its metric read); the last step's to the
+        # end of the run. Step 0 holds the init; an eval step is left out
+        ends = stamps[2:] + [t_end]
+        walls = [(e - s0) * 1e3 for k, (s0, e) in
+                 enumerate(zip(stamps[1:], ends), start=1)
+                 if "eval_loss" not in recs[k]]
+        step_ms = sum(walls) / len(walls)
+        for r in recs:
+            log(f"  {name} step {r['step']}: loss {r['loss']:.4f} task "
+                f"{r['task_loss']:.4f} distill {r['distill_loss']:.5f} alpha "
+                f"{r['alpha']:.2f}" + (f"  eval loss {r['eval_loss']:.4f}"
+                                       if "eval_loss" in r else ""))
+        busy = None
+        if profile:
+            bundle = build_train_step(model, tc, cd, resolve_strategy(cd))
+            fixed = batches(cd.n_models, 1, first=steps)[0]
+            busy = profile_device(lambda: bundle.apply(state, fixed, steps),
+                                  step_ms, 2, "step")
+        log(f"{name}: {step_ms:.1f} ms wall per step (steps "
+            f"{len(walls)} of {steps - 1} after the first"
+            + (f", device busy {busy:.1f} ms = {busy / step_ms:.1%}"
+               if busy else "") + f"), peak memory {peak:.1f} GiB, comm "
+            f"events {recs[-1]['comm_events']} bytes "
+            f"{recs[-1]['comm_bytes']:.0f}, launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        require(got == want, f"{name}: launches {got} != {want}")
+        for k in ALL_LOSS_KERNELS:
+            total[k] += got[k]
+        del state, hist
+        return recs
+
+    # (a) three peers, mse: the first term combined (rows 12/13), the
+    # second from rows 8/10; then two kl steps (rows 9/11)
+    log(f"train_peers: qwen1.5-0.5b {cfg.num_layers} layers d_model "
+        f"{cfg.d_model} V {cfg.padded_vocab}, batch {b} x seq {s} per peer")
+    recs = run("(a) 3 peers mse", CodistConfig(n_models=3), 6,
+               expected_launches(3, "mse", 6, combined=True, task_ce=False,
+                                 standalone=1, evals=2),
+               eval_every=5, profile=True)
+    require(recs[-1]["task_loss"] < recs[0]["task_loss"],
+            f"(a) task loss did not fall: {recs[0]['task_loss']} -> "
+            f"{recs[-1]['task_loss']}")
+    run("(a) 3 peers kl", CodistConfig(n_models=3, distill_loss="kl"), 2,
+        expected_launches(3, "kl", 2, combined=True, task_ce=False,
+                          standalone=1))
+    # (b) a subsample wire of 64 of 512 tokens: task CE (rows 6/7) and the
+    # term from rows 8-11 on the subsampled tokens
+    for mode in ("mse", "kl"):
+        run(f"(b) subsample 64 {mode}",
+            CodistConfig(n_models=2, distill_loss=mode,
+                         compression="subsample", subsample=64), 2,
+            expected_launches(2, mode, 2, combined=False, task_ce=True,
+                              standalone=1))
+    # (c) the checkpoint exchange: own batches, stale replicas refreshed at
+    # steps 0 and 2
+    recs = run("(c) checkpoint period 2",
+               CodistConfig(n_models=2, mode="checkpoints", period=2), 3,
+               expected_launches(2, "mse", 3, combined=True, task_ce=False,
+                                 standalone=0))
+    require([r["comm_events"] for r in recs] == [1, 1, 2],
+            f"(c) exchanges {[r['comm_events'] for r in recs]}")
+    # (d) the pipelined exchange: task CE on the batch, the combined kernel
+    # on the replayed previous batch; no valid targets at step 0
+    recs = run("(d) pipelined", CodistConfig(n_models=2, pipelined=True), 3,
+               expected_launches(2, "mse", 3, combined=True, task_ce=True,
+                                 standalone=0))
+    require(recs[0]["alpha"] == 0.0 and recs[1]["alpha"] > 0.0,
+            f"(d) alpha {[r['alpha'] for r in recs]}")
+    # (e) a top-k wire: the task CE fused (rows 6/7), the term plain torch
+    run("(e) topk 64", CodistConfig(n_models=2, compression="topk", topk=64),
+        2, expected_launches(2, "mse", 2, combined=False, task_ce=True,
+                             standalone=0))
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------------
 # phase 7: fp32 training, card vs CPU
 # ----------------------------------------------------------------------------
 
 def phase_train_parity(dev: torch.device):
     """Reduced qwen1.5-0.5b in fp32 (TF32 off): the same weights and
     batches train 3 codist steps on the card (the kernels) and on the CPU
-    (their plain versions), for mse and kl; per-step losses within 1e-4
-    relative."""
+    (their plain versions): 2 peers mse and kl, 3 peers mse (rows 8/10), a
+    subsample wire (rows 6-11), the checkpoint and the pipelined exchange;
+    per-step losses within 1e-4 relative, card launches as
+    ``codist_loss``'s loop makes them."""
     from repro_torch.configs import CodistConfig, TrainConfig, get_reduced
     from repro_torch.data import MarkovLM, make_lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
-    from repro_torch.train import (PredictionExchange, build_train_step,
+    from repro_torch.train import (build_train_step, resolve_strategy,
                                    stack_batches)
     from repro_torch.train.state import CodistState, trainable_params
     from repro_torch.tree import tree_map
@@ -996,44 +1339,64 @@ def phase_train_parity(dev: torch.device):
     model = build_model(cfg)
     task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=1,
                     effective_vocab=256)
-    batches = [stack_batches([make_lm_batch(task, 4, 64, k, None, seed=1,
-                                            device="cpu")] * 2)
-               for k in range(3)]
     gen = torch.Generator()
     gen.manual_seed(5)
-    init = [model.init(gen, device="cpu") for _ in range(2)]
+    init = [model.init(gen, device="cpu") for _ in range(3)]
+    C = CodistConfig
+    cases = [  # name, config, expected card launches of 3 steps
+        ("mse", C(n_models=2), expected_launches(
+            2, "mse", 3, combined=True, task_ce=False, standalone=0)),
+        ("kl", C(n_models=2, distill_loss="kl"), expected_launches(
+            2, "kl", 3, combined=True, task_ce=False, standalone=0)),
+        ("3 peers mse", C(n_models=3), expected_launches(
+            3, "mse", 3, combined=True, task_ce=False, standalone=1)),
+        ("subsample 16 kl", C(n_models=2, distill_loss="kl",
+                              compression="subsample", subsample=16),
+         expected_launches(2, "kl", 3, combined=False, task_ce=True,
+                           standalone=1)),
+        ("checkpoint", C(n_models=2, mode="checkpoints", period=2),
+         expected_launches(2, "mse", 3, combined=True, task_ce=False,
+                           standalone=0)),
+        ("pipelined", C(n_models=2, pipelined=True), expected_launches(
+            2, "mse", 3, combined=True, task_ce=True, standalone=0)),
+    ]
     worst = 0.0
-    for mode in ("mse", "kl"):
-        cd = CodistConfig(n_models=2, distill_loss=mode)
+    for name, cd, want in cases:
+        n = cd.n_models
+        coordinated = cd.mode == "predictions"
+        batches = [stack_batches([
+            make_lm_batch(task, 4, 64, k, None if coordinated else g, seed=1,
+                          device="cpu") for g in range(n)]) for k in range(3)]
         tc = TrainConfig(lr=1e-3, warmup_steps=0, total_steps=3,
                          optimizer="adamw", label_smoothing=0.1,
                          fused_losses=True)
         losses = {}
         for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            feed = [{k: v.to(d) for k, v in b.items()} for b in batches]
             params = trainable_params(tree_map(
-                lambda p: p.detach().clone().to(d), init))
+                lambda p: p.detach().clone().to(d), init[:n]))
             opt_init, _ = make_optimizer(tc.optimizer)
-            state = CodistState(params, opt_init(params), 0)
-            bundle = build_train_step(model, tc, cd, PredictionExchange(cd))
+            strategy = resolve_strategy(cd)
+            state = strategy.ensure_state(
+                CodistState(params, opt_init(params), 0), model, tc, feed[0])
+            bundle = build_train_step(model, tc, cd, strategy)
             reset_launch_counts()
-            state, rows, _w = run_steps(
-                bundle, state, lambda k: {n: v.to(d) for n, v in
-                                          batches[k].items()}, 3, d)
+            state, rows, _w = run_steps(bundle, state, lambda k: feed[k], 3,
+                                        d)
             losses[where] = rows
             if where == "card":
-                require(launch_counts["fused_ce_distill_parts"] == 6
-                        and launch_counts["fused_ce_distill_grad"] == 6,
-                        f"card parity run launches {dict(launch_counts)}")
+                got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+                require(got == want, f"card parity {name} launches {got} != "
+                        f"{want}")
         for k, (a, c) in enumerate(zip(losses["cpu"], losses["card"])):
             for m in a:
                 rel = abs(c[m] - a[m]) / max(abs(a[m]), 1e-12)
                 worst = max(worst, rel)
-                require(rel <= 1e-4, f"train parity {mode} step {k} {m}: "
+                require(rel <= 1e-4, f"train parity {name} step {k} {m}: "
                         f"card {c[m]} vs cpu {a[m]} (rel {rel:.2e})")
-        log(f"train parity {mode}: card vs CPU per-step loss/task/distill, "
-            f"3 steps: " + "; ".join(
-                f"{a['loss']:.6f}/{c['loss']:.6f}"
-                for a, c in zip(losses["cpu"], losses["card"])))
+        log(f"train parity {name}: card vs CPU per-step loss, 3 steps: "
+            + "; ".join(f"{a['loss']:.6f}/{c['loss']:.6f}"
+                        for a, c in zip(losses["cpu"], losses["card"])))
     log(f"train parity: worst relative difference {worst:.2e} (tol 1e-4)")
 
 
@@ -1063,12 +1426,13 @@ def main(argv=None) -> int:
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
         kernel_rows = phase_kernels(dev, flush)
         kernel_rows.update(phase_loss_kernels(dev, flush))
+        kernel_rows.update(phase_distill_kernels(dev, flush))
         del flush
         log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
-    launches = {}
+    launches = {}          # path -> {kernel: launches on that path's run}
     if "fleet" in phases:
         t0 = time.perf_counter()
-        launches = phase_fleet(dev, get_config("qwen2-7b"))
+        launches["fleet"] = phase_fleet(dev, get_config("qwen2-7b"))
         torch.cuda.empty_cache()
         log(f"phase fleet: {time.perf_counter() - t0:.1f} s")
     if "parity" in phases:
@@ -1077,8 +1441,12 @@ def main(argv=None) -> int:
         log(f"phase parity: {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
-        launches.update(phase_train(dev))
+        launches["train"] = phase_train(dev)
         log(f"phase train: {time.perf_counter() - t0:.1f} s")
+    if "train_peers" in phases:
+        t0 = time.perf_counter()
+        launches["train_peers"] = phase_train_peers(dev)
+        log(f"phase train_peers: {time.perf_counter() - t0:.1f} s")
     if "train_parity" in phases:
         t0 = time.perf_counter()
         phase_train_parity(dev)
@@ -1086,18 +1454,19 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})
+        by_path = {p: launches[p].get(name, 0) for p in PATHS[name]
+                   if p in launches}
+        for p, n in by_path.items():
+            require(n > 0, f"{name}: a kernel of the {p} path was never "
+                    "launched there")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches.get(name, 0),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": row.get("max_abs_err"),
             "ms": row.get("ms"), "kernel_ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms")})
-    for k in kernels:
-        path = "train" if k["name"] in LOSS_KERNELS else "fleet"
-        require(k["launches"] > 0 or path not in phases,
-                f"{k['name']}: a kernel of the {path} path was never launched")
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

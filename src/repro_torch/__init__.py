@@ -7,9 +7,13 @@ mode, ``FleetRouter`` -> ``FleetEngine`` -> ``PagedCachePool`` ->
 Slice 2 carries training — ``launch/train.py`` in modes ``codist`` and
 ``allreduce`` -> ``train/loop.py`` -> ``train/engine.py`` ->
 ``core/codistillation.py`` ``codist_loss`` — with the four fused loss
-kernels of that path (CE and CE + distillation, forward and backward). The
-kernels are written by hand in CUDA C++ for Hopper (``csrc/``); the models
-are the dense attention LMs.
+kernels of that path (CE and CE + distillation, forward and backward).
+Slice 3 adds n peers, the top-k and subsample wires, the checkpoint and
+pipelined exchanges (``codist-ckpt``, ``codist-pipelined``) and the
+checkpoint format (``checkpoint/io.py``), with the four distillation
+kernels those reach (the distillation term alone, forward and backward).
+The kernels are written by hand in CUDA C++ for Hopper (``csrc/``); the
+models are the dense attention LMs.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 asking for CUDA without a card raises (nothing falls back to the CPU). On a

@@ -18,14 +18,19 @@ peers at once.
 
 Loss math dispatches through the ``fused`` flag: None => on for CUDA
 tensors (the fused loss kernels of ``repro_torch.kernels.ops``), off on the
-CPU. With it on and two peers, each peer's task CE and distillation term
-come from ONE combined kernel call (``fused_ce_distill``); the off-step and
-eval CE from ``fused_cross_entropy_loss``. The unfused paths are the
-reference's own jnp losses, as plain torch.
+CPU. With it on, each peer's task CE and first distillation term come from
+ONE combined kernel call (``fused_ce_distill``) when the first peer's wire
+is full width; every further term (a third peer on) and a subsampled
+wire's term come from the standalone distillation kernels
+(``fused_distill_mean``); the off-step and eval CE from
+``fused_cross_entropy_loss``. The top-k wire's loss is plain torch, as the
+reference's is jnp only. The unfused paths are the reference's own jnp
+losses, as plain torch.
 
-Not in this slice: the standalone fused distillation kernels (reached from
-the third peer on, and by ``subsample``), ``topk`` and ``subsample``
-compression, and the pod-mesh paths; each raises, naming its ROADMAP item.
+The wires are ``none``, ``bf16``, ``topk`` (an exact top-k whose ties go
+to the lowest index, as ``jax.lax.top_k``) and ``subsample``. Not in the
+port yet: the pod-mesh paths of the reference, which need
+``torch.distributed`` (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -38,14 +43,6 @@ from repro_torch.kernels.ops import fused_losses_default
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
-
-_ROWS_8_11 = ("the standalone fused distillation kernels (PERF.md rows 8-11, "
-              "ROADMAP Queue 2) are not ported yet: they serve a third peer "
-              "and subsample compression; run with fused=False "
-              "(--fused-losses off)")
-_LATER_COMPRESSION = ("compression {!r} comes with the rest of the exchange "
-                      "strategies (ROADMAP Queue 1 item 5)")
-
 
 def _fused_enabled(fused: Optional[bool], x: torch.Tensor) -> bool:
     if fused is None:
@@ -101,7 +98,8 @@ def distill_mse(logits: torch.Tensor, target_logits: torch.Tensor,
                 fused: Optional[bool] = None) -> torch.Tensor:
     """Mean squared error between logits — the paper's D."""
     if _fused_enabled(fused, logits):
-        raise NotImplementedError(_ROWS_8_11)
+        from repro_torch.kernels.ops import fused_distill_mean
+        return fused_distill_mean(logits, target_logits, "mse", mask)
     d = (logits.float() - target_logits.float()) ** 2
     return _masked(d.mean(dim=-1), mask)
 
@@ -111,7 +109,8 @@ def distill_kl(logits: torch.Tensor, target_logits: torch.Tensor,
                fused: Optional[bool] = None) -> torch.Tensor:
     """KL(softmax(target) || softmax(logits)) — Zhang et al. / Anil et al."""
     if temperature == 1.0 and _fused_enabled(fused, logits):
-        raise NotImplementedError(_ROWS_8_11)
+        from repro_torch.kernels.ops import fused_distill_mean
+        return fused_distill_mean(logits, target_logits, "kl", mask)
     lt = target_logits.float() / temperature
     ls = logits.float() / temperature
     p = torch.softmax(lt, dim=-1)
@@ -141,28 +140,82 @@ def distill_pair(kind: str, logits: torch.Tensor, target_logits: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
-# compressed prediction exchange (none and bf16 in this slice)
+# compressed prediction exchange
 # ----------------------------------------------------------------------------
 
-def _check_compression(cfg: CodistConfig) -> None:
-    if cfg.compression not in ("none", "bf16"):
-        raise NotImplementedError(_LATER_COMPRESSION.format(cfg.compression))
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, in
+    descending order, ties to the lowest index: ``jax.lax.top_k``'s order
+    (``torch.topk`` does not fix the order of equal values)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _hierarchical_topk(x: torch.Tensor, k: int, segments: int = 16):
+    """Exact top-k via per-segment top-k + top-k of the candidate union, as
+    the reference (there it keeps the vocab axis sharded). Every global
+    top-k element is in its segment's top-k, and the candidates keep
+    segment order, so ties still go to the lowest index."""
+    *lead, v = x.shape
+    if v % segments or v // segments < k:
+        return _top_k(x, k)
+    seg = v // segments
+    lv, li = _top_k(x.reshape(*lead, segments, seg), k)   # (..., segments, k)
+    li = li + (torch.arange(segments, device=x.device) * seg)[:, None]
+    lv = lv.reshape(*lead, segments * k)
+    li = li.reshape(*lead, segments * k)
+    gv, gi = _top_k(lv, k)
+    return gv, li.gather(-1, gi)
+
+
+def _subsample_stride(cfg: CodistConfig, full_seq: int) -> int:
+    return max(1, full_seq // cfg.subsample)
 
 
 def compress_targets(cfg: CodistConfig, target_logits: torch.Tensor) -> Dict:
-    """The wire a peer sends: its logits, or their bf16 rounding."""
-    _check_compression(cfg)
+    """The wire a peer sends: its logits, their bf16 rounding, their top-k
+    (values and int64 indices), or a strided subset of their tokens along
+    the sequence axis (axis -2 of (B, S, V)). A subsample count of 0 sends
+    the logits, as the reference does."""
     if cfg.compression == "bf16":
         return {"vals": target_logits.to(torch.bfloat16)}
+    if cfg.compression == "topk":
+        vals, idx = _hierarchical_topk(target_logits, cfg.topk)
+        return {"vals": vals, "idx": idx}
+    if cfg.compression == "subsample" and cfg.subsample:
+        stride = _subsample_stride(cfg, target_logits.shape[-2])
+        return {"vals": target_logits[..., ::stride, :][..., :cfg.subsample, :]}
     return {"vals": target_logits}
 
 
 def distill_vs_compressed(cfg: CodistConfig, logits: torch.Tensor, wire: Dict,
                           mask: Optional[torch.Tensor] = None,
                           fused: Optional[bool] = None) -> torch.Tensor:
-    _check_compression(cfg)
-    return distill_pair(cfg.distill_loss, logits, wire["vals"], mask,
-                        fused=fused)
+    kind = cfg.compression
+    if kind == "subsample" and not cfg.subsample:
+        kind = "none"
+    if kind in ("none", "bf16"):
+        # full-vocab-width targets: the fused distillation kernels apply
+        return distill_pair(cfg.distill_loss, logits, wire["vals"], mask,
+                            fused=fused)
+    if kind == "topk":
+        own = logits.gather(-1, wire["idx"]).float()
+        vals = wire["vals"].float()
+        if cfg.distill_loss == "mse":
+            per_tok = ((own - vals) ** 2).mean(dim=-1)
+        else:  # renormalized soft-CE over the top-k support
+            p = torch.softmax(vals, dim=-1)
+            per_tok = -(p * torch.log_softmax(own, dim=-1)).sum(dim=-1)
+        return _masked(per_tok, mask)
+    if kind == "subsample":
+        stride = _subsample_stride(cfg, logits.shape[-2])
+        k = wire["vals"].shape[-2]
+        own = logits[..., ::stride, :][..., :k, :]
+        sub_mask = None if mask is None else mask[..., ::stride][..., :k]
+        # subsampled tokens keep the full vocab width: the kernels apply
+        return distill_pair(cfg.distill_loss, own, wire["vals"], sub_mask,
+                            fused=fused)
+    raise ValueError(f"unknown compression {cfg.compression!r}")
 
 
 # ----------------------------------------------------------------------------
@@ -175,28 +228,43 @@ def codist_loss(cfg: CodistConfig,
                 alpha, label_smoothing=0.0,
                 mask_all: Optional[torch.Tensor] = None,
                 peer_logits_all: Optional[Sequence[torch.Tensor]] = None,
+                peer_pairwise=None,
                 fused: Optional[bool] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean over peers of (task + alpha * mean_peers D(own, sg(peer))).
 
     ``logits_all`` is a sequence of the n peers' logits (a list, or a
-    stacked tensor). ``peer_logits_all`` overrides the targets; default is
-    the live logits (prediction mode with coordinated sampling). With
-    ``fused`` on and a full-width first peer wire, each peer's task CE and
-    first distillation term come from the combined kernel. The single-device
-    path of the reference; its pod-mesh branch is not in the port."""
+    stacked tensor). ``peer_logits_all`` overrides the targets (pipelined
+    exchange: the previous step's logits); ``peer_pairwise[i][j]`` is peer
+    j's prediction on peer i's batch (checkpoint mode, where each peer
+    evaluates the stale replicas on its own batch; a nested list whose
+    diagonal is never read, or an (n, n, ...) tensor). Default is the live
+    logits (prediction mode with coordinated sampling). With ``fused`` on
+    and a full-width first peer wire, each peer's task CE and first
+    distillation term come from the combined kernel; further terms from
+    the standalone distillation kernels. The single-device path of the
+    reference; its pod-mesh branch is not in the port."""
     n = len(logits_all)
     targets = peer_logits_all if peer_logits_all is not None else logits_all
-    wires_all = [compress_targets(cfg, t.detach()) for t in targets]
     use_fused = n > 0 and _fused_enabled(fused, logits_all[0])
+    if peer_pairwise is None:
+        wires_all = [compress_targets(cfg, t.detach()) for t in targets]
 
     task_losses: List[torch.Tensor] = []
     distill_losses: List[torch.Tensor] = []
     for i in range(n):
         m_i = None if mask_all is None else mask_all[i]
-        wires_i = [wires_all[j] for j in range(n) if j != i]
+        if peer_pairwise is not None:
+            wires_i = [compress_targets(cfg, peer_pairwise[i][j].detach())
+                       for j in range(n) if j != i]
+        else:
+            wires_i = [wires_all[j] for j in range(n) if j != i]
+        # hot path: the task CE fused with the first distillation term (one
+        # sweep of the student logits); further terms from the standalone
+        # distillation kernels
         combined = (use_fused and wires_i
                     and cfg.distill_loss in ("mse", "kl")
+                    and set(wires_i[0]) == {"vals"}
                     and wires_i[0]["vals"].shape == logits_all[i].shape)
         if combined:
             from repro_torch.kernels.ops import fused_ce_distill

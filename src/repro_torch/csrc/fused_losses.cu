@@ -1,21 +1,29 @@
-// Fused cross-entropy and CE + distillation losses, forward and backward
-// (sm_90a).
+// Fused cross-entropy, CE + distillation and distillation losses, forward
+// and backward (sm_90a).
 //
-// Replaces the TPU kernels of the reference's kernels/fused_ce.py and
-// kernels/combined_loss.py:
+// Replaces the TPU kernels of the reference's kernels/fused_ce.py,
+// kernels/combined_loss.py and kernels/distill_loss.py:
 //   repro_fused_loss_fwd mode 0 <- fused_cross_entropy_parts (_ce_parts_kernel)
 //                        mode 1 <- fused_ce_distill_parts, mse (_combined_mse_kernel)
 //                        mode 2 <- fused_ce_distill_parts, kl  (_combined_kl_kernel)
+//                        mode 3 <- fused_distill_loss, mse (_mse_kernel)
+//                        mode 4 <- fused_distill_loss, kl (_kl_kernel) and,
+//                                  with res, fused_distill_kl_parts (_kl_parts_kernel)
 //   repro_fused_loss_bwd mode 0 <- fused_cross_entropy_grad (_ce_grad_kernel)
 //                        mode 1 <- fused_ce_distill_grad, mse (_combined_mse_grad_kernel)
 //                        mode 2 <- fused_ce_distill_grad, kl  (_combined_kl_grad_kernel)
+//                        mode 3 <- fused_distill_mse_grad (_mse_grad_kernel)
+//                        mode 4 <- fused_distill_kl_grad (_kl_grad_kernel)
 //
-// Inputs: student logits x (T, V) and, for modes 1 and 2, target logits t
+// Inputs: student logits x (T, V) and, for modes 1-4, target logits t
 // (T, V), both contiguous and of one dtype (fp32 or bf16, a runtime code);
-// labels (T,) int32. Any T and V: nothing is padded, each kernel masks its
-// own ragged edge. v_real <= V bounds the columns of the
+// labels (T,) int32 for modes 0-2 (modes 3 and 4 have no CE term and read
+// no labels). Any T and V: nothing is padded, each kernel masks its own
+// ragged edge. In modes 0-2, v_real <= V bounds the columns of the
 // smoothing mean and of the mse; every column enters the logsumexps, as in
 // the reference (whose block-padding columns hold -1e30 and add nothing).
+// In mode 3, v_real is only the mse's denominator (the reference's
+// v_total): every column enters the sum, as in _mse_kernel.
 //
 // Forward. One CTA per token row streams the row's V columns once, 16-byte
 // vector loads in the middle and scalar loads for the unaligned head and
@@ -40,12 +48,16 @@
 //   ds = (g_nll + g_smooth) q - g_nll onehot - g_smooth [c < v_real] / v_real
 //        + mse: g_dist 2 (x - t)[c < v_real] / v_real   | kl: g_dist (q - p)
 //   dt = mse: -g_dist 2 (x - t)[c < v_real] / v_real   | kl: g_dist p ((t - x) - E)
+// and for modes 3 and 4, with the one cotangent row g:
+//   mode 3: ds = g 2 (x - t) / v_total, dt = -ds      (every column)
+//   mode 4: ds = g (q - p),             dt = g p ((t - x) - E)
 //
 // What bounds them on an H100: bytes. The forward reads each logits
-// element once and does a handful of fp32 operations and one or two exps
+// element once and does a handful of fp32 operations and up to two exps
 // on it; the backward reads x (and t) once and writes ds (and dt) once. At
 // the main-path shape (T = 4096, V = 152064, bf16) that is 1.25 GB per
-// (T, V) operand, 0.37 ms at 3.35 TB/s. The design reads nothing twice and
+// (T, V) operand, 0.37 ms at 3.35 TB/s; the kl modes' two exps per element
+// (~1.25e9 at that shape) stay under it on the SFUs. The design reads nothing twice and
 // keeps every (T, V) intermediate in registers. Not yet done: cp.async/TMA
 // staging, more loads in flight per thread, and splitting a row over CTAs
 // when T is small (T CTAs of the forward leave most of the card idle for
@@ -64,7 +76,14 @@ constexpr int kFwdThreads = 512;
 constexpr int kBwdThreads = 256;
 constexpr float kNeg = -1e30f;
 
-enum Mode { kCE = 0, kMSE = 1, kKL = 2 };
+enum Mode { kCE = 0, kMSE = 1, kKL = 2, kDistMSE = 3, kDistKL = 4 };
+
+// what each mode computes: the task CE (labels, smoothing), the student's
+// logsumexp, an mse or a kl distillation term
+__host__ __device__ constexpr bool has_ce(int m) { return m <= kKL; }
+__host__ __device__ constexpr bool has_lse(int m) { return m != kDistMSE; }
+__host__ __device__ constexpr bool is_mse(int m) { return m == kMSE || m == kDistMSE; }
+__host__ __device__ constexpr bool is_kl(int m) { return m == kKL || m == kDistKL; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -123,17 +142,26 @@ __device__ __forceinline__ State empty_state() {
 template <int MODE, int N>
 __device__ __forceinline__ void visit(State& a, const float (&x)[N],
                                       const float (&t)[N], int c0, int v_real) {
-  float vmax = x[0];
+  if (has_lse(MODE)) {
+    float vmax = x[0];
 #pragma unroll
-  for (int i = 1; i < N; ++i) vmax = fmaxf(vmax, x[i]);
-  if (vmax > a.m) {
-    a.s *= expf(a.m - vmax);
-    a.m = vmax;
+    for (int i = 1; i < N; ++i) vmax = fmaxf(vmax, x[i]);
+    if (vmax > a.m) {
+      a.s *= expf(a.m - vmax);
+      a.m = vmax;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      a.s += expf(x[i] - a.m);
+      if (has_ce(MODE) && c0 + i < v_real) a.xs += x[i];
+    }
   }
+  if (MODE == kDistMSE) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    a.s += expf(x[i] - a.m);
-    if (c0 + i < v_real) a.xs += x[i];
+    for (int i = 0; i < N; ++i) {
+      const float d = x[i] - t[i];
+      a.acc += d * d;
+    }
   }
   if (MODE == kMSE) {
 #pragma unroll
@@ -144,7 +172,7 @@ __device__ __forceinline__ void visit(State& a, const float (&x)[N],
       }
     }
   }
-  if (MODE == kKL) {
+  if (is_kl(MODE)) {
     float tmax = t[0];
 #pragma unroll
     for (int i = 1; i < N; ++i) tmax = fmaxf(tmax, t[i]);
@@ -165,12 +193,14 @@ __device__ __forceinline__ void visit(State& a, const float (&x)[N],
 
 template <int MODE>
 __device__ __forceinline__ void merge(State& a, const State& b) {
-  const float m = fmaxf(a.m, b.m);
-  a.s = a.s * expf(a.m - m) + b.s * expf(b.m - m);
-  a.m = m;
-  a.xs += b.xs;
-  if (MODE == kMSE) a.acc += b.acc;
-  if (MODE == kKL) {
+  if (has_lse(MODE)) {
+    const float m = fmaxf(a.m, b.m);
+    a.s = a.s * expf(a.m - m) + b.s * expf(b.m - m);
+    a.m = m;
+  }
+  if (has_ce(MODE)) a.xs += b.xs;
+  if (is_mse(MODE)) a.acc += b.acc;
+  if (is_kl(MODE)) {
     const float mt = fmaxf(a.mt, b.mt);
     const float ra = expf(a.mt - mt), rb = expf(b.mt - mt);
     a.st = a.st * ra + b.st * rb;
@@ -202,7 +232,7 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(kFwdThreads)
 fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
            const int* __restrict__ labels, float* __restrict__ out,
-           int n_tok, int V, int v_real, int vec) {
+           float* __restrict__ res, int n_tok, int V, int v_real, int vec) {
   constexpr int N = Vec<T>::n;
   const int row = blockIdx.x;
   const T* xr = x + (size_t)row * V;
@@ -245,23 +275,38 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
   a = warp_merge<MODE>(a);
   if (lane != 0) return;
 
-  const int lb = labels[row];
-  const float true_logit = (lb >= 0 && lb < V) ? to_f(xr[lb]) : 0.f;
-  const float logz = a.m + logf(a.s);
-  out[row] = logz - true_logit;                              // nll
-  out[(size_t)n_tok + row] = logz - a.xs / (float)v_real;    // smooth
+  const size_t n = (size_t)n_tok;
+  const float logz = has_lse(MODE) ? a.m + logf(a.s) : 0.f;
+  if (has_ce(MODE)) {
+    const int lb = labels[row];
+    const float true_logit = (lb >= 0 && lb < V) ? to_f(xr[lb]) : 0.f;
+    out[row] = logz - true_logit;                            // nll
+    out[n + row] = logz - a.xs / (float)v_real;              // smooth
+  }
   if (MODE == kCE) {
-    out[2 * (size_t)n_tok + row] = logz;
+    out[2 * n + row] = logz;
   } else if (MODE == kMSE) {
-    out[2 * (size_t)n_tok + row] = a.acc / (float)v_real;    // dist
-    out[3 * (size_t)n_tok + row] = logz;
+    out[2 * n + row] = a.acc / (float)v_real;                // dist
+    out[3 * n + row] = logz;
+  } else if (MODE == kDistMSE) {
+    out[row] = a.acc / (float)v_real;                        // dist
   } else {
     const float logzt = a.mt + logf(a.st);
     const float e = a.u / a.st;
-    out[2 * (size_t)n_tok + row] = e - logzt + logz;         // dist = KL
-    out[3 * (size_t)n_tok + row] = logz;
-    out[4 * (size_t)n_tok + row] = logzt;
-    out[5 * (size_t)n_tok + row] = e;
+    const float dist = e - logzt + logz;                     // KL
+    if (MODE == kKL) {
+      out[2 * n + row] = dist;
+      out[3 * n + row] = logz;
+      out[4 * n + row] = logzt;
+      out[5 * n + row] = e;
+    } else {
+      out[row] = dist;
+      if (res != nullptr) {
+        res[row] = logz;
+        res[n + row] = logzt;
+        res[2 * n + row] = e;
+      }
+    }
   }
 }
 
@@ -277,6 +322,19 @@ struct Row {
 template <int MODE>
 __device__ __forceinline__ void grad_elem(const Row& r, float x, float t,
                                           int c, float& ds, float& dt) {
+  if (MODE == kDistMSE) {
+    const float dd = r.gd * r.two_inv_v * (x - t);
+    ds = dd;
+    dt = -dd;
+    return;
+  }
+  if (MODE == kDistKL) {
+    const float q = expf(x - r.logzs);
+    const float p = expf(t - r.logzt);
+    ds = r.gd * (q - p);
+    dt = r.gd * p * ((t - x) - r.e);
+    return;
+  }
   const float q = expf(x - r.logzs);
   const float ce = (r.gn + r.gs) * q - (c == r.label ? r.gn : 0.f)
                    - (c < r.v_real ? r.gs * r.inv_v : 0.f);
@@ -316,16 +374,17 @@ bwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
   const T* tr = MODE == kCE ? nullptr : tg + base;
   T* dsr = ds + base;
   T* dtr = (MODE == kCE || dt == nullptr) ? nullptr : dt + base;
+  const size_t n = (size_t)n_tok;
   Row r;
-  r.logzs = res[row];
-  r.logzt = MODE == kKL ? res[(size_t)n_tok + row] : 0.f;
-  r.e = MODE == kKL ? res[2 * (size_t)n_tok + row] : 0.f;
-  r.gn = g[row];
-  r.gs = g[(size_t)n_tok + row];
-  r.gd = MODE == kCE ? 0.f : g[2 * (size_t)n_tok + row];
+  r.logzs = has_lse(MODE) ? res[row] : 0.f;
+  r.logzt = is_kl(MODE) ? res[n + row] : 0.f;
+  r.e = is_kl(MODE) ? res[2 * n + row] : 0.f;
+  r.gn = has_ce(MODE) ? g[row] : 0.f;
+  r.gs = has_ce(MODE) ? g[n + row] : 0.f;
+  r.gd = MODE == kCE ? 0.f : g[(has_ce(MODE) ? 2 * n : 0) + row];
   r.inv_v = inv_v;
   r.two_inv_v = two_inv_v;
-  r.label = labels[row];
+  r.label = has_ce(MODE) ? labels[row] : -1;
   r.v_real = v_real;
 
   const int head = row_head(xr, V, vec);
@@ -367,14 +426,17 @@ int same_mod16(const void* a, const void* b, const void* c, const void* d) {
 
 template <typename T>
 int launch_fwd(int mode, const void* x, const void* t, const int* labels,
-               float* out, int n_tok, int V, int v_real, cudaStream_t st) {
+               float* out, float* res, int n_tok, int V, int v_real,
+               cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const T* tp = static_cast<const T*>(t);
   const int vec = same_mod16(x, t, nullptr, nullptr);
   switch (mode) {
-    case kCE: fwd_kernel<T, kCE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, n_tok, V, v_real, vec); break;
-    case kMSE: fwd_kernel<T, kMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, n_tok, V, v_real, vec); break;
-    case kKL: fwd_kernel<T, kKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, n_tok, V, v_real, vec); break;
+    case kCE: fwd_kernel<T, kCE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
+    case kMSE: fwd_kernel<T, kMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
+    case kKL: fwd_kernel<T, kKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
+    case kDistMSE: fwd_kernel<T, kDistMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
+    case kDistKL: fwd_kernel<T, kDistKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -399,6 +461,8 @@ int launch_bwd(int mode, const void* x, const void* t, const int* labels,
     case kCE: bwd_kernel<T, kCE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
     case kMSE: bwd_kernel<T, kMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
     case kKL: bwd_kernel<T, kKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
+    case kDistMSE: bwd_kernel<T, kDistMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
+    case kDistKL: bwd_kernel<T, kDistKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -413,23 +477,27 @@ const char* repro_error_string(int code) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x and t share one).
-// x, t (T, V); labels (T,) i32; out (K, T) fp32 with K = 3, 4, 6 for modes
-// 0, 1, 2. t is unused (may be null) in mode 0.
+// x, t (T, V); labels (T,) i32 (modes 0-2; unused, may be null, in modes 3
+// and 4); out (K, T) fp32 with K = 3, 4, 6, 1, 1 for modes 0-4. t is
+// unused (may be null) in mode 0. res (3, T) fp32 [logZ_s, logZ_t, E] is
+// written in mode 4 when not null, and unused otherwise.
 int repro_fused_loss_fwd(const void* x, const void* t, const int* labels,
-                         float* out, int n_tok, int V, int v_real, int mode,
-                         int dtype, void* stream) {
+                         float* out, float* res, int n_tok, int V, int v_real,
+                         int mode, int dtype, void* stream) {
   if (n_tok == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_fwd<float>(mode, x, t, labels, out, n_tok, V, v_real, st);
-    case 1: return launch_fwd<__nv_bfloat16>(mode, x, t, labels, out, n_tok, V, v_real, st);
+    case 0: return launch_fwd<float>(mode, x, t, labels, out, res, n_tok, V, v_real, st);
+    case 1: return launch_fwd<__nv_bfloat16>(mode, x, t, labels, out, res, n_tok, V, v_real, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// res (R, T) fp32: [logZ_s] (modes 0, 1) or [logZ_s, logZ_t, E] (mode 2);
-// g (G, T) fp32: [g_nll, g_smooth] (mode 0) or [g_nll, g_smooth, g_dist].
-// ds (T, V) in x's dtype; dt (T, V) or null (not written) in modes 1, 2.
+// res (R, T) fp32: [logZ_s] (modes 0, 1), [logZ_s, logZ_t, E] (modes 2, 4)
+// or unused (mode 3, may be null); g (G, T) fp32: [g_nll, g_smooth] (mode
+// 0), [g_nll, g_smooth, g_dist] (modes 1, 2) or [g_dist] (modes 3, 4).
+// ds (T, V) in x's dtype; dt (T, V) or null (not written) in modes 1-4.
+// two_inv_v is 2 / v_real (modes 1, 3: 2 / v_total).
 int repro_fused_loss_bwd(const void* x, const void* t, const int* labels,
                          const float* res, const float* g, void* ds, void* dt,
                          int n_tok, int V, int v_real, int mode, int dtype,

@@ -50,9 +50,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             c_int, c_int, c_int, c_float, c_int, c_int, c_void_p],
     },
     "fused_losses": {
-        # x, t, labels, out, T, V, v_real, mode, dtype, stream
+        # x, t, labels, out, res, T, V, v_real, mode, dtype, stream
         "repro_fused_loss_fwd": [c_void_p, c_void_p, c_void_p, c_void_p,
-                                 c_int, c_int, c_int, c_int, c_int, c_void_p],
+                                 c_void_p, c_int, c_int, c_int, c_int, c_int,
+                                 c_void_p],
         # x, t, labels, res, g, ds, dt, T, V, v_real, mode, dtype, inv_v,
         # two_inv_v, stream
         "repro_fused_loss_bwd": [c_void_p, c_void_p, c_void_p, c_void_p,
@@ -65,7 +66,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 launch_counts: Dict[str, int] = {
     "paged_scatter": 0, "paged_gather": 0, "paged_attention_decode": 0,
     "fused_cross_entropy_parts": 0, "fused_cross_entropy_grad": 0,
-    "fused_ce_distill_parts": 0, "fused_ce_distill_grad": 0}
+    "fused_ce_distill_parts": 0, "fused_ce_distill_grad": 0,
+    "fused_distill_loss": 0, "fused_distill_kl_parts": 0,
+    "fused_distill_mse_grad": 0, "fused_distill_kl_grad": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -18,7 +18,8 @@ outside [0, V) has no true logit (0) and no one-hot column.
 
 On a CPU tensor each wrapper runs its plain version (fp32 ``logsumexp``
 and the closed-form gradient); on a CUDA tensor it launches the kernel or
-raises. The shared launch helpers serve ``combined_loss.py`` too.
+raises. The shared launch helpers serve ``combined_loss.py`` and
+``distill_loss.py`` too.
 """
 from __future__ import annotations
 
@@ -32,9 +33,10 @@ from repro_torch.kernels.paged_cache import _require, _same_device
 NEG = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MODES = {"ce": 0, "mse": 1, "kl": 2}
+# the kernels' modes: CE, CE + distill (mse, kl), distill alone (mse, kl)
+MODES = {"ce": 0, "mse": 1, "kl": 2, "distill_mse": 3, "distill_kl": 4}
 # fp32 (K, T) rows the forward writes, per mode
-N_OUT = {"ce": 3, "mse": 4, "kl": 6}
+N_OUT = {"ce": 3, "mse": 4, "kl": 6, "distill_mse": 1, "distill_kl": 1}
 
 
 def _check_logits(x: torch.Tensor, name: str) -> Tuple[int, int]:
@@ -75,33 +77,42 @@ def check_inputs(logits: torch.Tensor, labels: torch.Tensor,
     return dev, t, v, _resolve_v_real(v_real, v)
 
 
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
 def launch_fwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
-               labels: torch.Tensor, v_real: int) -> torch.Tensor:
-    """The forward kernel; returns its fp32 (K, T) output rows."""
+               labels: Optional[torch.Tensor], v_real: int,
+               residuals: bool = False) -> torch.Tensor:
+    """The forward kernel; returns its fp32 (K, T) output rows, followed
+    (``residuals``, mode ``distill_kl``) by the rows [logZ_s, logZ_t, E]."""
     dev = logits.device
     t, v = logits.shape
-    out = torch.empty((N_OUT[mode], t), dtype=torch.float32, device=dev)
+    out = torch.empty((N_OUT[mode] + (3 if residuals else 0), t),
+                      dtype=torch.float32, device=dev)
     if t == 0:
         return out
     lib = _build.load("fused_losses")
     with torch.cuda.device(dev):
         rc = lib.repro_fused_loss_fwd(
-            logits.data_ptr(), None if target is None else target.data_ptr(),
-            labels.data_ptr(), out.data_ptr(), t, v, v_real, MODES[mode],
-            _DTYPE_CODES[logits.dtype],
+            logits.data_ptr(), _ptr(target), _ptr(labels), out.data_ptr(),
+            out[N_OUT[mode]].data_ptr() if residuals else None, t, v, v_real,
+            MODES[mode], _DTYPE_CODES[logits.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"fused loss forward ({mode})")
     return out
 
 
 def launch_bwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
-               labels: torch.Tensor, residuals: Sequence[torch.Tensor],
+               labels: Optional[torch.Tensor],
+               residuals: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], v_real: int,
                need_target_grad: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The backward kernel; returns (ds, dt or None) in the logits' dtype."""
     dev = logits.device
     t, v = logits.shape
-    res = torch.stack([r.float() for r in residuals]).contiguous()
+    res = (torch.stack([r.float() for r in residuals]).contiguous()
+           if residuals else None)
     g = torch.stack([x.float() for x in grads]).contiguous()
     ds = torch.empty_like(logits)
     dt = torch.empty_like(target) if need_target_grad else None
@@ -110,9 +121,8 @@ def launch_bwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
     lib = _build.load("fused_losses")
     with torch.cuda.device(dev):
         rc = lib.repro_fused_loss_bwd(
-            logits.data_ptr(), None if target is None else target.data_ptr(),
-            labels.data_ptr(), res.data_ptr(), g.data_ptr(), ds.data_ptr(),
-            None if dt is None else dt.data_ptr(), t, v, v_real, MODES[mode],
+            logits.data_ptr(), _ptr(target), _ptr(labels), _ptr(res),
+            g.data_ptr(), ds.data_ptr(), _ptr(dt), t, v, v_real, MODES[mode],
             _DTYPE_CODES[logits.dtype], 1.0 / v_real, 2.0 / v_real,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"fused loss backward ({mode})")

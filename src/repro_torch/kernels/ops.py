@@ -6,13 +6,18 @@ by the ``fused_losses`` flag:
   * ``fused_cross_entropy_loss`` — masked, smoothed mean CE; the forward is
     ``fused_cross_entropy_parts``, the backward rebuilds softmax from the
     saved per-token ``logZ`` (``fused_cross_entropy_grad``);
+  * ``fused_distill_mean`` — the masked mean distillation term D(y, y')
+    alone, mse or kl (``fused_distill_loss`` / ``fused_distill_kl_parts``
+    forward, ``fused_distill_mse_grad`` / ``fused_distill_kl_grad``
+    backward): a third peer's term and a subsampled wire's;
   * ``fused_ce_distill`` — the task CE and the distillation term of one
     student against one target from ONE read of both logits
     (``fused_ce_distill_parts`` / ``fused_ce_distill_grad``): the hot path
     of ``--mode codist``.
 
-Two ``torch.autograd.Function``s take the place of the reference's
-``jax.custom_vjp`` primitives ``_ce_parts_p`` and ``_ce_distill_tokens_p``.
+Three ``torch.autograd.Function``s take the place of the reference's
+``jax.custom_vjp`` primitives ``_ce_parts_p``, ``_distill_tokens_p`` and
+``_ce_distill_tokens_p``.
 Their boundary is per token, as there: flattening, label-smoothing mixing,
 masking and the mean stay in (T,)-sized torch, so no (T, V) fp32 temporary
 exists outside the kernels in either direction. The kernels take any T and
@@ -29,6 +34,10 @@ import torch
 
 from repro_torch.kernels.combined_loss import (fused_ce_distill_grad,
                                                fused_ce_distill_parts)
+from repro_torch.kernels.distill_loss import (fused_distill_kl_grad,
+                                              fused_distill_kl_parts,
+                                              fused_distill_loss,
+                                              fused_distill_mse_grad)
 from repro_torch.kernels.fused_ce import (fused_cross_entropy_grad,
                                           fused_cross_entropy_parts)
 
@@ -62,6 +71,36 @@ class _CEParts(torch.autograd.Function):
             logits, labels, logz, _zeros_if_none(g_nll, logz),
             _zeros_if_none(g_smooth, logz), ctx.v_real)
         return dx, None, None
+
+
+class _DistillTokens(torch.autograd.Function):
+    """(T, V) student and target logits -> per-token D. The forward is row
+    8, or for kl row 9, whose residuals the backward (row 10 or 11) needs:
+    the reference's primal is row 8 and its fwd rule row 9. The target's
+    gradient is computed only when autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, logits, target, mode, v_total):
+        ctx.mode, ctx.v_total = mode, v_total
+        if mode == "mse":
+            ctx.save_for_backward(logits, target)
+            return fused_distill_loss(logits, target, "mse", v_total)
+        loss, *residuals = fused_distill_kl_parts(logits, target)
+        ctx.save_for_backward(logits, target, *residuals)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, target, *residuals = ctx.saved_tensors
+        need_dt = ctx.needs_input_grad[1]
+        g = g.float().contiguous()
+        if ctx.mode == "mse":
+            da, db = fused_distill_mse_grad(logits, target, g, ctx.v_total,
+                                            need_target_grad=need_dt)
+        else:
+            da, db = fused_distill_kl_grad(logits, target, *residuals, g,
+                                           need_target_grad=need_dt)
+        return da, db, None, None
 
 
 class _CEDistillTokens(torch.autograd.Function):
@@ -115,6 +154,16 @@ def _flatten(logits: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
     return logits.reshape(t, v).contiguous(), t, v
 
 
+def distill_loss_tokens(logits: torch.Tensor, target_logits: torch.Tensor,
+                        mode: str = "mse") -> torch.Tensor:
+    """Per-token D over the trailing vocab dim, any leading shape (forward
+    only). Nothing is padded, so the mse mean is over the logits' own
+    width, as the reference's rescaled padded call gives."""
+    lg, t, v = _flatten(logits)
+    tg, _, _ = _flatten(target_logits)
+    return fused_distill_loss(lg, tg, mode, v).reshape(logits.shape[:-1])
+
+
 def _flat_labels(labels: torch.Tensor, t: int) -> torch.Tensor:
     return labels.reshape(t).to(torch.int32).contiguous()
 
@@ -135,6 +184,28 @@ def fused_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     lg, t, v = _flatten(logits)
     nll, smooth = _CEParts.apply(lg, _flat_labels(labels, t), v)
     per_tok = _smoothed(nll, smooth, label_smoothing)
+    return _masked_mean(per_tok, _flat_mask(mask, logits.shape[:-1], t))
+
+
+def fused_distill_mean(logits: torch.Tensor, target_logits: torch.Tensor,
+                       mode: str = "mse",
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable drop-in for ``distill_mse`` / ``distill_kl``: the
+    masked mean over tokens of D(logits, target_logits).
+
+    A target of another dtype than the student is upcast, with the
+    student, to the wider of the two (exact, as in ``fused_ce_distill``).
+    With no gradient to take (``no_grad``, or neither operand requires
+    one) the forward is row 8 alone, as the reference's primal."""
+    if mode not in ("mse", "kl"):
+        raise ValueError(f"fused_distill_mean mode {mode!r}: mse or kl")
+    wide = torch.promote_types(logits.dtype, target_logits.dtype)
+    a, t, v = _flatten(logits.to(wide))
+    b, _, _ = _flatten(target_logits.to(wide))
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        per_tok = _DistillTokens.apply(a, b, mode, v)
+    else:
+        per_tok = fused_distill_loss(a, b, mode, v)
     return _masked_mean(per_tok, _flat_mask(mask, logits.shape[:-1], t))
 
 

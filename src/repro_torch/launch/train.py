@@ -8,16 +8,24 @@ The flags are the reference launcher's, plus ``--device`` (``cuda`` by
 default; ``cpu`` runs the loss kernels' plain versions). ``--mode`` maps
 onto the engine's exchange strategies:
 
-    allreduce   AllReduce            gradient sync baseline
-    codist      PredictionExchange   Algorithm 1 logits exchange
+    allreduce         AllReduce            gradient sync baseline
+    codist            PredictionExchange   Algorithm 1 logits exchange
+    codist-ckpt       CheckpointExchange   Anil et al.'s stale replicas
+    codist-pipelined  PipelinedPredictions previous-step targets
 
-As in the reference, ``--reduced`` is a ``store_true`` flag that defaults
-to on, so the CLI trains the reduced config; ``chip_smoke.py`` drives the
-full-size config through ``train_codist`` and ``train_allreduce``. Modes, compressions and
-flags of features the port has not reached exit with status 2 and name the
-slice that brings them. ``--out DIR`` writes ``DIR/history.json`` (the
-reference's record list); the final checkpoint waits for the port of
-``checkpoint/io.py``.
+``--codist-n`` takes any number of peers and ``--compression`` every wire
+(none, bf16, topk, subsample). As in the reference, the CLI has no flag
+for the subsample count, so ``--compression subsample`` sends the full
+logits. ``--reduced`` is a ``store_true`` flag that defaults to on, so the
+CLI trains the reduced config; ``chip_smoke.py`` drives the full-size
+config through ``train_codist`` and ``train_allreduce``. The modes and
+flags of features the port has not reached (``codist-shardmap``,
+``codist-async`` and its fault and elastic flags, the observability
+flags) exit with status 2 and name the work that brings them. ``--out
+DIR`` writes ``DIR/history.json`` (the reference's record list) and the
+final parameters as ``DIR/final.npz`` + ``DIR/final.tree.json``
+(``checkpoint/io.py``; codistilled peers in the reference's stacked
+layout, so its ``load_pytree`` reads them).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (params_to_numpy, peer_params_to_numpy,
+                                    save_pytree)
 from repro_torch.configs import (CodistConfig, TrainConfig, get_config,
                                  get_reduced, list_archs)
 from repro_torch.data import MarkovLM, make_lm_batch
@@ -38,11 +48,13 @@ from repro_torch.train import stack_batches, train_allreduce, train_codist
 
 MODES = ["codist", "codist-ckpt", "codist-pipelined", "codist-shardmap",
          "codist-async", "allreduce"]
-PORTED_MODES = ("codist", "allreduce")
+PORTED_MODES = ("codist", "codist-ckpt", "codist-pipelined", "allreduce")
 
-_STRATEGIES = ("the checkpoint, pipelined, shard_map and async exchange "
-               "strategies come with the rest of ROADMAP Queue 1 item 5 and "
-               "item 9 (async runtime)")
+_STRATEGIES = {
+    "codist-shardmap": "the shard_map compressed exchange needs "
+                       "torch.distributed (ROADMAP Queue 1 item 11)",
+    "codist-async": "the async exchange comes with the async runtime "
+                    "(ROADMAP Queue 1 item 9)"}
 _ASYNC = "the async runtime (faults, elastic peers) comes with ROADMAP Queue 1 item 9"
 _OBS = ("tracing, metrics and alerts come with the observability port "
         "(ROADMAP Queue 1 item 11)")
@@ -52,21 +64,11 @@ def _unported(args, defaults) -> list:
     """(flag, reason) for every unported feature the arguments ask for."""
     out = []
     if args.mode not in PORTED_MODES:
-        out.append((f"--mode {args.mode}", _STRATEGIES))
+        out.append((f"--mode {args.mode}", _STRATEGIES[args.mode]))
     for flag in ("faults", "elastic", "staleness_bound", "join_burn_in",
                  "checkpoint_every", "recover_after"):
         if getattr(args, flag) != defaults[flag]:
             out.append(("--" + flag.replace("_", "-"), _ASYNC))
-    if args.compression in ("topk", "subsample"):
-        out.append((f"--compression {args.compression}",
-                    "top-k and subsample compression come with ROADMAP Queue "
-                    "1 item 5; subsample also needs the fused distillation "
-                    "kernels (Queue 2 rows 8-11)"))
-    if args.codist_n > 2 and args.fused_losses != "off":
-        out.append((f"--codist-n {args.codist_n}",
-                    "from the third peer on, the fused path needs the "
-                    "standalone distillation kernels (Queue 2 rows 8-11); "
-                    "use --fused-losses off"))
     for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
                       ("--alerts", args.alerts), ("--rules", args.rules),
                       ("--flight-recorder", args.flight_recorder)):
@@ -173,15 +175,23 @@ def main(argv=None) -> None:
                                       log_every=args.log_every, device=device)
     else:
         codist = CodistConfig(
-            n_models=args.codist_n, mode="predictions", period=args.period,
-            alpha0=args.alpha, alpha_growth=args.alpha_growth,
-            distill_loss=args.distill_loss, compression=args.compression,
-            topk=args.topk, steps_per_epoch=max(1, args.steps // 10))
+            n_models=args.codist_n,
+            mode="checkpoints" if args.mode == "codist-ckpt" else "predictions",
+            pipelined=args.mode == "codist-pipelined",
+            period=args.period, alpha0=args.alpha,
+            alpha_growth=args.alpha_growth, distill_loss=args.distill_loss,
+            compression=args.compression, topk=args.topk,
+            steps_per_epoch=max(1, args.steps // 10))
+        # coordinated sampling (every peer draws the same batch) except in
+        # checkpoint mode, where each peer draws its own
+        coordinated = codist.mode == "predictions"
 
         def batches(step):
-            # coordinated sampling: every peer draws the same batch
-            return stack_batches([lm_batch(step, args.seed)
-                                  for _ in range(args.codist_n)])
+            return stack_batches([
+                make_lm_batch(task, args.batch, args.seq, step,
+                              None if coordinated else g, seed=args.seed,
+                              device=device)
+                for g in range(args.codist_n)])
 
         state, hist = train_codist(model, codist, tc, batches,
                                    eval_batches=eval_batches,
@@ -204,9 +214,10 @@ def main(argv=None) -> None:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "history.json"), "w") as f:
             json.dump(hist.records, f, indent=1)
-        print(f"wrote {args.out}/history.json (final checkpoint: not "
-              "written until checkpoint/io.py is ported, ROADMAP Queue 1 "
-              "item 1)")
+        params = (params_to_numpy(state.params) if args.mode == "allreduce"
+                  else peer_params_to_numpy(state.params))
+        save_pytree(os.path.join(args.out, "final"), params)
+        print(f"wrote {args.out}/history.json and final checkpoint")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ every strategy once: the LR / weight-decay / label-smoothing / alpha
 schedules of ``state.step``, microbatched gradient accumulation, and the
 optimizer update with its ``trainable`` mask. A strategy supplies what
 differs: ``plan(step)`` (which variant runs, whether an exchange happens),
-``loss``, ``post_update`` and ``comm_bytes``.
+``distill_targets`` (live logits, the stale replicas' predictions, the
+previous step's logits), ``loss``, ``host_exchange``, ``post_update`` and
+``comm_bytes``.
 
     strategy = resolve_strategy(codist)
     bundle   = build_train_step(model, tc, codist, strategy, trainable)
@@ -17,11 +19,14 @@ The port runs eagerly: a step variant is a Python function (forward,
 ``torch.autograd.grad``, in-place optimizer update), not a compiled one.
 Metrics stay tensors on the device until the loop logs them.
 
-Strategies in this slice: ``AllReduce`` (the gradient-sync baseline: one
-model) and ``PredictionExchange`` (Algorithm 1 with coordinated sampling,
-"on" and "off" variants). ``CheckpointExchange``, ``PipelinedPredictions``,
-``ShardMapCompressed`` and ``AsyncPrediction`` come later: resolving them
-raises, naming ROADMAP Queue 1 item 5.
+Strategies: ``AllReduce`` (the gradient-sync baseline: one model),
+``PredictionExchange`` (Algorithm 1 with coordinated sampling, "on" and
+"off" variants), ``CheckpointExchange`` (Anil et al.'s stale replicas,
+refreshed on the host every ``period`` steps) and ``PipelinedPredictions``
+(the previous step's logits, with a replay forward on the previous batch).
+``ShardMapCompressed`` needs ``torch.distributed`` (ROADMAP Queue 1 item
+11) and ``AsyncPrediction`` the async runtime (item 9): the first raises,
+naming its item, and the second is not in the port.
 """
 from __future__ import annotations
 
@@ -37,13 +42,11 @@ from repro_torch.core import schedules as sched
 from repro_torch.core.exchange import StepPlan
 from repro_torch.optim import make_optimizer
 from repro_torch.train.state import (CodistState, TrainState,
-                                     init_codist_state, init_train_state)
+                                     init_codist_state, init_peer_state,
+                                     init_train_state, snapshot_params)
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
-
-_LATER = ("the {} exchange strategy comes with the rest of Queue 1 item 5 "
-          "(ROADMAP): this slice ports AllReduce and PredictionExchange")
 
 
 # ----------------------------------------------------------------------------
@@ -124,7 +127,8 @@ def _grads_metrics_aux(loss_fn, params: PyTree, batch: Dict, k: int,
     k > 1 accumulates over microbatches: every batch leaf carries a leading
     (k, ...) axis, each microbatch's gradient is added in ``accum_dtype``
     divided by k, and metrics are averaged over microbatches; ``aux`` is the
-    list of the microbatches' aux values."""
+    list of the microbatches' aux values. ``batch`` may nest dicts (the
+    pipelined operand)."""
     leaves = tree_leaves(params)
     if k <= 1:
         total, (metrics, aux) = loss_fn(params, batch)
@@ -138,7 +142,7 @@ def _grads_metrics_aux(loss_fn, params: PyTree, batch: Dict, k: int,
     m_acc: Dict = {}
     auxs = []
     for j in range(k):
-        mb = {name: v[j] for name, v in batch.items()}
+        mb = tree_map(lambda v: v[j], batch)
         total, (m, aux) = loss_fn(params, mb)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         for acc, g in zip(g_acc, grads):
@@ -186,8 +190,9 @@ def _plain_task_metrics(codist, logits_all, batch, ls, fused):
 
 class ExchangeStrategy:
     """Pluggable Section-3 synchronization mechanism. Host-side API:
-    ``init_state``, ``plan``, ``variant_for``, ``comm_bytes``,
-    ``make_eval``; per step: ``prepare``, ``loss``, ``post_update``."""
+    ``init_state``, ``ensure_state``, ``plan``, ``variant_for``,
+    ``host_exchange``, ``comm_bytes``, ``make_eval``; per step:
+    ``prepare``, ``distill_targets``, ``loss``, ``post_update``."""
 
     name = "base"
     variants: Tuple[str, ...] = ("on",)
@@ -202,11 +207,21 @@ class ExchangeStrategy:
         return init_codist_state(model, generator, self.codist.n_models,
                                  opt_init, device=device)
 
+    def ensure_state(self, state, model, tc: TrainConfig,
+                     example_batch: Optional[Dict] = None):
+        """Add strategy-specific state to a user-supplied ``state``."""
+        return state
+
     def plan(self, step: int) -> StepPlan:
         raise NotImplementedError
 
     def variant_for(self, plan: StepPlan) -> str:
         return "on"
+
+    def host_exchange(self, state):
+        """Host-side exchange action (checkpoint mode refreshes the stale
+        replicas); the other mechanisms exchange inside the step."""
+        return state
 
     def comm_bytes(self, model, state, batch_all: Dict,
                    microbatch: int = 0) -> float:
@@ -221,8 +236,14 @@ class ExchangeStrategy:
         """Microbatch axis in front of the peer axis: (n, k, B/k, ...) ->
         (k, n, B/k, ...)."""
         if k > 1:
-            return {name: v.transpose(0, 1) for name, v in batch_all.items()}
+            return tree_map(lambda v: v.transpose(0, 1), batch_all)
         return batch_all
+
+    def distill_targets(self, model, tc: TrainConfig, state, batch: Dict,
+                        logits_all) -> Dict:
+        """kwargs for ``codist_loss`` selecting the distillation targets
+        (none: the live logits)."""
+        return {}
 
     def loss(self, model, tc: TrainConfig, sch: Schedules, state, params,
              batch: Dict, variant: str):
@@ -232,7 +253,8 @@ class ExchangeStrategy:
             total, metrics = cd.codist_loss(
                 self.codist, logits_all, batch["labels"],
                 sch.alpha(state.step), sch.ls(state.step), batch.get("mask"),
-                fused=tc.fused_losses)
+                fused=tc.fused_losses,
+                **self.distill_targets(model, tc, state, batch, logits_all))
         else:
             total, metrics = _plain_task_metrics(
                 self.codist, logits_all, batch, sch.ls(state.step),
@@ -317,19 +339,161 @@ class PredictionExchange(ExchangeStrategy):
         return (cfg.n_models - 1) * b_pred * samples / 8.0
 
 
+class CheckpointExchange(PredictionExchange):
+    """Anil et al.'s variant: every step each peer draws its OWN batch and
+    distills against the stale replicas' predictions on it (n - 1 extra
+    gradient-free forwards per peer); every ``period`` steps the host
+    refreshes ``state.stale`` (``refresh_stale``, the cross-pod parameter
+    all-gather)."""
+
+    name = "checkpoint"
+    variants = ("on",)
+
+    def init_state(self, model, tc, generator, opt_init, example_batch=None,
+                   device="cuda"):
+        return init_codist_state(model, generator, self.codist.n_models,
+                                 opt_init, device=device, with_stale=True)
+
+    def ensure_state(self, state, model, tc, example_batch=None):
+        if state.stale is None:   # user-supplied state without replicas
+            return state._replace(stale=snapshot_params(state.params))
+        return state
+
+    def plan(self, step: int) -> StepPlan:
+        # distill EVERY step against the stale replicas (even during
+        # burn-in, where alpha is 0); exchange every period
+        p = StepPlan.for_step(replace(self.codist, mode="checkpoints"), step)
+        return StepPlan(True, p.exchange)
+
+    def host_exchange(self, state):
+        return refresh_stale(state)
+
+    def comm_bytes(self, model, state, batch_all, microbatch=0) -> float:
+        n = self.codist.n_models
+        return (n - 1) * _param_bits(state.params, n) / 8.0
+
+    @torch.no_grad()
+    def distill_targets(self, model, tc, state, batch, logits_all):
+        """``peer_pairwise[i][j]`` = stale replica j's logits on peer i's
+        (micro)batch. The reference computes all n x n forwards;
+        ``codist_loss`` never reads the diagonal, so it stays None here."""
+        n = len(state.stale)
+        pairwise = [[None if j == i else
+                     _task_forward(model, state.stale[j],
+                                   _peer_batch(batch, i), tc.remat)[0]
+                     for j in range(n)] for i in range(n)]
+        return {"peer_pairwise": pairwise}
+
+
+class PipelinedPredictions(ExchangeStrategy):
+    """Beyond-paper: distill against the PREVIOUS step's peer logits,
+    replaying the previous (coordinated) batch for the distillation term,
+    so the logits collective of step k - 1 can overlap step k's compute.
+
+    ``state.peer = {"batch": previous batch_all, "logits": previous logits
+    (n, [k,] B, S, V) fp32, "valid": bool}``; with microbatching both carry
+    the (n, k, B/k, ...) layout so the replay pairs microbatch m with its
+    own logits. ``post_update`` writes the new logits into the buffer in
+    place (it is 5 GB at full width for two peers)."""
+
+    name = "pipelined"
+
+    def init_state(self, model, tc, generator, opt_init, example_batch=None,
+                   device="cuda"):
+        state = init_codist_state(model, generator, self.codist.n_models,
+                                  opt_init, device=device)
+        return self.ensure_state(state, model, tc, example_batch)
+
+    def ensure_state(self, state, model, tc, example_batch=None):
+        if state.peer is not None or example_batch is None:
+            return state
+        # logits (n, [k, B/k,] B, S, V): the tokens' shape, vocab-wide
+        shape = tuple(example_batch["tokens"].shape) + (model.cfg.padded_vocab,)
+        return state._replace(peer=init_peer_state(example_batch, shape))
+
+    def plan(self, step: int) -> StepPlan:
+        # the (stale) logits collective overlaps every step
+        return StepPlan(True, True)
+
+    def comm_bytes(self, model, state, batch_all, microbatch=0) -> float:
+        return PredictionExchange.comm_bytes(self, model, state, batch_all,
+                                             microbatch)
+
+    def prepare(self, state, batch_all, k):
+        operand = {"batch": batch_all, "peer_batch": state.peer["batch"],
+                   "peer_logits": state.peer["logits"]}
+        if k > 1:
+            operand = tree_map(lambda v: v.transpose(0, 1), operand)
+        return operand
+
+    def loss(self, model, tc, sch, state, params, operand, variant):
+        batch, peer_batch = operand["batch"], operand["peer_batch"]
+        ls = sch.ls(state.step)
+        logits_all, aux_all = _stacked_forward(model, params, batch, tc.remat)
+        labels, mask = batch["labels"], batch.get("mask")
+        task = torch.stack([
+            cd.cross_entropy(lg, labels[i], ls,
+                             None if mask is None else mask[i],
+                             fused=tc.fused_losses)
+            for i, lg in enumerate(logits_all)])
+        # replay forward on the previous batch for the distillation term
+        replay_logits, _ = _stacked_forward(model, params, peer_batch,
+                                            tc.remat)
+        _, dmetrics = cd.codist_loss(
+            self.codist, replay_logits, peer_batch["labels"],
+            sch.alpha(state.step), 0.0, peer_batch.get("mask"),
+            peer_logits_all=operand["peer_logits"], fused=tc.fused_losses)
+        dist = dmetrics["distill_loss_per_model"]
+        alpha = sch.alpha(state.step) * float(state.peer["valid"])
+        total = (task + alpha * dist).mean() + aux_all.mean()
+        metrics = {"loss": total, "task_loss": task.mean(),
+                   "distill_loss": dist.mean(), "alpha": alpha,
+                   "aux_loss": aux_all.mean(),
+                   "accuracy": torch.stack([
+                       cd.accuracy(lg.detach(), labels[i])
+                       for i, lg in enumerate(logits_all)]).mean()}
+        return total, metrics, [lg.detach() for lg in logits_all]
+
+    @torch.no_grad()
+    def post_update(self, state, params, opt, batch_all, aux, k):
+        buf = state.peer["logits"]
+        for i in range(len(params)):
+            if k > 1:          # aux: k microbatches x n peers
+                for j, peers in enumerate(aux):
+                    buf[i, j].copy_(peers[i])
+            else:
+                buf[i].copy_(aux[i])
+        new_peer = {"batch": batch_all, "logits": buf, "valid": True}
+        return CodistState(params, opt, state.step + 1, state.stale, new_peer)
+
+
+class ShardMapCompressed(PredictionExchange):
+    """Prediction exchange with an explicitly scheduled compressed wire
+    over a "pod" mesh axis. It needs ``torch.distributed`` (ROADMAP Queue 1
+    item 11); constructing it raises."""
+
+    name = "shardmap"
+
+    def __init__(self, codist: CodistConfig, mesh=None):
+        raise NotImplementedError(
+            "the shard_map compressed exchange needs torch.distributed, "
+            "which comes with ROADMAP Queue 1 item 11")
+
+
 def resolve_strategy(codist: Optional[CodistConfig],
                      mesh=None) -> ExchangeStrategy:
     """CodistConfig -> strategy, as the reference dispatches: None ->
-    AllReduce; ``pipelined``, ``mode="checkpoints"`` and a pod mesh pick
-    strategies of a later slice and raise."""
+    AllReduce; a mesh -> ShardMapCompressed (which raises: Queue 1 item
+    11); ``pipelined`` -> PipelinedPredictions; ``mode="checkpoints"`` ->
+    CheckpointExchange; else PredictionExchange."""
     if codist is None:
         return AllReduce()
     if mesh is not None:
-        raise NotImplementedError(_LATER.format("shard_map compressed"))
+        return ShardMapCompressed(codist, mesh)
     if codist.pipelined:
-        raise NotImplementedError(_LATER.format("pipelined prediction"))
+        return PipelinedPredictions(codist)
     if codist.mode == "checkpoints":
-        raise NotImplementedError(_LATER.format("checkpoint"))
+        return CheckpointExchange(codist)
     return PredictionExchange(codist)
 
 
@@ -347,10 +511,11 @@ class StepBundle:
         self.eval_fn = eval_fn
 
     def apply(self, state, batch_all: Dict, step_idx: int):
-        """plan -> step variant. Returns ``(state, metrics, plan)``. (The
-        reference's host-side exchange hook serves the checkpoint strategy
-        of a later slice.)"""
+        """plan -> (optional) host exchange -> step variant. Returns
+        ``(state, metrics, plan)``."""
         plan = self.strategy.plan(step_idx)
+        if plan.exchange:
+            state = self.strategy.host_exchange(state)
         state, metrics = self.variants[self.strategy.variant_for(plan)](
             state, batch_all)
         return state, metrics, plan
@@ -392,8 +557,19 @@ def build_train_step(model, tc: TrainConfig, codist: Optional[CodistConfig],
 
 
 # ----------------------------------------------------------------------------
-# eval steps
+# host-side exchange ops & eval steps
 # ----------------------------------------------------------------------------
+
+@torch.no_grad()
+def refresh_stale(state: CodistState) -> CodistState:
+    """The checkpoint exchange: stale <- current params (the cross-pod
+    parameter all-gather in the sharded setting). Copies into the existing
+    replicas in place; a state without them gets new ones."""
+    if state.stale is None:
+        return state._replace(stale=snapshot_params(state.params))
+    for s, p in zip(tree_leaves(state.stale), tree_leaves(state.params)):
+        s.copy_(p)
+    return state
 
 def make_eval_step(model, tc: Optional[TrainConfig] = None) -> Callable:
     fused = tc.fused_losses if tc is not None else None

@@ -2,7 +2,9 @@
 event/byte accounting, eval, and the Fig.-7 parameter-distance probe.
 
 Strategy-agnostic, as the reference's: ``strategy.plan(k)`` picks the step
-variant and says when an exchange happens, ``strategy.comm_bytes`` prices
+variant and says when an exchange happens, the strategy's
+``host_exchange`` does any host-side communication (the checkpoint-mode
+stale refresh, inside ``StepBundle.apply``), ``strategy.comm_bytes`` prices
 each exchange event. The tracer / metrics / watch hooks of the reference are
 the observability port's (ROADMAP Queue 1 item 11): here they must be None.
 """
@@ -116,6 +118,8 @@ def train(model, tc: TrainConfig, batches: Callable[[int], Dict],
     if state is None:
         state = strategy.init_state(model, tc, gen, opt_init, example,
                                     device=dev)
+    else:
+        state = strategy.ensure_state(state, model, tc, example)
     bundle = build_train_step(model, tc, codist, strategy, trainable)
     eval_fn = bundle.eval_fn
     params0 = (tree_map(lambda p: p.detach().clone(), state.params)

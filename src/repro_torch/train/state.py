@@ -8,7 +8,7 @@ Python int (the host drives every step).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,9 +27,11 @@ class TrainState(NamedTuple):
 
 class CodistState(NamedTuple):
     """State of n codistilling peers: ``params`` is a list of n trees and
-    ``opt.m`` / ``opt.v`` lists of n trees. ``stale`` (checkpoint mode) and
-    ``peer`` (pipelined mode) belong to strategies of a later slice and
-    stay None here."""
+    ``opt.m`` / ``opt.v`` lists of n trees.
+
+    ``stale`` (checkpoint mode): the peers' parameters as of the last
+    exchange, a list of n detached trees. ``peer`` (pipelined mode): the
+    previous exchange's batch and logits (``init_peer_state``)."""
     params: PyTree
     opt: OptState
     step: int
@@ -52,8 +54,25 @@ def init_train_state(model, generator: torch.Generator, opt_init,
     return TrainState(params, opt_init(params), 0)
 
 
+def snapshot_params(params: PyTree) -> PyTree:
+    """Detached copies of every leaf (the checkpoint exchange's replicas)."""
+    return tree_map(lambda p: p.detach().clone(), params)
+
+
 def init_codist_state(model, generator: torch.Generator, n: int, opt_init,
-                      device="cuda") -> CodistState:
+                      device="cuda", with_stale: bool = False) -> CodistState:
     params = trainable_params(init_stacked(model.init, generator, n,
                                            device=device))
-    return CodistState(params, opt_init(params), 0, None, None)
+    stale = snapshot_params(params) if with_stale else None
+    return CodistState(params, opt_init(params), 0, stale, None)
+
+
+def init_peer_state(batch_all: Dict, logits_shape: Tuple[int, ...]) -> Dict:
+    """Pipelined-prediction peer buffer: the previous batch (zeros) and
+    logits (fp32 zeros, as the reference's), invalid until the first
+    exchange (``valid`` gates the distillation weight)."""
+    dev = batch_all["labels"].device
+    return {"batch": {k: torch.zeros_like(v) for k, v in batch_all.items()},
+            "logits": torch.zeros(logits_shape, dtype=torch.float32,
+                                  device=dev),
+            "valid": False}

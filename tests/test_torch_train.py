@@ -16,6 +16,8 @@ weights, optimizer states and batches (numpy, handed to both sides).
 * ``microbatch=2`` equals ``microbatch=1`` within 1e-5 (the port alone).
 * The port's ``History.save`` is read by the reference's ``History.load``.
 * The CLI trains on the CPU and exits 2 on every unported flag.
+* Entry points default to the card; the checkpoint and pipelined
+  strategies resolve, the shard_map one raises.
 """
 from dataclasses import replace
 
@@ -275,13 +277,11 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
           "--compression", "bf16"])
     out = capsys.readouterr().out
     assert out.count("done: 1 steps") == 2
-    for argv in (["--mode", "codist-ckpt"], ["--mode", "codist-pipelined"],
-                 ["--mode", "codist-shardmap"], ["--mode", "codist-async"],
+    for argv in (["--mode", "codist-shardmap"], ["--mode", "codist-async"],
                  ["--faults", "fail=1@3"], ["--elastic", "2.0"],
                  ["--staleness-bound", "3"], ["--join-burn-in", "2"],
                  ["--checkpoint-every", "5"], ["--recover-after", "3"],
-                 ["--compression", "topk"], ["--compression", "subsample"],
-                 ["--codist-n", "3"], ["--trace", "t.json"],
+                 ["--trace", "t.json"],
                  ["--metrics", "m.json"], ["--alerts", "a.jsonl"],
                  ["--rules", "r.json"], ["--flight-recorder", "d"]):
         with pytest.raises(SystemExit) as e:
@@ -290,15 +290,23 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
 
 
 def test_cuda_default_and_later_strategies_raise():
-    """Entry points default to the card and raise without one; strategies
-    of a later slice raise, naming it."""
+    """Entry points default to the card and raise without one; the
+    checkpoint and pipelined strategies resolve; the shard_map strategy (a
+    mesh) raises, naming its ROADMAP item."""
     from repro_torch.data import MarkovLM, make_lm_batch
-    from repro_torch.train import resolve_strategy, train_codist
+    from repro_torch.train import (CheckpointExchange, PipelinedPredictions,
+                                   ShardMapCompressed, resolve_strategy,
+                                   train_codist)
     assert isinstance(resolve_strategy(None), AllReduce)
     assert isinstance(resolve_strategy(CodistConfig()), PredictionExchange)
-    for cd in (CodistConfig(mode="checkpoints"), CodistConfig(pipelined=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            resolve_strategy(cd)
+    assert isinstance(resolve_strategy(CodistConfig(mode="checkpoints")),
+                      CheckpointExchange)
+    assert isinstance(resolve_strategy(CodistConfig(pipelined=True)),
+                      PipelinedPredictions)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        resolve_strategy(CodistConfig(), mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        ShardMapCompressed(CodistConfig())
     if torch.cuda.is_available():
         return
     task = MarkovLM(vocab=64)
