@@ -15,7 +15,15 @@ exits non-zero:
                 the paged-KV kernels at the fleet's shapes (qwen2-7b: S=16
                 slots, H=28, KVh=4, hd=128, BS=16, MB=34, NB=1025; ragged
                 lengths incl. 0, dead table entries aimed at a NaN-poisoned
-                free block), in bf16 and fp32; the eight loss kernels (CE,
+                free block), in bf16 and fp32, and over int8 and fp8 pools
+                (the quantizing scatter bit-exact from fp32 and bf16 rows,
+                the dequantizing decode with fp32 and bf16 q); the
+                standalone forward CE (T=4096, V=152064 bf16; ragged fp32,
+                unaligned bf16, labels out of range) and flash attention
+                (qwen1.5-0.5b training and qwen2-7b 4k prefill shapes, a
+                1024 window, ragged fp32, non-causal T != S, windows that
+                skip whole tiles; bf16 held element by element); the
+                eight loss kernels (CE,
                 CE + distill and distill alone, forward and backward, mse
                 and kl, the target gradient written and skipped) at the
                 training main path's shape (T=4096, V=152064, bf16) and at
@@ -27,11 +35,22 @@ exits non-zero:
                 requests through ``FleetRouter.run`` on the fused path,
                 with launch counts checked against the decode ticks; then
                 one decode tick through the gather path (``--fused-attention
-                off``) on the same weights and pool, against the fused tick.
+                off``) on the same weights and pool, against the fused tick;
+                then the same peers and workload over int8 and fp8 pools
+                (launch counts of the quantizing scatter and decode checked,
+                a fused-vs-gather tick over int8 pools).
   5. parity   — reduced qwen2-7b in fp32: the port on the card and on the
                 CPU (plain versions) with the same weights and workload;
-                teacher-forced logits within 1e-4, equal ``FleetReport``s.
-  6. train    — qwen1.5-0.5b at full width and depth (24 layers, d_model
+                teacher-forced logits within 1e-4, equal ``FleetReport``s;
+                over int8 and fp8 pools the same counts, logits within 1e-3
+                of their scale, and pools that differ, where they do, by
+                one quantization step in at most 0.1% of the elements,
+                after the prefill inserts and after 4 decode ticks.
+  6. ops      — the standalone entries ``ops.cross_entropy_tokens`` (T=4096,
+                V=152064 bf16) and ``ops.attention`` (the kernels phase's
+                flash shapes a-c), launches counted, outputs against the
+                plain versions.
+  7. train    — qwen1.5-0.5b at full width and depth (24 layers, d_model
                 1024, V=152064; fp32 master weights from a seeded
                 generator, bf16 activations): 2 codistilling peers, 10 steps
                 of mse codistillation with AdamW at batch 8 x seq 512 per
@@ -39,7 +58,7 @@ exits non-zero:
                 steps and 2 kl codist steps, launch counts checked per run;
                 ms per step, device-busy share and top kernels from
                 torch.profiler, peak memory.
-  7. train_peers — the same model and batch through ``train_codist`` with
+  8. train_peers — the same model and batch through ``train_codist`` with
                 the other exchanges: (a) 3 peers, mse, 6 steps and an
                 eval, then 2 kl steps (task loss must fall); (b) 2 peers,
                 a subsample wire of 64 tokens, 2 mse and 2 kl steps; (c)
@@ -48,7 +67,7 @@ exits non-zero:
                 0); (e) a top-k wire of 64, 2 peers, 2 steps. Launch counts
                 per distilling step checked against codist_loss's loop;
                 ms per step, device-busy share, peak memory.
-  8. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps on the
+  9. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps on the
                 card through the kernels and on the CPU through their plain
                 versions, same weights and batches: 2 peers mse and kl, 3
                 peers mse, a subsample wire, the checkpoint and the
@@ -72,7 +91,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "fleet", "parity", "train",
+PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "train_parity")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
@@ -82,9 +101,12 @@ LENGTHS = [0, 1, 15, 16, 17, 31, 47, 100, 255, 256, 300, 401, 511, 512, 530,
            543]
 POISON = 1           # a free block filled with NaN, named only by dead entries
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 and bf16 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32, bf16 FLOP/s and
+# int8 / fp8 OP/s
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
+QUANT = (torch.int8, torch.float8_e4m3fn)
 
 SOURCES = {
     "paged_scatter": ("src/repro_torch/csrc/paged_cache.cu",
@@ -93,6 +115,12 @@ SOURCES = {
                      "src/repro/kernels/paged_cache.py:60"),
     "paged_attention_decode": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:101"),
+    "paged_attention_decode_quant": ("src/repro_torch/csrc/paged_attention.cu",
+                                     "src/repro/kernels/paged_attention.py:54"),
+    "paged_scatter_quant": ("src/repro_torch/csrc/paged_cache.cu",
+                            "src/repro/kernels/paged_cache.py:219"),
+    "fused_cross_entropy": ("src/repro_torch/csrc/fused_losses.cu",
+                            "src/repro/kernels/fused_ce.py:117"),
     "fused_cross_entropy_parts": ("src/repro_torch/csrc/fused_losses.cu",
                                   "src/repro/kernels/fused_ce.py:177"),
     "fused_cross_entropy_grad": ("src/repro_torch/csrc/fused_losses.cu",
@@ -109,10 +137,15 @@ SOURCES = {
                                "src/repro/kernels/distill_loss.py:217"),
     "fused_distill_kl_grad": ("src/repro_torch/csrc/fused_losses.cu",
                               "src/repro/kernels/distill_loss.py:240"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:67"),
 }
 # the paths each kernel belongs to (each must launch it where it ran)
 PATHS = {"paged_scatter": ("fleet",), "paged_gather": ("fleet",),
          "paged_attention_decode": ("fleet",),
+         "paged_attention_decode_quant": ("fleet",),
+         "paged_scatter_quant": ("fleet",),
+         "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers"),
          "fused_cross_entropy_grad": ("train", "train_peers"),
          "fused_ce_distill_parts": ("train", "train_peers"),
@@ -264,23 +297,35 @@ def bf16_ulp(x: torch.Tensor) -> float:
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 2.0 ** -133
 
 
-def bf16_grad_misses(k: torch.Tensor, p: torch.Tensor, rows: int = 256) -> int:
-    """Elements of a bf16 gradient ``k`` farther from its plain version
-    ``p`` than one bf16 ulp at the element's own magnitude plus a floor of
-    2^-23 max|p|. Both sides round an fp32 value once, and the two fp32
-    values sum the same terms in other orders, so they differ by a few fp32
-    ulps of the largest term (at most max|p|): the floor covers that where
-    the terms cancel towards 0. A dropped or wrong term fails wherever it
-    is larger than the element's ulp. Compared ``rows`` rows at a time."""
-    floor = 2.0 ** -23 * float(p.float().abs().max())
-    misses = 0
-    for i in range(0, p.shape[0], rows):
-        pf, kf = p[i:i + rows].float(), k[i:i + rows].float()
+def bf16_misses(k: torch.Tensor, p: torch.Tensor, floor_rel: float = 2.0 ** -23,
+                chunk: int = 1 << 25):
+    """(count, worst ratio) of the elements of a bf16 output ``k`` farther
+    from its plain version ``p`` than one bf16 ulp at the element's own
+    magnitude plus a floor of ``floor_rel * max|p|``; the ratio is the
+    largest |k - p| / (ulp + floor). Both sides round an fp32 value once,
+    and the two fp32 values sum the same terms in other orders, so they
+    differ by a few fp32 ulps of the largest partial sum: the floor covers
+    that where the terms cancel towards 0. A dropped or wrong term fails
+    wherever it is larger than the element's ulp. Compared ``chunk``
+    elements at a time."""
+    floor = floor_rel * float(p.float().abs().max())
+    kv, pv = k.reshape(-1), p.reshape(-1)
+    misses, worst = 0, 0.0
+    for i in range(0, pv.numel(), chunk):
+        pf, kf = pv[i:i + chunk].float(), kv[i:i + chunk].float()
         m, e = torch.frexp(pf.abs())
         ulp = torch.where(m > 0, torch.ldexp(torch.ones_like(m), e - 8),
                           torch.zeros_like(m))
-        misses += int(((kf - pf).abs() > ulp + floor).sum())
-    return misses
+        ratio = (kf - pf).abs() / (ulp + floor)
+        misses += int((ratio > 1).sum())
+        worst = max(worst, float(ratio.max()))
+    return misses, worst
+
+
+def bf16_grad_misses(k: torch.Tensor, p: torch.Tensor) -> int:
+    """Elements of a bf16 gradient beyond one bf16 ulp of their own plus
+    2^-23 max|p| (``bf16_misses``)."""
+    return bf16_misses(k, p)[0]
 
 
 def phase_kernels(dev: torch.device, flush: torch.Tensor):
@@ -391,6 +436,272 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
             log(f"  {kname} bf16: kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
                 f"bound {r['bound_ms']:.5f} ms ({b_by})")
+    return results
+
+
+def quantized_pools(inp, dtype, dev: torch.device):
+    """``kernel_inputs``' K and V pools quantized to ``dtype`` on the card,
+    each with its (NB, BS) scales: the null block 0 and scale 0, the
+    poisoned block with NaN scales (and NaN fp8 rows)."""
+    from repro_torch.kernels import quantize_rows
+    out = []
+    for name in ("k", "v"):
+        full = torch.from_numpy(inp[name]).to(dev)
+        full[POISON] = 0.0
+        q, sc = quantize_rows(full, dtype)
+        sc[POISON] = float("nan")
+        if dtype == torch.float8_e4m3fn:
+            q.view(torch.uint8)[POISON] = 0x7F           # e4m3fn NaN
+        out += [q.contiguous(), sc.contiguous()]
+    return out
+
+
+def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
+    """Rows 4 and 1q over int8 and fp8 pools at the main-path shapes: the
+    quantizing scatter bit-exact against its plain version from fp32 and
+    bf16 rows (poisoned and null blocks untouched), the dequantizing decode
+    against its plain version with fp32 q (1e-5 of the output's scale) and
+    bf16 q (one bf16 ulp of it); times with the fleet's bf16 rows and q.
+    Returns the int8 rows; the fp8 times are printed."""
+    from repro_torch.kernels import (paged_attention_decode,
+                                     paged_attention_decode_plain,
+                                     paged_scatter_quant,
+                                     paged_scatter_quant_plain)
+    inp = kernel_inputs()
+    t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()
+         if k not in ("k", "v")}
+    lengths, table, ws, wo = t["lengths"], t["table"], t["wslot"], t["woff"]
+    writers = int((ws >= 0).sum())
+    rows = int((lengths.long() + 1).sum())
+    results = {}
+    for qdt in QUANT:
+        name = "int8" if qdt == torch.int8 else "fp8"
+        kq, ks, vq, vs = quantized_pools(inp, qdt, dev)
+        for rdt in (torch.float32, torch.bfloat16):
+            new = t["new"].to(rdt)
+            pk, sk, pp, sp = kq.clone(), ks.clone(), kq.clone(), ks.clone()
+            paged_scatter_quant(pk, sk, new, ws, wo)
+            paged_scatter_quant_plain(pp, sp, new, ws, wo)
+            sync(dev)
+            what = f"paged_scatter_quant {name} from {str(rdt)[6:]} rows"
+            require(bits_equal(pk, pp) and bits_equal(sk, sp),
+                    f"{what}: kernel != plain")
+            require(bits_equal(pk[POISON], kq[POISON])
+                    and bits_equal(sk[POISON], ks[POISON]),
+                    f"{what}: poisoned block written")
+            require(not bool(pk[0].view(torch.uint8).any())
+                    and not bool(sk[0].any()), f"{what}: null block written")
+        new = t["new"].to(torch.bfloat16)        # the fleet's rows
+        paged_scatter_quant(kq, ks, new, ws, wo)
+        paged_scatter_quant(vq, vs, new, ws, wo)
+        msg = []
+        for qd in (torch.float32, torch.bfloat16):
+            q = t["q"].to(qd)
+            o_k = paged_attention_decode(q, kq, vq, table, lengths, ks, vs)
+            o_p = paged_attention_decode_plain(q, kq, vq, table, lengths, ks,
+                                               vs)
+            sync(dev)
+            what = f"quantized decode {name}, {str(qd)[6:]} q"
+            require(bool(torch.isfinite(o_k).all()), f"{what}: non-finite")
+            require(not bool((o_k[0] != 0).any()),
+                    f"{what}: inactive slot output != 0")
+            err = max_err(o_k, o_p)
+            # fp32: the sums run in other orders (~1e-7 relative); bf16:
+            # both round the same fp32 value once
+            tol = (1e-5 * max(float(o_p.abs().max()), 1.0)
+                   if qd == torch.float32 else bf16_ulp(o_p))
+            require(err <= tol, f"{what}: max|kernel-plain| {err:.3e} > {tol:.3e}")
+            msg.append(f"{str(qd)[6:]} q {err:.3e} (tol {tol:.3e})")
+        log(f"kernels {name} pools: scatter_quant bit-exact from fp32 and bf16 "
+            f"rows; decode max|kernel-plain| " + ", ".join(msg))
+
+        # ---- times at the main path's types (bf16 rows and q) ----
+        q = t["q"].to(torch.bfloat16)
+        row_b = KVH * HD * qdt.itemsize + 4          # payload + scale
+        bytes_decode = (2 * rows * row_b + 2 * q.numel() * 2
+                        + table.numel() * 4 + lengths.numel() * 4)
+        bytes_scatter = writers * (KVH * HD * 2 + row_b) + 2 * NB * 4
+        pk, sk = kq.clone(), ks.clone()
+
+        def bound(nbytes, ops):
+            tb, tf = nbytes / HBM_BPS * 1e3, ops / PEAK_FLOPS[qdt] * 1e3
+            return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+        specs = {
+            "paged_scatter_quant": (
+                lambda: paged_scatter_quant(pk, sk, new, ws, wo),
+                lambda: paged_scatter_quant_plain(pk, sk, new, ws, wo),
+                bound(bytes_scatter, 0)),
+            "paged_attention_decode_quant": (
+                lambda: paged_attention_decode(q, kq, vq, table, lengths, ks,
+                                               vs),
+                lambda: paged_attention_decode_plain(q, kq, vq, table,
+                                                     lengths, ks, vs),
+                bound(bytes_decode, 4 * H * HD * rows)),
+        }
+        for kname, (kern, plain, (b_ms, b_by)) in specs.items():
+            r = {"ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                 "max_abs_err": 0.0 if kname == "paged_scatter_quant" else err}
+            if qdt == torch.int8:
+                results[kname] = r
+            log(f"  {kname} {name} (bf16 rows, q): kernel {r['ms']:.4f} ms  "
+                f"plain {r['plain_ms']:.4f} ms  library — (no single call)  "
+                f"bound {b_ms:.5f} ms ({b_by})")
+    return results
+
+
+# the standalone flash attention's shapes: (label, B, S, T, H, KVh, hd,
+# causal, window, dtype); a-c are timed (qwen1.5-0.5b training attention,
+# qwen2-7b prefill at 4k, the same with a 1024 window), d-i are checks
+# (ragged, non-causal T != S, rows masked in every column, a window
+# without causal, and a window that skips whole 64-column tiles, causal
+# and not, held in fp32)
+FLASH_SHAPES = [
+    ("a", 8, 512, 512, 16, 16, 64, True, 0, torch.bfloat16),
+    ("b", 1, 4096, 4096, 28, 4, 128, True, 0, torch.bfloat16),
+    ("c", 1, 4096, 4096, 28, 4, 128, True, 1024, torch.bfloat16),
+    ("d", 2, 100, 100, 6, 2, 64, True, 0, torch.float32),
+    ("e", 2, 96, 200, 8, 2, 128, False, 0, torch.float32),
+    ("e bf16", 2, 96, 200, 8, 2, 128, False, 0, torch.bfloat16),
+    ("f", 1, 200, 64, 4, 2, 32, True, 16, torch.float32),
+    ("g", 1, 128, 128, 4, 4, 16, False, 24, torch.float32),
+    ("h", 1, 512, 512, 4, 2, 64, True, 100, torch.float32),
+    ("i", 1, 512, 512, 4, 2, 64, False, 100, torch.float32),
+]
+TIMED_FLASH = ("a", "b", "c")
+# the standalone CE's shapes: the training main path's, ragged fp32, and
+# bf16 rows off any 16-byte boundary
+CE_SHAPES = [("main", TRAIN_T, TRAIN_V, torch.bfloat16),
+             ("ragged", 37, 1000, torch.float32),
+             ("unaligned", 37, 700, torch.bfloat16)]
+
+
+def flash_inputs(b, s, t, h, kvh, hd, dtype, dev: torch.device, seed: int):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, hd), (b, t, kvh, hd), (b, t, kvh, hd))]
+
+
+def flash_bound(b, s, t, h, kvh, hd, causal, window, dtype, dev):
+    """(bound ms, bytes or operations): q, k, v read once and the output
+    written once, or 4 hd FLOP per kept (row, column) pair and head over
+    the peak of the inputs' type."""
+    from repro_torch.kernels.flash_attention import attention_mask
+    es = torch.tensor([], dtype=dtype).element_size()
+    pairs = int(attention_mask(s, t, causal, window, dev).sum())
+    tb = (2 * b * s * h * hd + 2 * b * t * kvh * hd) * es / HBM_BPS * 1e3
+    tf = 4 * hd * pairs * h * b / PEAK_FLOPS[dtype] * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+# the bf16 flash check's floor, relative to max|out|: the kernel and the
+# plain version sum up to T products p * v (|p * v| <= max|v|, weights
+# summing to 1) in other orders, a few fp32 ulps of max|out| apart
+FLASH_FLOOR_REL = 2.0 ** -16
+
+
+def check_flash(label, o_k, o_p, dtype) -> float:
+    """fp32 within 1e-4 (the reference's tolerance); bf16 element by
+    element, within one bf16 ulp of the element plus ``FLASH_FLOOR_REL *
+    max|out|`` (both round an fp32 value once, the sums run in other
+    orders). Returns max|kernel - plain|."""
+    err = max_err(o_k, o_p)
+    require(bool(torch.isfinite(o_k).all()), f"flash {label}: non-finite")
+    if dtype == torch.float32:
+        require(err <= 1e-4, f"flash {label}: max|kernel-plain| {err:.3e} "
+                f"> 1e-4")
+        return err
+    bad, worst = bf16_misses(o_k, o_p, FLASH_FLOOR_REL)
+    log(f"  flash {label} bf16: worst |kernel-plain| / (element ulp + "
+        f"floor) = {worst:.3f}")
+    require(bad == 0, f"flash {label}: {bad} elements beyond one bf16 ulp "
+            f"of their own plus 2^-16 max|out| (max|kernel-plain| "
+            f"{err:.3e})")
+    return err
+
+
+def phase_ops_kernels(dev: torch.device, flush: torch.Tensor):
+    """Rows 5 and 14, the standalone forward CE and flash attention,
+    against their plain versions at CE_SHAPES and FLASH_SHAPES, with
+    times at the main CE shape and flash shapes a-c (the JSON row: b)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                     fused_cross_entropy,
+                                     fused_cross_entropy_plain)
+    from repro_torch.kernels.flash_attention import attention_mask
+    results = {}
+    for si, (label, t, v, dtype) in enumerate(CE_SHAPES):
+        x, _tg, lb, _g = loss_inputs(t, v, dtype, dev, 400 + si)
+        lb[0], lb[1] = -1, v                     # out of range: loss = logZ
+        if label == "unaligned":
+            buf = torch.empty(t * v + 1, dtype=dtype, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            x = buf[1:].view(t, v)
+        o_k = fused_cross_entropy(x, lb)
+        o_p = fused_cross_entropy_plain(x, lb)
+        sync(dev)
+        err = max_err(o_k, o_p)
+        require(bool(torch.isfinite(o_k).all()), f"CE {label}: non-finite")
+        # both sum the same fp32 terms in other orders: within 1e-5
+        require(err <= 1e-5, f"CE {label}: max|kernel-plain| {err:.3e} > 1e-5")
+        log(f"CE kernel {label} (T={t}, V={v}, {str(dtype)[6:]}): "
+            f"max|kernel-plain| {err:.3e} (tol 1e-05)")
+        if label != "main":
+            continue
+        lb64 = lb.clamp(0, v - 1).long()
+        es = x.element_size()
+        tb = (t * v * es + 2 * t * 4) / HBM_BPS * 1e3
+        tf = LOSS_OPS["ce"][0] * t * v / PEAK_FLOPS[torch.float32] * 1e3
+        results["fused_cross_entropy"] = {
+            "ms": time_ms(lambda: fused_cross_entropy(x, lb), flush, iters=20),
+            "plain_ms": time_ms(lambda: fused_cross_entropy_plain(x, lb),
+                                flush, iters=5, warmup=1),
+            "library_ms": time_ms(lambda: F.cross_entropy(
+                x, lb64, reduction="none"), flush, iters=20),
+            "bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations",
+            "max_abs_err": err}
+        r = results["fused_cross_entropy"]
+        log(f"  fused_cross_entropy bf16: kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms "
+            f"(F.cross_entropy)  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del x, _tg
+    sdpa = F.scaled_dot_product_attention
+    for si, (label, b, s, t, h, kvh, hd, causal, window, dtype) in \
+            enumerate(FLASH_SHAPES):
+        q, k, v = flash_inputs(b, s, t, h, kvh, hd, dtype, dev, 500 + si)
+        o_k = flash_attention(q, k, v, causal, window)
+        o_p = flash_attention_plain(q, k, v, causal, window)
+        sync(dev)
+        err = check_flash(label, o_k, o_p, dtype)
+        log(f"flash kernel {label} (B={b}, S={s}, T={t}, H={h}, KVh={kvh}, "
+            f"hd={hd}, causal={causal}, window={window}, {str(dtype)[6:]}): "
+            f"max|kernel-plain| {err:.3e}")
+        if label not in TIMED_FLASH:
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = attention_mask(s, t, causal, window, dev) if window else None
+        b_ms, b_by = flash_bound(b, s, t, h, kvh, hd, causal, window, dtype,
+                                 dev)
+        r = {"ms": time_ms(lambda: flash_attention(q, k, v, causal, window),
+                           flush, iters=10),
+             "plain_ms": time_ms(lambda: flash_attention_plain(
+                 q, k, v, causal, window), flush, iters=3, warmup=1),
+             "library_ms": time_ms(lambda: sdpa(
+                 qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
+                 enable_gqa=True), flush, iters=10),
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        if label == "b":
+            results["flash_attention"] = r
+        log(f"  flash_attention {label} bf16: kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms "
+            f"(SDPA, enable_gqa)  bound {b_ms:.4f} ms ({b_by}); kernel / "
+            f"library {r['ms'] / r['library_ms']:.1f}x")
+        del q, k, v, o_k, o_p
+    torch.cuda.empty_cache()
     return results
 
 
@@ -732,61 +1043,52 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
 # phase 4: full-width fleet
 # ----------------------------------------------------------------------------
 
-def phase_fleet(dev: torch.device, cfg):
+def fleet_run(model, peers, fc, wl, cache_dtype, dev: torch.device):
+    """One seeded fleet run through ``FleetRouter.run``, launch counts set
+    to 0 just before and read just after. Returns (router, report, counts,
+    wall s)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import build_model
-    from repro_torch.serve.fleet import (FleetConfig, FleetEngine, FleetRouter,
-                                         Request, generate_workload)
-    from repro_torch.serve.fleet.model_exec import build_decode_step
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    peers = []
-    for i in range(2):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(1234 + i)
-        peers.append(model.init(gen, device=dev, weight_dtype=torch.bfloat16))
-    sync(dev)
-    log(f"fleet: qwen2-7b {cfg.num_layers} layers d_model {cfg.d_model}, "
-        f"2 peers initialised in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-    fc = FleetConfig(max_slots=16, block_size=16, num_blocks=1025,
-                     max_blocks_per_slot=34, fused_attention=True)
-    wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
-                           max_prompt=512, max_new=32)
+    from repro_torch.serve.fleet import FleetRouter
     router = FleetRouter(model, peers, config=fc, policy="round_robin",
-                         cache_dtype=torch.bfloat16, device=dev)
+                         cache_dtype=cache_dtype, device=dev)
     sync(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
     rep = router.run(wl, slo_ms=50.0)
     sync(dev)
     wall = time.perf_counter() - t0
-    fused_counts = dict(launch_counts)
+    counts = dict(launch_counts)
+    name = str(cache_dtype)[6:]
     ticks = [e.decode_ticks for e in router.engines]
-    n_layers = cfg.num_layers
-    log(f"fleet run: completed {rep.completed}/{len(wl.requests)}, "
+    log(f"fleet run {name}: completed {rep.completed}/{len(wl.requests)}, "
         f"{rep.generated_tokens} tokens, decode ticks per peer {ticks}, "
-        f"launches {fused_counts}, {wall:.2f} s wall, "
-        f"{rep.generated_tokens / wall:.1f} tokens/s wall (prefill included)")
+        f"KV bytes per token {router.engines[0]._kv_bytes_per_token}, "
+        f"launches { {k: n for k, n in counts.items() if n} }, {wall:.2f} s "
+        f"wall, {rep.generated_tokens / wall:.1f} tokens/s wall (prefill "
+        "included)")
     require(rep.completed == len(wl.requests) and rep.rejected == 0,
-            f"fleet: {rep.completed} completed, {rep.rejected} rejected")
+            f"fleet {name}: {rep.completed} completed, {rep.rejected} rejected")
     require(rep.lost_tokens == 0 and rep.duplicated_tokens == 0,
-            "fleet: a stream is short or long of max_new")
-    require(fused_counts["paged_attention_decode"] == n_layers * sum(ticks),
-            f"decode launches {fused_counts['paged_attention_decode']} != "
-            f"{n_layers} x {sum(ticks)} ticks")
-    require(fused_counts["paged_scatter"] == 2 * n_layers * sum(ticks),
-            f"scatter launches {fused_counts['paged_scatter']} != "
-            f"{2 * n_layers} x {sum(ticks)} ticks")
-    require(fused_counts["paged_gather"] == 0, "fused path launched gather")
+            f"fleet {name}: a stream is short or long of max_new")
     toks = [t for r in router._primaries for t in r.tokens]
-    require(all(0 <= t < cfg.padded_vocab for t in toks),
-            "fleet: token id out of range")
-    require(len(toks) == rep.generated_tokens, "fleet: token count mismatch")
+    require(all(0 <= t < model.cfg.padded_vocab for t in toks),
+            f"fleet {name}: token id out of range")
+    require(len(toks) == rep.generated_tokens,
+            f"fleet {name}: token count mismatch")
+    return router, rep, counts, wall
 
-    # one engine with 16 live slots: fused tick vs gather tick, same state
-    eng = FleetEngine(model, peers[0], replace(fc, max_prefills_per_step=S),
-                      cache_dtype=torch.bfloat16, device=dev)
+
+def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
+    """One engine with 16 live slots: a fused tick against a gather tick on
+    the same pool, launch counts of the gather tick, then the wall time of
+    5 fused ticks. Returns (engine, active, tokens, gather counts, ms per
+    tick)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.fleet import FleetEngine, Request
+    from repro_torch.serve.fleet.model_exec import build_decode_step
+    name = str(cache_dtype)[6:]
+    eng = FleetEngine(model, peer, replace(fc, max_prefills_per_step=S),
+                      cache_dtype=cache_dtype, device=dev)
     for r in wl.requests[:S]:
         eng.enqueue(Request(r.rid, 0.0, r.prompt, 32))
     eng._intake()
@@ -804,22 +1106,20 @@ def phase_fleet(dev: torch.device, cfg):
     sync(dev)
     oracle_counts = dict(launch_counts)
     eng._decode = fused_step
-    require(oracle_counts["paged_gather"] == 2 * n_layers
-            and oracle_counts["paged_attention_decode"] == 0,
-            f"gather tick launches {oracle_counts}")
     scale = float(fused.abs().max())
     diff = float((fused - oracle).abs().max())
     agree = int((fused.argmax(-1) == oracle.argmax(-1)).sum())
     # bf16 activations round differently on the two attention paths (fp32
     # kernel state vs bf16 scores/weights of the oracle), and the difference
     # compounds over 28 layers: allow 5% of the logits' max magnitude
-    log(f"fused vs gather tick: max|dlogits| = {diff:.4f} "
+    log(f"fused vs gather tick {name}: max|dlogits| = {diff:.4f} "
         f"(max|logits| {scale:.3f}, tol {0.05 * scale:.4f}), argmax agree "
-        f"{agree}/{S}, gather launches {oracle_counts}")
+        f"{agree}/{S}, gather launches "
+        f"{ {k: n for k, n in oracle_counts.items() if n} }")
     require(bool(torch.isfinite(fused).all() and torch.isfinite(oracle).all()),
-            "non-finite decode logits")
-    require(diff <= 0.05 * scale, f"fused vs gather logits differ by {diff}")
-
+            f"non-finite decode logits ({name})")
+    require(diff <= 0.05 * scale,
+            f"fused vs gather logits differ by {diff} ({name})")
     sync(dev)
     t0 = time.perf_counter()
     n_ticks = 5
@@ -828,13 +1128,97 @@ def phase_fleet(dev: torch.device, cfg):
     sync(dev)
     tick_ms = (time.perf_counter() - t0) / n_ticks * 1e3
     ctx = [int(x) for x in eng.pool.lengths]
-    log(f"decode tick (16 live slots, contexts {min(ctx)}..{max(ctx)}): "
-        f"{tick_ms:.2f} ms wall/tick = {S / tick_ms * 1e3:.1f} tokens/s")
+    log(f"decode tick {name} (16 live slots, contexts {min(ctx)}.."
+        f"{max(ctx)}): {tick_ms:.2f} ms wall/tick = {S / tick_ms * 1e3:.1f} "
+        "tokens/s")
+    return eng, active, tokens, oracle_counts, tick_ms
+
+
+def phase_fleet(dev: torch.device, cfg):
+    """qwen2-7b at full width, 2 peers, the seeded bursty workload over
+    bf16 pools, then over int8 and fp8 pools; launch counts checked
+    against the decode ticks of each run; a fused-vs-gather tick over bf16
+    and int8 pools; device profile of the bf16 tick."""
+    from repro_torch.models import build_model
+    from repro_torch.serve.fleet import FleetConfig, generate_workload
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    peers = []
+    for i in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1234 + i)
+        peers.append(model.init(gen, device=dev, weight_dtype=torch.bfloat16))
+    sync(dev)
+    log(f"fleet: qwen2-7b {cfg.num_layers} layers d_model {cfg.d_model}, "
+        f"2 peers initialised in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    fc = FleetConfig(max_slots=16, block_size=16, num_blocks=1025,
+                     max_blocks_per_slot=34, fused_attention=True)
+    wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
+                           max_prompt=512, max_new=32)
+    n_layers = cfg.num_layers
+    router, _rep, counts, _wall = fleet_run(model, peers, fc, wl,
+                                            torch.bfloat16, dev)
+    ticks = sum(e.decode_ticks for e in router.engines)
+    require(counts["paged_attention_decode"] == n_layers * ticks,
+            f"decode launches {counts['paged_attention_decode']} != "
+            f"{n_layers} x {ticks} ticks")
+    require(counts["paged_scatter"] == 2 * n_layers * ticks,
+            f"scatter launches {counts['paged_scatter']} != "
+            f"{2 * n_layers} x {ticks} ticks")
+    require(counts["paged_gather"] == 0, "fused path launched gather")
+    bf16_tokens = {r.request.rid: r.tokens for r in router._primaries}
+    out = {k: counts[k] for k in ("paged_scatter", "paged_attention_decode")}
+    eng, active, tokens, g_counts, tick_ms = tick_check(
+        model, peers[0], fc, wl, torch.bfloat16, dev)
+    require(g_counts["paged_gather"] == 2 * n_layers
+            and g_counts["paged_attention_decode"] == 0,
+            f"gather tick launches {g_counts}")
+    out["paged_gather"] = g_counts["paged_gather"]
     if dev.type == "cuda":
         profile_ticks(eng, active, tokens, tick_ms)
-    return {"paged_scatter": fused_counts["paged_scatter"],
-            "paged_attention_decode": fused_counts["paged_attention_decode"],
-            "paged_gather": oracle_counts["paged_gather"]}
+    del eng, router
+    torch.cuda.empty_cache()
+
+    # the same peers and workload over quantized pools
+    for qdt in QUANT:
+        name = str(qdt)[6:]
+        router, _rep, counts, _wall = fleet_run(model, peers, fc, wl, qdt, dev)
+        ticks = sum(e.decode_ticks for e in router.engines)
+        per_token = router.engines[0]._kv_bytes_per_token
+        require(per_token == n_layers * 2 * (
+                    cfg.num_kv_heads * cfg.resolved_head_dim + 4),
+                f"{name}: {per_token} KV bytes per token")
+        require(counts["paged_scatter_quant"] == 2 * n_layers * ticks,
+                f"{name}: scatter_quant launches "
+                f"{counts['paged_scatter_quant']} != {2 * n_layers} x {ticks}")
+        require(counts["paged_attention_decode_quant"] == n_layers * ticks,
+                f"{name}: quantized decode launches "
+                f"{counts['paged_attention_decode_quant']} != {n_layers} x "
+                f"{ticks}")
+        require(counts["paged_scatter"] == 0
+                and counts["paged_attention_decode"] == 0,
+                f"{name}: the bf16 scatter or decode ran: {counts}")
+        for k in ("paged_scatter_quant", "paged_attention_decode_quant"):
+            out[k] = out.get(k, 0) + counts[k]
+        same = sum(int(a == b) for r in router._primaries
+                   for a, b in zip(r.tokens, bf16_tokens[r.request.rid]))
+        n_tok = sum(len(r.tokens) for r in router._primaries)
+        log(f"fleet {name}: {same}/{n_tok} tokens equal to the bf16 run's "
+            f"({same / n_tok:.1%}; for information)")
+        del router
+        if qdt == torch.int8:
+            eng, active, tokens, g_counts, tick_ms = tick_check(
+                model, peers[0], fc, wl, qdt, dev)
+            require(g_counts["paged_gather"] == 4 * n_layers
+                    and g_counts["paged_attention_decode_quant"] == 0,
+                    f"int8 gather tick launches {g_counts}")
+            out["paged_gather"] += g_counts["paged_gather"]
+            if dev.type == "cuda":
+                profile_ticks(eng, active, tokens, tick_ms)
+            del eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
@@ -877,10 +1261,49 @@ def profile_device(fn, wall_ms: float, n: int, unit: str):
 
 
 # ----------------------------------------------------------------------------
-# phase 5: fp32 card vs CPU
+# phase 5: card vs CPU (fp32 weights; fp32, int8 and fp8 pools)
 # ----------------------------------------------------------------------------
 
+def quant_steps(a: torch.Tensor, b: torch.Tensor):
+    """(elements that differ, all of them one quantization step apart?) for
+    two int8 or e4m3 payloads of one shape: int8 codes 1 apart, or e4m3
+    codes of one sign 1 apart (the encoding is monotone in magnitude)."""
+    if a.dtype == torch.int8:
+        d = (a.int() - b.int()).abs()
+        return int((d != 0).sum()), bool((d <= 1).all())
+    ua, ub = a.view(torch.uint8).int(), b.view(torch.uint8).int()
+    diff = ua != ub
+    one = ((ua ^ ub) < 0x80) & ((ua - ub).abs() == 1)
+    return int(diff.sum()), bool((one | ~diff).all())
+
+
+def compare_quant_pools(engines, name: str, when: str) -> None:
+    """The card's and the CPU's quantized pools: every payload element that
+    differs is one quantization step off, and at most 0.1% differ."""
+    n_diff = n_all = 0
+    for sub, pools in engines["card"].pool.kv.items():
+        for pname in ("k", "v"):
+            a = pools[pname].cpu()
+            b = engines["cpu"].pool.kv[sub][pname]
+            nd, one_step = quant_steps(a, b)
+            require(one_step, f"{name} {sub} {pname} {when}: a payload "
+                    "element differs by more than one step")
+            n_diff += nd
+            n_all += a.numel()
+    log(f"parity {name}: pools {when}: {n_diff} of {n_all} payload elements "
+        f"differ card vs CPU, each by one step ({n_diff / n_all:.5%}; limit "
+        f"0.1%)")
+    require(n_diff <= 1e-3 * n_all,
+            f"{name} {when}: {n_diff} of {n_all} payload elements differ")
+
+
+PARITY_FIELDS = ("completed", "rejected", "kv_bytes_written", "lost_tokens",
+                 "duplicated_tokens")
+
+
 def phase_parity(dev: torch.device):
+    """Reduced qwen2-7b in fp32, the card against the CPU on the same
+    weights and workload, over fp32, int8 and fp8 pools."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import build_model
     from repro_torch.serve.fleet import (FleetConfig, FleetEngine, FleetRouter,
@@ -900,46 +1323,116 @@ def phase_parity(dev: torch.device):
                            max_prompt=40, max_new=12)
     fc = FleetConfig(max_slots=3, block_size=4, num_blocks=64,
                      max_blocks_per_slot=16, max_prefills_per_step=1)
-    reps = {d: FleetRouter(model, params[d], config=fc, policy="least_loaded",
-                           device=devices[d]).run(wl).to_dict()
-            for d in devices}
-    bad = {k: (reps["cpu"][k], reps["card"][k]) for k in reps["cpu"]
-           if reps["cpu"][k] != reps["card"][k]}
-    log(f"parity: FleetReport card vs CPU: {len(reps['cpu']) - len(bad)}/"
-        f"{len(reps['cpu'])} fields equal, digest {reps['card']['stream_digest'][:16]}")
-    require(not bad, f"FleetReport fields differ card vs CPU: {bad}")
+    for cache_dtype in (torch.float32, *QUANT):
+        name = str(cache_dtype)[6:]
+        quantized = cache_dtype in QUANT
+        reps = {d: FleetRouter(model, params[d], config=fc,
+                               policy="least_loaded", cache_dtype=cache_dtype,
+                               device=devices[d]).run(wl).to_dict()
+                for d in devices}
+        bad = {k: (reps["cpu"][k], reps["card"][k]) for k in reps["cpu"]
+               if reps["cpu"][k] != reps["card"][k]}
+        log(f"parity {name}: FleetReport card vs CPU: "
+            f"{len(reps['cpu']) - len(bad)}/{len(reps['cpu'])} fields equal, "
+            f"digests {'equal' if 'stream_digest' not in bad else 'differ'} "
+            f"({reps['card']['stream_digest'][:16]})")
+        if quantized:
+            # a 1e-7 difference in K before quantization can flip one
+            # element by a step, and with it a token: the counts must agree
+            require(not any(f in bad for f in PARITY_FIELDS),
+                    f"{name}: FleetReport counts differ card vs CPU: {bad}")
+        else:
+            require(not bad, f"FleetReport fields differ card vs CPU: {bad}")
 
-    # teacher-forced: the same 8 prompts admitted on both devices, 4 ticks
-    # fed the CPU's argmax tokens on both
-    logits, engines = {}, {}
-    fc8 = replace(fc, max_slots=8, max_prefills_per_step=8)
-    for d in devices:
-        eng = FleetEngine(model, params[d][0], fc8, keep_logits=True,
-                          device=devices[d])
-        for r in wl.requests:
-            eng.enqueue(Request(r.rid, 0.0, r.prompt, 8))
-        eng._intake()
-        eng._admit()
-        logits[d] = [torch.from_numpy(np.stack(
-            [eng.slots[s].record.prefill_logits for s in range(8)]))]
-        engines[d] = eng
-    active = np.ones((8,), bool)
-    tokens = np.asarray([[engines["cpu"].slots[s].next_token]
-                         for s in range(8)], np.int32)
-    for _ in range(4):
-        for d, eng in engines.items():
-            logits[d].append(eng.decode_logits(active, tokens).float().cpu())
-            eng.pool.lengths[:] += 1
-        tokens = logits["cpu"][-1].argmax(-1, keepdim=True).numpy().astype(np.int32)
-    err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"],
-                                                          logits["card"]))
-    log(f"parity: teacher-forced fp32 logits (prefill + 4 ticks) max|card-cpu|"
-        f" = {err:.3e} (tol 1e-4)")
-    require(err <= 1e-4, f"card vs CPU logits differ by {err}")
+        # teacher-forced: the same 8 prompts admitted on both devices, 4
+        # ticks fed the CPU's argmax tokens on both
+        logits, engines = {}, {}
+        fc8 = replace(fc, max_slots=8, max_prefills_per_step=8)
+        for d in devices:
+            eng = FleetEngine(model, params[d][0], fc8, keep_logits=True,
+                              cache_dtype=cache_dtype, device=devices[d])
+            for r in wl.requests:
+                eng.enqueue(Request(r.rid, 0.0, r.prompt, 8))
+            eng._intake()
+            eng._admit()
+            logits[d] = [torch.from_numpy(np.stack(
+                [eng.slots[s].record.prefill_logits for s in range(8)]))]
+            engines[d] = eng
+        if quantized:
+            compare_quant_pools(engines, name, "after the prefill inserts")
+        active = np.ones((8,), bool)
+        tokens = np.asarray([[engines["cpu"].slots[s].next_token]
+                             for s in range(8)], np.int32)
+        for _ in range(4):
+            for d, eng in engines.items():
+                logits[d].append(eng.decode_logits(active, tokens).float().cpu())
+                eng.pool.lengths[:] += 1
+            tokens = logits["cpu"][-1].argmax(-1, keepdim=True).numpy().astype(
+                np.int32)
+        if quantized:
+            # the 4 ticks' rows went through paged_scatter_quant on the card
+            # and its plain version on the CPU
+            compare_quant_pools(engines, name, "after the 4 ticks' appends")
+        err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"],
+                                                              logits["card"]))
+        scale = max(float(a.abs().max()) for a in logits["cpu"])
+        tol = 1e-3 * scale if quantized else 1e-4
+        log(f"parity {name}: teacher-forced fp32 logits (prefill + 4 ticks) "
+            f"max|card-cpu| = {err:.3e} (max|logits| {scale:.3f}, tol "
+            f"{tol:.3e})")
+        require(err <= tol, f"{name}: card vs CPU logits differ by {err}")
 
 
 # ----------------------------------------------------------------------------
-# phase 6: full-width codistillation training
+# phase 6: the standalone entries (rows 5 and 14)
+# ----------------------------------------------------------------------------
+
+def phase_ops(dev: torch.device):
+    """``ops.cross_entropy_tokens`` on the training main path's logits
+    (8 x 512 tokens, V=152064, bf16) and ``ops.attention`` at flash shapes
+    a-c, launch counts set to 0 just before and read just after; outputs
+    against the plain versions."""
+    from repro_torch.kernels import (flash_attention_plain,
+                                     fused_cross_entropy_plain, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels import ops
+    x, _tg, lb, _g = loss_inputs(TRAIN_T, TRAIN_V, torch.bfloat16, dev, 600)
+    del _tg
+    attn = [(shape, flash_inputs(*shape[1:7], shape[9], dev, 700 + i))
+            for i, shape in enumerate(FLASH_SHAPES) if shape[0] in TIMED_FLASH]
+    sync(dev)
+    reset_launch_counts()
+    lead = (8, TRAIN_T // 8)                 # batch 8 x seq 512 per peer
+    ce = ops.cross_entropy_tokens(x.view(*lead, TRAIN_V), lb.view(lead))
+    outs = [ops.attention(q, k, v, causal=shape[7], window=shape[8])
+            for shape, (q, k, v) in attn]
+    sync(dev)
+    counts = dict(launch_counts)
+    require(counts["fused_cross_entropy"] == 1
+            and counts["flash_attention"] == len(attn),
+            f"ops launches {counts}")
+    require(tuple(ce.shape) == lead and ce.dtype == torch.float32,
+            f"cross_entropy_tokens shape {tuple(ce.shape)} {ce.dtype}")
+    err = max_err(ce.reshape(-1), fused_cross_entropy_plain(x, lb))
+    require(err <= 1e-5, f"ops.cross_entropy_tokens: {err:.3e} from plain")
+    msg = [f"cross_entropy_tokens {lead} max|kernel-plain| {err:.3e}"]
+    for (shape, (q, k, v)), o in zip(attn, outs):
+        require(o.shape == q.shape and o.dtype == q.dtype,
+                f"ops.attention {shape[0]}: {tuple(o.shape)} {o.dtype}")
+        e = check_flash(f"ops {shape[0]}", o,
+                        flash_attention_plain(q, k, v, shape[7], shape[8]),
+                        shape[9])
+        msg.append(f"attention {shape[0]} {e:.3e}")
+    log("ops: " + "; ".join(msg) + f"; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    del x, attn, outs
+    torch.cuda.empty_cache()
+    return {"fused_cross_entropy": counts["fused_cross_entropy"],
+            "flash_attention": counts["flash_attention"]}
+
+
+# ----------------------------------------------------------------------------
+# phase 7: full-width codistillation training
 # ----------------------------------------------------------------------------
 
 LOSS_KERNELS = ("fused_cross_entropy_parts", "fused_cross_entropy_grad",
@@ -1162,7 +1655,7 @@ def phase_train(dev: torch.device):
 
 
 # ----------------------------------------------------------------------------
-# phase 7: the other exchanges and wires at full width
+# phase 8: the other exchanges and wires at full width
 # ----------------------------------------------------------------------------
 
 DISTILL_KERNELS = ("fused_distill_loss", "fused_distill_kl_parts",
@@ -1316,7 +1809,7 @@ def phase_train_peers(dev: torch.device):
 
 
 # ----------------------------------------------------------------------------
-# phase 7: fp32 training, card vs CPU
+# phase 9: fp32 training, card vs CPU
 # ----------------------------------------------------------------------------
 
 def phase_train_parity(dev: torch.device):
@@ -1425,6 +1918,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
         kernel_rows = phase_kernels(dev, flush)
+        kernel_rows.update(phase_quant_kernels(dev, flush))
+        kernel_rows.update(phase_ops_kernels(dev, flush))
         kernel_rows.update(phase_loss_kernels(dev, flush))
         kernel_rows.update(phase_distill_kernels(dev, flush))
         del flush
@@ -1439,6 +1934,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_parity(dev)
         log(f"phase parity: {time.perf_counter() - t0:.1f} s")
+    if "ops" in phases:
+        t0 = time.perf_counter()
+        launches["ops"] = phase_ops(dev)
+        log(f"phase ops: {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         launches["train"] = phase_train(dev)

@@ -12,7 +12,11 @@ Slice 3 adds n peers, the top-k and subsample wires, the checkpoint and
 pipelined exchanges (``codist-ckpt``, ``codist-pipelined``) and the
 checkpoint format (``checkpoint/io.py``), with the four distillation
 kernels those reach (the distillation term alone, forward and backward).
-The kernels are written by hand in CUDA C++ for Hopper (``csrc/``); the
+Slice 4 adds quantized (int8 / fp8) KV pools to the fleet
+(``--cache-dtype int8|fp8``), with the quantizing scatter and the
+dequantizing decode, and the two standalone kernels of ``kernels/ops.py``
+(``cross_entropy_tokens``, ``attention``), so every Pallas kernel of the
+reference has a counterpart. The kernels are written by hand in CUDA C++ for Hopper (``csrc/``); the
 models are the dense attention LMs.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;

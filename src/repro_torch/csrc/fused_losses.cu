@@ -9,6 +9,8 @@
 //                        mode 3 <- fused_distill_loss, mse (_mse_kernel)
 //                        mode 4 <- fused_distill_loss, kl (_kl_kernel) and,
 //                                  with res, fused_distill_kl_parts (_kl_parts_kernel)
+//                        mode 5 <- fused_cross_entropy (_ce_kernel), the
+//                                  forward-only NLL
 //   repro_fused_loss_bwd mode 0 <- fused_cross_entropy_grad (_ce_grad_kernel)
 //                        mode 1 <- fused_ce_distill_grad, mse (_combined_mse_grad_kernel)
 //                        mode 2 <- fused_ce_distill_grad, kl  (_combined_kl_grad_kernel)
@@ -17,8 +19,8 @@
 //
 // Inputs: student logits x (T, V) and, for modes 1-4, target logits t
 // (T, V), both contiguous and of one dtype (fp32 or bf16, a runtime code);
-// labels (T,) int32 for modes 0-2 (modes 3 and 4 have no CE term and read
-// no labels). Any T and V: nothing is padded, each kernel masks its own
+// labels (T,) int32 for modes 0-2 and 5 (modes 3 and 4 have no CE term
+// and read no labels). Any T and V: nothing is padded, each kernel masks its own
 // ragged edge. In modes 0-2, v_real <= V bounds the columns of the
 // smoothing mean and of the mse; every column enters the logsumexps, as in
 // the reference (whose block-padding columns hold -1e30 and add nothing).
@@ -38,7 +40,10 @@
 // Thread 0 reads the true logit x[label] itself. The outputs are fp32
 // (K, T) rows: mode 0 [nll, smooth, logZ]; mode 1 [nll, smooth, dist,
 // logZ_s]; mode 2 [nll, smooth, dist, logZ_s, logZ_t, E] with E = U / s_t
-// and dist = E - logZ_t + logZ_s, the reference's formulas.
+// and dist = E - logZ_t + logZ_s, the reference's formulas; mode 5 [nll]
+// alone, nll = (m + log s) - x[label] as _ce_kernel's m + log(s) - t: mode 0
+// without the real-column sum and the smooth and logZ rows. A label
+// outside [0, V) hits no column, so its nll is logZ, as in the reference.
 //
 // Backward. Elementwise given the (T,) residuals and the (T,) cotangents:
 // grid (T, ceil(V / chunk)), chunk = 256 threads x one 16-byte vector.
@@ -76,11 +81,13 @@ constexpr int kFwdThreads = 512;
 constexpr int kBwdThreads = 256;
 constexpr float kNeg = -1e30f;
 
-enum Mode { kCE = 0, kMSE = 1, kKL = 2, kDistMSE = 3, kDistKL = 4 };
+enum Mode { kCE = 0, kMSE = 1, kKL = 2, kDistMSE = 3, kDistKL = 4, kNLL = 5 };
 
-// what each mode computes: the task CE (labels, smoothing), the student's
-// logsumexp, an mse or a kl distillation term
+// what each mode computes: the task CE (labels, smoothing), the NLL alone
+// (labels), the student's logsumexp, an mse or a kl distillation term
 __host__ __device__ constexpr bool has_ce(int m) { return m <= kKL; }
+__host__ __device__ constexpr bool has_label(int m) { return m <= kKL || m == kNLL; }
+__host__ __device__ constexpr bool has_target(int m) { return m != kCE && m != kNLL; }
 __host__ __device__ constexpr bool has_lse(int m) { return m != kDistMSE; }
 __host__ __device__ constexpr bool is_mse(int m) { return m == kMSE || m == kDistMSE; }
 __host__ __device__ constexpr bool is_kl(int m) { return m == kKL || m == kDistKL; }
@@ -236,7 +243,7 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
   constexpr int N = Vec<T>::n;
   const int row = blockIdx.x;
   const T* xr = x + (size_t)row * V;
-  const T* tr = MODE == kCE ? nullptr : tg + (size_t)row * V;
+  const T* tr = has_target(MODE) ? tg + (size_t)row * V : nullptr;
   const int head = row_head(xr, V, vec);
   const int nvec = (V - head) / N;
   const int tail0 = head + nvec * N;
@@ -244,24 +251,24 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
   State a = empty_state();
   for (int c = threadIdx.x; c < head; c += blockDim.x) {
     const float xa[1] = {to_f(xr[c])};
-    const float ta[1] = {MODE == kCE ? 0.f : to_f(tr[c])};
+    const float ta[1] = {has_target(MODE) ? to_f(tr[c]) : 0.f};
     visit<MODE, 1>(a, xa, ta, c, v_real);
   }
   for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
     const int c0 = head + k * N;
     float xa[N], ta[N];
     load_vec(xr + c0, xa);
-    if (MODE == kCE) {
+    if (has_target(MODE)) {
+      load_vec(tr + c0, ta);
+    } else {
 #pragma unroll
       for (int i = 0; i < N; ++i) ta[i] = 0.f;
-    } else {
-      load_vec(tr + c0, ta);
     }
     visit<MODE, N>(a, xa, ta, c0, v_real);
   }
   for (int c = tail0 + threadIdx.x; c < V; c += blockDim.x) {
     const float xa[1] = {to_f(xr[c])};
-    const float ta[1] = {MODE == kCE ? 0.f : to_f(tr[c])};
+    const float ta[1] = {has_target(MODE) ? to_f(tr[c]) : 0.f};
     visit<MODE, 1>(a, xa, ta, c, v_real);
   }
 
@@ -277,13 +284,15 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
 
   const size_t n = (size_t)n_tok;
   const float logz = has_lse(MODE) ? a.m + logf(a.s) : 0.f;
-  if (has_ce(MODE)) {
+  if (has_label(MODE)) {
     const int lb = labels[row];
     const float true_logit = (lb >= 0 && lb < V) ? to_f(xr[lb]) : 0.f;
     out[row] = logz - true_logit;                            // nll
-    out[n + row] = logz - a.xs / (float)v_real;              // smooth
+    if (has_ce(MODE)) out[n + row] = logz - a.xs / (float)v_real;  // smooth
   }
-  if (MODE == kCE) {
+  if (MODE == kNLL) {
+    return;
+  } else if (MODE == kCE) {
     out[2 * n + row] = logz;
   } else if (MODE == kMSE) {
     out[2 * n + row] = a.acc / (float)v_real;                // dist
@@ -437,6 +446,7 @@ int launch_fwd(int mode, const void* x, const void* t, const int* labels,
     case kKL: fwd_kernel<T, kKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
     case kDistMSE: fwd_kernel<T, kDistMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
     case kDistKL: fwd_kernel<T, kDistKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
+    case kNLL: fwd_kernel<T, kNLL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -477,9 +487,9 @@ const char* repro_error_string(int code) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x and t share one).
-// x, t (T, V); labels (T,) i32 (modes 0-2; unused, may be null, in modes 3
-// and 4); out (K, T) fp32 with K = 3, 4, 6, 1, 1 for modes 0-4. t is
-// unused (may be null) in mode 0. res (3, T) fp32 [logZ_s, logZ_t, E] is
+// x, t (T, V); labels (T,) i32 (modes 0-2 and 5; unused, may be null, in
+// modes 3 and 4); out (K, T) fp32 with K = 3, 4, 6, 1, 1, 1 for modes 0-5.
+// t is unused (may be null) in modes 0 and 5. res (3, T) fp32 [logZ_s, logZ_t, E] is
 // written in mode 4 when not null, and unused otherwise.
 int repro_fused_loss_fwd(const void* x, const void* t, const int* labels,
                          float* out, float* res, int n_tok, int V, int v_real,

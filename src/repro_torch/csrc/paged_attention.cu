@@ -1,11 +1,14 @@
 // One-token GQA decode attention straight off the paged KV pool (sm_90a).
 //
-// Replaces the TPU kernel of the reference's kernels/paged_attention.py:
+// Replaces the TPU kernels of the reference's kernels/paged_attention.py:
 //   repro_paged_attention_decode <- paged_attention_decode (_decode_kernel /
-//                                   _decode_body), non-quantized pools.
+//                                   _decode_body), fp32/bf16/fp16 pools, and
+//                                   (_decode_kernel_quant) int8 and
+//                                   float8_e4m3fn pools with fp32 row scales.
 //
 // Inputs: q (S, H, hd) in fp32/bf16/fp16; k_pool, v_pool (NB, BS, KVh, hd)
-// in fp32/bf16/fp16; table (S, MB) int32; lengths (S,) int32 = each slot's
+// in fp32/bf16/fp16/int8/e4m3, with k_scale, v_scale (NB, BS) fp32 for the
+// quantized pools (null otherwise); table (S, MB) int32; lengths (S,) int32 = each slot's
 // pre-step context length == the new token's position (keys at positions
 // <= lengths[s] are valid; the new token's K/V was scattered before this
 // launch, on the same stream). Output (S, H, hd) in q's dtype.
@@ -29,6 +32,14 @@
 // this is acc / max(l, 1e-30), exactly the reference's finalize.
 // An inactive slot (length 0, all-zero table row) reads null block 0 once:
 // its only valid key is the zero row, so its output is exactly 0.
+// Quantized pools dequantize where the reference does (_decode_body's
+// k * ks_ref.T): in the tile load, k_smem = float(k) * k_scale[blk, row] in
+// fp32, before any dot, so the kernel rounds as the plain version does
+// (folding the scale into the score afterwards would round differently).
+// Null-block scales are 0 and dequantize to exactly 0. A 1-byte pool
+// halves the bytes of a 2-byte one (plus 8 B of scales per position), but
+// the kernel is latency-bound at the fleet's contexts, so the quantized
+// instantiation should take about the bf16 one's time.
 //
 // What bounds it on an H100: bytes. At the main-path shape (qwen2-7b:
 // H = 28, KVh = 4, hd = 128, BS = 16, bf16 pools) a slot at context length
@@ -45,7 +56,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -55,6 +69,13 @@ constexpr float kNeg = -1e30f;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
+// pool types stored with a per-row fp32 scale
+template <typename T> struct IsQuant { static constexpr bool value = false; };
+template <> struct IsQuant<int8_t> { static constexpr bool value = true; };
+template <> struct IsQuant<__nv_fp8_e4m3> { static constexpr bool value = true; };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -76,6 +97,8 @@ template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
                       const KT* __restrict__ v_pool,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
                       const int* __restrict__ table,
                       const int* __restrict__ lengths,
                       float* __restrict__ part_m, float* __restrict__ part_l,
@@ -122,9 +145,18 @@ decode_partial_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
     const size_t base = (size_t)blk * BS * KVh * hd + (size_t)kh * hd;
     for (int r = warp; r < BS; r += kThreads / 32) {
       const size_t src = base + (size_t)r * KVh * hd;
-      for (int d = lane; d < hd; d += 32) {
-        ks[r * kstride + d] = to_f(k_pool[src + d]);
-        vs[r * hd + d] = to_f(v_pool[src + d]);
+      if constexpr (IsQuant<KT>::value) {
+        const float ksc = k_scale[(size_t)blk * BS + r];
+        const float vsc = v_scale[(size_t)blk * BS + r];
+        for (int d = lane; d < hd; d += 32) {
+          ks[r * kstride + d] = to_f(k_pool[src + d]) * ksc;
+          vs[r * hd + d] = to_f(v_pool[src + d]) * vsc;
+        }
+      } else {
+        for (int d = lane; d < hd; d += 32) {
+          ks[r * kstride + d] = to_f(k_pool[src + d]);
+          vs[r * hd + d] = to_f(v_pool[src + d]);
+        }
       }
     }
     __syncthreads();
@@ -207,10 +239,13 @@ decode_combine_kernel(const float* __restrict__ part_m,
 }
 
 template <typename QT, typename KT>
-int launch(const void* q, const void* k, const void* v, const int* table,
+int launch(const void* q, const void* k, const void* v, const float* ksc,
+           const float* vsc, const int* table,
            const int* lengths, float* part_m, float* part_l, float* part_acc,
            void* out, int S, int H, int KVh, int hd, int NB, int BS, int MB,
            int bps, float scale, cudaStream_t st) {
+  if (IsQuant<KT>::value && (ksc == nullptr || vsc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KVh;
   const int nsplit = (MB + bps - 1) / bps;
   const size_t bytes = smem_floats(G, hd, BS) * sizeof(float);
@@ -222,7 +257,8 @@ int launch(const void* q, const void* k, const void* v, const int* table,
   }
   kern<<<dim3(KVh, S, nsplit), kThreads, bytes, st>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), table, lengths, part_m, part_l, part_acc, H,
+      static_cast<const KT*>(v), ksc, vsc, table, lengths, part_m, part_l,
+      part_acc, H,
       KVh, hd, NB, BS, MB, bps, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -234,15 +270,25 @@ int launch(const void* q, const void* k, const void* v, const int* table,
 
 template <typename QT>
 int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
-              const int* table, const int* lengths, float* pm, float* pl,
+              const float* ks, const float* vs, const int* table,
+              const int* lengths, float* pm, float* pl,
               float* pa, void* out, int S, int H, int KVh, int hd, int NB,
               int BS, int MB, int bps, float scale, cudaStream_t st) {
   switch (kv_dtype) {
-    case 0: return launch<QT, float>(q, k, v, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
-    case 1: return launch<QT, __nv_bfloat16>(q, k, v, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
-    case 2: return launch<QT, __half>(q, k, v, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return launch<QT, float>(q, k, v, ks, vs, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+    case 1: return launch<QT, __nv_bfloat16>(q, k, v, ks, vs, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+    case 2: return launch<QT, __half>(q, k, v, ks, vs, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+    default: break;
   }
+  // quantized pools take an fp32 or bf16 q, the fleet's
+  if constexpr (!std::is_same<QT, __half>::value) {
+    switch (kv_dtype) {
+      case 3: return launch<QT, int8_t>(q, k, v, ks, vs, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+      case 4: return launch<QT, __nv_fp8_e4m3>(q, k, v, ks, vs, table, lengths, pm, pl, pa, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -253,12 +299,15 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. out has q's dtype.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, and for the pools
+// also 3 = int8, 4 = float8_e4m3fn, which need k_scale and v_scale (NB, BS)
+// fp32 (null for the other pools) and an fp32 or bf16 q. out has q's dtype.
 // scale is hd^-0.5, rounded to fp32 by the caller as the reference does.
 // part_m, part_l: (S, KVh, ceil(MB / bps), G) fp32 scratch; part_acc: the
 // same with a trailing hd axis.
 int repro_paged_attention_decode(const void* q, const void* k_pool,
-                                 const void* v_pool, const int* table,
+                                 const void* v_pool, const float* k_scale,
+                                 const float* v_scale, const int* table,
                                  const int* lengths, float* part_m,
                                  float* part_l, float* part_acc, void* out,
                                  int S, int H, int KVh, int hd, int NB, int BS,
@@ -266,9 +315,9 @@ int repro_paged_attention_decode(const void* q, const void* k_pool,
                                  int kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {
-    case 0: return launch_kv<float>(kv_dtype, q, k_pool, v_pool, table, lengths, part_m, part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
-    case 1: return launch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, table, lengths, part_m, part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
-    case 2: return launch_kv<__half>(kv_dtype, q, k_pool, v_pool, table, lengths, part_m, part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+    case 0: return launch_kv<float>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table, lengths, part_m, part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+    case 1: return launch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table, lengths, part_m, part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
+    case 2: return launch_kv<__half>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table, lengths, part_m, part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, bps, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,9 @@
 // Paged KV-cache scatter and gather for the serving fleet (sm_90a).
 //
 // Replaces the TPU kernels of the reference's kernels/paged_cache.py:
-//   repro_paged_scatter  <- paged_scatter (_scatter_kernel)
-//   repro_paged_gather   <- paged_gather  (_gather_kernel)
+//   repro_paged_scatter        <- paged_scatter (_scatter_kernel)
+//   repro_paged_gather         <- paged_gather  (_gather_kernel)
+//   repro_paged_scatter_quant  <- paged_scatter_quant (_scatter_quant_kernel)
 //
 // Pool layout (NB, BS, KVh, hd), row-major; one "row" is one token position
 // across all KV heads (KVh * hd elements). Block 0 is the null block: never
@@ -19,9 +20,29 @@
 // one CTA, so no atomics. Both are bit-exact copies, so the element type
 // does not matter: the kernels copy bytes in units of T.
 //
+// The quantizing scatter (int8 / float8_e4m3fn pools, one fp32 scale per
+// row in a (NB, BS) array) keeps scatter_kernel's layout: one CTA per pool
+// block, returning at once when no slot writes into it. A writer's CTA
+// loads its row (KVh * hd values, fp32 or bf16, converted to fp32
+// exactly as the reference's new.astype(float32)), block-reduces the
+// absmax (a max is exact in any order) and quantizes in the reference's
+// arithmetic (_quantize / quantize_rows): scale = absmax / qmax as an IEEE
+// division (the build has no fast-math flags), inv = scale > 0 ?
+// 1 / max(scale, 1e-30) : 0, y = x * inv (a product by the reciprocal, not
+// a division by the scale), then int8: rintf (round half to even) clipped
+// to +-127; fp8: __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3),
+// round to nearest even. |y| <= 448 up to one rounding of the product, so
+// the saturating mode never changes a value that the plain conversion
+// would keep finite. It writes the payload row and scales[b, off] and
+// nothing else. Bound: bytes again, S rows read and S quantized rows and
+// scales written (~49 KB at the main path, a few ns at 3.35 TB/s), so
+// launch latency sets its time; the design spends one pass over the row.
+//
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -65,6 +86,84 @@ __global__ void gather_kernel(const T* __restrict__ pool,
   } else {
     const T zero{};
     for (int i = threadIdx.x; i < block_units; i += blockDim.x) dst[i] = zero;
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename Q> __device__ __forceinline__ Q quantize(float y);
+template <> __device__ __forceinline__ int8_t quantize<int8_t>(float y) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
+}
+template <> __device__ __forceinline__ __nv_fp8_storage_t quantize<__nv_fp8_storage_t>(float y) {
+  return __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+}
+
+// scatter_quant: as scatter_kernel, quantizing the row on the way; rows of
+// at most kThreads * kMaxPerThread values
+constexpr int kMaxPerThread = 16;
+
+template <typename R, typename Q>
+__global__ void __launch_bounds__(kThreads)
+scatter_quant_kernel(Q* __restrict__ pool, float* __restrict__ scales,
+                     const R* __restrict__ rows,
+                     const int* __restrict__ write_slot,
+                     const int* __restrict__ write_off, int block_size,
+                     int row_elems, int num_slots, float qmax) {
+  const int b = blockIdx.x;
+  const int w = write_slot[b];
+  if (w < 0 || w >= num_slots) return;
+  const int off = write_off[b];
+  if (off < 0 || off >= block_size) return;
+  const R* src = rows + (size_t)w * row_elems;
+  float x[kMaxPerThread];
+  float amax = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxPerThread; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    x[k] = i < row_elems ? to_f(src[i]) : 0.f;
+    amax = fmaxf(amax, fabsf(x[k]));
+  }
+  __shared__ float warp_max[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = warp_max[0];
+#pragma unroll
+  for (int k = 1; k < kThreads / 32; ++k) amax = fmaxf(amax, warp_max[k]);
+  const float scale = amax / qmax;
+  const float inv = scale > 0.f ? 1.0f / fmaxf(scale, 1e-30f) : 0.f;
+  Q* dst = pool + ((size_t)b * block_size + off) * row_elems;
+#pragma unroll
+  for (int k = 0; k < kMaxPerThread; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < row_elems) dst[i] = quantize<Q>(x[k] * inv);
+  }
+  if (threadIdx.x == 0) scales[(size_t)b * block_size + off] = scale;
+}
+
+template <typename R, typename Q>
+int launch_scatter_quant(void* pool, float* scales, const void* rows,
+                         const int* ws, const int* wo, int nb, int bs,
+                         int row_elems, int num_slots, float qmax,
+                         cudaStream_t st) {
+  scatter_quant_kernel<R, Q><<<nb, kThreads, 0, st>>>(
+      static_cast<Q*>(pool), scales, static_cast<const R*>(rows), ws, wo, bs,
+      row_elems, num_slots, qmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R>
+int scatter_quant_rows(int quant_dtype, void* pool, float* scales,
+                       const void* rows, const int* ws, const int* wo, int nb,
+                       int bs, int row_elems, int num_slots, cudaStream_t st) {
+  switch (quant_dtype) {
+    case 0: return launch_scatter_quant<R, int8_t>(pool, scales, rows, ws, wo, nb, bs, row_elems, num_slots, 127.f, st);
+    case 1: return launch_scatter_quant<R, __nv_fp8_storage_t>(pool, scales, rows, ws, wo, nb, bs, row_elems, num_slots, 448.f, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -135,6 +234,24 @@ int repro_paged_gather(const void* pool, const int* table, const int* n_live,
     default: launch_gather<uint8_t>(pool, table, n_live, out, num_slots, max_blocks, block_bytes, num_blocks, st); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// pool (NB, BS, row) int8 / e4m3 in place; scales (NB, BS) fp32 in place;
+// rows (S, row) with row = KVh * hd <= 2048; row_dtype 0 = float32,
+// 1 = bfloat16; quant_dtype 0 = int8, 1 = float8_e4m3fn.
+int repro_paged_scatter_quant(void* pool, float* scales, const void* rows,
+                              const int* write_slot, const int* write_off,
+                              int num_blocks, int block_size, int row_elems,
+                              int num_slots, int row_dtype, int quant_dtype,
+                              void* stream) {
+  if (row_elems > kThreads * kMaxPerThread)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (row_dtype) {
+    case 0: return scatter_quant_rows<float>(quant_dtype, pool, scales, rows, write_slot, write_off, num_blocks, block_size, row_elems, num_slots, st);
+    case 1: return scatter_quant_rows<__nv_bfloat16>(quant_dtype, pool, scales, rows, write_slot, write_off, num_blocks, block_size, row_elems, num_slots, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -39,15 +39,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # pool, table, n_live, out, S, MB, block_bytes, NB, stream
         "repro_paged_gather": [c_void_p, c_void_p, c_void_p, c_void_p,
                                c_int, c_int, c_longlong, c_int, c_void_p],
+        # pool, scales, rows, write_slot, write_off, NB, BS, row_elems, S,
+        # row_dtype, quant_dtype, stream
+        "repro_paged_scatter_quant": [c_void_p, c_void_p, c_void_p, c_void_p,
+                                      c_void_p, c_int, c_int, c_int, c_int,
+                                      c_int, c_int, c_void_p],
     },
     "paged_attention": {
-        # q, k_pool, v_pool, table, lengths, part_m, part_l, part_acc, out,
-        # S, H, KVh, hd, NB, BS, MB, blocks_per_split, scale, q_dtype,
-        # kv_dtype, stream
+        # q, k_pool, v_pool, k_scale, v_scale, table, lengths, part_m,
+        # part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, blocks_per_split,
+        # scale, q_dtype, kv_dtype, stream
         "repro_paged_attention_decode": [
             c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
-            c_void_p, c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_int,
-            c_int, c_int, c_int, c_float, c_int, c_int, c_void_p],
+            c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, c_int,
+            c_void_p],
     },
     "fused_losses": {
         # x, t, labels, out, res, T, V, v_real, mode, dtype, stream
@@ -61,14 +67,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                  c_int, c_int, c_int, c_float, c_float,
                                  c_void_p],
     },
+    "flash_attention": {
+        # q, k, v, out, B, S, T, H, KVh, hd, causal, window, scale, dtype,
+        # stream
+        "repro_flash_attention": [c_void_p, c_void_p, c_void_p, c_void_p,
+                                  c_int, c_int, c_int, c_int, c_int, c_int,
+                                  c_int, c_int, c_float, c_int, c_void_p],
+    },
 }
 
 launch_counts: Dict[str, int] = {
     "paged_scatter": 0, "paged_gather": 0, "paged_attention_decode": 0,
+    "paged_attention_decode_quant": 0, "paged_scatter_quant": 0,
+    "fused_cross_entropy": 0,
     "fused_cross_entropy_parts": 0, "fused_cross_entropy_grad": 0,
     "fused_ce_distill_parts": 0, "fused_ce_distill_grad": 0,
     "fused_distill_loss": 0, "fused_distill_kl_parts": 0,
-    "fused_distill_mse_grad": 0, "fused_distill_kl_grad": 0}
+    "fused_distill_mse_grad": 0, "fused_distill_kl_grad": 0,
+    "flash_attention": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -1,6 +1,9 @@
 """Fused cross-entropy, forward and backward: CUDA kernel wrappers + plain
 versions.
 
+``fused_cross_entropy``        (T, V) logits, (T,) int32 labels
+    -> per-token NLL, fp32: ``logZ - x[label]`` (forward only; a label
+    outside [0, V) gives ``logZ``).
 ``fused_cross_entropy_parts``  (T, V) logits, (T,) int32 labels
     -> per-token (nll, smooth, logZ), fp32: ``nll = logZ - x[label]``,
     ``smooth = logZ - mean_{v < v_real}(x)`` (the label-smoothing term),
@@ -9,7 +12,7 @@ versions.
     per token: ``(g_nll + g_smooth) softmax(x) - g_nll onehot(label)
     - g_smooth [col < v_real] / v_real``, in the logits' dtype.
 
-The kernels (``csrc/fused_losses.cu``, modes 0) read each logits element
+The kernels (``csrc/fused_losses.cu``, mode 0; the NLL alone mode 5) read each logits element
 once per direction and keep every (T, V) intermediate in registers. They
 take any T and V: the reference's callers pad T and V to block multiples
 (V with ``NEG``), the port pads nothing. ``v_real`` (default V) bounds the
@@ -34,9 +37,11 @@ NEG = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' modes: CE, CE + distill (mse, kl), distill alone (mse, kl)
-MODES = {"ce": 0, "mse": 1, "kl": 2, "distill_mse": 3, "distill_kl": 4}
+MODES = {"ce": 0, "mse": 1, "kl": 2, "distill_mse": 3, "distill_kl": 4,
+         "nll": 5}
 # fp32 (K, T) rows the forward writes, per mode
-N_OUT = {"ce": 3, "mse": 4, "kl": 6, "distill_mse": 1, "distill_kl": 1}
+N_OUT = {"ce": 3, "mse": 4, "kl": 6, "distill_mse": 1, "distill_kl": 1,
+         "nll": 1}
 
 
 def _check_logits(x: torch.Tensor, name: str) -> Tuple[int, int]:
@@ -142,6 +147,13 @@ def _true_logit(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, got, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def fused_cross_entropy_plain(logits: torch.Tensor,
+                              labels: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_cross_entropy``."""
+    x = logits.float()
+    return torch.logsumexp(x, dim=-1) - _true_logit(x, labels)
+
+
 def fused_cross_entropy_parts_plain(logits: torch.Tensor, labels: torch.Tensor,
                                     v_real: int = 0):
     """Plain version of ``fused_cross_entropy_parts``."""
@@ -183,6 +195,18 @@ def fused_cross_entropy_grad_plain(logits: torch.Tensor, labels: torch.Tensor,
 # ----------------------------------------------------------------------------
 # wrappers
 # ----------------------------------------------------------------------------
+
+def fused_cross_entropy(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL, fp32 (T,). logits (T, V) fp32/bf16 contiguous; labels
+    (T,) int32. Forward only: the entry of ``ops.cross_entropy_tokens``."""
+    dev, _t, v, _ = check_inputs(logits, labels)
+    if dev.type == "cpu":
+        return fused_cross_entropy_plain(logits, labels)
+    out = launch_fwd("nll", logits, None, labels, v)
+    _build.count_launch("fused_cross_entropy")
+    return out[0]
+
 
 def fused_cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
                               v_real: int = 0):

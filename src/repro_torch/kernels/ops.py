@@ -18,7 +18,10 @@ by the ``fused_losses`` flag:
 Three ``torch.autograd.Function``s take the place of the reference's
 ``jax.custom_vjp`` primitives ``_ce_parts_p``, ``_distill_tokens_p`` and
 ``_ce_distill_tokens_p``.
-Their boundary is per token, as there: flattening, label-smoothing mixing,
+Two forward-only entries mirror the reference's standalone kernels:
+``cross_entropy_tokens`` (per-token NLL, ``fused_cross_entropy``) and
+``attention`` (GQA flash attention, ``flash_attention``).
+The autograd functions' boundary is per token, as there: flattening, label-smoothing mixing,
 masking and the mean stay in (T,)-sized torch, so no (T, V) fp32 temporary
 exists outside the kernels in either direction. The kernels take any T and
 V, so nothing is padded; ``v_real`` is the logits' own width (the
@@ -38,7 +41,9 @@ from repro_torch.kernels.distill_loss import (fused_distill_kl_grad,
                                               fused_distill_kl_parts,
                                               fused_distill_loss,
                                               fused_distill_mse_grad)
-from repro_torch.kernels.fused_ce import (fused_cross_entropy_grad,
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_ce import (fused_cross_entropy,
+                                          fused_cross_entropy_grad,
                                           fused_cross_entropy_parts)
 
 
@@ -166,6 +171,49 @@ def distill_loss_tokens(logits: torch.Tensor, target_logits: torch.Tensor,
 
 def _flat_labels(labels: torch.Tensor, t: int) -> torch.Tensor:
     return labels.reshape(t).to(torch.int32).contiguous()
+
+
+def cross_entropy_tokens(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Per-token CE (fp32) over the trailing vocab dim, any leading shape
+    (forward only). Logits of another float type than fp32/bf16 are taken
+    to fp32 first (exact from fp16); nothing is padded."""
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        logits = logits.float()
+    lg, t, _v = _flatten(logits)
+    return fused_cross_entropy(lg, _flat_labels(labels, t)).reshape(
+        logits.shape[:-1])
+
+
+# the reference's key block of ``ops.attention`` (its ops.py:121-131): it
+# pads T to ``min(_BLOCK_K, max(16, T))`` and refuses a non-causal call
+# that would need that padding
+_BLOCK_K = 128
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA flash attention with the reference's contract: q (B, S, H, hd),
+    k, v (B, T, KVh, hd) -> (B, S, H, hd) in q's dtype.
+
+    The reference pads S and T to its blocks (its query padding changes no
+    result, so the port has no query block), and asserts that a non-causal
+    call needs no key padding; here that call raises ``ValueError``. The
+    reference's zero key padding of a causal call is masked for every row
+    below T, so it is appended here only when S > T, where rows at or past
+    T see it, as there; the kernel pads nothing else."""
+    tk = k.shape[1]
+    bk = min(_BLOCK_K, max(16, tk))
+    pad = (-tk) % bk
+    if not causal and pad:
+        raise ValueError(f"non-causal attention needs T % block_k == 0 "
+                         f"(T={tk}, block_k={bk})")
+    if pad and q.shape[1] > tk:
+        zeros = k.new_zeros((k.shape[0], pad, *k.shape[2:]))
+        k = torch.cat([k, zeros], dim=1)
+        v = torch.cat([v, zeros], dim=1)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window)
 
 
 def _smoothed(nll: torch.Tensor, smooth: torch.Tensor,

@@ -11,16 +11,25 @@ masking for positions past the slot's length; ``l = max(l, 1e-30)``),
 vectorised over slots and heads; the two differ only in rounding where a
 slot's context spans more than one split.
 
+Quantized pools (int8 / float8_e4m3fn, see ``paged_cache.quantize_rows``)
+come with one fp32 scale per stored row, ``k_scale`` / ``v_scale`` (NB, BS);
+both the kernel and the plain version dequantize each K/V row in fp32
+(``k * k_scale[row]``) before its dot, as the reference's
+``_decode_kernel_quant``. The quantized variant counts its launches apart
+(``paged_attention_decode_quant``).
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. Non-quantized pools only: the int8/fp8 pool
-variant is the next slice's.
+launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_cache import _check_index, _require, _same_device
+from repro_torch.kernels.paged_cache import (_check_index, _require,
+                                             _same_device, is_quantized_dtype)
 
 NEG = -1e30
 
@@ -28,13 +37,18 @@ NEG = -1e30
 BLOCKS_PER_SPLIT = 4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_POOL_CODES = {**_DTYPE_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 
 
 def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor, table: torch.Tensor,
-                                 lengths: torch.Tensor) -> torch.Tensor:
+                                 lengths: torch.Tensor,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """Plain version of ``paged_attention_decode``: the kernel's block loop
-    and fp32 online-softmax state, vectorised over (slot, KV head, group)."""
+    and fp32 online-softmax state, vectorised over (slot, KV head, group);
+    quantized rows are dequantized by their scale after the fp32 cast."""
     s, h, hd = q.shape
     _, bs, kvh, _ = k_pool.shape
     mb = table.shape[1]
@@ -52,6 +66,9 @@ def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
         blk = table[:, mi].long()
         k = k_pool[blk].float()                                  # (S, BS, KVh, hd)
         v = v_pool[blk].float()
+        if k_scale is not None:
+            k = k * k_scale[blk][..., None, None]
+            v = v * v_scale[blk][..., None, None]
         sc = torch.einsum("skgd,sbkd->skgb", qf, k)              # (S, KVh, G, BS)
         pos = mi * bs + offs
         valid = pos[None, :] <= lengths[:, None]                 # (S, BS)
@@ -71,16 +88,24 @@ def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, table: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """One-token decode for every slot, straight off the block pool.
 
     q (S, H, hd): the new token's roped query per slot; k_pool / v_pool
     (NB, BS, KVh, hd): the pools AFTER this step's scatter; table (S, MB)
     int32; lengths (S,) int32 = each slot's pre-step context length == the
-    new token's position (valid keys are positions <= lengths[s]). Returns
-    (S, H, hd) in q's dtype.
+    new token's position (valid keys are positions <= lengths[s]);
+    k_scale / v_scale (NB, BS) fp32 row scales of quantized pools (both or
+    neither; an fp32 or bf16 q). Returns (S, H, hd) in q's dtype.
     """
-    dev = _same_device(q, k_pool, v_pool, table, lengths)
+    quantized = k_scale is not None
+    _require(quantized == (v_scale is not None),
+             "pass both scales or neither")
+    scales = (k_scale, v_scale) if quantized else ()
+    dev = _same_device(q, k_pool, v_pool, table, lengths, *scales)
     _require(q.dim() == 3, f"q must be (S, H, hd), got {tuple(q.shape)}")
     s, h, hd = q.shape
     _require(k_pool.dim() == 4 and k_pool.shape == v_pool.shape,
@@ -91,9 +116,19 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     _require(h % kvh == 0, f"num_heads {h} is not a multiple of kv heads {kvh}")
     _require(k_pool.dtype == v_pool.dtype,
              f"k/v pool dtypes differ: {k_pool.dtype} vs {v_pool.dtype}")
-    _require(q.dtype in _DTYPE_CODES and k_pool.dtype in _DTYPE_CODES,
+    _require(q.dtype in _DTYPE_CODES and k_pool.dtype in _POOL_CODES,
              f"unsupported dtypes q={q.dtype} pool={k_pool.dtype} "
-             "(fp32/bf16/fp16; quantized pools are the next slice's)")
+             "(q fp32/bf16/fp16; pools also int8/float8_e4m3fn)")
+    _require(quantized == is_quantized_dtype(k_pool.dtype),
+             f"{k_pool.dtype} pools take scales iff they are quantized")
+    _require(not quantized or q.dtype != torch.float16,
+             "quantized pools take an fp32 or bf16 q")
+    for sc in scales:
+        _require(sc.dtype == torch.float32
+                 and tuple(sc.shape) == tuple(k_pool.shape[:2])
+                 and sc.is_contiguous(),
+                 f"scales must be contiguous {tuple(k_pool.shape[:2])} "
+                 f"float32, got {tuple(sc.shape)} {sc.dtype}")
     _require(q.is_contiguous() and k_pool.is_contiguous()
              and v_pool.is_contiguous(), "q and the pools must be contiguous")
     _require(table.dim() == 2 and table.shape[0] == s and table.shape[1] > 0,
@@ -102,7 +137,8 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     _check_index(table, (s, mb), "table")
     _check_index(lengths, (s,), "lengths")
     if dev.type == "cpu":
-        return paged_attention_decode_plain(q, k_pool, v_pool, table, lengths)
+        return paged_attention_decode_plain(q, k_pool, v_pool, table, lengths,
+                                            k_scale, v_scale)
     out = torch.empty_like(q)
     if s == 0:
         return out
@@ -115,11 +151,14 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.repro_paged_attention_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
             table.data_ptr(), lengths.data_ptr(), part_ml[0].data_ptr(),
             part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(),
             s, h, kvh, hd, nb, bs, mb, BLOCKS_PER_SPLIT, hd ** -0.5,
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+            _DTYPE_CODES[q.dtype], _POOL_CODES[k_pool.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "paged_attention_decode")
-    _build.count_launch("paged_attention_decode")
+    name = "paged_attention_decode" + ("_quant" if quantized else "")
+    _build.check(lib, rc, name)
+    _build.count_launch(name)
     return out

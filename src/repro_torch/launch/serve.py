@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced, list_archs
+from repro_torch.kernels.paged_cache import is_quantized_dtype
 from repro_torch.models import build_model
 from repro_torch.serve import resolve_cache_dtype
 from repro_torch.serve.fleet import (SCENARIOS, FleetConfig, FleetRouter,
@@ -56,9 +57,6 @@ def _unported(args) -> list:
     if args.single:
         out.append(("--single", "the dense Engine.generate path comes with "
                     "ROADMAP Queue 1 item 6"))
-    if args.cache_dtype in ("int8", "fp8", "float8_e4m3fn"):
-        out.append((f"--cache-dtype {args.cache_dtype}",
-                    "quantized KV pools come in the next serving slice"))
     return out
 
 
@@ -71,7 +69,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cache-dtype", default="auto",
                     help="KV pool dtype: auto (bf16 on the card, fp32 on the "
-                         "CPU), bf16, fp16, fp32 (int8/fp8: later slice)")
+                         "CPU), bf16, fp16, fp32, or the quantized int8 / fp8 "
+                         "(fleet mode only)")
     ap.add_argument("--fused-attention", default="auto",
                     choices=("auto", "on", "off"),
                     help="decode attention path: the paged-attention kernel "
@@ -120,6 +119,10 @@ def main(argv=None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
 
+    if args.single and is_quantized_dtype(
+            resolve_cache_dtype(args.cache_dtype, "cpu")):
+        ap.error(f"--cache-dtype {args.cache_dtype} is a quantized "
+                 "paged-pool dtype: fleet mode only (drop --single)")
     unported = _unported(args)
     if unported:
         for flag, why in unported:

@@ -19,23 +19,18 @@ def default_cache_dtype(device="cuda") -> torch.dtype:
 
 _NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
           "fp32": torch.float32, "float32": torch.float32,
-          "fp16": torch.float16, "float16": torch.float16}
-_QUANTIZED = ("int8", "fp8", "float8_e4m3fn")
+          "fp16": torch.float16, "float16": torch.float16,
+          "int8": torch.int8, "fp8": torch.float8_e4m3fn,
+          "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def resolve_cache_dtype(name: Optional[str], device="cuda") -> torch.dtype:
     """CLI spelling -> dtype; None/'auto' defers to ``default_cache_dtype``.
-    The quantized pool dtypes (int8, fp8) raise ``NotImplementedError``:
-    their scatter-quant kernel and dequantizing decode come in the next
-    slice."""
+    The quantized spellings (``int8``, ``fp8`` / ``float8_e4m3fn``) resolve
+    to paged-pool storage dtypes, which only the fleet serves."""
     if name is None or name == "auto":
         return default_cache_dtype(device)
-    if name in _QUANTIZED:
-        raise NotImplementedError(
-            f"cache dtype {name!r}: quantized KV pools (paged_scatter_quant "
-            "and the dequantizing decode kernel) come in the next serving "
-            "slice (ROADMAP Queue 2, rows 1q and 4)")
     if name not in _NAMES:
         raise ValueError(f"unknown cache dtype {name!r}; valid names: auto, "
-                         f"{', '.join([*_NAMES, *_QUANTIZED])}")
+                         f"{', '.join(_NAMES)}")
     return _NAMES[name]

@@ -114,7 +114,13 @@ class FleetEngine:
         cfg = model.cfg
         n_attn = len(self.pool.kv_subs) * self.pool.n_scan
         per_row = cfg.num_kv_heads * cfg.resolved_head_dim * cache_dtype.itemsize
+        if self.pool.quantized:
+            per_row += 4             # one fp32 scale per stored row
         self._kv_bytes_per_token = int(n_attn * 2 * per_row)
+        # quantized pools are quantized at insert time: prefill runs with an
+        # fp32 cache, so there are exact rows to quantize
+        self._prefill_dtype = (torch.float32 if self.pool.quantized
+                               else cache_dtype)
 
     # ---- intake ------------------------------------------------------------
     def enqueue(self, request: Request) -> RequestRecord:
@@ -170,7 +176,7 @@ class FleetEngine:
                                      device=self.device)[None, :]
             logits, cache = self.model.prefill(self.params, tokens,
                                                req.prompt_len,
-                                               cache_dtype=self.cache_dtype)
+                                               cache_dtype=self._prefill_dtype)
             self.pool.insert_prefill(slot, cache, req.prompt_len)
             first = int(torch.argmax(logits[0, -1]))
             rec.admitted_ms = self.now_ms

@@ -9,6 +9,12 @@ block: never allocated, never written, and every dead table entry points at
 it. Allocation is deterministic (lowest-index free blocks first), so seeded
 fleet runs are reproducible.
 
+Quantized ``cache_dtype`` (int8 / fp8): the pools store quantized rows and
+one fp32 scale per row in ``k_scale`` / ``v_scale`` ``(L, NB, BS)`` beside
+``k`` / ``v`` in the same per-sublayer dict, so allocation, defrag and the
+scatter move them with their blocks. Prefill rows are quantized at insert
+time (``quantize_rows``), decode appends inside ``paged_scatter_quant``.
+
 The device pools are updated in place (the decode step's scatter kernel
 writes into them); the reference rebinds new arrays instead.
 """
@@ -20,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.paged_cache import is_quantized_dtype
+from repro_torch.kernels.paged_cache import is_quantized_dtype, quantize_rows
 from repro_torch.models.transformer import _n_scan, _sub_kinds
 
 
@@ -31,9 +37,6 @@ class PagedCachePool:
         cfg = model.cfg
         if cfg.sliding_window > 0:
             raise ValueError("paged serving assumes full-length attention")
-        if is_quantized_dtype(cache_dtype):
-            raise NotImplementedError(
-                "quantized KV pools come in the next serving slice")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_slots = max_slots
@@ -41,16 +44,23 @@ class PagedCachePool:
         self.num_blocks = num_blocks          # includes the null block 0
         self.max_blocks_per_slot = max_blocks_per_slot
         self.cache_dtype = cache_dtype
+        self.quantized = is_quantized_dtype(cache_dtype)
         self.kinds = _sub_kinds(cfg)
         self.n_scan = _n_scan(cfg)
         kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         self.kv_subs = [i for i, (m, _f) in enumerate(self.kinds) if m == "attn"]
         shape = (self.n_scan, num_blocks, block_size, kv, hd)
-        self.kv: Dict[str, Dict[str, torch.Tensor]] = {
-            f"sub{i}": {name: torch.zeros(shape, dtype=cache_dtype,
+
+        def pools():
+            d = {name: torch.zeros(shape, dtype=cache_dtype,
+                                   device=self.device) for name in ("k", "v")}
+            if self.quantized:
+                for name in ("k_scale", "v_scale"):
+                    d[name] = torch.zeros(shape[:3], dtype=torch.float32,
                                           device=self.device)
-                        for name in ("k", "v")}
-            for i in self.kv_subs}
+            return d
+        self.kv: Dict[str, Dict[str, torch.Tensor]] = {
+            f"sub{i}": pools() for i in self.kv_subs}
         # host-side allocator state (numpy: the scheduler is host-driven)
         self.table = np.zeros((max_slots, max_blocks_per_slot), np.int32)
         self.lengths = np.zeros((max_slots,), np.int32)
@@ -107,6 +117,9 @@ class PagedCachePool:
                 src = cache[f"sub{i}"][name][:, 0]            # (L, len, kv, hd)
                 src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, pad))
                 src = src.reshape(self.n_scan, nb, bs, *src.shape[2:])
+                if self.quantized:
+                    src, scales = quantize_rows(src, self.cache_dtype)
+                    self.kv[f"sub{i}"][f"{name}_scale"][:, ids] = scales
                 self.kv[f"sub{i}"][name][:, ids] = src.to(self.cache_dtype)
         self.lengths[slot] = length
 

@@ -19,6 +19,11 @@ Two attention paths, pinned against each other:
   ``(S, MB*BS, KVh, hd)`` context, dense fp32 masked softmax;
 * ``fused_attention=True`` (the default) — the ``paged_attention_decode``
   kernel consumes the block table directly; no gathered context exists.
+
+Quantized pools (int8 / fp8, with ``k_scale`` / ``v_scale`` in the layer's
+dict) append through ``paged_scatter_quant`` (quantize at scatter) and
+dequantize per row inside whichever attention path runs: the decode
+kernel in its tile loads, the gather path after gathering the scales too.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.paged_attention import paged_attention_decode
-from repro_torch.kernels.paged_cache import paged_gather, paged_scatter
+from repro_torch.kernels.paged_cache import (paged_gather, paged_scatter,
+                                             paged_scatter_quant)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
                                        lm_head)
@@ -42,28 +48,46 @@ def _paged_attention_decode(p: Dict, x: torch.Tensor,
                             fused: bool) -> torch.Tensor:
     """One-token decode for every slot against its paged context.
 
-    x (S,1,d); kv {"k","v"}: (NB,BS,KVh,hd) pools of THIS layer, updated in
+    x (S,1,d); kv {"k","v"[,"k_scale","v_scale"]}: (NB,BS,KVh,hd) pools of
+    THIS layer (plus (NB,BS) fp32 row scales when quantized), updated in
     place; table (S,MB) int32; lengths (S,) int32; write_slot / write_off
     (NB,) int32 from ``PagedCachePool.write_maps``.
     """
+    quantized = "k_scale" in kv
     bs = kv["k"].shape[1]
     positions = lengths[:, None]                       # (S,1) per-slot pos
     q, k_new, v_new = attn._project_qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
-    k_pool = paged_scatter(kv["k"], k_new[:, 0].to(kv["k"].dtype).contiguous(),
-                           write_slot, write_off)
-    v_pool = paged_scatter(kv["v"], v_new[:, 0].to(kv["v"].dtype).contiguous(),
-                           write_slot, write_off)
+    if quantized:
+        k_pool, k_sc = paged_scatter_quant(kv["k"], kv["k_scale"],
+                                           k_new[:, 0].contiguous(),
+                                           write_slot, write_off)
+        v_pool, v_sc = paged_scatter_quant(kv["v"], kv["v_scale"],
+                                           v_new[:, 0].contiguous(),
+                                           write_slot, write_off)
+    else:
+        k_pool = paged_scatter(kv["k"],
+                               k_new[:, 0].to(kv["k"].dtype).contiguous(),
+                               write_slot, write_off)
+        v_pool = paged_scatter(kv["v"],
+                               v_new[:, 0].to(kv["v"].dtype).contiguous(),
+                               write_slot, write_off)
+        k_sc = v_sc = None
 
     if fused:
         o = paged_attention_decode(q[:, 0].contiguous(), k_pool, v_pool,
-                                   table, lengths)          # (S, H, hd)
+                                   table, lengths, k_sc, v_sc)  # (S, H, hd)
         return attn._out_proj(p, o[:, None].to(x.dtype))
 
     n_live = (lengths + bs) // bs                      # blocks incl. new token
     k = paged_gather(k_pool, table, n_live)            # (S, MB*BS, KVh, hd)
     v = paged_gather(v_pool, table, n_live)
+    if quantized:
+        ks = paged_gather(k_sc[..., None, None], table, n_live)  # (S,T,1,1)
+        vs = paged_gather(v_sc[..., None, None], table, n_live)
+        k = (k.float() * ks).to(x.dtype)
+        v = (v.float() * vs).to(x.dtype)
     scores = attn._gqa_scores(q, k)                    # (S, H, 1, MB*BS)
     slot_pos = torch.arange(k.shape[1], device=x.device)
     valid = (slot_pos[None, :] <= lengths[:, None])[:, None, None, :]

@@ -197,8 +197,24 @@ def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
     out = capsys.readouterr().out
     assert "completed=4 rejected=0" in out and "stream digest" in out
     for argv in (["--hedge"], ["--router", "ensemble"], ["--single"],
-                 ["--cache-dtype", "int8"], ["--trace", "t.json"],
-                 ["--arch", "rwkv6-1.6b"]):
+                 ["--trace", "t.json"], ["--arch", "rwkv6-1.6b"],
+                 ["--single", "--cache-dtype", "int8"]):
         with pytest.raises(SystemExit) as e:
             main(["--device", "cpu", *argv])
         assert e.value.code == 2, argv
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "fp8"])
+def test_cli_serves_quantized_pools_on_cpu(capsys, cache_dtype):
+    """``--cache-dtype int8|fp8`` serves the fleet through the quantized
+    pools; the KV bytes count one fp32 scale per stored row."""
+    from repro_torch.launch.serve import main
+    main(["--device", "cpu", "--arch", "qwen2-7b", "--requests", "4",
+          "--max-new", "3", "--max-prompt", "8", "--slots", "2",
+          "--cache-dtype", cache_dtype])
+    out = capsys.readouterr().out
+    assert "completed=4 rejected=0" in out and "stream digest" in out
+    cfg = get_reduced("qwen2-7b")
+    per_token = cfg.num_layers * 2 * (cfg.num_kv_heads * cfg.resolved_head_dim + 4)
+    kv_bytes = int(out.split("kv_bytes = ")[1].split()[0])
+    assert kv_bytes > 0 and kv_bytes % per_token == 0
