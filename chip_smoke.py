@@ -17,12 +17,15 @@ exits non-zero:
                 lengths incl. 0, dead table entries aimed at a NaN-poisoned
                 free block), in bf16 and fp32, and over int8 and fp8 pools
                 (the quantizing scatter bit-exact from fp32 and bf16 rows,
-                the dequantizing decode with fp32 and bf16 q); the
+                the gather of an int8 pool and its scales bit-exact, the
+                dequantizing decode with fp32 and bf16 q); the
                 standalone forward CE (T=4096, V=152064 bf16; ragged fp32,
                 unaligned bf16, labels out of range) and flash attention
                 (qwen1.5-0.5b training and qwen2-7b 4k prefill shapes, a
-                1024 window, ragged fp32, non-causal T != S, windows that
-                skip whole tiles; bf16 held element by element); the
+                1024 window, ragged, non-causal T != S, rows masked in
+                every column, windows that skip whole tiles, each in fp32
+                and in bf16 on the tensor cores, and bf16 off a 16-byte
+                boundary; bf16 held element by element); the
                 eight loss kernels (CE,
                 CE + distill and distill alone, forward and backward, mse
                 and kl, the target gradient written and skipped) at the
@@ -82,6 +85,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -256,6 +260,50 @@ def phase_build() -> None:
             f"  max registers {max(regs) if regs else 'n/a'}"
             f"  spill bytes {spills}")
         _build.load(name)
+    report_flash_build(info["flash_attention"]["log"])
+
+
+FLASH_KERNELS = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_kernel")
+
+
+def flash_kernel_name(mangled: str) -> str:
+    """'flash_mma_kernel<32>' for a mangled flash kernel name."""
+    kind = next((k for k in FLASH_KERNELS if k in mangled), mangled)
+    hd = re.search(r"Li(\d+)E", mangled)
+    return f"{kind}<{hd.group(1) if hd else '?'}>"
+
+
+def report_flash_build(nvcc_log: str) -> None:
+    """Registers, spills and ptxas notes of each flash kernel (from a fresh
+    build's ``-Xptxas -v``) and the tensor-core instructions in its SASS
+    (``cuobjdump -sass``): the bf16 kernels must hold HGMMA (wgmma, hd 64
+    and 128) or HMMA (mma.sync, hd 16 and 32)."""
+    from repro_torch.kernels import _build
+    fn = None
+    for line in nvcc_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = flash_kernel_name(line.split("'")[1])
+        elif fn and any(w in line for w in ("Used", "spill", "Potential")):
+            log(f"  {fn}: {line.split(':', 1)[-1].strip()}")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = flash_kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "HMMA" in line
+    log("  flash SASS: " + ", ".join(f"{fn} HGMMA {hg} HMMA {hm}"
+                                     for fn, (hg, hm) in sorted(counts.items())))
+    for kind, hds, col in (("flash_wgmma_kernel", (64, 128), 0),
+                           ("flash_mma_kernel", (16, 32), 1)):
+        for hd in hds:
+            require(counts.get(f"{kind}<{hd}>", [0, 0])[col] > 0,
+                    f"{kind}<{hd}>: no tensor-core instruction in its SASS")
 
 
 # ----------------------------------------------------------------------------
@@ -436,6 +484,15 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
             log(f"  {kname} bf16: kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
                 f"bound {r['bound_ms']:.5f} ms ({b_by})")
+        # row 3's floor: the gather's output written alone (a memset) after
+        # the same L2 flush, and the gather and index_select with no flush
+        out = torch.empty_like(g_k)
+        no_flush = torch.empty(0, device=dev)
+        log(f"  paged_gather floor: memset of its {out.numel() * es / 1e6:.1f}"
+            f" MB output {time_ms(out.zero_, flush):.4f} ms; with no L2 "
+            f"flush: kernel {time_ms(specs['paged_gather'][0], no_flush):.4f}"
+            f" ms, index_select "
+            f"{time_ms(specs['paged_gather'][2], no_flush):.4f} ms")
     return results
 
 
@@ -459,12 +516,14 @@ def quantized_pools(inp, dtype, dev: torch.device):
 def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
     """Rows 4 and 1q over int8 and fp8 pools at the main-path shapes: the
     quantizing scatter bit-exact against its plain version from fp32 and
-    bf16 rows (poisoned and null blocks untouched), the dequantizing decode
+    bf16 rows (poisoned and null blocks untouched), the gather (row 3) of
+    an int8 pool and of its scales bit-exact, the dequantizing decode
     against its plain version with fp32 q (1e-5 of the output's scale) and
     bf16 q (one bf16 ulp of it); times with the fleet's bf16 rows and q.
     Returns the int8 rows; the fp8 times are printed."""
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain,
+                                     paged_gather, paged_gather_plain,
                                      paged_scatter_quant,
                                      paged_scatter_quant_plain)
     inp = kernel_inputs()
@@ -512,8 +571,20 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
                    if qd == torch.float32 else bf16_ulp(o_p))
             require(err <= tol, f"{what}: max|kernel-plain| {err:.3e} > {tol:.3e}")
             msg.append(f"{str(qd)[6:]} q {err:.3e} (tol {tol:.3e})")
+        # the gather path's copies of an int8 pool and of its scales (the
+        # fleet's gather tick): bit-exact, zeros past n_live, the
+        # NaN-scaled block never read
+        n_live = ((lengths + BS) // BS).to(torch.int32)
+        for pool in ((kq, ks[..., None, None]) if qdt == torch.int8 else ()):
+            g_k = paged_gather(pool, table, n_live)
+            g_p = paged_gather_plain(pool, table, n_live)
+            sync(dev)
+            require(bits_equal(g_k, g_p), f"paged_gather {name}: kernel != plain")
+            require(not bool(torch.isnan(g_k.float()).any()),
+                    f"paged_gather {name}: read poison")
         log(f"kernels {name} pools: scatter_quant bit-exact from fp32 and bf16 "
-            f"rows; decode max|kernel-plain| " + ", ".join(msg))
+            f"rows;{' gather of the pool and its scales bit-exact;' if qdt == torch.int8 else ''}"
+            f" decode max|kernel-plain| " + ", ".join(msg))
 
         # ---- times at the main path's types (bf16 rows and q) ----
         q = t["q"].to(torch.bfloat16)
@@ -555,8 +626,11 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
 # causal, window, dtype); a-c are timed (qwen1.5-0.5b training attention,
 # qwen2-7b prefill at 4k, the same with a 1024 window), d-i are checks
 # (ragged, non-causal T != S, rows masked in every column, a window
-# without causal, and a window that skips whole 64-column tiles, causal
-# and not, held in fp32)
+# without causal, and a window that skips whole tiles, causal and not),
+# held in fp32 and, as their bf16 twins (listed last, so that every
+# shape keeps its seed, 500 + its index), through the tensor-core kernels
+# (hd 64 and 128 on wgmma, hd 16 and 32 on mma.sync); "unaligned" views
+# q, k and v off any 16-byte boundary (the wrapper copies them aligned)
 FLASH_SHAPES = [
     ("a", 8, 512, 512, 16, 16, 64, True, 0, torch.bfloat16),
     ("b", 1, 4096, 4096, 28, 4, 128, True, 0, torch.bfloat16),
@@ -568,6 +642,12 @@ FLASH_SHAPES = [
     ("g", 1, 128, 128, 4, 4, 16, False, 24, torch.float32),
     ("h", 1, 512, 512, 4, 2, 64, True, 100, torch.float32),
     ("i", 1, 512, 512, 4, 2, 64, False, 100, torch.float32),
+    ("d bf16", 2, 100, 100, 6, 2, 64, True, 0, torch.bfloat16),
+    ("e bf16 unaligned", 2, 96, 200, 8, 2, 128, False, 0, torch.bfloat16),
+    ("f bf16", 1, 200, 64, 4, 2, 32, True, 16, torch.bfloat16),
+    ("g bf16", 1, 128, 128, 4, 4, 16, False, 24, torch.bfloat16),
+    ("h bf16", 1, 512, 512, 4, 2, 64, True, 100, torch.bfloat16),
+    ("i bf16", 1, 512, 512, 4, 2, 64, False, 100, torch.bfloat16),
 ]
 TIMED_FLASH = ("a", "b", "c")
 # the standalone CE's shapes: the training main path's, ragged fp32, and
@@ -577,11 +657,18 @@ CE_SHAPES = [("main", TRAIN_T, TRAIN_V, torch.bfloat16),
              ("unaligned", 37, 700, torch.bfloat16)]
 
 
-def flash_inputs(b, s, t, h, kvh, hd, dtype, dev: torch.device, seed: int):
+def flash_inputs(b, s, t, h, kvh, hd, dtype, dev: torch.device, seed: int,
+                 unaligned: bool = False):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
-            for shape in ((b, s, h, hd), (b, t, kvh, hd), (b, t, kvh, hd))]
+    out = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+           for shape in ((b, s, h, hd), (b, t, kvh, hd), (b, t, kvh, hd))]
+    if unaligned:            # contiguous views one element past a boundary
+        for i, x in enumerate(out):
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            out[i] = buf[1:].view(x.shape)
+    return out
 
 
 def flash_bound(b, s, t, h, kvh, hd, causal, window, dtype, dev):
@@ -672,7 +759,8 @@ def phase_ops_kernels(dev: torch.device, flush: torch.Tensor):
     sdpa = F.scaled_dot_product_attention
     for si, (label, b, s, t, h, kvh, hd, causal, window, dtype) in \
             enumerate(FLASH_SHAPES):
-        q, k, v = flash_inputs(b, s, t, h, kvh, hd, dtype, dev, 500 + si)
+        q, k, v = flash_inputs(b, s, t, h, kvh, hd, dtype, dev, 500 + si,
+                               label.endswith("unaligned"))
         o_k = flash_attention(q, k, v, causal, window)
         o_p = flash_attention_plain(q, k, v, causal, window)
         sync(dev)

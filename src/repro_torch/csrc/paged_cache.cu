@@ -11,14 +11,27 @@
 //
 // What bounds them on an H100: bytes. Neither does arithmetic; each moves
 // its payload once (scatter: one row per appending slot, ~KVh*hd*2 B = 1 KB
-// at the main-path shape; gather: S*MB blocks of BS rows). The design does
-// the least the bound allows: one CTA per pool block (scatter) or per
-// (slot, table entry) (gather), each copying its payload with 16-byte
-// vector loads and stores when the sizes and pointers allow it (they do for
-// bf16/fp32 rows whose byte width is a multiple of 16), and nothing else.
-// The scatter's block->writer map makes every pool block written by at most
-// one CTA, so no atomics. Both are bit-exact copies, so the element type
-// does not matter: the kernels copy bytes in units of T.
+// at the main-path shape; gather: S*MB blocks of BS rows, 544 blocks of
+// 16 KB = 8.9 MB written at the main path). Both are bit-exact copies, so
+// the element type does not matter: the kernels copy bytes in units of T,
+// the widest of 16, 8, 4, 2 or 1 bytes that the sizes and pointers allow
+// (16 for bf16/fp32/int8 blocks and rows).
+//
+// Scatter: one CTA per pool block, copying its row when a slot writes into
+// it. The scatter's block->writer map makes every pool block written by at
+// most one CTA, so no atomics; its time is the launch's.
+//
+// Gather: bytes in flight. Each CTA of 256 threads takes a contiguous run
+// of table entries of the flattened (S, MB) table, sized so that a thread
+// moves at most 8 units (2 entries of 16 KB at the main path: 272 CTAs over
+// 132 SMs, 32 KB each). The CTA reads each entry's table slot and n_live
+// once into shared memory; then every thread issues all of its (up to 8)
+// 16-byte loads, unrolled, before any of its stores, so a CTA keeps its
+// whole run in flight instead of one load per thread. Entries at or past
+// n_live[s], or naming a block outside the pool, are written as zeros
+// with no load, so the poisoned free block is never read. Stores are
+// streaming (st.global.cs): the gathered copy is read once, by the
+// attention that follows, and should not evict the pool from L2.
 //
 // The quantizing scatter (int8 / float8_e4m3fn pools, one fp32 scale per
 // row in a (NB, BS) array) keeps scatter_kernel's layout: one CTA per pool
@@ -68,26 +81,50 @@ __global__ void scatter_kernel(T* __restrict__ pool, const T* __restrict__ rows,
   for (int i = threadIdx.x; i < row_units; i += blockDim.x) dst[i] = src[i];
 }
 
-// gather: CTA (m, s) copies pool block table[s, m] into out[s, m], or
-// writes zeros when m >= n_live[s] (the dead block is never read).
+// gather: CTA i copies the table entries [i * per_cta, (i + 1) * per_cta)
+// of the flattened (S, MB) table: pool block table[s, m] into out[s, m],
+// or zeros when m >= n_live[s] or the block is out of range.
+constexpr int kGatherThreads = 256;
+constexpr int kGatherUnroll = 8;         // loads in flight per thread
+constexpr int kGatherMaxEntries = 64;    // entries per CTA
+
 template <typename T>
-__global__ void gather_kernel(const T* __restrict__ pool,
-                              const int* __restrict__ table,
-                              const int* __restrict__ n_live,
-                              T* __restrict__ out, int max_blocks,
-                              int block_units, int num_blocks) {
-  const int m = blockIdx.x;
-  const int s = blockIdx.y;
-  T* dst = out + ((size_t)s * max_blocks + m) * block_units;
-  const int blk = table[s * max_blocks + m];
-  if (m < n_live[s] && blk >= 0 && blk < num_blocks) {
-    const T* src = pool + (size_t)blk * block_units;
-    for (int i = threadIdx.x; i < block_units; i += blockDim.x) dst[i] = src[i];
-  } else {
-    const T zero{};
-    for (int i = threadIdx.x; i < block_units; i += blockDim.x) dst[i] = zero;
+__global__ void __launch_bounds__(kGatherThreads)
+gather_kernel(const T* __restrict__ pool, const int* __restrict__ table,
+              const int* __restrict__ n_live, T* __restrict__ out,
+              int max_blocks, int block_units, int num_blocks, int entries,
+              int per_cta) {
+  __shared__ int src_block[kGatherMaxEntries];  // -1: write zeros
+  const int e0 = blockIdx.x * per_cta;
+  const int n_e = min(per_cta, entries - e0);
+  if (threadIdx.x < n_e) {
+    const int e = e0 + threadIdx.x;
+    const int s = e / max_blocks;
+    const int blk = table[e];
+    src_block[threadIdx.x] =
+        e - s * max_blocks < n_live[s] && blk >= 0 && blk < num_blocks ? blk : -1;
   }
-}
+  __syncthreads();
+  const int total = n_e * block_units;
+  T* dst = out + (size_t)e0 * block_units;
+  for (int base = 0; base < total; base += kGatherThreads * kGatherUnroll) {
+    T val[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int i = base + u * kGatherThreads + threadIdx.x;
+      val[u] = T{};
+      if (i < total) {
+        const int e = i / block_units;
+        const int blk = src_block[e];
+        if (blk >= 0) val[u] = pool[(size_t)blk * block_units + (i - e * block_units)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int i = base + u * kGatherThreads + threadIdx.x;
+      if (i < total) __stcs(dst + i, val[u]);
+    }
+  }}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -192,10 +229,13 @@ template <typename T>
 void launch_gather(const void* pool, const int* table, const int* n_live,
                    void* out, int num_slots, int max_blocks,
                    long long block_bytes, int num_blocks, cudaStream_t st) {
-  dim3 grid(max_blocks, num_slots);
-  gather_kernel<T><<<grid, kThreads, 0, st>>>(
+  const int block_units = (int)(block_bytes / sizeof(T));
+  const int entries = num_slots * max_blocks;
+  int per_cta = kGatherThreads * kGatherUnroll / block_units;
+  per_cta = per_cta < 1 ? 1 : per_cta > kGatherMaxEntries ? kGatherMaxEntries : per_cta;
+  gather_kernel<T><<<(entries + per_cta - 1) / per_cta, kGatherThreads, 0, st>>>(
       static_cast<const T*>(pool), table, n_live, static_cast<T*>(out),
-      max_blocks, (int)(block_bytes / sizeof(T)), num_blocks);
+      max_blocks, block_units, num_blocks, entries, per_cta);
 }
 
 }  // namespace

@@ -6,8 +6,11 @@ with a plain C interface, ``build/<name>-<hash>.so`` at the repository root:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so a library is rebuilt only when
-its source changes. ``build_all()`` starts one nvcc per source, all at once,
+Each library links only the CUDA runtime: flash attention fetches the
+driver API's ``cuTensorMapEncodeTiled`` (its TMA descriptors) at run time
+through ``cudaGetDriverEntryPoint``, so no ``-lcuda`` is needed. The hash
+covers the source and the flags, so a library is rebuilt only when its
+source changes. ``build_all()`` starts one nvcc per source, all at once,
 and waits for them. Every C entry point launches on the stream it is handed
 (PyTorch's current stream) and returns ``cudaGetLastError()``; ``check``
 raises on anything but 0. Launch counts live in ``launch_counts``: a wrapper

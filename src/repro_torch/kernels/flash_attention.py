@@ -8,12 +8,16 @@ The masks are the reference's Pallas kernel's (``_flash_kernel``), not its
 jnp oracle's: ``causal`` keeps ``col <= row`` on raw indices, even when
 T != S, and ``window > 0`` keeps ``row - col < window`` whether or not the
 call is causal (the oracle applies the window only when causal). A row
-masked in every column averages v over all T columns, as both do. ``q`` is
-scaled by ``hd ** -0.5`` in fp32 before the dot.
+masked in every column averages v over all T columns, as both do. The
+plain version and the fp32 kernel scale ``q`` by ``hd ** -0.5`` in fp32
+before the dot; the bf16 kernels, on the tensor cores, scale the fp32
+scores after the unscaled bf16 dot and feed P to P V as bf16 hi + lo (the
+arithmetic ``tests/test_torch_flash_rounding.py`` emulates).
 
-The kernel (``csrc/flash_attention.cu``) takes any S and T: nothing is
+The kernels (``csrc/flash_attention.cu``) take any S and T: nothing is
 padded. On a CPU tensor the wrapper runs the plain version (a dense fp32
-masked softmax); on a CUDA tensor it launches the kernel or raises.
+masked softmax); on a CUDA tensor it launches a kernel (by dtype and
+head dim, all in one entry point) or raises.
 """
 from __future__ import annotations
 
@@ -82,6 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(t > 0, "no keys (T = 0)")
     _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
              "q, k and v must be contiguous")
+    # the kernels read 16-byte units: a view off a 16-byte boundary is
+    # copied to fresh (aligned) storage
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
