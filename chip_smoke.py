@@ -9,7 +9,8 @@ exits non-zero:
 
   1. device   — a CUDA card or exit 1; print its nvidia-smi name and power
                 limit; TF32 off for the parity phases.
-  2. build    — compile the CUDA kernels (one nvcc per source, together).
+  2. build    — compile the CUDA kernels (one nvcc per source, together);
+                registers and spills of the flash and decode kernels.
   3. kernels  — each kernel against its plain PyTorch version, with kernel,
                 plain and library-call times from CUDA events:
                 the paged-KV kernels at the fleet's shapes (qwen2-7b: S=16
@@ -18,7 +19,10 @@ exits non-zero:
                 free block), in bf16 and fp32, and over int8 and fp8 pools
                 (the quantizing scatter bit-exact from fp32 and bf16 rows,
                 the gather of an int8 pool and its scales bit-exact, the
-                dequantizing decode with fp32 and bf16 q); the
+                dequantizing decode with fp32 and bf16 q); the decode also
+                at 16 slots ragged to 4k (k2) and one slot at 32k (k3),
+                bf16 held element by element, beside a streaming read of
+                its bytes after the same flush; the
                 standalone forward CE (T=4096, V=152064 bf16; ragged fp32,
                 unaligned bf16, labels out of range) and flash attention
                 (qwen1.5-0.5b training and qwen2-7b 4k prefill shapes, a
@@ -205,10 +209,13 @@ def sync(dev: torch.device) -> None:
 SPIN_CYCLES = 1_000_000
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = 30, warmup: int = 3) -> float:
+def time_ms(fn, flush: torch.Tensor, iters: int = 30, warmup: int = 3,
+            clean: bool = False) -> float:
     """Mean device time of ``fn`` from CUDA events around each call, with
     the L2 cache flushed before every call (decode finds the pools cold:
-    the layer's weights pass through L2 between two attention calls). A
+    the layer's weights pass through L2 between two attention calls). The
+    flush writes ``flush``, so the L2 it leaves holds dirty lines that the
+    call's misses write back; ``clean`` flushes by reading it instead. A
     call that synchronises with the host inside (the plain decode) still
     counts the host time after its sync."""
     for _ in range(warmup):
@@ -217,7 +224,10 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30, warmup: int = 3) -> float:
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for start, end in ev:
-        flush.zero_()
+        if clean:
+            flush.amax()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
@@ -261,6 +271,7 @@ def phase_build() -> None:
             f"  spill bytes {spills}")
         _build.load(name)
     report_flash_build(info["flash_attention"]["log"])
+    report_decode_build(info["paged_attention"]["log"])
 
 
 FLASH_KERNELS = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_kernel")
@@ -304,6 +315,44 @@ def report_flash_build(nvcc_log: str) -> None:
         for hd in hds:
             require(counts.get(f"{kind}<{hd}>", [0, 0])[col] > 0,
                     f"{kind}<{hd}>: no tensor-core instruction in its SASS")
+
+
+# pool types in the decode kernels' mangled names
+DECODE_POOLS = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
+                "a": "int8", "13__nv_fp8_e4m3": "fp8"}
+
+
+def report_decode_build(nvcc_log: str) -> None:
+    """Registers and spills of each decode kernel instance (from a fresh
+    build's ``-Xptxas -v``), one line per pool type; fails on a spill."""
+    if not nvcc_log:
+        log("  decode kernels: cached build, no ptxas log")
+        return
+    rows, fn, spill, spilled = {}, None, 0, []
+    for line in nvcc_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            part = re.search(r"decode_partial_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                             mangled)
+            comb = re.search(r"decode_combine_kernelI(\w+?)EEv", mangled)
+            fn = (("partial", DECODE_POOLS.get(part.group(1), part.group(1)),
+                   f"hd {part.group(2)} GP {part.group(3)}") if part else
+                  ("combine", "", "out " + DECODE_POOLS.get(comb.group(1),
+                                                            comb.group(1)))
+                  if comb else None)
+        elif fn and "spill" in line:
+            spill = sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+        elif fn and "Used" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.setdefault(fn[:2], []).append(f"{fn[2]} {regs} regs/{spill} B")
+            if spill:
+                spilled.append(" ".join(fn))
+            fn = None
+    for (kind, pool), insts in sorted(rows.items()):
+        log(f"  decode_{kind}_kernel {pool} (registers/spill bytes): "
+            + ", ".join(insts))
+    require(rows, "no decode kernel in the ptxas log")
+    require(not spilled, f"decode kernels spill: {spilled}")
 
 
 # ----------------------------------------------------------------------------
@@ -376,6 +425,157 @@ def bf16_grad_misses(k: torch.Tensor, p: torch.Tensor) -> int:
     return bf16_misses(k, p)[0]
 
 
+# the decode's shapes (qwen2-7b, one layer's pools; label, slots, MB, NB,
+# lengths): the fleet's (main), the fleet at 4k contexts (k2: 16 slots
+# ragged to 4,095) and one request at qwen2-7b's full 32k window (k3)
+DECODE_SHAPES = [("main", S, MB, NB, LENGTHS),
+                 ("k2", 16, 256, 4097, [255 + 256 * i for i in range(16)]),
+                 ("k3", 1, 2048, 2050, [32767])]
+# held, not timed (label, slots, MB, NB, lengths, H, KVh, hd): qwen1.5-0.5b's
+# heads (H = KVh = 16, hd = 64: G = 1, one warp per KV head), and G = 4 at hd
+# 64 and G = 8 at hd 32, whose chunks take 2 and 1 steps; an inactive slot
+# and a full table among them
+DECODE_CHECKS = [("qwen1.5-0.5b", 4, 8, 16, [0, 5, 40, 127], 16, 16, 64),
+                 ("hd64 G4", 3, 6, 12, [0, 17, 95], 8, 2, 64),
+                 ("hd32 G8", 3, 6, 12, [0, 17, 95], 8, 1, 32)]
+
+
+def decode_inputs(slots, mb, nb, lengths, dev: torch.device, seed: int,
+                  h: int = H, kvh: int = KVH, hd: int = HD):
+    """fp32 q and pools on the card for a decode shape with
+    ``kernel_inputs``' table rule: disjoint live blocks from block 2 up,
+    the dead entries of every third slot aimed at the NaN-poisoned block,
+    the null block 0 all zero. Returns (q, k, v, table, lengths)."""
+    lens = np.asarray(lengths, np.int32)
+    table = np.zeros((slots, mb), np.int32)
+    nxt = 2
+    for s, ln in enumerate(lens):
+        n = min((ln + BS) // BS, mb)
+        if ln > 0:
+            table[s, :n] = np.arange(nxt, nxt + n)
+            nxt += n
+        if n < mb and s % 3 == 0:
+            table[s, n:] = POISON
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k, v = (torch.randn((nb, BS, kvh, hd), generator=gen, device=dev)
+            for _ in range(2))
+    for x in (k, v):
+        x[0] = 0.0
+        x[POISON] = float("nan")
+    q = torch.randn((slots, h, hd), generator=gen, device=dev)
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def check_decode(what: str, o_k: torch.Tensor, o_p: torch.Tensor,
+                 lengths: torch.Tensor, quantized: bool, faults: list) -> float:
+    """A decode output against its plain version: finite, exactly 0 on the
+    inactive slots (length 0); an fp32 output within 1e-5 (1e-5 max(|o|, 1)
+    over quantized pools: the sums run in other orders, ~1e-7 relative); a
+    bf16 output within one bf16 ulp at max|o| and, element by element,
+    within one bf16 ulp of each element plus ``FLASH_FLOOR_REL`` max|o|, as
+    flash attention's (both round an fp32 value once; the fp32 sums differ
+    by a few fp32 ulps of max|o|). A failure goes into ``faults`` with the
+    count of elements beyond the check, so that every shape is held before
+    the phase fails. Returns max|kernel - plain|."""
+    err = max_err(o_k, o_p)
+    bad = []
+    if not bool(torch.isfinite(o_k).all()):
+        bad.append("non-finite output")
+    if bool((o_k[lengths == 0] != 0).any()):
+        bad.append("inactive slot output != 0")
+    if o_k.dtype == torch.float32:
+        tol = 1e-5 * (max(float(o_p.abs().max()), 1.0) if quantized else 1.0)
+        n = int(((o_k - o_p).abs() > tol).sum())
+        msg = f"max|kernel-plain| {err:.3e} (tol {tol:.3e})"
+    else:
+        tol = bf16_ulp(o_p)
+        n, worst = bf16_misses(o_k, o_p, FLASH_FLOOR_REL)
+        if err > tol:
+            bad.append(f"max|kernel-plain| {err:.3e} > one bf16 ulp {tol:.3e}")
+        msg = (f"max|kernel-plain| {err:.3e} (tol {tol:.3e}), {n} elements "
+               f"beyond one bf16 ulp of their own (worst ratio {worst:.3f})")
+    if n:
+        bad.append(f"{n} elements beyond the check")
+    log(f"  decode {what}: {msg}")
+    if bad:
+        faults.append(f"decode {what}: " + "; ".join(bad))
+    return err
+
+
+def decode_breakdown(fn, flush: torch.Tensor, n: int = 10) -> str:
+    """Device time per call of each decode kernel (torch.profiler), with
+    the L2 flushed before each call as in ``time_ms``."""
+    parts = []
+    for us, _count, key in kernel_times(lambda: (flush.zero_(), fn()), n):
+        name = re.search(r"decode_\w+_kernel<[^>]*>", key)
+        if name:
+            parts.append(f"{name.group(0)} {us / n / 1e3:.4f} ms")
+    return ", ".join(parts) or "not measured (no device time in the profile)"
+
+
+def sdpa_on_gather(q, k, v, table, lengths):
+    """SDPA over the gathered (S, H, MB*BS, hd) copy of the pools, the
+    decode's library call (the gather is set-up, not timed)."""
+    from repro_torch.kernels import paged_gather
+    s, mb = table.shape
+    n_live = ((lengths + BS) // BS).clamp(max=mb).to(torch.int32)
+    kx, vx = (paged_gather(x, table, n_live).view(s, mb * BS, KVH, HD)
+              .permute(0, 2, 1, 3).repeat_interleave(H // KVH, dim=1)
+              .contiguous() for x in (k, v))
+    mask = (torch.arange(mb * BS, device=q.device)[None, :]
+            <= lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q4, kx, vx, attn_mask=mask)
+
+
+def time_decode(what: str, q, kp, vp, table, lengths, scales, flush, lib,
+                plain_iters: int = 30) -> dict:
+    """Kernel, plain and library (``lib`` or None) times of the decode, its
+    bound (each live K/V row, q and the output once, table and lengths;
+    or 4 H hd operations per live position over the pool type's peak) and
+    the kernel's time by its kernels."""
+    from repro_torch.kernels import (paged_attention_decode,
+                                     paged_attention_decode_plain)
+    rows = int((lengths.long() + 1).sum())
+    row_b = KVH * HD * kp.element_size() + (4 if scales else 0)
+    nbytes = (2 * rows * row_b + 2 * q.numel() * q.element_size()
+              + table.numel() * 4 + lengths.numel() * 4)
+    tb = nbytes / HBM_BPS * 1e3
+    tf = 4 * H * HD * rows / PEAK_FLOPS[kp.dtype] * 1e3
+
+    def kern():
+        return paged_attention_decode(q, kp, vp, table, lengths, *scales)
+
+    r = {"ms": time_ms(kern, flush),
+         "plain_ms": time_ms(lambda: paged_attention_decode_plain(
+             q, kp, vp, table, lengths, *scales), flush,
+             iters=plain_iters, warmup=min(3, plain_iters)),
+         "library_ms": None if lib is None else time_ms(lib, flush),
+         "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+    lib_txt = ("— (no single call)" if lib is None
+               else f"{r['library_ms']:.4f} ms (SDPA on the gathered copy)")
+    # the floor of time_ms's flushed L2: one amax over each pool's live
+    # blocks (contiguous from block 2 in both input builders), read as int32
+    live = int(((lengths.long() + BS) // BS).clamp(max=table.shape[1]).sum())
+    kw, vw = (x.view(torch.int32)[2:2 + live] for x in (kp, vp))
+
+    def floor():
+        return kw.amax(), vw.amax()
+
+    log(f"  {what}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+        f"library {lib_txt}  bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+        f"{r['bound_ms'] / r['ms']:.1%} of it; {rows} positions; floor "
+        f"(amax over the live blocks of K and of V) "
+        f"{time_ms(floor, flush):.4f} ms; by kernel: "
+        f"{decode_breakdown(kern, flush)}; L2 flushed by a read: kernel "
+        f"{time_ms(kern, flush, clean=True):.4f} ms, floor "
+        f"{time_ms(floor, flush, clean=True):.4f} ms")
+    return r
+
+
 def phase_kernels(dev: torch.device, flush: torch.Tensor):
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain,
@@ -386,8 +586,7 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
     lengths, table = t["lengths"], t["table"]
     n_live = ((lengths + BS) // BS).to(torch.int32)
     writers = int((t["wslot"] >= 0).sum())
-    rows = int((lengths.long() + 1).sum())
-    results = {}
+    results, faults = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         es = torch.tensor([], dtype=dtype).element_size()
@@ -412,22 +611,13 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
         sync(dev)
         require(bits_equal(g_k, g_p), f"paged_gather {name}: kernel != plain")
         require(not torch.isnan(g_k).any(), f"paged_gather {name}: read poison")
+        log(f"kernels {name}: scatter/gather bit-exact")
 
-        # decode attention: fp32 state in both; tolerance below
-        o_k = paged_attention_decode(q, kk, vv, table, lengths)
-        o_p = paged_attention_decode_plain(q, kk, vv, table, lengths)
-        sync(dev)
-        require(bool(torch.isfinite(o_k).all()), f"decode {name}: non-finite")
-        require(not bool((o_k[0] != 0).any()),
-                f"decode {name}: inactive slot output != 0")
-        err = float((o_k.float() - o_p.float()).abs().max())
-        # fp32: the two sum the hd-long dots and BS-long p@v in other orders
-        # (~1e-7 relative); bf16: both round the same fp32 value at the end,
-        # so they differ by at most one bf16 ulp at the output's scale
-        tol = 1e-5 if dtype == torch.float32 else bf16_ulp(o_p)
-        log(f"kernels {name}: scatter/gather bit-exact; decode max|kernel-plain|"
-            f" = {err:.3e} (tol {tol:.3e})")
-        require(err <= tol, f"decode {name}: max abs err {err} > {tol}")
+        # decode attention: fp32 state in both (check_decode's tolerances)
+        err = check_decode(
+            f"main {name}", paged_attention_decode(q, kk, vv, table, lengths),
+            paged_attention_decode_plain(q, kk, vv, table, lengths), lengths,
+            False, faults)
         if dtype != torch.bfloat16:
             continue
 
@@ -436,54 +626,42 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
         off_ix = t["woff"][blk_ix].long()
         src_rows = new[t["wslot"][blk_ix].long()]
         flat_table = table.reshape(-1).long()
-        kx = g_k.view(S, MB * BS, KVH, HD).permute(0, 2, 1, 3)   # S,KVh,T,hd
-        vx = paged_gather(vv, table, n_live).view(S, MB * BS, KVH, HD).permute(0, 2, 1, 3)
-        kx = kx.repeat_interleave(H // KVH, dim=1).contiguous()
-        vx = vx.repeat_interleave(H // KVH, dim=1).contiguous()
-        mask = (torch.arange(MB * BS, device=dev)[None, :]
-                <= lengths[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         row_b = KVH * HD * es
         block_b = BS * row_b
         live_blocks = int(n_live.sum())
-        flops_decode = 4 * H * HD * rows
-        bytes_decode = (2 * rows * row_b + 2 * q.numel() * es
-                        + table.numel() * 4 + lengths.numel() * 4)
         bytes_scatter = 2 * writers * row_b + 2 * NB * 4
         bytes_gather = (live_blocks * block_b + S * MB * block_b
                         + table.numel() * 4 + S * 4)
 
-        def bound(nbytes, flops):
-            tb, tf = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-            return max(tb, tf), ("bytes" if tb >= tf else "operations")
+        def bound(nbytes):
+            return nbytes / HBM_BPS * 1e3, "bytes"
 
         specs = {
             "paged_scatter": (
                 lambda: paged_scatter(kk, new, t["wslot"], t["woff"]),
                 lambda: paged_scatter_plain(kp, new, t["wslot"], t["woff"]),
                 lambda: kp.index_put_((blk_ix, off_ix), src_rows),
-                bound(bytes_scatter, 0), 0.0),
+                bound(bytes_scatter)),
             "paged_gather": (
                 lambda: paged_gather(kk, table, n_live),
                 lambda: paged_gather_plain(kk, table, n_live),
                 lambda: kk.index_select(0, flat_table),
-                bound(bytes_gather, 0), 0.0),
-            "paged_attention_decode": (
-                lambda: paged_attention_decode(q, kk, vv, table, lengths),
-                lambda: paged_attention_decode_plain(q, kk, vv, table, lengths),
-                lambda: sdpa(q4, kx, vx, attn_mask=mask),
-                bound(bytes_decode, flops_decode), err),
+                bound(bytes_gather)),
         }
-        for kname, (kern, plain, lib, (b_ms, b_by), kerr) in specs.items():
+        for kname, (kern, plain, lib, (b_ms, b_by)) in specs.items():
             results[kname] = {
                 "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
                 "library_ms": time_ms(lib, flush), "bound_ms": b_ms,
-                "bound_by": b_by, "max_abs_err": kerr}
+                "bound_by": b_by, "max_abs_err": 0.0}
             r = results[kname]
             log(f"  {kname} bf16: kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
                 f"bound {r['bound_ms']:.5f} ms ({b_by})")
+        results["paged_attention_decode"] = dict(
+            time_decode("paged_attention_decode main bf16", q, kk, vv, table,
+                        lengths, (), flush,
+                        sdpa_on_gather(q, kk, vv, table, lengths)),
+            max_abs_err=err)
         # row 3's floor: the gather's output written alone (a memset) after
         # the same L2 flush, and the gather and index_select with no flush
         out = torch.empty_like(g_k)
@@ -493,17 +671,45 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
             f"flush: kernel {time_ms(specs['paged_gather'][0], no_flush):.4f}"
             f" ms, index_select "
             f"{time_ms(specs['paged_gather'][2], no_flush):.4f} ms")
+
+    # the decode at the fleet's 4k contexts and at one 32k request
+    for si, (label, slots, mb, nb, lens) in enumerate(DECODE_SHAPES[1:]):
+        q, k, v, table, lengths = decode_inputs(slots, mb, nb, lens, dev,
+                                                600 + si)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            check_decode(f"{label} {str(dtype)[6:]}",
+                         paged_attention_decode(qd, kd, vd, table, lengths),
+                         paged_attention_decode_plain(qd, kd, vd, table,
+                                                      lengths),
+                         lengths, False, faults)
+        time_decode(f"paged_attention_decode {label} bf16 (S={slots}, "
+                    f"MB={mb})", qd, kd, vd, table, lengths, (), flush,
+                    sdpa_on_gather(qd, kd, vd, table, lengths), plain_iters=3)
+        del q, k, v, qd, kd, vd
+        torch.cuda.empty_cache()
+    for label, slots, mb, nb, lens, h, kvh, hd in DECODE_CHECKS:
+        q, k, v, table, lengths = decode_inputs(slots, mb, nb, lens, dev, 610,
+                                                h, kvh, hd)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            check_decode(f"{label} {str(dtype)[6:]}",
+                         paged_attention_decode(qd, kd, vd, table, lengths),
+                         paged_attention_decode_plain(qd, kd, vd, table,
+                                                      lengths),
+                         lengths, False, faults)
+    require(not faults, "; ".join(faults))
     return results
 
 
-def quantized_pools(inp, dtype, dev: torch.device):
-    """``kernel_inputs``' K and V pools quantized to ``dtype`` on the card,
-    each with its (NB, BS) scales: the null block 0 and scale 0, the
-    poisoned block with NaN scales (and NaN fp8 rows)."""
+def quantized_pools(k: torch.Tensor, v: torch.Tensor, dtype):
+    """fp32 K and V pools quantized to ``dtype`` on the card, each with its
+    (NB, BS) scales: the null block 0 and scale 0, the poisoned block with
+    NaN scales (and NaN fp8 rows)."""
     from repro_torch.kernels import quantize_rows
     out = []
-    for name in ("k", "v"):
-        full = torch.from_numpy(inp[name]).to(dev)
+    for full in (k, v):
+        full = full.clone()
         full[POISON] = 0.0
         q, sc = quantize_rows(full, dtype)
         sc[POISON] = float("nan")
@@ -514,28 +720,26 @@ def quantized_pools(inp, dtype, dev: torch.device):
 
 
 def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
-    """Rows 4 and 1q over int8 and fp8 pools at the main-path shapes: the
-    quantizing scatter bit-exact against its plain version from fp32 and
-    bf16 rows (poisoned and null blocks untouched), the gather (row 3) of
-    an int8 pool and of its scales bit-exact, the dequantizing decode
-    against its plain version with fp32 q (1e-5 of the output's scale) and
-    bf16 q (one bf16 ulp of it); times with the fleet's bf16 rows and q.
-    Returns the int8 rows; the fp8 times are printed."""
+    """Rows 4 and 1q over int8 and fp8 pools: the quantizing scatter
+    bit-exact against its plain version from fp32 and bf16 rows (poisoned
+    and null blocks untouched), the gather (row 3) of an int8 pool and of
+    its scales bit-exact, the dequantizing decode against its plain version
+    with fp32 q (1e-5 of the output's scale) and bf16 q (``check_decode``)
+    at the main-path shapes, k2 and k3; times with the fleet's bf16 rows and
+    q. Returns the int8 rows at the main path; the fp8 times are printed."""
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain,
                                      paged_gather, paged_gather_plain,
                                      paged_scatter_quant,
                                      paged_scatter_quant_plain)
     inp = kernel_inputs()
-    t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()
-         if k not in ("k", "v")}
+    t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
     lengths, table, ws, wo = t["lengths"], t["table"], t["wslot"], t["woff"]
     writers = int((ws >= 0).sum())
-    rows = int((lengths.long() + 1).sum())
-    results = {}
+    results, faults = {}, []
     for qdt in QUANT:
         name = "int8" if qdt == torch.int8 else "fp8"
-        kq, ks, vq, vs = quantized_pools(inp, qdt, dev)
+        kq, ks, vq, vs = quantized_pools(t["k"], t["v"], qdt)
         for rdt in (torch.float32, torch.bfloat16):
             new = t["new"].to(rdt)
             pk, sk, pp, sp = kq.clone(), ks.clone(), kq.clone(), ks.clone()
@@ -553,24 +757,6 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
         new = t["new"].to(torch.bfloat16)        # the fleet's rows
         paged_scatter_quant(kq, ks, new, ws, wo)
         paged_scatter_quant(vq, vs, new, ws, wo)
-        msg = []
-        for qd in (torch.float32, torch.bfloat16):
-            q = t["q"].to(qd)
-            o_k = paged_attention_decode(q, kq, vq, table, lengths, ks, vs)
-            o_p = paged_attention_decode_plain(q, kq, vq, table, lengths, ks,
-                                               vs)
-            sync(dev)
-            what = f"quantized decode {name}, {str(qd)[6:]} q"
-            require(bool(torch.isfinite(o_k).all()), f"{what}: non-finite")
-            require(not bool((o_k[0] != 0).any()),
-                    f"{what}: inactive slot output != 0")
-            err = max_err(o_k, o_p)
-            # fp32: the sums run in other orders (~1e-7 relative); bf16:
-            # both round the same fp32 value once
-            tol = (1e-5 * max(float(o_p.abs().max()), 1.0)
-                   if qd == torch.float32 else bf16_ulp(o_p))
-            require(err <= tol, f"{what}: max|kernel-plain| {err:.3e} > {tol:.3e}")
-            msg.append(f"{str(qd)[6:]} q {err:.3e} (tol {tol:.3e})")
         # the gather path's copies of an int8 pool and of its scales (the
         # fleet's gather tick): bit-exact, zeros past n_live, the
         # NaN-scaled block never read
@@ -583,42 +769,71 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
             require(not bool(torch.isnan(g_k.float()).any()),
                     f"paged_gather {name}: read poison")
         log(f"kernels {name} pools: scatter_quant bit-exact from fp32 and bf16 "
-            f"rows;{' gather of the pool and its scales bit-exact;' if qdt == torch.int8 else ''}"
-            f" decode max|kernel-plain| " + ", ".join(msg))
+            f"rows{'; gather of the pool and its scales bit-exact' if qdt == torch.int8 else ''}")
+        for qd in (torch.float32, torch.bfloat16):
+            q = t["q"].to(qd)
+            err = check_decode(
+                f"main {name}, {str(qd)[6:]} q",
+                paged_attention_decode(q, kq, vq, table, lengths, ks, vs),
+                paged_attention_decode_plain(q, kq, vq, table, lengths, ks,
+                                             vs), lengths, True, faults)
 
         # ---- times at the main path's types (bf16 rows and q) ----
-        q = t["q"].to(torch.bfloat16)
         row_b = KVH * HD * qdt.itemsize + 4          # payload + scale
-        bytes_decode = (2 * rows * row_b + 2 * q.numel() * 2
-                        + table.numel() * 4 + lengths.numel() * 4)
         bytes_scatter = writers * (KVH * HD * 2 + row_b) + 2 * NB * 4
+        b_ms = bytes_scatter / HBM_BPS * 1e3
         pk, sk = kq.clone(), ks.clone()
+        r = {"ms": time_ms(lambda: paged_scatter_quant(pk, sk, new, ws, wo),
+                           flush),
+             "plain_ms": time_ms(lambda: paged_scatter_quant_plain(
+                 pk, sk, new, ws, wo), flush),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": "bytes",
+             "max_abs_err": 0.0}
+        log(f"  paged_scatter_quant {name} (bf16 rows): kernel {r['ms']:.4f} "
+            f"ms  plain {r['plain_ms']:.4f} ms  library — (no single call)  "
+            f"bound {b_ms:.5f} ms (bytes)")
+        rows = {"paged_scatter_quant": r}
+        rows["paged_attention_decode_quant"] = dict(time_decode(
+            f"paged_attention_decode_quant main {name} (bf16 q)", q, kq, vq,
+            table, lengths, (ks, vs), flush, None), max_abs_err=err)
+        if qdt == torch.int8:
+            results.update(rows)
 
-        def bound(nbytes, ops):
-            tb, tf = nbytes / HBM_BPS * 1e3, ops / PEAK_FLOPS[qdt] * 1e3
-            return max(tb, tf), ("bytes" if tb >= tf else "operations")
-
-        specs = {
-            "paged_scatter_quant": (
-                lambda: paged_scatter_quant(pk, sk, new, ws, wo),
-                lambda: paged_scatter_quant_plain(pk, sk, new, ws, wo),
-                bound(bytes_scatter, 0)),
-            "paged_attention_decode_quant": (
-                lambda: paged_attention_decode(q, kq, vq, table, lengths, ks,
-                                               vs),
-                lambda: paged_attention_decode_plain(q, kq, vq, table,
-                                                     lengths, ks, vs),
-                bound(bytes_decode, 4 * H * HD * rows)),
-        }
-        for kname, (kern, plain, (b_ms, b_by)) in specs.items():
-            r = {"ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
-                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                 "max_abs_err": 0.0 if kname == "paged_scatter_quant" else err}
-            if qdt == torch.int8:
-                results[kname] = r
-            log(f"  {kname} {name} (bf16 rows, q): kernel {r['ms']:.4f} ms  "
-                f"plain {r['plain_ms']:.4f} ms  library — (no single call)  "
-                f"bound {b_ms:.5f} ms ({b_by})")
+    # the decode at the fleet's 4k contexts and at one 32k request
+    for si, (label, slots, mb, nb, lens) in enumerate(DECODE_SHAPES[1:]):
+        q, k, v, table, lengths = decode_inputs(slots, mb, nb, lens, dev,
+                                                600 + si)
+        for qdt in QUANT:
+            name = "int8" if qdt == torch.int8 else "fp8"
+            kq, ks, vq, vs = quantized_pools(k, v, qdt)
+            for qd in (torch.float32, torch.bfloat16):
+                qq = q.to(qd)
+                check_decode(
+                    f"{label} {name}, {str(qd)[6:]} q",
+                    paged_attention_decode(qq, kq, vq, table, lengths, ks, vs),
+                    paged_attention_decode_plain(qq, kq, vq, table, lengths,
+                                                 ks, vs),
+                    lengths, True, faults)
+            time_decode(f"paged_attention_decode_quant {label} {name} (bf16 "
+                        f"q, S={slots}, MB={mb})", qq, kq, vq, table, lengths,
+                        (ks, vs), flush, None, plain_iters=3)
+            del kq, ks, vq, vs
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, slots, mb, nb, lens, h, kvh, hd in DECODE_CHECKS:
+        q, k, v, table, lengths = decode_inputs(slots, mb, nb, lens, dev, 610,
+                                                h, kvh, hd)
+        for qdt in QUANT:
+            kq, ks, vq, vs = quantized_pools(k, v, qdt)
+            for qd in (torch.float32, torch.bfloat16):
+                qq = q.to(qd)
+                check_decode(
+                    f"{label} {str(qdt)[6:]}, {str(qd)[6:]} q",
+                    paged_attention_decode(qq, kq, vq, table, lengths, ks, vs),
+                    paged_attention_decode_plain(qq, kq, vq, table, lengths,
+                                                 ks, vs),
+                    lengths, True, faults)
+    require(not faults, "; ".join(faults))
     return results
 
 
@@ -630,7 +845,9 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
 # held in fp32 and, as their bf16 twins (listed last, so that every
 # shape keeps its seed, 500 + its index), through the tensor-core kernels
 # (hd 64 and 128 on wgmma, hd 16 and 32 on mma.sync); "unaligned" views
-# q, k and v off any 16-byte boundary (the wrapper copies them aligned)
+# q, k and v off any 16-byte boundary (the wrapper copies them aligned);
+# f's twins at hd 64 and 128 walk every column of the rows masked in every
+# column (S > T) on wgmma
 FLASH_SHAPES = [
     ("a", 8, 512, 512, 16, 16, 64, True, 0, torch.bfloat16),
     ("b", 1, 4096, 4096, 28, 4, 128, True, 0, torch.bfloat16),
@@ -648,6 +865,8 @@ FLASH_SHAPES = [
     ("g bf16", 1, 128, 128, 4, 4, 16, False, 24, torch.bfloat16),
     ("h bf16", 1, 512, 512, 4, 2, 64, True, 100, torch.bfloat16),
     ("i bf16", 1, 512, 512, 4, 2, 64, False, 100, torch.bfloat16),
+    ("f bf16 hd64", 1, 200, 64, 4, 2, 64, True, 16, torch.bfloat16),
+    ("f bf16 hd128", 1, 200, 64, 4, 2, 128, True, 16, torch.bfloat16),
 ]
 TIMED_FLASH = ("a", "b", "c")
 # the standalone CE's shapes: the training main path's, ragged fp32, and
@@ -1311,16 +1530,15 @@ def phase_fleet(dev: torch.device, cfg):
 
 def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
     """Device time of ``n`` decode ticks by kernel (torch.profiler) against
-    their wall time: the device's busy share of a tick."""
+    their wall time: the device's busy share of a tick, and the decode
+    attention's own device time in it."""
     profile_device(lambda: eng.decode_logits(active, tokens), tick_ms, n,
-                   "tick")
+                   "tick", detail="decode_")
 
 
-def profile_device(fn, wall_ms: float, n: int, unit: str):
-    """Device time of ``n`` calls of ``fn`` by kernel (torch.profiler)
-    against their wall time ``wall_ms`` per call: the device's busy share.
-    Returns the busy ms per call (None if the profiler saw no device
-    time)."""
+def kernel_times(fn, n: int):
+    """[(device us, calls, name)] of the kernels of ``n`` calls of ``fn``
+    (torch.profiler), the longest first."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -1335,7 +1553,16 @@ def profile_device(fn, wall_ms: float, n: int, unit: str):
                      getattr(e, "self_cuda_time_total", 0.0))
         if us > 0:
             rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def profile_device(fn, wall_ms: float, n: int, unit: str, detail: str = ""):
+    """Device time of ``n`` calls of ``fn`` by kernel (torch.profiler)
+    against their wall time ``wall_ms`` per call: the device's busy share;
+    with ``detail``, also the summed time of the kernels whose name holds
+    it. Returns the busy ms per call (None if the profiler saw no device
+    time)."""
+    rows = kernel_times(fn, n)
     busy_ms = sum(r[0] for r in rows) / 1e3 / n
     if not rows:
         log("profile: the profiler reported no device time (not measured)")
@@ -1345,6 +1572,10 @@ def profile_device(fn, wall_ms: float, n: int, unit: str):
         f"{unit}:")
     for us, count, key in rows[:8]:
         log(f"  {us / 1e3 / n:8.3f} ms  {count // n:5d} calls  {key[:90]}")
+    if detail:
+        parts = [(us, count, key) for us, count, key in rows if detail in key]
+        log(f"  kernels named {detail}*: {sum(r[0] for r in parts) / 1e3 / n:.3f}"
+            f" ms and {sum(r[1] for r in parts) // n} calls per {unit}")
     return busy_ms
 
 

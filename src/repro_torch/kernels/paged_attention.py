@@ -3,13 +3,23 @@
 One-token GQA decode for every slot straight off the block pool: the kernel
 (``csrc/paged_attention.cu``) reads each live K/V block once through the
 block table and folds it into an fp32 online softmax, so no gathered
-``(S, MB*BS, KVh, hd)`` context ever exists. It splits each slot's blocks
-over CTAs of ``BLOCKS_PER_SPLIT`` blocks and merges the splits' softmax
-states at the end. The plain version walks the same blocks in one sequence
-with the same fp32 state (running max, denominator, accumulator; ``NEG``
-masking for positions past the slot's length; ``l = max(l, 1e-30)``),
-vectorised over slots and heads; the two differ only in rounding where a
-slot's context spans more than one split.
+``(S, MB*BS, KVh, hd)`` context ever exists. One CTA takes a run of
+``blocks_per_split`` blocks of one slot for every KV head: a producer warp
+streams the run's pool blocks into a shared-memory ring with 1D bulk copies
+while the consumer warps, one or more per KV head, keep q and the
+accumulators in registers and merge their softmax states at the end of the
+run. A second launch merges the runs of each slot. ``decode_split_plan``
+picks the run length from the shapes and the card's SM count alone, so the
+launch reads nothing back from the device.
+
+The plain version walks the same blocks with the same fp32 state (running
+max, denominator, accumulator; ``NEG`` masking for positions past the
+slot's length; ``l = max(l, 1e-30)``), vectorised over slots and heads. By
+default it walks each slot's blocks in one sequence, as the reference does;
+with ``blocks_per_split`` it runs each run of blocks apart and merges the
+runs as the kernel does (M = max m_i, L = sum l_i e^(m_i - M), A = sum
+acc_i e^(m_i - M), out = A / max(L, 1e-30)). The two differ only in
+rounding.
 
 Quantized pools (int8 / float8_e4m3fn, see ``paged_cache.quantize_rows``)
 come with one fp32 scale per stored row, ``k_scale`` / ``v_scale`` (NB, BS);
@@ -23,7 +33,8 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,36 +44,50 @@ from repro_torch.kernels.paged_cache import (_check_index, _require,
 
 NEG = -1e30
 
-# pool blocks per CTA of the kernel's split over each slot's context
-BLOCKS_PER_SPLIT = 4
+# the split plan: the hd-128 kernel fits two CTAs an SM (registers and
+# ring), and several slots' runs aim at WAVES waves over the SMs
+CTAS_PER_SM = 2
+WAVES = 3
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _POOL_CODES = {**_DTYPE_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 
 
-def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
-                                 v_pool: torch.Tensor, table: torch.Tensor,
-                                 lengths: torch.Tensor,
-                                 k_scale: Optional[torch.Tensor] = None,
-                                 v_scale: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
-    """Plain version of ``paged_attention_decode``: the kernel's block loop
-    and fp32 online-softmax state, vectorised over (slot, KV head, group);
-    quantized rows are dequantized by their scale after the fp32 cast."""
-    s, h, hd = q.shape
-    _, bs, kvh, _ = k_pool.shape
-    mb = table.shape[1]
-    g = h // kvh
-    dev = q.device
-    lengths = lengths.long()
-    n_live = torch.clamp((lengths + bs) // bs, max=mb)
-    qf = q.float().reshape(s, kvh, g, hd) * (hd ** -0.5)
+def decode_split_plan(slots: int, max_blocks: int,
+                      num_sms: int) -> Tuple[int, int]:
+    """(blocks per split, splits per slot) of the decode kernel's grid
+    (slots x splits CTAs), from ints alone; the slots' lengths never enter,
+    so the launch needs no value from the device. A lone slot's runs split
+    its table evenly over one resident round (``CTAS_PER_SM`` CTAs on each
+    of ``num_sms`` SMs). Several slots are ragged, so their runs are short
+    enough for ``WAVES`` waves over the SMs and the live ones spread."""
+    for v in (slots, max_blocks, num_sms):
+        _require(type(v) is int and v > 0,
+                 f"the split plan takes positive ints, got {v!r}")
+    if slots == 1:
+        bps = -(-max_blocks // (CTAS_PER_SM * num_sms))
+    else:
+        bps = max(1, max_blocks // -(-WAVES * num_sms // slots))
+    return bps, -(-max_blocks // bps)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _walk(qf, k_pool, v_pool, table, lengths, n_live, k_scale, v_scale,
+          m_lo: int, m_hi: int):
+    """The fp32 online-softmax state (m, l, acc) of every slot over its
+    live blocks in [m_lo, m_hi)."""
+    s, kvh, g, hd = qf.shape
+    bs = k_pool.shape[1]
+    dev = qf.device
     m = torch.full((s, kvh, g), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((s, kvh, g), dtype=torch.float32, device=dev)
     acc = torch.zeros((s, kvh, g, hd), dtype=torch.float32, device=dev)
     offs = torch.arange(bs, device=dev)
-    n_iter = int(n_live.max()) if s else 0
-    for mi in range(n_iter):
+    for mi in range(m_lo, m_hi):
         blk = table[:, mi].long()
         k = k_pool[blk].float()                                  # (S, BS, KVh, hd)
         v = v_pool[blk].float()
@@ -82,7 +107,43 @@ def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live[..., None], acc_new, acc)
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return m, l, acc
+
+
+def paged_attention_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, table: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 blocks_per_split: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Plain version of ``paged_attention_decode``: the block loop and fp32
+    online-softmax state, vectorised over (slot, KV head, group); quantized
+    rows are dequantized by their scale after the fp32 cast. With
+    ``blocks_per_split``, each run of that many table entries keeps its own
+    state and the runs that hold a live block are merged at the end."""
+    s, h, hd = q.shape
+    _, bs, kvh, _ = k_pool.shape
+    mb = table.shape[1]
+    g = h // kvh
+    lengths = lengths.long()
+    n_live = torch.clamp((lengths + bs) // bs, max=mb)
+    qf = q.float().reshape(s, kvh, g, hd) * (hd ** -0.5)
+    n_iter = int(n_live.max()) if s else 0
+    args = (qf, k_pool, v_pool, table, lengths, n_live, k_scale, v_scale)
+    if blocks_per_split is None:
+        _m, l, acc = _walk(*args, 0, n_iter)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.reshape(s, h, hd).to(q.dtype)
+    _require(blocks_per_split >= 1, "blocks_per_split must be >= 1")
+    parts = [_walk(*args, lo, min(lo + blocks_per_split, n_iter))
+             for lo in range(0, n_iter, blocks_per_split)]
+    # a run with no live block keeps m = NEG, l = 0, acc = 0: weight 0
+    m_all = torch.stack([p[0] for p in parts])                  # (n, S, KVh, G)
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    big_l = (torch.stack([p[1] for p in parts]) * w).sum(dim=0)
+    big_a = (torch.stack([p[2] for p in parts]) * w[..., None]).sum(dim=0)
+    out = big_a / torch.clamp(big_l, min=1e-30)[..., None]
     return out.reshape(s, h, hd).to(q.dtype)
 
 
@@ -139,14 +200,30 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     if dev.type == "cpu":
         return paged_attention_decode_plain(q, k_pool, v_pool, table, lengths,
                                             k_scale, v_scale)
+    g = h // kvh
+    es = k_pool.element_size()
+    # the kernel's instances: 4 dims of a row per lane, G padded to 1, 2 or
+    # 8, one CTA over every KV head (a warp or more each, at most 8 warps at
+    # G > 2 and 16 otherwise) with a ring of at least one K and V block
+    _require(hd in (32, 64, 128) and g <= 8 and kvh <= (8 if g > 2 else 16),
+             f"the CUDA decode takes head_dim 32/64/128, G <= 8 and KVh <= 8 "
+             f"(16 at G <= 2), got head_dim {hd}, G {g}, KVh {kvh}")
+    _require(2 * bs * kvh * hd * es + 8 * bs <= 200 * 1024,
+             f"a K and a V block of {bs} x {kvh} x {hd} {k_pool.dtype} do not "
+             "fit the kernel's shared-memory ring")
+    _require(not quantized or bs % 4 == 0,
+             f"quantized pools need a block size that is a multiple of 4, "
+             f"got {bs}")
+    for t in (k_pool, v_pool, *scales):
+        _require(t.data_ptr() % 16 == 0,
+                 "the pools and scales must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if s == 0:
         return out
-    g = h // kvh
-    nsplit = -(-mb // BLOCKS_PER_SPLIT)
-    part_ml = torch.empty((2, s, kvh, nsplit, g), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((s, kvh, nsplit, g, hd), dtype=torch.float32,
-                           device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    bps, nsplit = decode_split_plan(s, mb, _num_sms(index))
+    part_ml = q.new_empty((2, s, nsplit, h), dtype=torch.float32)
+    part_acc = q.new_empty((s, nsplit, h, hd), dtype=torch.float32)
     lib = _build.load("paged_attention")
     with torch.cuda.device(dev):
         rc = lib.repro_paged_attention_decode(
@@ -155,7 +232,7 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), lengths.data_ptr(), part_ml[0].data_ptr(),
             part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-            s, h, kvh, hd, nb, bs, mb, BLOCKS_PER_SPLIT, hd ** -0.5,
+            s, h, kvh, hd, nb, bs, mb, bps, hd ** -0.5,
             _DTYPE_CODES[q.dtype], _POOL_CODES[k_pool.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     name = "paged_attention_decode" + ("_quant" if quantized else "")
