@@ -17,9 +17,14 @@ exits non-zero:
                 slots, H=28, KVh=4, hd=128, BS=16, MB=34, NB=1025; ragged
                 lengths incl. 0, dead table entries aimed at a NaN-poisoned
                 free block), in bf16 and fp32, and over int8 and fp8 pools
-                (the quantizing scatter bit-exact from fp32 and bf16 rows,
-                the gather of an int8 pool and its scales bit-exact, the
-                dequantizing decode with fp32 and bf16 q); the decode also
+                (the quantizing scatter bit-exact, the gather of an int8
+                pool and its scales bit-exact, the dequantizing decode with
+                fp32 and bf16 q); the K+V and single-pool scatters also at
+                three pool sizes, NB = 1025 (main), 4097 (k2) and 16385
+                (full), bit-exact over fp32 / bf16 pools and over int8 /
+                fp8 pools from fp32 and bf16 rows, timed beside two
+                index_put_ calls, the launch floor and their host time per
+                call; the decode also
                 at 16 slots ragged to 4k (k2) and one slot at 32k (k3),
                 bf16 held element by element, beside a streaming read of
                 its bytes after the same flush; the
@@ -45,7 +50,9 @@ exits non-zero:
                 off``) on the same weights and pool, against the fused tick;
                 then the same peers and workload over int8 and fp8 pools
                 (launch counts of the quantizing scatter and decode checked,
-                a fused-vs-gather tick over int8 pools).
+                a fused-vs-gather tick over each). One scatter launch a
+                layer writes both pools; each tick's wall time and device
+                busy share are printed.
   5. parity   — reduced qwen2-7b in fp32: the port on the card and on the
                 CPU (plain versions) with the same weights and workload;
                 teacher-forced logits within 1e-4, equal ``FleetReport``s;
@@ -580,30 +587,26 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain,
                                      paged_gather, paged_gather_plain,
-                                     paged_scatter, paged_scatter_plain)
+                                     paged_scatter_kv, paged_scatter_kv_plain)
     inp = kernel_inputs()
     t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
     lengths, table = t["lengths"], t["table"]
     n_live = ((lengths + BS) // BS).to(torch.int32)
-    writers = int((t["wslot"] >= 0).sum())
     results, faults = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         es = torch.tensor([], dtype=dtype).element_size()
         k, v, q, new = (t[x].to(dtype) for x in ("k", "v", "q", "new"))
 
-        # scatter: bit-exact, null block stays 0, poisoned block untouched
-        kk, kp = k.clone(), k.clone()
-        paged_scatter(kk, new, t["wslot"], t["woff"])
-        paged_scatter_plain(kp, new, t["wslot"], t["woff"])
+        # the fleet's map into both pools: bit-exact, null block stays 0,
+        # poisoned block untouched (all three pool sizes: the scatter phase)
+        kk, vv = paged_scatter_kv(k.clone(), v.clone(), new, new, t["wslot"],
+                                  t["woff"])
+        kp, vp = paged_scatter_kv_plain(k.clone(), v.clone(), new, new,
+                                        t["wslot"], t["woff"])
         sync(dev)
-        require(bits_equal(kk, kp), f"paged_scatter {name}: kernel != plain")
-        require(not bool((kk[0] != 0).any()),
-                f"paged_scatter {name}: null block written")
-        require(bits_equal(kk[POISON], k[POISON]),
-                f"paged_scatter {name}: poisoned block written")
-        vv = v.clone()
-        paged_scatter(vv, new, t["wslot"], t["woff"])
+        scatter_faults(f"paged_scatter_kv main {name} (the fleet's map)",
+                       [(kk, kp, k), (vv, vp, v)], faults)
 
         # gather: bit-exact (zeros past n_live, poison never read)
         g_k = paged_gather(kk, table, n_live)
@@ -611,7 +614,7 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
         sync(dev)
         require(bits_equal(g_k, g_p), f"paged_gather {name}: kernel != plain")
         require(not torch.isnan(g_k).any(), f"paged_gather {name}: read poison")
-        log(f"kernels {name}: scatter/gather bit-exact")
+        log(f"kernels {name}: scatter checked, gather bit-exact")
 
         # decode attention: fp32 state in both (check_decode's tolerances)
         err = check_decode(
@@ -622,41 +625,22 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
             continue
 
         # ---- times at the main-path dtype (bf16) ----
-        blk_ix = torch.nonzero(t["wslot"] >= 0).flatten()
-        off_ix = t["woff"][blk_ix].long()
-        src_rows = new[t["wslot"][blk_ix].long()]
         flat_table = table.reshape(-1).long()
-        row_b = KVH * HD * es
-        block_b = BS * row_b
+        block_b = BS * KVH * HD * es
         live_blocks = int(n_live.sum())
-        bytes_scatter = 2 * writers * row_b + 2 * NB * 4
         bytes_gather = (live_blocks * block_b + S * MB * block_b
                         + table.numel() * 4 + S * 4)
-
-        def bound(nbytes):
-            return nbytes / HBM_BPS * 1e3, "bytes"
-
-        specs = {
-            "paged_scatter": (
-                lambda: paged_scatter(kk, new, t["wslot"], t["woff"]),
-                lambda: paged_scatter_plain(kp, new, t["wslot"], t["woff"]),
-                lambda: kp.index_put_((blk_ix, off_ix), src_rows),
-                bound(bytes_scatter)),
-            "paged_gather": (
-                lambda: paged_gather(kk, table, n_live),
-                lambda: paged_gather_plain(kk, table, n_live),
-                lambda: kk.index_select(0, flat_table),
-                bound(bytes_gather)),
-        }
-        for kname, (kern, plain, lib, (b_ms, b_by)) in specs.items():
-            results[kname] = {
-                "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
-                "library_ms": time_ms(lib, flush), "bound_ms": b_ms,
-                "bound_by": b_by, "max_abs_err": 0.0}
-            r = results[kname]
-            log(f"  {kname} bf16: kernel {r['ms']:.4f} ms  plain "
-                f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-                f"bound {r['bound_ms']:.5f} ms ({b_by})")
+        gather = (lambda: paged_gather(kk, table, n_live),
+                  lambda: paged_gather_plain(kk, table, n_live),
+                  lambda: kk.index_select(0, flat_table))
+        r = results["paged_gather"] = {
+            "ms": time_ms(gather[0], flush), "plain_ms": time_ms(gather[1], flush),
+            "library_ms": time_ms(gather[2], flush),
+            "bound_ms": bytes_gather / HBM_BPS * 1e3, "bound_by": "bytes",
+            "max_abs_err": 0.0}
+        log(f"  paged_gather bf16: kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.5f} ms (bytes)")
         results["paged_attention_decode"] = dict(
             time_decode("paged_attention_decode main bf16", q, kk, vv, table,
                         lengths, (), flush,
@@ -668,9 +652,8 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
         no_flush = torch.empty(0, device=dev)
         log(f"  paged_gather floor: memset of its {out.numel() * es / 1e6:.1f}"
             f" MB output {time_ms(out.zero_, flush):.4f} ms; with no L2 "
-            f"flush: kernel {time_ms(specs['paged_gather'][0], no_flush):.4f}"
-            f" ms, index_select "
-            f"{time_ms(specs['paged_gather'][2], no_flush):.4f} ms")
+            f"flush: kernel {time_ms(gather[0], no_flush):.4f} ms, "
+            f"index_select {time_ms(gather[2], no_flush):.4f} ms")
 
     # the decode at the fleet's 4k contexts and at one 32k request
     for si, (label, slots, mb, nb, lens) in enumerate(DECODE_SHAPES[1:]):
@@ -720,43 +703,39 @@ def quantized_pools(k: torch.Tensor, v: torch.Tensor, dtype):
 
 
 def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
-    """Rows 4 and 1q over int8 and fp8 pools: the quantizing scatter
-    bit-exact against its plain version from fp32 and bf16 rows (poisoned
-    and null blocks untouched), the gather (row 3) of an int8 pool and of
-    its scales bit-exact, the dequantizing decode against its plain version
-    with fp32 q (1e-5 of the output's scale) and bf16 q (``check_decode``)
-    at the main-path shapes, k2 and k3; times with the fleet's bf16 rows and
-    q. Returns the int8 rows at the main path; the fp8 times are printed."""
+    """Rows 1q (and 4, 3) over int8 and fp8 pools: the K+V quantizing
+    scatter of the fleet's bf16 rows on the fleet's map bit-exact against
+    its plain version (poisoned and null blocks untouched; the scatter's
+    other checks and its times are ``phase_scatter_kernels``'), the gather
+    (row 3) of an int8 pool and of its scales bit-exact, the dequantizing
+    decode against its plain version with fp32 q (1e-5 of the output's
+    scale) and bf16 q (``check_decode``) at the main-path shapes, k2 and k3;
+    decode times with bf16 q. Returns the int8 decode row at the main path;
+    the fp8 times are printed."""
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain,
                                      paged_gather, paged_gather_plain,
-                                     paged_scatter_quant,
-                                     paged_scatter_quant_plain)
+                                     paged_scatter_quant_kv,
+                                     paged_scatter_quant_kv_plain)
     inp = kernel_inputs()
     t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
     lengths, table, ws, wo = t["lengths"], t["table"], t["wslot"], t["woff"]
-    writers = int((ws >= 0).sum())
     results, faults = {}, []
     for qdt in QUANT:
         name = "int8" if qdt == torch.int8 else "fp8"
         kq, ks, vq, vs = quantized_pools(t["k"], t["v"], qdt)
-        for rdt in (torch.float32, torch.bfloat16):
-            new = t["new"].to(rdt)
-            pk, sk, pp, sp = kq.clone(), ks.clone(), kq.clone(), ks.clone()
-            paged_scatter_quant(pk, sk, new, ws, wo)
-            paged_scatter_quant_plain(pp, sp, new, ws, wo)
-            sync(dev)
-            what = f"paged_scatter_quant {name} from {str(rdt)[6:]} rows"
-            require(bits_equal(pk, pp) and bits_equal(sk, sp),
-                    f"{what}: kernel != plain")
-            require(bits_equal(pk[POISON], kq[POISON])
-                    and bits_equal(sk[POISON], ks[POISON]),
-                    f"{what}: poisoned block written")
-            require(not bool(pk[0].view(torch.uint8).any())
-                    and not bool(sk[0].any()), f"{what}: null block written")
-        new = t["new"].to(torch.bfloat16)        # the fleet's rows
-        paged_scatter_quant(kq, ks, new, ws, wo)
-        paged_scatter_quant(vq, vs, new, ws, wo)
+        # the fleet's map and rows (bf16) into both pools: bit-exact, null
+        # and poisoned blocks untouched (all three pool sizes and fp32 rows:
+        # the scatter phase)
+        new = t["new"].to(torch.bfloat16)
+        want = paged_scatter_quant_kv_plain(
+            *(x.clone() for x in (kq, ks, vq, vs)), new, new, ws, wo)
+        before = (kq.clone(), ks.clone(), vq.clone(), vs.clone())
+        paged_scatter_quant_kv(kq, ks, vq, vs, new, new, ws, wo)
+        sync(dev)
+        scatter_faults(f"paged_scatter_quant_kv main {name} (the fleet's map)",
+                       list(zip((kq, ks, vq, vs), want, before)), faults)
+        del want, before
         # the gather path's copies of an int8 pool and of its scales (the
         # fleet's gather tick): bit-exact, zeros past n_live, the
         # NaN-scaled block never read
@@ -768,8 +747,8 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
             require(bits_equal(g_k, g_p), f"paged_gather {name}: kernel != plain")
             require(not bool(torch.isnan(g_k.float()).any()),
                     f"paged_gather {name}: read poison")
-        log(f"kernels {name} pools: scatter_quant bit-exact from fp32 and bf16 "
-            f"rows{'; gather of the pool and its scales bit-exact' if qdt == torch.int8 else ''}")
+        log(f"kernels {name} pools: scatter_quant_kv checked"
+            f"{'; gather of the pool and its scales bit-exact' if qdt == torch.int8 else ''}")
         for qd in (torch.float32, torch.bfloat16):
             q = t["q"].to(qd)
             err = check_decode(
@@ -778,26 +757,12 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
                 paged_attention_decode_plain(q, kq, vq, table, lengths, ks,
                                              vs), lengths, True, faults)
 
-        # ---- times at the main path's types (bf16 rows and q) ----
-        row_b = KVH * HD * qdt.itemsize + 4          # payload + scale
-        bytes_scatter = writers * (KVH * HD * 2 + row_b) + 2 * NB * 4
-        b_ms = bytes_scatter / HBM_BPS * 1e3
-        pk, sk = kq.clone(), ks.clone()
-        r = {"ms": time_ms(lambda: paged_scatter_quant(pk, sk, new, ws, wo),
-                           flush),
-             "plain_ms": time_ms(lambda: paged_scatter_quant_plain(
-                 pk, sk, new, ws, wo), flush),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": "bytes",
-             "max_abs_err": 0.0}
-        log(f"  paged_scatter_quant {name} (bf16 rows): kernel {r['ms']:.4f} "
-            f"ms  plain {r['plain_ms']:.4f} ms  library — (no single call)  "
-            f"bound {b_ms:.5f} ms (bytes)")
-        rows = {"paged_scatter_quant": r}
-        rows["paged_attention_decode_quant"] = dict(time_decode(
+        # ---- times at the main path's types (bf16 q) ----
+        r = dict(time_decode(
             f"paged_attention_decode_quant main {name} (bf16 q)", q, kq, vq,
             table, lengths, (ks, vs), flush, None), max_abs_err=err)
         if qdt == torch.int8:
-            results.update(rows)
+            results["paged_attention_decode_quant"] = r
 
     # the decode at the fleet's 4k contexts and at one 32k request
     for si, (label, slots, mb, nb, lens) in enumerate(DECODE_SHAPES[1:]):
@@ -834,6 +799,240 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
                                                  ks, vs),
                     lengths, True, faults)
     require(not faults, "; ".join(faults))
+    return results
+
+
+# the scatters' pool sizes at the qwen2-7b row (S = 16 slots, 15 writers):
+# the fleet's pool (main), the decode's 4k shape (k2) and a 2-peer fleet's
+# pool on one card (full: ~15 GB of bf16 KV a peer)
+SCATTER_NBS = [("main", NB), ("k2", 4097), ("full", 16385)]
+
+
+def scatter_inputs(nb: int, dev: torch.device, seed: int):
+    """fp32 K and V pools (NB, BS, KVh, hd) made on the card from a seeded
+    generator (null block 0 zero, the poisoned block NaN), S fp32 rows each
+    for K and V, and write maps with 15 writers (slot 0 inactive): slots
+    1..7 in blocks 4 s + 2 (one 4-entry column of the map, so one ballot
+    holds all seven), 8..14 in random blocks, 15 in block NB - 1; offsets 0
+    (slot 1) and BS - 1 (slots 2 and 15) among them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k, v = (torch.randn((nb, BS, KVH, HD), generator=gen, device=dev)
+            for _ in range(2))
+    for x in (k, v):
+        x[0] = 0.0
+        x[POISON] = float("nan")
+    k_new, v_new = (torch.randn((S, KVH, HD), generator=gen, device=dev)
+                    for _ in range(2))
+    cpu = torch.Generator()
+    cpu.manual_seed(seed)
+    blocks = [4 * s + 2 for s in range(1, 8)]
+    blocks += (32 + torch.randperm(nb - 33, generator=cpu)[:7]).tolist()
+    blocks.append(nb - 1)
+    offs = torch.randint(0, BS, (S,), generator=cpu).tolist()
+    offs[1], offs[2], offs[15] = 0, BS - 1, BS - 1
+    ws = torch.full((nb,), -1, dtype=torch.int32)
+    wo = torch.zeros((nb,), dtype=torch.int32)
+    for s, b in enumerate(blocks, start=1):
+        ws[b], wo[b] = s, offs[s]
+    return k, v, k_new, v_new, ws.to(dev), wo.to(dev)
+
+
+def random_quant_pool(nb: int, dtype, dev: torch.device, gen):
+    """A quantized pool of random bytes and its random fp32 scales: the null
+    block 0 and scale 0, the poisoned block NaN scales (and NaN fp8 rows)."""
+    q = torch.randint(-128, 128, (nb, BS, KVH, HD), generator=gen, device=dev,
+                      dtype=torch.int8).view(dtype)
+    sc = torch.rand((nb, BS), generator=gen, device=dev)
+    q.view(torch.uint8)[0] = 0
+    sc[0] = 0.0
+    sc[POISON] = float("nan")
+    if dtype == torch.float8_e4m3fn:
+        q.view(torch.uint8)[POISON] = 0x7F                # e4m3fn NaN
+    return q, sc
+
+
+def scatter_faults(what: str, pairs, faults) -> None:
+    """Each (kernel's pool, plain version's pool, pool before) bit for bit:
+    the kernel's equal to the plain version's, its null block all zero and
+    its poisoned block as before. A failure is collected in ``faults``."""
+    for i, (got, want, before) in enumerate(pairs):
+        bad = [msg for ok, msg in (
+            (bits_equal(got, want), "kernel != plain"),
+            (not bool(got[0].view(torch.uint8).any()), "null block written"),
+            (bits_equal(got[POISON], before[POISON]), "poisoned block written"))
+            if not ok]
+        if bad:
+            faults.append(f"{what} [{i}]: {', '.join(bad)}")
+
+
+def off16(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts one element past a
+    fresh allocation, so off a 16-byte boundary."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    return out.view(x.shape).copy_(x)
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host time of one call of ``fn``: the mean over ``n`` back-to-back
+    calls, one synchronise at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
+    """Rows 2 and 4 at the three pool sizes of ``SCATTER_NBS``: the K+V and
+    the single-pool scatters bit-exact against their plain versions over
+    fp32 and bf16 pools and over int8 and fp8 pools from fp32 and bf16 rows
+    (null block and poisoned block untouched, a writer in block NB - 1);
+    then, at the fleet's types (bf16 rows into bf16 / int8 / fp8 pools),
+    the times of the K+V launch, of one single-pool launch and of two (K,
+    then V), of the plain version, of two ``index_put_`` calls, of the
+    launch floor (a one-CTA ``zero_``), the bound and the host time of one
+    wrapper call. A failing check is collected and the phase fails at its
+    end with every failing NB. Returns rows 2 and 4 (the K+V launch) at
+    main."""
+    from repro_torch.kernels import (paged_scatter, paged_scatter_kv,
+                                     paged_scatter_kv_plain,
+                                     paged_scatter_quant,
+                                     paged_scatter_quant_kv,
+                                     paged_scatter_quant_kv_plain)
+    results, faults = {}, []
+    floor_buf = torch.zeros(1, device=dev)
+    for si, (label, nb) in enumerate(SCATTER_NBS):
+        k, v, k_new, v_new, ws, wo = scatter_inputs(nb, dev, 700 + si)
+        writers = int((ws >= 0).sum())
+        blk = torch.nonzero(ws >= 0).flatten()
+        off = wo[blk].long()
+        src = ws[blk].long()
+        for dtype in (torch.float32, torch.bfloat16):
+            kd, vd, kn, vn = (x.to(dtype) for x in (k, v, k_new, v_new))
+            name = f"{label} {str(dtype)[6:]}"
+            got = (kd.clone(), vd.clone())
+            want = (kd.clone(), vd.clone())
+            paged_scatter_kv(*got, kn, vn, ws, wo)
+            paged_scatter_kv_plain(*want, kn, vn, ws, wo)
+            one = kd.clone()
+            paged_scatter(one, kn, ws, wo)
+            sync(dev)
+            scatter_faults(f"paged_scatter_kv {name}",
+                           [(got[0], want[0], kd), (got[1], want[1], vd)],
+                           faults)
+            scatter_faults(f"paged_scatter {name}", [(one, want[0], kd)],
+                           faults)
+            del kd, vd, got, want, one
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(710 + si)
+        qpools = {qdt: (*random_quant_pool(nb, qdt, dev, gen),
+                        *random_quant_pool(nb, qdt, dev, gen)) for qdt in QUANT}
+        for qdt, (kq, ks, vq, vs) in qpools.items():
+            for rdt in (torch.float32, torch.bfloat16):
+                kn, vn = k_new.to(rdt), v_new.to(rdt)
+                name = f"{label} {str(qdt)[6:]} from {str(rdt)[6:]} rows"
+                got = [x.clone() for x in (kq, ks, vq, vs)]
+                want = [x.clone() for x in (kq, ks, vq, vs)]
+                paged_scatter_quant_kv(*got, kn, vn, ws, wo)
+                paged_scatter_quant_kv_plain(*want, kn, vn, ws, wo)
+                one = [kq.clone(), ks.clone()]
+                paged_scatter_quant(*one, kn, ws, wo)
+                sync(dev)
+                scatter_faults(f"paged_scatter_quant_kv {name}", list(zip(
+                    got, want, (kq, ks, vq, vs))), faults)
+                scatter_faults(f"paged_scatter_quant {name}", list(zip(
+                    one, want[:2], (kq, ks))), faults)
+                del got, want, one
+        # bf16 rows and both maps off a 16-byte boundary: the copy in 2-byte
+        # units, the quantizing scatter one element a unit, the maps read
+        # one entry at a time
+        kn, vn, ws_u, wo_u = (off16(x, dev) for x in (
+            k_new.to(torch.bfloat16), v_new.to(torch.bfloat16), ws, wo))
+        kd, vd = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        got, want = (kd.clone(), vd.clone()), (kd.clone(), vd.clone())
+        paged_scatter_kv(*got, kn, vn, ws_u, wo_u)
+        paged_scatter_kv_plain(*want, kn, vn, ws, wo)
+        sync(dev)
+        scatter_faults(f"paged_scatter_kv {label} bfloat16 unaligned",
+                       [(got[0], want[0], kd), (got[1], want[1], vd)], faults)
+        del kd, vd, got, want
+        for qdt, pools in qpools.items():
+            got = [x.clone() for x in pools]
+            want = [x.clone() for x in pools]
+            paged_scatter_quant_kv(*got, kn, vn, ws_u, wo_u)
+            paged_scatter_quant_kv_plain(*want, kn, vn, ws, wo)
+            sync(dev)
+            scatter_faults(f"paged_scatter_quant_kv {label} {str(qdt)[6:]} "
+                           "unaligned", list(zip(got, want, pools)), faults)
+            del got, want
+        log(f"kernels scatter {label} (NB={nb}, {writers} writers): K+V and "
+            "single-pool checks done, aligned and not")
+
+        # ---- times at the fleet's types: bf16 rows into bf16 / int8 / fp8 ----
+        kb, vb, kn, vn = (x.to(torch.bfloat16) for x in (k, v, k_new, v_new))
+        del k, v
+        row_b = KVH * HD * 2
+        kr, vr = kn[src], vn[src]
+        floor = time_ms(floor_buf.zero_, flush)
+        lines = [f"  scatter {label} (NB={nb}): launch floor (one-CTA zero_) "
+                 f"{floor:.4f} ms"]
+
+        def timed(row, kv, one, plain, lib, nbytes):
+            r = {"ms": time_ms(kv, flush), "one_ms": time_ms(one, flush),
+                 "two_ms": time_ms(lambda: (one(), one()), flush),
+                 "plain_ms": time_ms(plain, flush, iters=10),
+                 "library_ms": None if lib is None else time_ms(lib, flush),
+                 "bound_ms": nbytes / HBM_BPS * 1e3, "bound_by": "bytes",
+                 "max_abs_err": 0.0, "floor_ms": floor}
+            # host time, three times each in turns; the medians are kept
+            hk, ho = [], []
+            for _ in range(3):
+                hk.append(host_us(kv))
+                ho.append(host_us(one))
+            r["host_us"], r["host_one_us"] = sorted(hk)[1], sorted(ho)[1]
+            lib_txt = ("— (no single call)" if lib is None
+                       else f"{r['library_ms']:.4f} ms")
+            lines.append(
+                f"  {row}: K+V kernel {r['ms']:.4f} ms (one pool "
+                f"{r['one_ms']:.4f}, two single-pool launches "
+                f"{r['two_ms']:.4f})  plain {r['plain_ms']:.4f} ms  two "
+                f"index_put_ {lib_txt}  bound {r['bound_ms']:.7f} ms (bytes);"
+                f" K+V - floor {r['ms'] - floor:.4f} ms; host (median of 3 x "
+                f"1000 calls) {r['host_us']:.1f} us a K+V call "
+                f"({', '.join(f'{x:.1f}' for x in hk)}), {r['host_one_us']:.1f}"
+                f" us a single-pool call ({', '.join(f'{x:.1f}' for x in ho)})"
+                f", ratio {r['host_us'] / r['host_one_us']:.2f}")
+            return r
+
+        r2 = timed(
+            "paged_scatter bf16",
+            lambda: paged_scatter_kv(kb, vb, kn, vn, ws, wo),
+            lambda: paged_scatter(kb, kn, ws, wo),
+            lambda: paged_scatter_kv_plain(kb, vb, kn, vn, ws, wo),
+            lambda: (kb.index_put_((blk, off), kr),
+                     vb.index_put_((blk, off), vr)),
+            4 * writers * row_b + 2 * nb * 4)
+        r4 = {}
+        for qdt, (kq, ks, vq, vs) in qpools.items():
+            qrow_b = KVH * HD * qdt.itemsize + 4       # payload + scale
+            r4[qdt] = timed(
+                f"paged_scatter_quant {str(qdt)[6:]} (bf16 rows)",
+                lambda: paged_scatter_quant_kv(kq, ks, vq, vs, kn, vn, ws, wo),
+                lambda: paged_scatter_quant(kq, ks, kn, ws, wo),
+                lambda: paged_scatter_quant_kv_plain(kq, ks, vq, vs, kn, vn,
+                                                     ws, wo),
+                None, 2 * writers * (row_b + qrow_b) + 2 * nb * 4)
+        log("\n".join(lines))
+        if label == "main":
+            results["paged_scatter"] = r2
+            results["paged_scatter_quant"] = r4[torch.int8]
+        del kb, vb, qpools
+        torch.cuda.empty_cache()
+    require(not faults, f"{len(faults)} scatter checks failed: "
+            + "; ".join(faults))
     return results
 
 
@@ -1444,8 +1643,8 @@ def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
 def phase_fleet(dev: torch.device, cfg):
     """qwen2-7b at full width, 2 peers, the seeded bursty workload over
     bf16 pools, then over int8 and fp8 pools; launch counts checked
-    against the decode ticks of each run; a fused-vs-gather tick over bf16
-    and int8 pools; device profile of the bf16 tick."""
+    against the decode ticks of each run; a fused-vs-gather tick over each
+    pool type, with its device profile."""
     from repro_torch.models import build_model
     from repro_torch.serve.fleet import FleetConfig, generate_workload
     model = build_model(cfg)
@@ -1470,15 +1669,18 @@ def phase_fleet(dev: torch.device, cfg):
     require(counts["paged_attention_decode"] == n_layers * ticks,
             f"decode launches {counts['paged_attention_decode']} != "
             f"{n_layers} x {ticks} ticks")
-    require(counts["paged_scatter"] == 2 * n_layers * ticks,
+    # one launch writes a layer's K and V pools: one per attention
+    # sub-layer per tick
+    require(counts["paged_scatter"] == n_layers * ticks,
             f"scatter launches {counts['paged_scatter']} != "
-            f"{2 * n_layers} x {ticks} ticks")
+            f"{n_layers} x {ticks} ticks")
     require(counts["paged_gather"] == 0, "fused path launched gather")
     bf16_tokens = {r.request.rid: r.tokens for r in router._primaries}
     out = {k: counts[k] for k in ("paged_scatter", "paged_attention_decode")}
     eng, active, tokens, g_counts, tick_ms = tick_check(
         model, peers[0], fc, wl, torch.bfloat16, dev)
     require(g_counts["paged_gather"] == 2 * n_layers
+            and g_counts["paged_scatter"] == n_layers
             and g_counts["paged_attention_decode"] == 0,
             f"gather tick launches {g_counts}")
     out["paged_gather"] = g_counts["paged_gather"]
@@ -1496,9 +1698,9 @@ def phase_fleet(dev: torch.device, cfg):
         require(per_token == n_layers * 2 * (
                     cfg.num_kv_heads * cfg.resolved_head_dim + 4),
                 f"{name}: {per_token} KV bytes per token")
-        require(counts["paged_scatter_quant"] == 2 * n_layers * ticks,
+        require(counts["paged_scatter_quant"] == n_layers * ticks,
                 f"{name}: scatter_quant launches "
-                f"{counts['paged_scatter_quant']} != {2 * n_layers} x {ticks}")
+                f"{counts['paged_scatter_quant']} != {n_layers} x {ticks}")
         require(counts["paged_attention_decode_quant"] == n_layers * ticks,
                 f"{name}: quantized decode launches "
                 f"{counts['paged_attention_decode_quant']} != {n_layers} x "
@@ -1514,16 +1716,16 @@ def phase_fleet(dev: torch.device, cfg):
         log(f"fleet {name}: {same}/{n_tok} tokens equal to the bf16 run's "
             f"({same / n_tok:.1%}; for information)")
         del router
-        if qdt == torch.int8:
-            eng, active, tokens, g_counts, tick_ms = tick_check(
-                model, peers[0], fc, wl, qdt, dev)
-            require(g_counts["paged_gather"] == 4 * n_layers
-                    and g_counts["paged_attention_decode_quant"] == 0,
-                    f"int8 gather tick launches {g_counts}")
-            out["paged_gather"] += g_counts["paged_gather"]
-            if dev.type == "cuda":
-                profile_ticks(eng, active, tokens, tick_ms)
-            del eng
+        eng, active, tokens, g_counts, tick_ms = tick_check(
+            model, peers[0], fc, wl, qdt, dev)
+        require(g_counts["paged_gather"] == 4 * n_layers
+                and g_counts["paged_scatter_quant"] == n_layers
+                and g_counts["paged_attention_decode_quant"] == 0,
+                f"{name} gather tick launches {g_counts}")
+        out["paged_gather"] += g_counts["paged_gather"]
+        if dev.type == "cuda":
+            profile_ticks(eng, active, tokens, tick_ms)
+        del eng
         torch.cuda.empty_cache()
     return out
 
@@ -1533,7 +1735,7 @@ def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
     their wall time: the device's busy share of a tick, and the decode
     attention's own device time in it."""
     profile_device(lambda: eng.decode_logits(active, tokens), tick_ms, n,
-                   "tick", detail="decode_")
+                   "tick", detail=("decode_", "scatter"))
 
 
 def kernel_times(fn, n: int):
@@ -1556,11 +1758,11 @@ def kernel_times(fn, n: int):
     return sorted(rows, reverse=True)
 
 
-def profile_device(fn, wall_ms: float, n: int, unit: str, detail: str = ""):
+def profile_device(fn, wall_ms: float, n: int, unit: str, detail=()):
     """Device time of ``n`` calls of ``fn`` by kernel (torch.profiler)
     against their wall time ``wall_ms`` per call: the device's busy share;
-    with ``detail``, also the summed time of the kernels whose name holds
-    it. Returns the busy ms per call (None if the profiler saw no device
+    for each string of ``detail``, also the summed time of the kernels
+    whose name holds it. Returns the busy ms per call (None if the profiler saw no device
     time)."""
     rows = kernel_times(fn, n)
     busy_ms = sum(r[0] for r in rows) / 1e3 / n
@@ -1572,9 +1774,9 @@ def profile_device(fn, wall_ms: float, n: int, unit: str, detail: str = ""):
         f"{unit}:")
     for us, count, key in rows[:8]:
         log(f"  {us / 1e3 / n:8.3f} ms  {count // n:5d} calls  {key[:90]}")
-    if detail:
-        parts = [(us, count, key) for us, count, key in rows if detail in key]
-        log(f"  kernels named {detail}*: {sum(r[0] for r in parts) / 1e3 / n:.3f}"
+    for d in detail:
+        parts = [(us, count, key) for us, count, key in rows if d in key]
+        log(f"  kernels named *{d}*: {sum(r[0] for r in parts) / 1e3 / n:.4f}"
             f" ms and {sum(r[1] for r in parts) // n} calls per {unit}")
     return busy_ms
 
@@ -2236,7 +2438,8 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         t0 = time.perf_counter()
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-        kernel_rows = phase_kernels(dev, flush)
+        kernel_rows = phase_scatter_kernels(dev, flush)
+        kernel_rows.update(phase_kernels(dev, flush))
         kernel_rows.update(phase_quant_kernels(dev, flush))
         kernel_rows.update(phase_ops_kernels(dev, flush))
         kernel_rows.update(phase_loss_kernels(dev, flush))

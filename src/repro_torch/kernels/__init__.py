@@ -22,5 +22,6 @@ from repro_torch.kernels.paged_attention import (  # noqa: F401
     NEG, paged_attention_decode, paged_attention_decode_plain)
 from repro_torch.kernels.paged_cache import (  # noqa: F401
     QMAX, is_quantized_dtype, paged_gather, paged_gather_plain, paged_scatter,
-    paged_scatter_plain, paged_scatter_quant, paged_scatter_quant_plain,
-    quantize_rows, quantized_dtype_names)
+    paged_scatter_kv, paged_scatter_kv_plain, paged_scatter_plain,
+    paged_scatter_quant, paged_scatter_quant_kv, paged_scatter_quant_kv_plain,
+    paged_scatter_quant_plain, quantize_rows, quantized_dtype_names)

@@ -36,17 +36,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> {C function: argtypes}; every function returns int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_cache": {
-        # pool, rows, write_slot, write_off, NB, BS, row_bytes, S, stream
+        # k_pool, k_rows, v_pool, v_rows (null: one pool), write_slot,
+        # write_off, NB, BS, row_bytes, S, stream
         "repro_paged_scatter": [c_void_p, c_void_p, c_void_p, c_void_p,
-                                c_int, c_int, c_longlong, c_int, c_void_p],
+                                c_void_p, c_void_p, c_int, c_int, c_longlong,
+                                c_int, c_void_p],
         # pool, table, n_live, out, S, MB, block_bytes, NB, stream
         "repro_paged_gather": [c_void_p, c_void_p, c_void_p, c_void_p,
                                c_int, c_int, c_longlong, c_int, c_void_p],
-        # pool, scales, rows, write_slot, write_off, NB, BS, row_elems, S,
-        # row_dtype, quant_dtype, stream
+        # k_pool, k_scales, k_rows, v_pool, v_scales, v_rows (null: one
+        # pool), write_slot, write_off, NB, BS, row_elems, S, row_dtype,
+        # quant_dtype, stream
         "repro_paged_scatter_quant": [c_void_p, c_void_p, c_void_p, c_void_p,
-                                      c_void_p, c_int, c_int, c_int, c_int,
-                                      c_int, c_int, c_void_p],
+                                      c_void_p, c_void_p, c_void_p, c_void_p,
+                                      c_int, c_int, c_int, c_int, c_int,
+                                      c_int, c_void_p],
     },
     "paged_attention": {
         # q, k_pool, v_pool, k_scale, v_scale, table, lengths, part_m,

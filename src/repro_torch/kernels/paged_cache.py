@@ -18,6 +18,10 @@ at it.
     -> (pool, scales), IN PLACE: ``paged_scatter`` fused with per-row
     absmax quantization into an int8 / float8_e4m3fn pool; the row's fp32
     scale goes into ``scales (NB, BS)``.
+``paged_scatter_kv`` / ``paged_scatter_quant_kv``: the two scatters of a
+    layer's K and V pools under the same write maps, in one launch (the
+    decode step's calls). Their plain versions are the single-pool plain
+    versions on K, then on V; a launch counts once.
 
 Quantized pools store one fp32 scale per token row (KVh * hd elements):
 ``scale = absmax / QMAX``, ``q = x * (1 / scale)`` rounded half to even and
@@ -38,7 +42,7 @@ from repro_torch.kernels import _build
 QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 _QUANT_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _ROW_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the quantizing scatter holds a row in registers: 128 threads x 16 values
+# the quantizing scatter holds a row in one warp's registers: 32 lanes x 64
 MAX_QUANT_ROW = 2048
 
 
@@ -102,6 +106,57 @@ def _check_index(t: torch.Tensor, shape, name: str) -> None:
 # scatter
 # ----------------------------------------------------------------------------
 
+# The scatters' checks run on every decode step's layer, so they format
+# their messages only when they fail.
+
+def _check_pair(k: torch.Tensor, v: torch.Tensor, what: str) -> None:
+    if k.shape != v.shape or k.dtype != v.dtype:
+        raise ValueError(f"{what}: K {tuple(k.shape)} {k.dtype} and V "
+                         f"{tuple(v.shape)} {v.dtype} differ")
+
+
+def _check_scatter(pools, new: torch.Tensor, write_slot: torch.Tensor,
+                   write_off: torch.Tensor):
+    """Checks the tensors a scatter takes: ``pools`` (the pool (NB, BS,
+    KVh, hd) first) and ``new`` (S, KVh, hd) contiguous, every tensor on
+    one device, the maps (NB,) int32. Returns (device, NB, BS, KVh, hd)."""
+    pool = pools[0]
+    dev = pool.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for t in (*pools, new, write_slot, write_off):
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} vs {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("pools, rows and maps must be contiguous")
+    if pool.dim() != 4:
+        raise ValueError(f"pool must be (NB, BS, KVh, hd), got {tuple(pool.shape)}")
+    nb, bs, kvh, hd = pool.shape
+    if new.dim() != 3 or new.shape[1] != kvh or new.shape[2] != hd:
+        raise ValueError(f"new {tuple(new.shape)} does not match pool rows "
+                         f"{(kvh, hd)}")
+    for t, name in ((write_slot, "write_slot"), (write_off, "write_off")):
+        if t.dtype != torch.int32 or t.shape != (nb,):
+            raise ValueError(f"{name} must be ({nb},) int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    return dev, nb, bs, kvh, hd
+
+
+def _ptr(t):
+    """data_ptr of a tensor for the C entry points; None (null) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """Calls the C entry point ``fn(*args, stream)`` on ``dev``'s current
+    stream, with ``dev`` the current device."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if torch.cuda.current_device() == dev.index:
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
+
+
 def paged_scatter_plain(pool: torch.Tensor, new: torch.Tensor,
                         write_slot: torch.Tensor,
                         write_off: torch.Tensor) -> torch.Tensor:
@@ -109,6 +164,42 @@ def paged_scatter_plain(pool: torch.Tensor, new: torch.Tensor,
     blocks = torch.nonzero(write_slot >= 0).flatten()
     pool[blocks, write_off[blocks].long()] = new[write_slot[blocks].long()]
     return pool
+
+
+def paged_scatter_kv_plain(k_pool, v_pool, k_new, v_new, write_slot,
+                           write_off):
+    """Plain version of ``paged_scatter_kv``: ``paged_scatter_plain`` on K,
+    then on V."""
+    return (paged_scatter_plain(k_pool, k_new, write_slot, write_off),
+            paged_scatter_plain(v_pool, v_new, write_slot, write_off))
+
+
+def _scatter(k_pool, k_new, v_pool, v_new, write_slot, write_off) -> None:
+    """``paged_scatter`` of one pool (v_pool and v_new None) or of a layer's
+    K and V pools in one launch."""
+    two = v_pool is not None
+    dev, nb, bs, kvh, hd = _check_scatter(
+        (k_pool, v_pool, v_new) if two else (k_pool,), k_new, write_slot,
+        write_off)
+    if two:
+        _check_pair(k_pool, v_pool, "pools")
+        _check_pair(k_new, v_new, "new rows")
+    if k_new.dtype != k_pool.dtype:
+        raise ValueError(f"new dtype {k_new.dtype} != pool dtype {k_pool.dtype}")
+    if dev.type == "cpu":
+        paged_scatter_plain(k_pool, k_new, write_slot, write_off)
+        if two:
+            paged_scatter_plain(v_pool, v_new, write_slot, write_off)
+        return
+    if nb == 0 or k_new.shape[0] == 0:
+        return
+    lib = _build.load("paged_cache")
+    rc = _launch(dev, lib.repro_paged_scatter, k_pool.data_ptr(),
+                 k_new.data_ptr(), _ptr(v_pool), _ptr(v_new),
+                 write_slot.data_ptr(), write_off.data_ptr(), nb, bs,
+                 kvh * hd * k_pool.element_size(), k_new.shape[0])
+    _build.check(lib, rc, "paged_scatter")
+    _build.count_launch("paged_scatter")
 
 
 def paged_scatter(pool: torch.Tensor, new: torch.Tensor,
@@ -119,30 +210,19 @@ def paged_scatter(pool: torch.Tensor, new: torch.Tensor,
     pool (NB, BS, KVh, hd); new (S, KVh, hd) in the pool's dtype;
     write_slot / write_off (NB,) int32 from ``PagedCachePool.write_maps``.
     """
-    dev = _same_device(pool, new, write_slot, write_off)
-    _require(pool.dim() == 4, f"pool must be (NB, BS, KVh, hd), got {tuple(pool.shape)}")
-    nb, bs, kvh, hd = pool.shape
-    _require(new.dim() == 3 and tuple(new.shape[1:]) == (kvh, hd),
-             f"new {tuple(new.shape)} does not match pool rows {(kvh, hd)}")
-    _require(new.dtype == pool.dtype,
-             f"new dtype {new.dtype} != pool dtype {pool.dtype}")
-    _require(pool.is_contiguous() and new.is_contiguous(),
-             "pool and new must be contiguous")
-    _check_index(write_slot, (nb,), "write_slot")
-    _check_index(write_off, (nb,), "write_off")
-    if dev.type == "cpu":
-        return paged_scatter_plain(pool, new, write_slot, write_off)
-    if nb == 0 or new.shape[0] == 0:
-        return pool
-    lib = _build.load("paged_cache")
-    with torch.cuda.device(dev):
-        rc = lib.repro_paged_scatter(
-            pool.data_ptr(), new.data_ptr(), write_slot.data_ptr(),
-            write_off.data_ptr(), nb, bs, kvh * hd * pool.element_size(),
-            new.shape[0], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "paged_scatter")
-    _build.count_launch("paged_scatter")
+    _scatter(pool, new, None, None, write_slot, write_off)
     return pool
+
+
+def paged_scatter_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor,
+                     write_slot: torch.Tensor, write_off: torch.Tensor):
+    """``paged_scatter`` of a layer's K rows into ``k_pool`` and its V rows
+    into ``v_pool`` under the same write maps, in place and in one launch.
+    The pools share shape and dtype, as do the rows. Returns (k_pool,
+    v_pool)."""
+    _scatter(k_pool, k_new, v_pool, v_new, write_slot, write_off)
+    return k_pool, v_pool
 
 
 # ----------------------------------------------------------------------------
@@ -162,6 +242,58 @@ def paged_scatter_quant_plain(pool: torch.Tensor, scales: torch.Tensor,
     return pool, scales
 
 
+def paged_scatter_quant_kv_plain(k_pool, k_scales, v_pool, v_scales, k_new,
+                                 v_new, write_slot, write_off):
+    """Plain version of ``paged_scatter_quant_kv``:
+    ``paged_scatter_quant_plain`` on K, then on V."""
+    return (*paged_scatter_quant_plain(k_pool, k_scales, k_new, write_slot,
+                                       write_off),
+            *paged_scatter_quant_plain(v_pool, v_scales, v_new, write_slot,
+                                       write_off))
+
+
+def _scatter_quant(k_pool, k_scales, k_new, v_pool, v_scales, v_new,
+                   write_slot, write_off) -> None:
+    """``paged_scatter_quant`` of one pool (the V arguments None) or of a
+    layer's K and V pools in one launch."""
+    two = v_pool is not None
+    dev, nb, bs, kvh, hd = _check_scatter(
+        (k_pool, k_scales, v_pool, v_scales, v_new) if two
+        else (k_pool, k_scales), k_new, write_slot, write_off)
+    if two:
+        _check_pair(k_pool, v_pool, "pools")
+        _check_pair(k_scales, v_scales, "scales")
+        _check_pair(k_new, v_new, "new rows")
+    if k_pool.dtype not in _QUANT_CODES:
+        raise ValueError(f"pool dtype {k_pool.dtype} is not a quantized dtype "
+                         "(int8, fp8)")
+    if k_scales.dtype != torch.float32 or k_scales.shape != (nb, bs):
+        raise ValueError(f"scales must be ({nb}, {bs}) float32, got "
+                         f"{tuple(k_scales.shape)} {k_scales.dtype}")
+    if k_new.dtype not in _ROW_CODES:
+        raise ValueError(f"new dtype {k_new.dtype} unsupported (fp32/bf16)")
+    if kvh * hd > MAX_QUANT_ROW:
+        raise ValueError(f"rows of {kvh * hd} values: the kernel takes at "
+                         f"most {MAX_QUANT_ROW}")
+    if dev.type == "cpu":
+        paged_scatter_quant_plain(k_pool, k_scales, k_new, write_slot,
+                                  write_off)
+        if two:
+            paged_scatter_quant_plain(v_pool, v_scales, v_new, write_slot,
+                                      write_off)
+        return
+    if nb == 0 or k_new.shape[0] == 0:
+        return
+    lib = _build.load("paged_cache")
+    rc = _launch(dev, lib.repro_paged_scatter_quant, k_pool.data_ptr(),
+                 k_scales.data_ptr(), k_new.data_ptr(), _ptr(v_pool),
+                 _ptr(v_scales), _ptr(v_new), write_slot.data_ptr(),
+                 write_off.data_ptr(), nb, bs, kvh * hd, k_new.shape[0],
+                 _ROW_CODES[k_new.dtype], _QUANT_CODES[k_pool.dtype])
+    _build.check(lib, rc, "paged_scatter_quant")
+    _build.count_launch("paged_scatter_quant")
+
+
 def paged_scatter_quant(pool: torch.Tensor, scales: torch.Tensor,
                         new: torch.Tensor, write_slot: torch.Tensor,
                         write_off: torch.Tensor):
@@ -170,39 +302,22 @@ def paged_scatter_quant(pool: torch.Tensor, scales: torch.Tensor,
     fp32; new (S, KVh, hd) fp32 / bf16 (taken to fp32 exactly);
     write_slot / write_off as ``paged_scatter``'s. Returns (pool, scales).
     """
-    dev = _same_device(pool, scales, new, write_slot, write_off)
-    _require(pool.dim() == 4, f"pool must be (NB, BS, KVh, hd), got {tuple(pool.shape)}")
-    nb, bs, kvh, hd = pool.shape
-    _require(is_quantized_dtype(pool.dtype),
-             f"pool dtype {pool.dtype} is not a quantized dtype (int8, fp8)")
-    _require(scales.dtype == torch.float32 and tuple(scales.shape) == (nb, bs),
-             f"scales must be ({nb}, {bs}) float32, got "
-             f"{tuple(scales.shape)} {scales.dtype}")
-    _require(new.dim() == 3 and tuple(new.shape[1:]) == (kvh, hd),
-             f"new {tuple(new.shape)} does not match pool rows {(kvh, hd)}")
-    _require(new.dtype in _ROW_CODES,
-             f"new dtype {new.dtype} unsupported (fp32/bf16)")
-    _require(kvh * hd <= MAX_QUANT_ROW,
-             f"rows of {kvh * hd} values: the kernel takes at most {MAX_QUANT_ROW}")
-    _require(pool.is_contiguous() and scales.is_contiguous()
-             and new.is_contiguous(), "pool, scales and new must be contiguous")
-    _check_index(write_slot, (nb,), "write_slot")
-    _check_index(write_off, (nb,), "write_off")
-    if dev.type == "cpu":
-        return paged_scatter_quant_plain(pool, scales, new, write_slot,
-                                         write_off)
-    if nb == 0 or new.shape[0] == 0:
-        return pool, scales
-    lib = _build.load("paged_cache")
-    with torch.cuda.device(dev):
-        rc = lib.repro_paged_scatter_quant(
-            pool.data_ptr(), scales.data_ptr(), new.data_ptr(),
-            write_slot.data_ptr(), write_off.data_ptr(), nb, bs, kvh * hd,
-            new.shape[0], _ROW_CODES[new.dtype], _QUANT_CODES[pool.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "paged_scatter_quant")
-    _build.count_launch("paged_scatter_quant")
+    _scatter_quant(pool, scales, new, None, None, None, write_slot, write_off)
     return pool, scales
+
+
+def paged_scatter_quant_kv(k_pool: torch.Tensor, k_scales: torch.Tensor,
+                           v_pool: torch.Tensor, v_scales: torch.Tensor,
+                           k_new: torch.Tensor, v_new: torch.Tensor,
+                           write_slot: torch.Tensor, write_off: torch.Tensor):
+    """``paged_scatter_quant`` of a layer's K rows into ``k_pool`` /
+    ``k_scales`` and its V rows into ``v_pool`` / ``v_scales`` under the
+    same write maps, in place and in one launch. The pools share shape and
+    dtype, as do the scales and the rows. Returns (k_pool, k_scales,
+    v_pool, v_scales)."""
+    _scatter_quant(k_pool, k_scales, k_new, v_pool, v_scales, v_new,
+                   write_slot, write_off)
+    return k_pool, k_scales, v_pool, v_scales
 
 
 # ----------------------------------------------------------------------------

@@ -13,7 +13,7 @@ Quantized ``cache_dtype`` (int8 / fp8): the pools store quantized rows and
 one fp32 scale per row in ``k_scale`` / ``v_scale`` ``(L, NB, BS)`` beside
 ``k`` / ``v`` in the same per-sublayer dict, so allocation, defrag and the
 scatter move them with their blocks. Prefill rows are quantized at insert
-time (``quantize_rows``), decode appends inside ``paged_scatter_quant``.
+time (``quantize_rows``), decode appends inside ``paged_scatter_quant_kv``.
 
 The device pools are updated in place (the decode step's scatter kernel
 writes into them); the reference rebinds new arrays instead.

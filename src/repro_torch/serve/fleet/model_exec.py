@@ -6,8 +6,9 @@ every slot carries its OWN absolute position (= its current context length)
 — the ragged substrate continuous batching needs.
 
 Step order per attention sub-layer: project and rope q/k/v at each slot's
-position ``lengths[s]``; ``paged_scatter`` appends the new K/V rows into the
-pools (in place); then attention reads the pools, on the same stream, so
+position ``lengths[s]``; ``paged_scatter_kv`` appends the new K and V rows
+into the layer's two pools (in place, one launch); then attention reads the
+pools, on the same stream, so
 the new token's key is visible (valid keys: positions ``<= lengths[s]``).
 Inactive slots go through the step too, with length 0 and an all-zero table
 row (the null block); they appear in no write-map entry, never touch the
@@ -21,7 +22,7 @@ Two attention paths, pinned against each other:
   kernel consumes the block table directly; no gathered context exists.
 
 Quantized pools (int8 / fp8, with ``k_scale`` / ``v_scale`` in the layer's
-dict) append through ``paged_scatter_quant`` (quantize at scatter) and
+dict) append through ``paged_scatter_quant_kv`` (quantize at scatter) and
 dequantize per row inside whichever attention path runs: the decode
 kernel in its tile loads, the gather path after gathering the scales too.
 """
@@ -32,8 +33,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.paged_attention import paged_attention_decode
-from repro_torch.kernels.paged_cache import (paged_gather, paged_scatter,
-                                             paged_scatter_quant)
+from repro_torch.kernels.paged_cache import (paged_gather, paged_scatter_kv,
+                                             paged_scatter_quant_kv)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
                                        lm_head)
@@ -60,19 +61,14 @@ def _paged_attention_decode(p: Dict, x: torch.Tensor,
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     if quantized:
-        k_pool, k_sc = paged_scatter_quant(kv["k"], kv["k_scale"],
-                                           k_new[:, 0].contiguous(),
-                                           write_slot, write_off)
-        v_pool, v_sc = paged_scatter_quant(kv["v"], kv["v_scale"],
-                                           v_new[:, 0].contiguous(),
-                                           write_slot, write_off)
+        k_pool, k_sc, v_pool, v_sc = paged_scatter_quant_kv(
+            kv["k"], kv["k_scale"], kv["v"], kv["v_scale"],
+            k_new[:, 0].contiguous(), v_new[:, 0].contiguous(), write_slot,
+            write_off)
     else:
-        k_pool = paged_scatter(kv["k"],
-                               k_new[:, 0].to(kv["k"].dtype).contiguous(),
-                               write_slot, write_off)
-        v_pool = paged_scatter(kv["v"],
-                               v_new[:, 0].to(kv["v"].dtype).contiguous(),
-                               write_slot, write_off)
+        k_pool, v_pool = paged_scatter_kv(
+            kv["k"], kv["v"], k_new[:, 0].to(kv["k"].dtype).contiguous(),
+            v_new[:, 0].to(kv["v"].dtype).contiguous(), write_slot, write_off)
         k_sc = v_sc = None
 
     if fused:
