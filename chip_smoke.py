@@ -81,11 +81,31 @@ exits non-zero:
                 0); (e) a top-k wire of 64, 2 peers, 2 steps. Launch counts
                 per distilling step checked against codist_loss's loop;
                 ms per step, device-busy share, peak memory.
-  9. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps on the
+  9. sweep    — the paper-grid harness at qwen1.5-0.5b's full width: a
+                YAML spec (model_overrides restoring get_config, batch 8 x
+                seq 512 a peer, 10 steps, the five modes under a constant
+                and a burn-in alpha: 9 cells) through
+                ``repro_torch.launch.sweep.main``, then ``--resume`` (all
+                skipped, nothing launched); per cell the task loss falls,
+                the launches match the mode's loss loop and async
+                comm_bytes is the wire's bytes times its deliveries; wall,
+                ms per step, peak memory, the aggregate's gaps and codist
+                steps/s per card.
+ 10. async    — ``AsyncScheduler`` at full width: 2 peers and an elastic
+                join, kl, 5 steps under a straggler, a preemption and a
+                failure recovered from a snapshot, staleness bound 1;
+                restore, staleness and launches (rows 6, 7, 9, 11)
+                checked; ms per peer step and per publish forward, the
+                device-busy share of two rounds, peak memory; then the
+                training CLI in ``codist-async`` on the card.
+ 11. train_parity — reduced qwen1.5-0.5b in fp32: 3 codist steps on the
                 card through the kernels and on the CPU through their plain
                 versions, same weights and batches: 2 peers mse and kl, 3
                 peers mse, a subsample wire, the checkpoint and the
-                pipelined exchange; per-step losses within 1e-4 relative.
+                pipelined exchange; then the async runtime at staleness
+                bound 0 against the sync exchange on the card, and under
+                the async phase's faults card against CPU; per-step losses
+                within 1e-4 relative.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of the JAX reference.
@@ -107,7 +127,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
-          "train_peers", "train_parity")
+          "train_peers", "sweep", "async", "train_parity")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
 # num_blocks=1025, max_blocks_per_slot=34))
@@ -161,14 +181,16 @@ PATHS = {"paged_scatter": ("fleet",), "paged_gather": ("fleet",),
          "paged_attention_decode_quant": ("fleet",),
          "paged_scatter_quant": ("fleet",),
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
-         "fused_cross_entropy_parts": ("train", "train_peers"),
-         "fused_cross_entropy_grad": ("train", "train_peers"),
-         "fused_ce_distill_parts": ("train", "train_peers"),
-         "fused_ce_distill_grad": ("train", "train_peers"),
-         "fused_distill_loss": ("train_peers",),
-         "fused_distill_kl_parts": ("train_peers",),
-         "fused_distill_mse_grad": ("train_peers",),
-         "fused_distill_kl_grad": ("train_peers",)}
+         "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
+                                       "async"),
+         "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
+                                      "async"),
+         "fused_ce_distill_parts": ("train", "train_peers", "sweep"),
+         "fused_ce_distill_grad": ("train", "train_peers", "sweep"),
+         "fused_distill_loss": ("train_peers", "sweep"),
+         "fused_distill_kl_parts": ("train_peers", "async"),
+         "fused_distill_mse_grad": ("train_peers", "sweep"),
+         "fused_distill_kl_grad": ("train_peers", "async")}
 
 # training main path (qwen1.5-0.5b, 2 peers, batch 8 x seq 512 per peer):
 # T tokens per peer, padded vocab V
@@ -2330,7 +2352,411 @@ def phase_train_peers(dev: torch.device):
 
 
 # ----------------------------------------------------------------------------
-# phase 9: fp32 training, card vs CPU
+# phase 9: the paper-grid harness at full width
+# ----------------------------------------------------------------------------
+
+# model_overrides that turn the runner's get_reduced("qwen1.5-0.5b") back
+# into the full config (the phase requires the two equal)
+FULL_OVERRIDES = {"num_layers": 24, "d_model": 1024, "num_heads": 16,
+                  "num_kv_heads": 16, "d_ff": 2816, "vocab_size": 151936,
+                  "head_dim": 0, "dtype": "bfloat16",
+                  "max_position": 1048576}
+SWEEP_STEPS = 10
+SWEEP_MODES = ["allreduce", "codist", "codist-ckpt", "codist-pipelined",
+               "codist-async"]
+# the async runtime's fault schedule (phase async and train_parity): peer 1
+# straggles 3x over half its steps and is preempted for 3 s after step 2,
+# peer 0 dies at step 4 and recovers from its snapshot, a third peer joins
+# at 2.5 s
+ASYNC_FAULTS = "straggler=1*3@0.5,preempt=1@2+3,fail=0@4"
+ASYNC_JOIN = 2.5
+ASYNC_KW = dict(staleness_bound=1, checkpoint_every=2, recover_after=2.0,
+                join_burn_in=2)
+
+
+def sweep_expected(mode: str, burn: int, steps: int, n: int = 2) -> dict:
+    """Loss-kernel launches of one mse sweep cell of n peers: all-reduce,
+    the CE a step (rows 6, 7); the prediction exchange, the CE per peer
+    during burn-in and the combined kernel after (rows 12, 13); the
+    checkpoint exchange, the combined kernel every step (burn-in only
+    zeroes alpha); the pipelined exchange, the CE and the combined kernel
+    every step; the async peers, the CE every step and one distillation
+    term (rows 8, 10) per distilling step (one target slot)."""
+    out = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+
+    def add(names, k):
+        for name in names:
+            out[name] += k
+    ce = ("fused_cross_entropy_parts", "fused_cross_entropy_grad")
+    comb = ("fused_ce_distill_parts", "fused_ce_distill_grad")
+    if mode == "allreduce":
+        add(ce, steps)
+    elif mode == "codist":
+        add(ce, n * burn)
+        add(comb, n * (steps - burn))
+    elif mode == "codist-ckpt":
+        add(comb, n * steps)
+    elif mode == "codist-pipelined":
+        add(ce, n * steps)
+        add(comb, n * steps)
+    else:
+        add(ce, n * steps)
+        add(("fused_distill_loss", "fused_distill_mse_grad"), n * (steps - burn))
+    return out
+
+
+def phase_sweep(dev: torch.device):
+    """The paper-grid harness at qwen1.5-0.5b's full width and depth: a
+    spec written as YAML and loaded through ``load_spec`` (batch 8 x seq
+    512 a peer, 10 steps, cosine 1e-3, mse, 2 peers, the five modes under
+    a constant and a burn-in alpha: 9 cells), run through
+    ``repro_torch.launch.sweep.main`` on the card, then again with
+    ``--resume`` (every cell skipped, no kernel launched). Per cell: the
+    task loss finite and falling, the launches of its mode's loss loop,
+    the async wire bytes times its deliveries; wall seconds, ms per step
+    (ms per peer step for async) after step 0, host ms a step in batch
+    making, peak memory. Then the aggregate's gap and bytes-to-quality
+    columns and codist steps/s per card. Returns the summed launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import yaml
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.experiments import load_spec, runner
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sweep as sweep_cli
+    from repro_torch.train import History
+    arch = "qwen1.5-0.5b"
+    full = get_config(arch)
+    require(replace(get_reduced(arch), **FULL_OVERRIDES) == full,
+            "the sweep's model_overrides do not restore get_config")
+    doc = {"name": "chip_sweep", "arch": arch, "seq_len": 512,
+           "steps": SWEEP_STEPS, "optimizer": "adamw", "distill_loss": "mse",
+           "seeds": [0], "batch_sizes": [TRAIN_T // 512],
+           "lr_schedules": [{"name": "cos1e3", "kind": "cosine", "lr": 1e-3,
+                             "warmup_frac": 0.1}],
+           "modes": SWEEP_MODES,
+           "alpha_schedules": [{"name": "const", "alpha0": 1.0},
+                               {"name": "burnin", "alpha0": 1.0,
+                                "burn_in_frac": 0.25}],
+           "peers": [2], "model_overrides": FULL_OVERRIDES}
+    # instrument the runner: each cell's wall, launches and peak, and the
+    # host clock at each step's first batch request (the loops request
+    # batch k + 1 right after logging step k, which syncs)
+    run_cell, make_batch = runner.run_cell, runner.make_lm_batch
+    stats, cur = {}, {}
+
+    def stamped_batch(task, batch, seq_len, step, group=None, seed=0,
+                      device="cuda"):
+        t0 = time.perf_counter()
+        cur["stamps"].setdefault(step, t0)
+        out = make_batch(task, batch, seq_len, step, group, seed=seed,
+                         device=device)
+        cur["batch_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_run_cell(cell, steps=None, **kw):
+        cur.update(stamps={}, batch_s=0.0)
+        before = dict(launch_counts)
+        sync(dev)
+        t0 = time.perf_counter()
+        summary, hist = run_cell(cell, steps, **kw)
+        sync(dev)
+        t1 = time.perf_counter()
+        stats[cell.cell_id] = {
+            "wall": t1 - t0, "end": t1, "stamps": cur["stamps"],
+            "batch_s": cur["batch_s"],
+            "peak": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "launches": {k: launch_counts[k] - before[k]
+                         for k in ALL_LOSS_KERNELS}}
+        return summary, hist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = os.path.join(tmp, "chip_sweep.yaml")
+        with open(spec_path, "w") as f:
+            yaml.safe_dump(doc, f)
+        spec = load_spec(spec_path)
+        cells = spec.cells()
+        require(len(cells) == 9, f"{len(cells)} cells, not 9")
+        argv = ["--spec", spec_path, "--out", tmp, "--device", dev.type]
+        runner.run_cell, runner.make_lm_batch = timed_run_cell, stamped_batch
+        try:
+            out = io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = sweep_cli.main(argv)
+            wall = time.perf_counter() - t0
+            launches = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+            for line in out.getvalue().splitlines():
+                log(f"  {line}")
+            require(rc == 0 and "ran=9 skipped=0 failed=0" in out.getvalue()
+                    and "aggregated 9 cells" in out.getvalue(),
+                    f"sweep exit {rc}")
+            out = io.StringIO()
+            reset_launch_counts()
+            with contextlib.redirect_stdout(out):
+                rc = sweep_cli.main(argv + ["--resume"])
+            resumed = {k: v for k, v in launch_counts.items() if v}
+            log("sweep --resume: " + next(
+                line for line in out.getvalue().splitlines()
+                if line.startswith(f"sweep {spec.name}:")))
+            require(rc == 0 and "ran=0 skipped=9 failed=0" in out.getvalue(),
+                    f"--resume exit {rc}: {out.getvalue()}")
+            require(not resumed, f"--resume launched {resumed}")
+        finally:
+            runner.run_cell, runner.make_lm_batch = run_cell, make_batch
+        sweep_dir = os.path.join(tmp, spec.name)
+        with open(os.path.join(sweep_dir, f"SWEEP_{spec.name}.json")) as f:
+            agg = json.load(f)
+        wire_bytes = TRAIN_T * full.padded_vocab * 4
+        step_ms = {}
+        log(f"sweep: {len(cells)} cells in {wall:.1f} s; per cell (qwen1.5-0.5b "
+            f"full width, batch 8 x seq 512 a peer, {SWEEP_STEPS} steps):")
+        for cell in cells:
+            st = stats[cell.cell_id]
+            recs = finite_records(History.load(
+                os.path.join(sweep_dir, f"{cell.cell_id}.jsonl")),
+                cell.cell_id)
+            with open(os.path.join(sweep_dir, f"{cell.cell_id}.json")) as f:
+                final = json.load(f)["final"]
+            burn = int(round(cell.alpha.burn_in_frac * SWEEP_STEPS))
+            for p in sorted({r.get("peer", 0) for r in recs}):
+                mine = [r for r in recs if r.get("peer", 0) == p]
+                require([r["step"] for r in mine] == list(range(SWEEP_STEPS)),
+                        f"{cell.cell_id} peer {p}: steps "
+                        f"{[r['step'] for r in mine]}")
+                require(mine[-1]["task_loss"] < mine[0]["task_loss"],
+                        f"{cell.cell_id} peer {p}: task loss did not fall "
+                        f"{mine[0]['task_loss']} -> {mine[-1]['task_loss']}")
+            want = sweep_expected(cell.mode, burn, SWEEP_STEPS)
+            require(st["launches"] == want,
+                    f"{cell.cell_id}: launches {st['launches']} != {want}")
+            n = cell.peers if cell.mode == "codist-async" else 1
+            if cell.mode == "codist-async":
+                n_on = sum(1 for r in recs if r["peer_weight"] > 0)
+                require(n_on == cell.peers * (SWEEP_STEPS - burn)
+                        and final["comm_events"] == n_on
+                        and final["comm_bytes"] == wire_bytes * n_on,
+                        f"{cell.cell_id}: {n_on} deliveries, comm "
+                        f"{final['comm_events']} events "
+                        f"{final['comm_bytes']} bytes (wire {wire_bytes})")
+            ms = (st["end"] - st["stamps"][1]) * 1e3 / (n * (SWEEP_STEPS - 1))
+            step_ms[cell.cell_id] = ms
+            unit = "peer step" if n > 1 else "step"
+            log(f"  {cell.cell_id}: {st['wall']:.2f} s wall, {ms:.1f} ms per "
+                f"{unit} after step 0, batch making "
+                f"{st['batch_s'] * 1e3 / (n * SWEEP_STEPS):.1f} ms host a "
+                f"{unit}, "
+                f"peak {st['peak']:.2f} GiB, task loss "
+                f"{recs[0]['task_loss']:.4f} -> {final['task_loss']:.4f}, "
+                f"comm {final['comm_events']} events "
+                f"{final['comm_bytes']:.0f} bytes, launches "
+                f"{ {k: v for k, v in st['launches'].items() if v} }")
+        log("sweep aggregate (final loss = mean over seeds; gap = codist - "
+            "allreduce at the same batch and LR; bytes->Q = comm bytes "
+            "when the task loss first reached Q x the baseline's):")
+        for r in agg["grid"]:
+            gap = r["gap_vs_allreduce"]
+            log(f"  {r['mode']:16s} alpha {r['alpha']:6s} final "
+                f"{r['final_loss_mean']:.4f} gap "
+                + ("-" if gap is None else f"{gap:+.4f}")
+                + f" comm {r['comm_bytes_mean']:.0f} bytes->Q "
+                f"{r['bytes_to_quality']}")
+        for cell in cells:
+            if cell.mode == "allreduce":
+                continue
+            # an async step: one local step of each peer
+            n = cell.peers if cell.mode == "codist-async" else 1
+            log(f"codist steps/s per card, {cell.cell_id}: "
+                f"{1e3 / (step_ms[cell.cell_id] * n):.3f}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 10: the async runtime at full width
+# ----------------------------------------------------------------------------
+
+def phase_async(dev: torch.device):
+    """The async runtime at qwen1.5-0.5b's full width and depth, through
+    ``AsyncScheduler`` (batch 8 x seq 512 a peer): 2 peers and an elastic
+    join, kl distillation, 5 steps under ``ASYNC_FAULTS`` with snapshots
+    every 2 steps, recovery 2 s after a failure and a staleness bound of 1.
+    Checks the failed peer's restore, finite histories, staleness within
+    the bound and rows 6, 7, 9, 11 as the distilling steps imply; prints ms
+    per peer step and per publish forward, the device-busy share of two
+    scheduler rounds (torch.profiler), peak memory, sim_time and
+    comm_bytes. Then the training CLI in ``codist-async`` with the same
+    fault flags and ``--out`` on the card (its reduced config). Returns the
+    main run's launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.runtime import AsyncScheduler, parse_faults
+    from repro_torch.runtime.peer import PeerRuntime
+    from repro_torch.train import History
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    # 5 steps: each snapshot of a full-width peer state (5.6 GB) takes ~13 s
+    # of host I/O on the H100 machine, so the phase keeps 6 of them and the
+    # one restore (peer 0 fails at its step 4, after its step-4 snapshot)
+    b, s, steps = TRAIN_T // 512, 512, 5
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+
+    def batches(step):
+        return make_lm_batch(task, b, s, step, None, seed=0, device=dev)
+
+    faults = replace(parse_faults(ASYNC_FAULTS, 2), joins=((2, ASYNC_JOIN),))
+    tc = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=2,
+                     total_steps=steps, optimizer="adamw")
+    cd = CodistConfig(n_models=2, distill_loss="kl")
+    # time the snapshots and restores (host I/O of 5.6 GB a peer state)
+    io_s = {"snapshot": [0, 0.0], "restore": [0, 0.0]}
+    orig = {name: getattr(PeerRuntime, name) for name in io_s}
+
+    def timed(name):
+        def fn(self, *a, **kw):
+            t0 = time.perf_counter()
+            orig[name](self, *a, **kw)
+            io_s[name][0] += 1
+            io_s[name][1] += time.perf_counter() - t0
+        return fn
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name in io_s:
+            setattr(PeerRuntime, name, timed(name))
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            sched = AsyncScheduler(model, tc, cd, batches, faults,
+                                   checkpoint_dir=ckpt, device=dev,
+                                   **ASYNC_KW)
+            sync(dev)
+            t_init = time.perf_counter()
+            report = sched.run()
+            sync(dev)
+            t_end = time.perf_counter()
+            launches = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            for name, fn in orig.items():
+                setattr(PeerRuntime, name, fn)
+    recs = []
+    for p in sorted(report.histories):
+        mine = finite_records(report.histories[p], f"async peer {p}")
+        log(f"  async peer {p}: steps {[r['step'] for r in mine]}, task "
+            f"{mine[0]['task_loss']:.4f} -> {mine[-1]['task_loss']:.4f}, "
+            f"staleness {[round(r['staleness'], 2) for r in mine]}, "
+            f"sim_time {[r['sim_time'] for r in mine]}")
+        recs += mine
+    n_on = sum(1 for r in recs if r["peer_weight"] > 0)
+    stale = report.staleness
+    io_total = io_s["snapshot"][1] + io_s["restore"][1]
+    step_ms = (t_end - t_init - io_total) * 1e3 / len(recs)
+    log(f"async: 3 peers (2 + a join at {ASYNC_JOIN} s), {len(recs)} peer "
+        f"steps ({n_on} distilling) in {t_end - t_init:.1f} s after a "
+        f"{t_init - t0:.1f} s init; {io_s['snapshot'][0]} snapshots in "
+        f"{io_s['snapshot'][1]:.1f} s, {io_s['restore'][0]} restore in "
+        f"{io_s['restore'][1]:.1f} s; {step_ms:.1f} ms wall per peer step "
+        f"without them (publishes included); peak {peak:.2f} GiB; "
+        f"sim_time {report.sim_time} comm_events {report.comm_events} "
+        f"comm_bytes {report.comm_bytes:.0f}; staleness {stale}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require(io_s["restore"][0] == 1 and sorted(report.completion) == [0, 1, 2],
+            f"restores {io_s['restore'][0]}, completion {report.completion}")
+    require(stale["payloads_accepted"] > 0 and stale["staleness_max"] <= 1
+            and stale["staleness_mean"] <= stale["staleness_max"]
+            and all(r["staleness"] <= 1 for r in recs),
+            f"staleness {stale} against a bound of 1")
+    want = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    want["fused_cross_entropy_parts"] = want["fused_cross_entropy_grad"] = len(recs)
+    # one kl term per target slot (2: two other peers) per distilling step
+    want["fused_distill_kl_parts"] = want["fused_distill_kl_grad"] = 2 * n_on
+    require(launches == want, f"async launches {launches} != {want}")
+    require(report.comm_bytes > 0 and report.comm_events == n_on,
+            f"async comm {report.comm_events} events, {n_on} distilling")
+
+    # a publish forward alone, and the device's busy share of two rounds
+    # of every peer (publish, then step) past the run's end
+    params, batch = sched.peers[0].state.params, sched._batch(0)
+    sched._publish(params, batch)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sched._publish(params, batch)
+    sync(dev)
+    pub_ms = (time.perf_counter() - t0) * 1e3 / 3
+    sched.checkpoint_every = 0
+    live = sorted(sched.peers)
+
+    def one_round():
+        for p in live:
+            pr = sched.peers[p]
+            sched.mailbox.post(p, pr.step, 0.0, sched._publish(
+                pr.state.params, sched._batch(pr.step)))
+        for p in live:
+            sched._step_peer(sched.peers[p], 0.0)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        one_round()
+    sync(dev)
+    round_ms = (time.perf_counter() - t0) * 1e3 / 2
+    log(f"async: {pub_ms:.1f} ms wall per publish forward (fp32 wire of "
+        f"{TRAIN_T} x {cfg.padded_vocab}), {round_ms:.1f} ms wall per round "
+        f"of 3 peers ({round_ms / 3:.1f} a peer step)")
+    profile_device(one_round, round_ms, 2, "round")
+    del sched, report, params, batch
+    torch.cuda.empty_cache()
+
+    # ---- the CLI on the card (its reduced config) ----
+    with tempfile.TemporaryDirectory() as out_dir:
+        out = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            train_cli.main(["--device", dev.type, "--mode", "codist-async",
+                            "--steps", "6", "--batch", "2", "--seq", "64",
+                            "--log-every", "1", "--faults", ASYNC_FAULTS,
+                            "--elastic", str(ASYNC_JOIN),
+                            "--staleness-bound", "1", "--join-burn-in", "2",
+                            "--checkpoint-every", "2", "--recover-after",
+                            "2", "--distill-loss", "kl", "--out", out_dir])
+        lines = out.getvalue().splitlines()
+        cli = {k: v for k, v in launch_counts.items() if v}
+        log(f"training CLI codist-async (reduced, --device {dev.type}): "
+            f"{lines[-3]}; {lines[-2]}; launches {cli}")
+        require(lines[-2].startswith("done: 6 steps x 3 peers")
+                and lines[-2].endswith(f"on {dev.type}")
+                and lines[-3].startswith("sim_time="),
+                f"CLI output {lines[-4:]}")
+        require("nan" not in out.getvalue().lower(), f"CLI output {lines}")
+        for p in range(3):
+            h = History.load(os.path.join(out_dir, f"peer{p}.jsonl"))
+            require(h.last("step") == 5, f"CLI peer {p} history")
+            for name in (f"final_peer{p}.npz",
+                         os.path.join("runtime_ckpt", f"peer{p}.npz")):
+                require(os.path.exists(os.path.join(out_dir, name)),
+                        f"CLI wrote no {name}")
+        require(cli.get("fused_distill_kl_parts", 0) > 0
+                and cli.get("fused_cross_entropy_grad", 0) > 0,
+                f"CLI launches {cli}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 11: fp32 training, card vs CPU
 # ----------------------------------------------------------------------------
 
 def phase_train_parity(dev: torch.device):
@@ -2339,7 +2765,11 @@ def phase_train_parity(dev: torch.device):
     (their plain versions): 2 peers mse and kl, 3 peers mse (rows 8/10), a
     subsample wire (rows 6-11), the checkpoint and the pipelined exchange;
     per-step losses within 1e-4 relative, card launches as
-    ``codist_loss``'s loop makes them."""
+    ``codist_loss``'s loop makes them. Then the async runtime: at
+    staleness bound 0 on a clean schedule against the sync prediction
+    exchange, both on the card (rows 6-8, 10 against rows 12, 13), and
+    under ``ASYNC_FAULTS`` card against CPU (equal simulated clock, comm
+    and staleness fields); per-step losses within 1e-4 relative."""
     from repro_torch.configs import CodistConfig, TrainConfig, get_reduced
     from repro_torch.data import MarkovLM, make_lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2412,6 +2842,94 @@ def phase_train_parity(dev: torch.device):
             + "; ".join(f"{a['loss']:.6f}/{c['loss']:.6f}"
                         for a, c in zip(losses["cpu"], losses["card"])))
     log(f"train parity: worst relative difference {worst:.2e} (tol 1e-4)")
+    async_parity(dev, model, task, init)
+
+
+def async_parity(dev: torch.device, model, task, init) -> None:
+    """The async runtime in fp32 at the reduced size of ``phase_train_parity``
+    (its model, task and CPU-drawn initial trees ``init``)."""
+    import tempfile
+
+    from repro_torch.configs import CodistConfig, TrainConfig
+    from repro_torch.data import make_lm_batch
+    from repro_torch.runtime import AsyncScheduler, FaultConfig, parse_faults
+    from repro_torch.train import stack_batches, train_codist
+    from repro_torch.tree import tree_map
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    # (a) bound 0, clean: the async peers against the sync exchange
+    steps = 4
+    tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=steps,
+                     optimizer="adamw")
+    cd = CodistConfig(n_models=2)
+    feed = [make_lm_batch(task, 4, 64, k, None, seed=1, device=dev)
+            for k in range(steps)]
+    rep = AsyncScheduler(model, tc, cd, lambda k: feed[k],
+                         FaultConfig(n_peers=2, seed=0), staleness_bound=0,
+                         device=dev).run()
+    _, hist = train_codist(model, cd, tc,
+                           lambda k: stack_batches([feed[k]] * 2),
+                           log_every=1, device=dev)
+    worst = 0.0
+    for p in (0, 1):
+        for key in ("task_loss", "distill_loss"):
+            got = rep.histories[p].series(key)
+            want = hist.series(f"{key}_per_model_{p}")
+            require(len(got) == len(want) == steps, f"async s0 {key} {got}")
+            for k, (a, w) in enumerate(zip(got, want)):
+                worst = max(worst, rel(a, w))
+                require(rel(a, w) <= 1e-4, f"async s0 peer {p} step {k} "
+                        f"{key}: async {a} vs sync {w}")
+    log(f"train parity async s0 vs sync exchange (card, {steps} steps): "
+        f"worst relative difference {worst:.2e} (tol 1e-4)")
+
+    # (b) the fault schedule, card against CPU, from the same CPU-drawn
+    # trees (a joiner takes init[2])
+    class Seeded(AsyncScheduler):
+        def _init_params(self):
+            return [tree_map(lambda x: x.clone().to(self.device), t)
+                    for t in init[:2]]
+
+        def _join_params(self, pid):
+            return tree_map(lambda x: x.clone().to(self.device), init[pid])
+
+    steps = 8
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=steps,
+                     optimizer="adamw")
+    cd = CodistConfig(n_models=2, distill_loss="kl")
+    faults = replace(parse_faults(ASYNC_FAULTS, 2), joins=((2, ASYNC_JOIN),))
+    batches = [make_lm_batch(task, 4, 64, k, None, seed=1, device="cpu")
+               for k in range(steps)]
+    reps = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        fd = [{k: v.to(d) for k, v in b.items()} for b in batches]
+        with tempfile.TemporaryDirectory() as ckpt:
+            reps[where] = Seeded(model, tc, cd, lambda k, fd=fd: fd[k], faults,
+                                 checkpoint_dir=ckpt, device=d,
+                                 **ASYNC_KW).run()
+    a, c = reps["cpu"], reps["card"]
+    for field in ("sim_time", "time_to_first", "completion", "comm_events",
+                  "comm_bytes", "staleness"):
+        require(getattr(a, field) == getattr(c, field),
+                f"async card vs CPU {field}: {getattr(c, field)} vs "
+                f"{getattr(a, field)}")
+    worst = 0.0
+    for p in a.histories:
+        ra, rc = a.histories[p].records, c.histories[p].records
+        require([r["step"] for r in ra] == [r["step"] for r in rc],
+                f"async card vs CPU peer {p} steps")
+        for x, y in zip(ra, rc):
+            for key in ("loss", "task_loss", "distill_loss"):
+                worst = max(worst, rel(y[key], x[key]))
+                require(rel(y[key], x[key]) <= 1e-4, f"async card vs CPU "
+                        f"peer {p} step {x['step']} {key}: {y[key]} vs "
+                        f"{x[key]}")
+    log(f"train parity async under faults (card vs CPU, {steps} steps, "
+        f"sim_time {c.sim_time}, comm {c.comm_events} events "
+        f"{c.comm_bytes:.0f} bytes, staleness {c.staleness}): worst "
+        f"relative difference {worst:.2e} (tol 1e-4)")
 
 
 # ----------------------------------------------------------------------------
@@ -2468,6 +2986,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         launches["train_peers"] = phase_train_peers(dev)
         log(f"phase train_peers: {time.perf_counter() - t0:.1f} s")
+    if "sweep" in phases:
+        t0 = time.perf_counter()
+        launches["sweep"] = phase_sweep(dev)
+        torch.cuda.empty_cache()
+        log(f"phase sweep: {time.perf_counter() - t0:.1f} s")
+    if "async" in phases:
+        t0 = time.perf_counter()
+        launches["async"] = phase_async(dev)
+        torch.cuda.empty_cache()
+        log(f"phase async: {time.perf_counter() - t0:.1f} s")
     if "train_parity" in phases:
         t0 = time.perf_counter()
         phase_train_parity(dev)

@@ -16,8 +16,12 @@ Slice 4 adds quantized (int8 / fp8) KV pools to the fleet
 (``--cache-dtype int8|fp8``), with the quantizing scatter and the
 dequantizing decode, and the two standalone kernels of ``kernels/ops.py``
 (``cross_entropy_tokens``, ``attention``), so every Pallas kernel of the
-reference has a counterpart. The kernels are written by hand in CUDA C++ for Hopper (``csrc/``); the
-models are the dense attention LMs.
+reference has a counterpart. Slice 8 adds the paper-grid harness
+(``experiments/``: spec -> runner -> aggregate, ``launch/sweep.py``) and
+the async peer runtime (``runtime/``: fault clock, mailbox, peers,
+``AsyncScheduler``; ``--mode codist-async``). The kernels are written by
+hand in CUDA C++ for Hopper (``csrc/``); the models are the dense
+attention LMs.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 asking for CUDA without a card raises (nothing falls back to the CPU). On a

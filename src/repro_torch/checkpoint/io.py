@@ -8,7 +8,14 @@ and leaf count (plus ``meta``). Leaves go in the reference's flatten order
 reference's ``load_pytree`` reads the port's file into its own template of
 the same structure, and ``load_pytree`` here reads the reference's. A peer
 list is saved in the reference's stacked layout by passing
-``peer_params_to_numpy(peers)``.
+``peer_params_to_numpy(peers)``. A train state (``TrainState`` /
+``OptState`` named tuples, with Python ints for the steps) saves as it is:
+its ints become 0-d int64 arrays and load back as ints.
+
+The async runtime's snapshots (``save_snapshot`` and the rest) keep one
+``peer{pid}`` slot a peer under a directory, in the same layout: a train
+state's params are its leading leaves, so ``load_snapshot_params`` (and the
+reference's) restore them against a params-only template.
 
 Both files are written atomically, payload first: each goes to a
 temporary, is flushed and fsynced, and is ``os.replace``d into place, so an
@@ -112,29 +119,79 @@ def read_meta(path: str) -> Optional[dict]:
         return None
 
 
-def load_pytree(path: str, like: PyTree) -> PyTree:
-    """Restore into the structure of ``like``: each leaf takes its template
-    leaf's dtype (and device, for tensors). A payload that is unreadable
-    or has another leaf count than the template raises ``ValueError``."""
-    like_leaves = _flatten(like)
+def _read_leaves(path: str, like_leaves, exact: bool = True) -> list:
+    """The payload's leading ``len(like_leaves)`` leaves, each converted to
+    its template leaf's type, dtype (and device, for tensors). ``exact``
+    also requires the payload to hold no more leaves than the template. An
+    unreadable payload, or one with other counts or shapes, raises
+    ``ValueError``."""
+    n = len(like_leaves)
     try:
         with np.load(path + ".npz") as data:
-            if len(data.files) != len(like_leaves):
+            if len(data.files) < n or (exact and len(data.files) != n):
                 raise ValueError(f"has {len(data.files)} leaves, the "
-                                 f"template {len(like_leaves)}")
-            raw = [np.asarray(data[f"leaf_{i}"])
-                   for i in range(len(like_leaves))]
+                                 f"template {n}")
+            raw = [np.asarray(data[f"leaf_{i}"]) for i in range(n)]
     except Exception as e:
         raise ValueError(f"corrupt or mismatched checkpoint payload "
                          f"{path + '.npz'!r}: {type(e).__name__}: {e}") from e
     out = []
     for x, ref in zip(raw, like_leaves):
-        if tuple(x.shape) != tuple(ref.shape):
+        shape = () if isinstance(ref, (int, float)) else tuple(ref.shape)
+        if tuple(x.shape) != shape:
             raise ValueError(f"checkpoint leaf shape {x.shape} != template "
-                             f"{tuple(ref.shape)}")
+                             f"{shape}")
         if isinstance(ref, torch.Tensor):
             out.append(torch.from_numpy(np.array(x)).to(device=ref.device,
                                                          dtype=ref.dtype))
+        elif isinstance(ref, (int, float)):
+            out.append(type(ref)(x.item()))
         else:
             out.append(x.astype(ref.dtype))
-    return _unflatten(like, out)
+    return out
+
+
+def load_pytree(path: str, like: PyTree) -> PyTree:
+    """Restore into the structure of ``like``: each leaf takes its template
+    leaf's dtype (and device, for tensors; Python ints stay ints). A payload
+    that is unreadable or has another leaf count than the template raises
+    ``ValueError``."""
+    return _unflatten(like, _read_leaves(path, _flatten(like)))
+
+
+# ----------------------------------------------------------------------------
+# the async runtime's per-peer snapshots
+# ----------------------------------------------------------------------------
+
+def snapshot_path(directory: str, peer: int) -> str:
+    """Keep-latest snapshot slot of one async-runtime peer."""
+    return os.path.join(directory, f"peer{peer}")
+
+
+def save_snapshot(directory: str, peer: int, state: PyTree,
+                  meta: Optional[dict] = None) -> None:
+    """Overwrite the peer's latest snapshot (its recovery point). ``meta``
+    (e.g. ``{"step": n}``) lets a reader order snapshots without loading
+    the payload."""
+    save_pytree(snapshot_path(directory, peer), state, meta)
+
+
+def snapshot_meta(directory: str, peer: int) -> Optional[dict]:
+    return read_meta(snapshot_path(directory, peer))
+
+
+def has_snapshot(directory: str, peer: int) -> bool:
+    return os.path.exists(snapshot_path(directory, peer) + ".npz")
+
+
+def load_snapshot_params(directory: str, peer: int,
+                         params_like: PyTree) -> PyTree:
+    """Only the params of a saved peer state: its leading leaves, restored
+    against a params-only template."""
+    path = snapshot_path(directory, peer)
+    return _unflatten(params_like,
+                      _read_leaves(path, _flatten(params_like), exact=False))
+
+
+def load_snapshot(directory: str, peer: int, like: PyTree) -> PyTree:
+    return load_pytree(snapshot_path(directory, peer), like)

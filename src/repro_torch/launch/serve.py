@@ -47,8 +47,8 @@ def _unported(args) -> list:
     if args.canary_every:
         out.append(("--canary-every", "canary divergence comes in " + _LATER_SLICE))
     if args.snapshot_dir:
-        out.append(("--snapshot-dir", "weight refresh from checkpoint snapshots "
-                    "comes with the checkpoint port (ROADMAP Queue 1 item 1)"))
+        out.append(("--snapshot-dir", "the fleet's weight refresh from the "
+                    "async runtime's snapshots comes with ROADMAP Queue 1 item 7"))
     for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
                       ("--alerts", args.alerts), ("--rules", args.rules),
                       ("--flight-recorder", args.flight_recorder)):

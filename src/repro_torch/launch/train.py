@@ -12,20 +12,30 @@ onto the engine's exchange strategies:
     codist            PredictionExchange   Algorithm 1 logits exchange
     codist-ckpt       CheckpointExchange   Anil et al.'s stale replicas
     codist-pipelined  PipelinedPredictions previous-step targets
+    codist-async      AsyncPrediction      virtual cluster on independent
+                                           step clocks (repro_torch.runtime)
+                                           with seeded fault injection:
+                                           --faults, --elastic,
+                                           --staleness-bound, --join-burn-in,
+                                           --checkpoint-every,
+                                           --recover-after
 
 ``--codist-n`` takes any number of peers and ``--compression`` every wire
 (none, bf16, topk, subsample). As in the reference, the CLI has no flag
 for the subsample count, so ``--compression subsample`` sends the full
-logits. ``--reduced`` is a ``store_true`` flag that defaults to on, so the
-CLI trains the reduced config; ``chip_smoke.py`` drives the full-size
-config through ``train_codist`` and ``train_allreduce``. The modes and
-flags of features the port has not reached (``codist-shardmap``,
-``codist-async`` and its fault and elastic flags, the observability
-flags) exit with status 2 and name the work that brings them. ``--out
-DIR`` writes ``DIR/history.json`` (the reference's record list) and the
-final parameters as ``DIR/final.npz`` + ``DIR/final.tree.json``
-(``checkpoint/io.py``; codistilled peers in the reference's stacked
-layout, so its ``load_pytree`` reads them).
+logits, and the async-runtime flags are read only by ``codist-async``.
+``--reduced`` is a ``store_true`` flag that defaults to on, so the CLI
+trains the reduced config; ``chip_smoke.py`` drives the full-size config
+through ``train_codist``, ``train_allreduce`` and ``AsyncScheduler``. The
+modes and flags of features the port has not reached (``codist-shardmap``,
+the observability flags) exit with status 2 and name the work that brings
+them. ``--out DIR`` writes ``DIR/history.json`` (the reference's record
+list) and the final parameters as ``DIR/final.npz`` +
+``DIR/final.tree.json`` (``checkpoint/io.py``; codistilled peers in the
+reference's stacked layout, so its ``load_pytree`` reads them); with
+``codist-async`` it writes per-peer ``DIR/peer{pid}.jsonl`` histories and
+``DIR/final_peer{pid}`` checkpoints, and ``--checkpoint-every`` keeps the
+recovery snapshots under ``DIR/runtime_ckpt``.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import json
 import os
 import sys
 import time
+from dataclasses import replace
 
 import torch
 
@@ -44,31 +55,23 @@ from repro_torch.configs import (CodistConfig, TrainConfig, get_config,
                                  get_reduced, list_archs)
 from repro_torch.data import MarkovLM, make_lm_batch
 from repro_torch.models import build_model
+from repro_torch.runtime import AsyncScheduler, parse_faults
 from repro_torch.train import stack_batches, train_allreduce, train_codist
 
 MODES = ["codist", "codist-ckpt", "codist-pipelined", "codist-shardmap",
          "codist-async", "allreduce"]
-PORTED_MODES = ("codist", "codist-ckpt", "codist-pipelined", "allreduce")
 
-_STRATEGIES = {
-    "codist-shardmap": "the shard_map compressed exchange needs "
-                       "torch.distributed (ROADMAP Queue 1 item 11)",
-    "codist-async": "the async exchange comes with the async runtime "
-                    "(ROADMAP Queue 1 item 9)"}
-_ASYNC = "the async runtime (faults, elastic peers) comes with ROADMAP Queue 1 item 9"
+_SHARDMAP = ("the shard_map compressed exchange needs torch.distributed "
+             "(ROADMAP Queue 1 item 11)")
 _OBS = ("tracing, metrics and alerts come with the observability port "
         "(ROADMAP Queue 1 item 11)")
 
 
-def _unported(args, defaults) -> list:
+def _unported(args) -> list:
     """(flag, reason) for every unported feature the arguments ask for."""
     out = []
-    if args.mode not in PORTED_MODES:
-        out.append((f"--mode {args.mode}", _STRATEGIES[args.mode]))
-    for flag in ("faults", "elastic", "staleness_bound", "join_burn_in",
-                 "checkpoint_every", "recover_after"):
-        if getattr(args, flag) != defaults[flag]:
-            out.append(("--" + flag.replace("_", "-"), _ASYNC))
+    if args.mode == "codist-shardmap":
+        out.append((f"--mode {args.mode}", _SHARDMAP))
     for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
                       ("--alerts", args.alerts), ("--rules", args.rules),
                       ("--flight-recorder", args.flight_recorder)):
@@ -108,12 +111,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fused loss kernels (auto: on for CUDA; 'on' runs "
                          "their plain versions on the CPU)")
     ap.add_argument("--reduced", action="store_true", default=True)
-    ap.add_argument("--faults", default="")
-    ap.add_argument("--elastic", type=float, default=0.0)
-    ap.add_argument("--staleness-bound", type=int, default=-1)
-    ap.add_argument("--join-burn-in", type=int, default=5)
-    ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--recover-after", type=float, default=10.0)
+    ap.add_argument("--faults", default="",
+                    help="codist-async fault spec, e.g. "
+                         "'straggler=1*4@0.2,preempt=1@3+5,fail=1@30,"
+                         "hetero=0.3' (see repro_torch.runtime.parse_faults)")
+    ap.add_argument("--elastic", type=float, default=0.0,
+                    help="codist-async: a fresh peer joins at this simulated "
+                         "time (burn-in before it distills)")
+    ap.add_argument("--staleness-bound", type=int, default=-1,
+                    help="codist-async: drop peer payloads older than S "
+                         "local steps (-1 = keep-last, unbounded)")
+    ap.add_argument("--join-burn-in", type=int, default=5,
+                    help="codist-async: local steps a joining peer trains "
+                         "before its distillation loss activates")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="codist-async: snapshot each peer every N local "
+                         "steps (enables failure recovery)")
+    ap.add_argument("--recover-after", type=float, default=10.0,
+                    help="codist-async: simulated seconds before a failed "
+                         "peer rejoins from its snapshot")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -129,7 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    unported = _unported(args, vars(ap.parse_args([])))
+    unported = _unported(args)
     if unported:
         for flag, why in unported:
             print(f"{flag}: not in the port yet — {why}", file=sys.stderr)
@@ -161,6 +177,10 @@ def main(argv=None) -> None:
             return lm_batch(10_000 + step, args.seed + 1)
         return stack_batches([lm_batch(10_000 + step, args.seed + 1)
                               for _ in range(args.codist_n)])
+
+    if args.mode == "codist-async":
+        _train_async(args, model, task, tc, device)
+        return
 
     t0 = time.time()
     if args.mode == "allreduce":
@@ -218,6 +238,63 @@ def main(argv=None) -> None:
                   else peer_params_to_numpy(state.params))
         save_pytree(os.path.join(args.out, "final"), params)
         print(f"wrote {args.out}/history.json and final checkpoint")
+
+
+def _train_async(args, model, task, tc: TrainConfig, device) -> None:
+    """``--mode codist-async``: the async runtime on a seeded fault
+    schedule, one coordinated batch stream for every peer."""
+    faults = parse_faults(args.faults, args.codist_n, seed=args.seed)
+    if args.elastic > 0:
+        faults = replace(faults, joins=((faults.n_peers, args.elastic),))
+    codist = CodistConfig(
+        n_models=args.codist_n, mode="predictions", period=args.period,
+        alpha0=args.alpha, alpha_growth=args.alpha_growth,
+        distill_loss=args.distill_loss, compression=args.compression,
+        topk=args.topk, steps_per_epoch=max(1, args.steps // 10))
+
+    def batches(step):
+        return make_lm_batch(task, args.batch, args.seq, step, None,
+                             seed=args.seed, device=device)
+
+    ckpt_dir = None
+    if args.checkpoint_every:
+        ckpt_dir = os.path.join(args.out or ".", "runtime_ckpt")
+    t0 = time.time()
+    report = AsyncScheduler(
+        model, tc, codist, batches, faults,
+        staleness_bound=(None if args.staleness_bound < 0
+                         else args.staleness_bound),
+        checkpoint_dir=ckpt_dir, checkpoint_every=args.checkpoint_every,
+        recover_after=(args.recover_after if args.checkpoint_every
+                       else None),
+        join_burn_in=args.join_burn_in, log_every=args.log_every,
+        device=device).run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    for pid in sorted(report.histories):
+        for rec in report.histories[pid].records:
+            msg = " ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in rec.items()
+                if k in ("peer", "step", "task_loss", "distill_loss",
+                         "staleness", "alpha", "sim_time"))
+            print(msg, flush=True)
+    print(f"sim_time={report.sim_time:.2f} "
+          f"time_to_first={report.time_to_first:.2f} "
+          f"comm_events={report.comm_events} "
+          f"comm_bytes={report.comm_bytes:.0f} "
+          f"staleness_mean={report.staleness['staleness_mean']:.3f} "
+          f"dropped={report.staleness['payloads_dropped']}")
+    print(f"done: {args.steps} steps x {faults.n_total} peers "
+          f"in {dt:.1f}s (simulated {report.sim_time:.1f}s) on {device}")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        report.save_histories(args.out)
+        for pid, st in report.states.items():
+            save_pytree(os.path.join(args.out, f"final_peer{pid}"),
+                        st.params)
+        print(f"wrote per-peer JSONL histories + checkpoints to {args.out}")
 
 
 if __name__ == "__main__":

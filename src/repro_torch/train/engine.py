@@ -22,11 +22,12 @@ Metrics stay tensors on the device until the loop logs them.
 Strategies: ``AllReduce`` (the gradient-sync baseline: one model),
 ``PredictionExchange`` (Algorithm 1 with coordinated sampling, "on" and
 "off" variants), ``CheckpointExchange`` (Anil et al.'s stale replicas,
-refreshed on the host every ``period`` steps) and ``PipelinedPredictions``
-(the previous step's logits, with a replay forward on the previous batch).
-``ShardMapCompressed`` needs ``torch.distributed`` (ROADMAP Queue 1 item
-11) and ``AsyncPrediction`` the async runtime (item 9): the first raises,
-naming its item, and the second is not in the port.
+refreshed on the host every ``period`` steps), ``PipelinedPredictions``
+(the previous step's logits, with a replay forward on the previous batch)
+and ``AsyncPrediction`` (one peer of the async runtime, ``repro_torch.
+runtime``, its targets from the mailbox). ``ShardMapCompressed`` needs
+``torch.distributed`` (ROADMAP Queue 1 item 11): it raises, naming its
+item.
 """
 from __future__ import annotations
 
@@ -465,6 +466,124 @@ class PipelinedPredictions(ExchangeStrategy):
                 buf[i].copy_(aux[i])
         new_peer = {"batch": batch_all, "logits": buf, "valid": True}
         return CodistState(params, opt, state.step + 1, state.stale, new_peer)
+
+
+class AsyncPrediction(ExchangeStrategy):
+    """Single-peer view of the prediction exchange for the async runtime.
+
+    Each peer runs on its OWN step clock, so a step sees only this peer's
+    params and the distillation targets arrive from the host (mailbox
+    payloads posted by peers on their own clocks). The operand is::
+
+        {"batch": <single-model batch>,
+         "peer_wire":      a list of P compressed wires (``compress_targets``
+                           on the producer side), one per target slot; an
+                           absent peer's slot holds the runtime's shared
+                           zero wire, which nothing writes
+         "peer_weight":    (P,)  1.0 accepted / 0.0 dropped-or-missing
+         "peer_staleness": (P,)  receiver_step - sender_step}
+
+    (The reference stacks the slots on a leading axis; a list spares the
+    copy of every payload into a fresh stack each step, 2.5 GB a slot at
+    qwen1.5-0.5b's full width.)
+
+    The loss is ``(task + alpha * dist + aux) / n_slots``: this peer's share
+    of ``codist_loss``'s mean over n models (every other model's term is a
+    constant with respect to this peer's params), so with fresh same-step
+    targets the gradient, and hence the trajectory, matches the synchronous
+    engine. One distillation term is computed per target slot; the weights
+    implement the staleness-bound drop policy: dropped peers contribute
+    nothing, and when every payload is dropped the distillation term (and
+    alpha) vanishes — the step degrades to plain task training instead of
+    blocking (Anil et al., arXiv:1804.03235). Metrics report the UNSCALED
+    task / distill terms and the measured staleness of the targets used.
+    """
+
+    name = "async_prediction"
+    variants = ("on", "off")
+    stacked = False
+
+    def __init__(self, codist: CodistConfig, n_slots: Optional[int] = None):
+        super().__init__(codist)
+        # the divisor of the codist mean AND 1 + number of target slots;
+        # fixed at build time so elastic membership keeps the slot count
+        self.n_slots = max(2, n_slots or codist.n_models)
+
+    def init_state(self, model, tc, generator, opt_init, example_batch=None,
+                   device="cuda"):
+        return init_train_state(model, generator, opt_init, device=device)
+
+    def plan(self, step: int) -> StepPlan:
+        # standalone use mirrors the synchronous prediction schedule; the
+        # AsyncScheduler picks variants from mailbox availability
+        return StepPlan.for_step(replace(self.codist, mode="predictions"),
+                                 step)
+
+    def variant_for(self, plan: StepPlan) -> str:
+        return "on" if plan.distill else "off"
+
+    def make_eval(self, model, tc):
+        return make_eval_step(model, tc)
+
+    def comm_bytes(self, model, state, operand, microbatch=0) -> float:
+        cfg = self.codist
+        try:
+            batch = operand["batch"] if "batch" in operand else operand
+            labels = batch["labels"]
+            seq = labels.shape[-1]
+            samples = labels.numel() // seq
+            b_pred = cm.prediction_bits_lm(model.cfg, seq, 32,
+                                           cfg.compression, cfg.topk,
+                                           cfg.subsample)
+            return (self.n_slots - 1) * b_pred * samples / 8.0
+        except (KeyError, AttributeError, TypeError):
+            return 0.0
+
+    def prepare(self, state, operand, k):
+        if k <= 1:
+            return operand
+        # batch and wire leaves already lead with the microbatch axis (k,
+        # B/k, ...); the per-slot vectors are tiled so that the
+        # accumulation loop can take microbatch j of every leaf
+        p = operand["peer_weight"].shape[0]
+        return {"batch": operand["batch"], "peer_wire": operand["peer_wire"],
+                "peer_weight": operand["peer_weight"].expand(k, p),
+                "peer_staleness": operand["peer_staleness"].expand(k, p)}
+
+    def loss(self, model, tc, sch, state, params, operand, variant):
+        batch = operand["batch"] if "batch" in operand else operand
+        logits, aux = _task_forward(model, params, batch, tc.remat)
+        mask = batch.get("mask")
+        task = cd.cross_entropy(logits, batch["labels"], sch.ls(state.step),
+                                mask, fused=tc.fused_losses)
+        acc = cd.accuracy(logits.detach(), batch["labels"], mask)
+        n = self.n_slots
+        zero = torch.zeros((), dtype=torch.float32, device=task.device)
+        if variant != "on":
+            total = (task + aux) / n
+            metrics = {"loss": total, "task_loss": task,
+                       "distill_loss": zero, "aux_loss": aux, "alpha": zero,
+                       "accuracy": acc, "staleness": zero,
+                       "peer_weight": zero}
+            return total, metrics, None
+        w = operand["peer_weight"].float()
+        st = operand["peer_staleness"].float()
+        d = torch.stack([cd.distill_vs_compressed(self.codist, logits, wire,
+                                                  mask, fused=tc.fused_losses)
+                         for wire in operand["peer_wire"]])
+        wsum = w.sum()
+        denom = torch.clamp(wsum, min=1.0)   # == n-1 with a full fresh mailbox
+        dist = (w * d).sum() / denom
+        stale = (w * st).sum() / denom
+        alpha = sch.alpha(state.step) * (wsum > 0).float()
+        total = (task + alpha * dist + aux) / n
+        metrics = {"loss": total, "task_loss": task, "distill_loss": dist,
+                   "aux_loss": aux, "alpha": alpha, "accuracy": acc,
+                   "staleness": stale, "peer_weight": wsum}
+        return total, metrics, None
+
+    def post_update(self, state, params, opt, batch_all, aux, k):
+        return TrainState(params, opt, state.step + 1)
 
 
 class ShardMapCompressed(PredictionExchange):

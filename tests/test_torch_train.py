@@ -15,7 +15,8 @@ weights, optimizer states and batches (numpy, handed to both sides).
 * ``period=2`` takes the off variant (task CE only) on step 1.
 * ``microbatch=2`` equals ``microbatch=1`` within 1e-5 (the port alone).
 * The port's ``History.save`` is read by the reference's ``History.load``.
-* The CLI trains on the CPU and exits 2 on every unported flag.
+* The CLI trains on the CPU and exits 2 on every unported flag (the
+  shard_map mode and the observability flags).
 * Entry points default to the card; the checkpoint and pipelined
   strategies resolve, the shard_map one raises.
 """
@@ -277,11 +278,7 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
           "--compression", "bf16"])
     out = capsys.readouterr().out
     assert out.count("done: 1 steps") == 2
-    for argv in (["--mode", "codist-shardmap"], ["--mode", "codist-async"],
-                 ["--faults", "fail=1@3"], ["--elastic", "2.0"],
-                 ["--staleness-bound", "3"], ["--join-burn-in", "2"],
-                 ["--checkpoint-every", "5"], ["--recover-after", "3"],
-                 ["--trace", "t.json"],
+    for argv in (["--mode", "codist-shardmap"], ["--trace", "t.json"],
                  ["--metrics", "m.json"], ["--alerts", "a.jsonl"],
                  ["--rules", "r.json"], ["--flight-recorder", "d"]):
         with pytest.raises(SystemExit) as e:
