@@ -91,9 +91,11 @@ exits non-zero:
                 comm_bytes is the wire's bytes times its deliveries; wall,
                 ms per step, peak memory, the aggregate's gaps and codist
                 steps/s per card.
- 10. async    — ``AsyncScheduler`` at full width: 2 peers and an elastic
-                join, kl, 5 steps under a straggler, a preemption and a
-                failure recovered from a snapshot, staleness bound 1;
+ 10. async    — ``AsyncScheduler`` at full width and 12 of 24 layers (the
+                depth cut keeps the script in its time budget): 2 peers
+                and an elastic join, kl, 5 steps under a straggler, a
+                preemption and a failure recovered from a snapshot,
+                staleness bound 1;
                 restore, staleness and launches (rows 6, 7, 9, 11)
                 checked; ms per peer step and per publish forward, the
                 device-busy share of two rounds, peak memory; then the
@@ -106,6 +108,38 @@ exits non-zero:
                 bound 0 against the sync exchange on the card, and under
                 the async phase's faults card against CPU; per-step losses
                 within 1e-4 relative.
+ 12. spec     — peer-speculative decoding (k = 4, ring pairing) at
+                qwen2-7b's full width and depth with the fleet phase's
+                FleetConfig and bursty workload: identical peers and a
+                noised copy of peer 0 over bf16 pools, identical peers over
+                int8 and fp8 pools and through the gather path, each run
+                plain and speculative (everything completes, nothing lost
+                or duplicated, rows 1-4 launched exactly as the ticks and
+                rounds imply; accept rate, tokens equal to the plain run's
+                and wall per round against k plain ticks printed); a
+                verify against k plain ticks on 16 live slots over bf16,
+                int8 and fp8 pools (printed); then in fp32
+                (TF32 off) at 4 layers: speculative streams equal plain
+                ones token for token, verify argmax equal to plain decode
+                at every position, and restore_rows leaving the pools bit
+                for bit as they were (fp32, gather path, int8, fp8).
+ 13. fleet_codist — qwen1.5-0.5b at full width and depth: the async
+                runtime writes snapshots (peer 1 failing at step 2); 3
+                serving peers refresh from them (keep-last, a stale one
+                dropped, the bytes billed); the ensemble policy with its
+                canaries (row 8 once a pair, each pair's mse held against
+                the plain version; rows 1, 2 and 8 launched exactly as the
+                ticks and pairs imply); a defended chaos run with a
+                preemption, a failure revived from the async snapshot, a
+                straggler and hedging (nothing lost or duplicated); then
+                the ensemble, canary + refresh, chaos + hedge and
+                speculative runs in fp32 on the card and on the CPU
+                (reduced config), every FleetReport field equal.
+
+The kernels phase also holds row 1 at the verify's shape (16 slots x k = 4
+pseudo-slots, the plain tick's split plan): against the plain version at the
+same plan, and each pseudo-slot bit for bit against the 16-slot decode; and
+row 8 at the canary's shape, one (1, 152064) fp32 pair.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of the JAX reference.
@@ -127,7 +161,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
-          "train_peers", "sweep", "async", "train_parity")
+          "train_peers", "sweep", "async", "train_parity", "spec",
+          "fleet_codist")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
 # num_blocks=1025, max_blocks_per_slot=34))
@@ -175,11 +210,15 @@ SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:67"),
 }
+# the serving kernels (rows 1 to 4) whose launches a fleet run counts
+ROWS_1_TO_4 = ("paged_attention_decode", "paged_attention_decode_quant",
+               "paged_scatter", "paged_scatter_quant", "paged_gather")
 # the paths each kernel belongs to (each must launch it where it ran)
-PATHS = {"paged_scatter": ("fleet",), "paged_gather": ("fleet",),
-         "paged_attention_decode": ("fleet",),
-         "paged_attention_decode_quant": ("fleet",),
-         "paged_scatter_quant": ("fleet",),
+PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist"),
+         "paged_gather": ("fleet", "spec"),
+         "paged_attention_decode": ("fleet", "spec", "fleet_codist"),
+         "paged_attention_decode_quant": ("fleet", "spec"),
+         "paged_scatter_quant": ("fleet", "spec"),
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
                                        "async"),
@@ -187,7 +226,7 @@ PATHS = {"paged_scatter": ("fleet",), "paged_gather": ("fleet",),
                                       "async"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep"),
          "fused_ce_distill_grad": ("train", "train_peers", "sweep"),
-         "fused_distill_loss": ("train_peers", "sweep"),
+         "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
          "fused_distill_kl_parts": ("train_peers", "async"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
          "fused_distill_kl_grad": ("train_peers", "async")}
@@ -205,7 +244,9 @@ LOSS_SHAPES = [("main", TRAIN_T, TRAIN_V, torch.bfloat16, 0),
 # the distillation kernels also see the subsample wire's tokens: 8
 # sequences x 64 of 512 (CodistConfig(subsample=64))
 SUB_T = 8 * 64
-DISTILL_SHAPES = LOSS_SHAPES + [("subsample", SUB_T, TRAIN_V, torch.bfloat16, 0)]
+# and the serving canary's: one prefill position's fp32 logits a pair
+DISTILL_SHAPES = LOSS_SHAPES + [("subsample", SUB_T, TRAIN_V, torch.bfloat16, 0),
+                                ("canary", 1, TRAIN_V, torch.float32, 0)]
 
 
 class SmokeFailure(RuntimeError):
@@ -561,26 +602,38 @@ def sdpa_on_gather(q, k, v, table, lengths):
 
 
 def time_decode(what: str, q, kp, vp, table, lengths, scales, flush, lib,
-                plain_iters: int = 30) -> dict:
+                plain_iters: int = 30, plan_slots=None,
+                byte_rows=None) -> dict:
     """Kernel, plain and library (``lib`` or None) times of the decode, its
     bound (each live K/V row, q and the output once, table and lengths;
     or 4 H hd operations per live position over the pool type's peak) and
-    the kernel's time by its kernels."""
+    the kernel's time by its kernels. ``plan_slots`` fixes the kernel's
+    split plan to that slot count's (the verify's) and the plain version's
+    runs to the same length; ``byte_rows`` counts
+    the K/V rows the bytes bound reads once where slots share them (the
+    verify's pseudo-slots)."""
     from repro_torch.kernels import (paged_attention_decode,
                                      paged_attention_decode_plain)
+    from repro_torch.kernels.paged_attention import (_num_sms,
+                                                     decode_split_plan)
+    bps = None if plan_slots is None else decode_split_plan(
+        plan_slots, table.shape[1], _num_sms(torch.cuda.current_device()))[0]
     rows = int((lengths.long() + 1).sum())
     row_b = KVH * HD * kp.element_size() + (4 if scales else 0)
-    nbytes = (2 * rows * row_b + 2 * q.numel() * q.element_size()
+    nbytes = (2 * (byte_rows or rows) * row_b + 2 * q.numel() * q.element_size()
               + table.numel() * 4 + lengths.numel() * 4)
     tb = nbytes / HBM_BPS * 1e3
     tf = 4 * H * HD * rows / PEAK_FLOPS[kp.dtype] * 1e3
 
+    sc = scales or (None, None)
+
     def kern():
-        return paged_attention_decode(q, kp, vp, table, lengths, *scales)
+        return paged_attention_decode(q, kp, vp, table, lengths, *sc,
+                                      plan_slots=plan_slots)
 
     r = {"ms": time_ms(kern, flush),
          "plain_ms": time_ms(lambda: paged_attention_decode_plain(
-             q, kp, vp, table, lengths, *scales), flush,
+             q, kp, vp, table, lengths, *sc, bps), flush,
              iters=plain_iters, warmup=min(3, plain_iters)),
          "library_ms": None if lib is None else time_ms(lib, flush),
          "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
@@ -827,6 +880,79 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
 # the scatters' pool sizes at the qwen2-7b row (S = 16 slots, 15 writers):
 # the fleet's pool (main), the decode's 4k shape (k2) and a 2-peer fleet's
 # pool on one card (full: ~15 GB of bf16 KV a peer)
+def phase_verify_kernels(dev: torch.device, flush: torch.Tensor) -> dict:
+    """Row 1 (and 1q) at the speculative verify's shape: the fleet's 16
+    slots times k = 4 pseudo-slots, each slot's table row repeated k times
+    at lengths L..L+3, the split plan fixed to the plain 16-slot tick's.
+    Each output is held against the plain version at the same
+    ``blocks_per_split`` (``check_decode``), and pseudo-slot (s, j) must
+    equal, bit for bit, the 16-slot decode of slot s at length L+j (the
+    reason for the fixed plan); bf16 and fp32 q over bf16 / fp32 pools,
+    bf16 q over int8 / fp8. Prints the verify launch's time at the fixed
+    and at its own plan against the 16-slot launch, SDPA on the gathered
+    copy and its bound. Returns the bf16 times."""
+    from repro_torch.kernels import (paged_attention_decode,
+                                     paged_attention_decode_plain)
+    from repro_torch.kernels.paged_attention import (_num_sms,
+                                                     decode_split_plan)
+    k = SPEC_K
+    # each slot's blocks cover L+3 (as a verify's reservation does)
+    top = [0 if n == 0 else min(n, MB * BS - k) + k - 1 for n in LENGTHS]
+    q, kf, vf, table, lmax = decode_inputs(S, MB, NB, top, dev, 620)
+    base = torch.clamp(lmax - (k - 1), min=0).to(torch.int32)
+    table_x = table.repeat_interleave(k, dim=0).contiguous()
+    len_x = (base[:, None] + torch.arange(k, device=dev,
+                                          dtype=torch.int32)).reshape(-1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(621)
+    qx = torch.randn((S * k, H, HD), generator=gen, device=dev)
+    bps = decode_split_plan(S, MB, _num_sms(torch.cuda.current_device()))[0]
+    own = decode_split_plan(S * k, MB, _num_sms(torch.cuda.current_device()))
+    log(f"kernels verify: S*k = {S * k} pseudo-slots, the plain tick's plan "
+        f"{bps} blocks a run (the S*k launch's own: {own[0]})")
+    faults, out = [], {}
+    pools = [(torch.float32, torch.float32, kf, vf, ()),
+             (torch.bfloat16, torch.bfloat16, kf, vf, ())]
+    for qdt in QUANT:
+        kq, ks, vq, vs = quantized_pools(kf, vf, qdt)
+        pools.append((torch.bfloat16, qdt, kq, vq, (ks, vs)))
+    for q_dt, pool_dt, kp, vp, scales in pools:
+        quant = bool(scales)
+        kd = kp if quant else kp.to(pool_dt)
+        vd = vp if quant else vp.to(pool_dt)
+        qd = qx.to(q_dt)
+        sc = scales or (None, None)
+        what = f"verify {str(pool_dt)[6:]} pools, {str(q_dt)[6:]} q"
+        o_k = paged_attention_decode(qd, kd, vd, table_x, len_x, *sc,
+                                     plan_slots=S)
+        check_decode(what, o_k, paged_attention_decode_plain(
+            qd, kd, vd, table_x, len_x, *sc, bps), len_x, quant, faults)
+        for j in range(k):
+            o_s = paged_attention_decode(qd[j::k].contiguous(), kd, vd, table,
+                                         (base + j).to(torch.int32), *sc)
+            if not bits_equal(o_k[j::k], o_s):
+                faults.append(f"{what}: pseudo-slots j={j} differ from the "
+                              f"{S}-slot decode at L+{j}")
+        if q_dt == torch.bfloat16 and pool_dt == torch.bfloat16:
+            out = time_decode(f"paged_attention_decode verify bf16 (S*k={S * k},"
+                              f" plan {bps})", qd, kd, vd, table_x, len_x, (),
+                              flush, sdpa_on_gather(qd, kd, vd, table_x, len_x),
+                              plan_slots=S,
+                              byte_rows=int((lmax.long() + 1).sum()))
+            own_ms = time_ms(lambda: paged_attention_decode(
+                qd, kd, vd, table_x, len_x), flush)
+            s_ms = time_ms(lambda: paged_attention_decode(
+                qd[::k].contiguous(), kd, vd, table, base), flush)
+            log(f"  verify bf16: the S*k launch at its own plan "
+                f"{own_ms:.4f} ms, the {S}-slot launch at L {s_ms:.4f} ms "
+                f"({k} of them {k * s_ms:.4f} ms)")
+            out.update(own_ms=own_ms, s_ms=s_ms)
+    require(not faults, "; ".join(faults))
+    log(f"kernels verify: every output held, pseudo-slots bit-equal to the "
+        f"{S}-slot decodes")
+    return out
+
+
 SCATTER_NBS = [("main", NB), ("k2", 4097), ("full", 16385)]
 
 
@@ -1437,7 +1563,8 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
     versions at DISTILL_SHAPES: row 8 mse (with v_total < V at the
     "v_real<V" shape) and kl, row 9's loss and residuals, rows 10 and 11
     with the target gradient written and skipped; times at the main-path
-    shape (returned) and the subsample shape (printed)."""
+    shape (returned) and the subsample shape (printed), and row 8 mse's at
+    the canary's (returned as ``canary_*``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (fused_distill_kl_grad,
@@ -1492,14 +1619,12 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
         log(f"distill kernels {label} (T={t}, V={v}, v_total={v_total or v}, "
             f"{str(dtype).replace('torch.', '')}): max|kernel-plain| row 8 "
             f"{e8:.2e}, row 9 {e9:.2e}, row 10 {e10:.2e}, row 11 {e11:.2e}")
-        if label not in ("main", "subsample"):
+        if label not in ("main", "subsample", "canary"):
             continue
 
-        # ---- times at the main-path and the subsample shapes ----
+        # ---- times at the main-path, subsample and canary shapes ----
         es = x.element_size()
         tv = t * v
-        xr = x.detach().clone().requires_grad_(True)
-        lib_mse = F.mse_loss(xr, tg)
 
         def bound(n_bytes, n_ops):
             tb = n_bytes / HBM_BPS * 1e3
@@ -1509,6 +1634,23 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
         # bytes: each (T, V) operand read once, each output written once,
         # plus the (T,) outputs, residuals and cotangents (4 B each)
         mse_ops, kl_ops = DISTILL_OPS["mse"], DISTILL_OPS["kl"]
+        if label == "canary":
+            b_ms, b_by = bound(2 * tv * es + t * 4, mse_ops[0] * tv)
+            r = {"ms": time_ms(lambda: fused_distill_loss(x, tg, "mse"),
+                               flush),
+                 "plain_ms": time_ms(lambda: fused_distill_loss_plain(
+                     x, tg, "mse"), flush),
+                 "library_ms": time_ms(lambda: F.mse_loss(x, tg), flush),
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": e8}
+            results["fused_distill_loss"].update(
+                {f"canary_{k}": r[k] for k in ("ms", "plain_ms", "library_ms",
+                                               "bound_ms", "max_abs_err")})
+            log(f"  fused_distill_loss mse canary (T=1) fp32: kernel "
+                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+                f"{r['library_ms']:.4f} ms  bound {b_ms:.5f} ms ({b_by})")
+            continue
+        xr = x.detach().clone().requires_grad_(True)
+        lib_mse = F.mse_loss(xr, tg)
         specs = {
             "fused_distill_loss": (
                 lambda: fused_distill_loss(x, tg, "mse"),
@@ -1571,39 +1713,97 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
 # phase 4: full-width fleet
 # ----------------------------------------------------------------------------
 
-def fleet_run(model, peers, fc, wl, cache_dtype, dev: torch.device):
-    """One seeded fleet run through ``FleetRouter.run``, launch counts set
-    to 0 just before and read just after. Returns (router, report, counts,
-    wall s)."""
+def serving_kernels(quantized: bool):
+    return (("paged_attention_decode_quant", "paged_scatter_quant")
+            if quantized else ("paged_attention_decode", "paged_scatter"))
+
+
+def serve_launches(router, n_layers: int, k: int, fused: bool,
+                   quantized: bool) -> dict:
+    """Launches of rows 1-4 in one fleet run: a plain tick (a plain
+    engine's, or a speculative engine's fallback) launches the decode and
+    one K+V scatter per layer; a speculative round launches k draft ticks
+    and one verify: k + 1 decodes (the verify's over S*k pseudo-slots) and
+    2k scatters per layer. The gather path gathers K and V (and their two
+    scale pools) instead of each decode."""
+    from repro_torch.serve.fleet import SpecEngine
+    plain = sum(e.decode_ticks for e in router.engines)
+    rounds = sum(e.spec_stats.rounds for e in router.engines
+                 if isinstance(e, SpecEngine))
+    dec, sc = serving_kernels(quantized)
+    attn_calls = n_layers * (plain + (k + 1) * rounds)
+    want = dict.fromkeys(ROWS_1_TO_4, 0)
+    want[sc] = n_layers * (plain + 2 * k * rounds)
+    if fused:
+        want[dec] = attn_calls
+    else:
+        want["paged_gather"] = (4 if quantized else 2) * attn_calls
+    return want
+
+
+def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None):
+    """One seeded fleet run through ``FleetRouter.run`` (round robin, or
+    speculative with ``SpecConfig(k=spec)``), launch counts set to 0 just
+    before and read just after, the wall time of each decode tick or
+    speculative round on the side. Checks completion, nothing lost or
+    duplicated, token ids in range and count, and rows 1-4's launches
+    against the ticks and rounds. Returns (router, report, counts of rows
+    1-4, per-tick or per-round wall ms, wall s)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve.fleet import FleetRouter
-    router = FleetRouter(model, peers, config=fc, policy="round_robin",
-                         cache_dtype=cache_dtype, device=dev)
-    sync(dev)
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    rep = router.run(wl, slo_ms=50.0)
-    sync(dev)
-    wall = time.perf_counter() - t0
-    counts = dict(launch_counts)
-    name = str(cache_dtype)[6:]
-    ticks = [e.decode_ticks for e in router.engines]
-    log(f"fleet run {name}: completed {rep.completed}/{len(wl.requests)}, "
-        f"{rep.generated_tokens} tokens, decode ticks per peer {ticks}, "
-        f"KV bytes per token {router.engines[0]._kv_bytes_per_token}, "
-        f"launches { {k: n for k, n in counts.items() if n} }, {wall:.2f} s "
-        f"wall, {rep.generated_tokens / wall:.1f} tokens/s wall (prefill "
-        "included)")
+    from repro_torch.serve.fleet import (FleetEngine, FleetRouter,
+                                         SpecConfig, SpecEngine)
+    policy = "speculative" if spec else "round_robin"
+    cls, name = (SpecEngine, "_spec_round") if spec else (FleetEngine,
+                                                          "_decode_tick")
+    orig, walls = getattr(cls, name), []
+
+    def timed(self, *a):
+        t0 = time.perf_counter()
+        out = orig(self, *a)
+        if out:                       # a tick with no live slot is not timed
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    router = FleetRouter(model, peers, config=fc, policy=policy,
+                         cache_dtype=cache_dtype, device=dev,
+                         spec=SpecConfig(k=spec) if spec else None)
+    setattr(cls, name, timed)
+    try:
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = router.run(wl, slo_ms=50.0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(cls, name, orig)
+    counts = {k: launch_counts[k] for k in ROWS_1_TO_4}
+    quantized = cache_dtype in QUANT
+    log(f"  {label} {policy}: completed {rep.completed}/{len(wl.requests)}, "
+        f"{rep.generated_tokens} tokens, {len(walls)} "
+        f"{'rounds' if spec else 'decode ticks'} at {np.mean(walls):.2f} ms "
+        f"wall each, {wall:.2f} s wall ({rep.generated_tokens / wall:.1f} "
+        f"tokens/s wall, prefill included), KV bytes a token "
+        f"{router.engines[0]._kv_bytes_per_token}; "
+        + (f"accept rate {rep.spec_accept_rate:.4f} ({rep.spec_accepted_tokens}"
+           f"/{rep.spec_drafted_tokens}), fallback ticks "
+           f"{rep.spec_fallback_ticks}; " if spec else "")
+        + f"launches { {k: n for k, n in counts.items() if n} }")
     require(rep.completed == len(wl.requests) and rep.rejected == 0,
-            f"fleet {name}: {rep.completed} completed, {rep.rejected} rejected")
+            f"{label} {policy}: {rep.completed} completed, {rep.rejected} "
+            "rejected")
     require(rep.lost_tokens == 0 and rep.duplicated_tokens == 0,
-            f"fleet {name}: a stream is short or long of max_new")
+            f"{label} {policy}: lost {rep.lost_tokens}, duplicated "
+            f"{rep.duplicated_tokens}")
     toks = [t for r in router._primaries for t in r.tokens]
-    require(all(0 <= t < model.cfg.padded_vocab for t in toks),
-            f"fleet {name}: token id out of range")
-    require(len(toks) == rep.generated_tokens,
-            f"fleet {name}: token count mismatch")
-    return router, rep, counts, wall
+    require(all(0 <= t < model.cfg.padded_vocab for t in toks)
+            and len(toks) == rep.generated_tokens,
+            f"{label} {policy}: token ids out of range or miscounted")
+    want = serve_launches(router, model.cfg.num_layers, spec or 0,
+                          fc.fused_attention is not False, quantized)
+    require(counts == want, f"{label} {policy}: launches {counts} != "
+            f"{want} (from the ticks and rounds)")
+    return router, rep, counts, walls, wall
 
 
 def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
@@ -1685,18 +1885,10 @@ def phase_fleet(dev: torch.device, cfg):
     wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
                            max_prompt=512, max_new=32)
     n_layers = cfg.num_layers
-    router, _rep, counts, _wall = fleet_run(model, peers, fc, wl,
-                                            torch.bfloat16, dev)
-    ticks = sum(e.decode_ticks for e in router.engines)
-    require(counts["paged_attention_decode"] == n_layers * ticks,
-            f"decode launches {counts['paged_attention_decode']} != "
-            f"{n_layers} x {ticks} ticks")
     # one launch writes a layer's K and V pools: one per attention
-    # sub-layer per tick
-    require(counts["paged_scatter"] == n_layers * ticks,
-            f"scatter launches {counts['paged_scatter']} != "
-            f"{n_layers} x {ticks} ticks")
-    require(counts["paged_gather"] == 0, "fused path launched gather")
+    # sub-layer per tick (serve_run holds the counts to the ticks)
+    router, _rep, counts, _t, _w = serve_run(model, peers, fc, wl,
+                                             torch.bfloat16, dev, "fleet bf16")
     bf16_tokens = {r.request.rid: r.tokens for r in router._primaries}
     out = {k: counts[k] for k in ("paged_scatter", "paged_attention_decode")}
     eng, active, tokens, g_counts, tick_ms = tick_check(
@@ -1714,22 +1906,12 @@ def phase_fleet(dev: torch.device, cfg):
     # the same peers and workload over quantized pools
     for qdt in QUANT:
         name = str(qdt)[6:]
-        router, _rep, counts, _wall = fleet_run(model, peers, fc, wl, qdt, dev)
-        ticks = sum(e.decode_ticks for e in router.engines)
+        router, _rep, counts, _t, _w = serve_run(model, peers, fc, wl, qdt,
+                                                 dev, f"fleet {name}")
         per_token = router.engines[0]._kv_bytes_per_token
         require(per_token == n_layers * 2 * (
                     cfg.num_kv_heads * cfg.resolved_head_dim + 4),
                 f"{name}: {per_token} KV bytes per token")
-        require(counts["paged_scatter_quant"] == n_layers * ticks,
-                f"{name}: scatter_quant launches "
-                f"{counts['paged_scatter_quant']} != {n_layers} x {ticks}")
-        require(counts["paged_attention_decode_quant"] == n_layers * ticks,
-                f"{name}: quantized decode launches "
-                f"{counts['paged_attention_decode_quant']} != {n_layers} x "
-                f"{ticks}")
-        require(counts["paged_scatter"] == 0
-                and counts["paged_attention_decode"] == 0,
-                f"{name}: the bf16 scatter or decode ran: {counts}")
         for k in ("paged_scatter_quant", "paged_attention_decode_quant"):
             out[k] = out.get(k, 0) + counts[k]
         same = sum(int(a == b) for r in router._primaries
@@ -1924,6 +2106,445 @@ def phase_parity(dev: torch.device):
             f"max|card-cpu| = {err:.3e} (max|logits| {scale:.3f}, tol "
             f"{tol:.3e})")
         require(err <= tol, f"{name}: card vs CPU logits differ by {err}")
+
+
+# ----------------------------------------------------------------------------
+# phase 12: peer-speculative decoding at qwen2-7b's full width
+# ----------------------------------------------------------------------------
+
+SPEC_K = 4
+# a noised peer: each weight plus this share of its leaf's std (bf16 runs:
+# partial accepts; the fp32 check: enough to reject drafts at 4 layers)
+SPEC_NOISE = 0.02
+SPEC_NOISE_FP32 = 0.3
+
+
+def noised_copy(params, rel: float, seed: int, dev: torch.device):
+    """Each leaf plus ``rel`` times its std in seeded normal noise (norm
+    scales, whose std is 0, stay): a peer that agrees with ``params`` on
+    some argmaxes, not all."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        x = tree.float()
+        noise = torch.randn(x.shape, generator=gen, device=dev)
+        return (x + rel * x.std() * noise).to(tree.dtype)
+    return walk(params)
+
+
+def compare_streams(plain, spec, label: str) -> float:
+    """The share of the speculative run's tokens equal to the plain run's
+    at the same place, and the first divergence (for information)."""
+    a = {r.request.rid: r.tokens for r in plain._primaries}
+    b = {r.request.rid: r.tokens for r in spec._primaries}
+    same = n = 0
+    first = None
+    for rid in sorted(a):
+        for i, (x, y) in enumerate(zip(a[rid], b[rid])):
+            n += 1
+            same += int(x == y)
+            if x != y and first is None:
+                first = (rid, i)
+    log(f"  {label}: {same}/{n} tokens ({same / max(n, 1):.1%}) equal to the "
+        f"plain run's; first divergence "
+        f"{'none' if first is None else f'request {first[0]} token {first[1]}'}")
+    return same / max(n, 1)
+
+
+def verify_check(model, peer, fc, wl, cache_dtype, dev, label: str,
+                 exact: bool) -> None:
+    """16 live slots (the workload's first 16 prompts): k sequential plain
+    decode ticks against one k-token verify from the same pool on the same
+    tokens, position by position (max |dlogits|, argmax agreement; required
+    equal when ``exact``), with one verify's launches checked; and the undo
+    log: the pools are cloned, the k rows of every slot snapshotted, then
+    written (by the plain ticks, then by the verify) and restored, and the
+    pools must equal the clones bit for bit both times."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.fleet import FleetEngine, Request
+    from repro_torch.serve.fleet.model_exec import build_verify_step
+    k = SPEC_K
+    eng = FleetEngine(model, peer, replace(fc, max_prefills_per_step=S),
+                      cache_dtype=cache_dtype, device=dev)
+    for r in wl.requests[:S]:
+        eng.enqueue(Request(r.rid, 0.0, r.prompt, 32))
+    eng._intake()
+    eng._admit()
+    require(len(eng.slots) == S, f"only {len(eng.slots)} slots admitted")
+    pool = eng.pool
+    active = np.ones((S,), bool)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, model.cfg.vocab_size, size=(S, k))
+    for s, sl in eng.slots.items():
+        toks[s, 0] = sl.next_token
+    base = pool.lengths.copy()
+    before = {sub: {n: t.clone() for n, t in d.items()}
+              for sub, d in pool.kv.items()}
+    snaps = {s: pool.snapshot_rows(s, int(base[s]), k) for s in range(S)}
+
+    def restored(when: str) -> None:
+        for s in range(S):
+            pool.restore_rows(snaps[s], start=0)
+        sync(dev)
+        same = all(bits_equal(t, before[sub][n])
+                   for sub, d in pool.kv.items() for n, t in d.items())
+        require(same, f"{label}: the pools differ from their clones after "
+                f"restore_rows ({when})")
+
+    seq = []
+    for j in range(k):
+        seq.append(eng.decode_logits(active, toks[:, j:j + 1]).float())
+        pool.lengths += 1
+    pool.lengths[:] = base
+    restored("after k plain ticks")
+    verify = build_verify_step(model, k, fc.fused_attention)
+    wslots, woffs = pool.write_maps_k(active, k)
+    reset_launch_counts()
+    vlg = verify(eng.params, pool.kv, *(torch.as_tensor(x, device=dev) for x in
+                 (pool.table, base, wslots, woffs, toks))).float()
+    sync(dev)
+    L = model.cfg.num_layers
+    quantized = cache_dtype in QUANT
+    dec, sc = serving_kernels(quantized)
+    got = {n: launch_counts[n] for n in (dec, sc, "paged_gather")}
+    fused = fc.fused_attention is not False
+    want = {dec: L if fused else 0, sc: k * L,
+            "paged_gather": 0 if fused else (4 if quantized else 2) * L}
+    require(got == want, f"{label}: one verify launched {got} != {want}")
+    restored("after the verify's scatters")
+    diffs = [float((vlg[:, j] - seq[j]).abs().max()) for j in range(k)]
+    agree = [int((vlg[:, j].argmax(-1) == seq[j].argmax(-1)).sum())
+             for j in range(k)]
+    scale = max(float(x.abs().max()) for x in seq)
+    log(f"  {label}: verify vs {k} plain ticks, max|dlogits| by position "
+        f"{[f'{d:.3e}' for d in diffs]} (max|logits| {scale:.3f}), argmax "
+        f"agree {agree} of {S}; restore_rows bit-identical twice")
+    require(bool(torch.isfinite(vlg).all()), f"{label}: non-finite verify")
+    if exact:
+        require(all(a == S for a in agree),
+                f"{label}: verify argmax differs from plain decode: {agree}")
+
+
+def phase_spec(dev: torch.device):
+    """Peer-speculative decoding at qwen2-7b's full width and depth, the
+    fleet phase's FleetConfig and bursty workload, k = 4, ring pairing:
+    identical peers (the same tensors twice) and a noised copy of peer 0,
+    over bf16 pools (fused, and the gather path once) and int8 / fp8 pools,
+    each run plain and speculative; then the exactness check in fp32 at a
+    depth of 4 layers. Returns the speculative runs' launches of rows 1-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.fleet import FleetConfig, generate_workload
+    cfg = get_config("qwen2-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    p0 = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
+    pn = noised_copy(p0, SPEC_NOISE, 99, dev)
+    sync(dev)
+    log(f"spec: qwen2-7b {cfg.num_layers} layers, a peer and its noised copy "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    fc = FleetConfig(max_slots=16, block_size=16, num_blocks=1025,
+                     max_blocks_per_slot=34, fused_attention=True)
+    wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
+                           max_prompt=512, max_new=32)
+    out = {}
+    runs = [("bf16 identical", [p0, p0], torch.bfloat16, fc),
+            ("bf16 noised", [p0, pn], torch.bfloat16, fc),
+            ("int8 identical", [p0, p0], torch.int8, fc),
+            ("fp8 identical", [p0, p0], torch.float8_e4m3fn, fc),
+            ("bf16 identical gather", [p0, p0], torch.bfloat16,
+             replace(fc, fused_attention=False))]
+    for label, peers, dtype, f in runs:
+        plain, _rp, _c, ticks, _w = serve_run(model, peers, f, wl, dtype, dev,
+                                              label)
+        spec, rep, counts, rounds, _w = serve_run(model, peers, f, wl, dtype,
+                                                  dev, label, spec=SPEC_K)
+        compare_streams(plain, spec, label)
+        log(f"  {label}: {np.mean(rounds):.2f} ms wall a speculative round "
+            f"against {SPEC_K} plain ticks' {SPEC_K * np.mean(ticks):.2f} ms "
+            f"({np.mean(rounds) / (SPEC_K * np.mean(ticks)):.2f}x); "
+            f"{rep.generated_tokens / max(rep.spec_rounds, 1):.2f} tokens a "
+            "round")
+        for n, c in counts.items():
+            out[n] = out.get(n, 0) + c
+        del plain, spec
+        torch.cuda.empty_cache()
+    for cdt in (torch.bfloat16, *QUANT):
+        verify_check(model, p0, fc, wl, cdt, dev,
+                     f"verify bf16 {str(cdt)[6:]} pools (28 layers)",
+                     exact=False)
+    del p0, pn
+    torch.cuda.empty_cache()
+
+    # exactness in fp32 (TF32 off since the device phase) at 4 layers
+    cfg4 = replace(cfg, num_layers=4, dtype="float32")
+    model4 = build_model(cfg4)
+    gen.manual_seed(4321)
+    q0 = model4.init(gen, device=dev, weight_dtype=torch.float32)
+    qn = noised_copy(q0, SPEC_NOISE_FP32, 98, dev)
+    for label, peers in (("fp32 4 layers identical", [q0, q0]),
+                         ("fp32 4 layers noised", [q0, qn])):
+        plain, _rp, _c, _t, _w = serve_run(model4, peers, fc, wl,
+                                           torch.float32, dev, label)
+        spec, rep, _c, _r, _w = serve_run(model4, peers, fc, wl,
+                                          torch.float32, dev, label,
+                                          spec=SPEC_K)
+        share = compare_streams(plain, spec, label)
+        require(share == 1.0, f"{label}: speculative streams differ from "
+                "plain decode in fp32")
+        if peers[1] is qn:
+            require(rep.spec_accept_rate < 1.0,
+                    f"{label}: no draft was rejected")
+    verify_check(model4, q0, fc, wl, torch.float32, dev,
+                 "verify fp32 (4 layers)", exact=True)
+    verify_check(model4, q0, replace(fc, fused_attention=False), wl,
+                 torch.float32, dev, "verify fp32 gather (4 layers)",
+                 exact=True)
+    for qdt in QUANT:
+        verify_check(model4, q0, fc, wl, qdt, dev,
+                     f"verify fp32 {str(qdt)[6:]} pools (4 layers)",
+                     exact=False)
+    del q0, qn
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------------
+# phase 13: the codistilled fleet (ensemble, canary, refresh, chaos)
+# ----------------------------------------------------------------------------
+
+# the async runtime's schedule for the fleet's snapshots: peer 1 dies at its
+# step 2 for good, so its snapshot stays at step 2 while peer 0's reaches 4
+CODIST_FAULTS = "fail=1@2"
+# the fleet's chaos: peer 0 preempted after tick 6 for 120 ms, peer 1 dead at
+# tick 10 and revived from its snapshot 40 ms later, peer 2 a 4x straggler
+# over 30% of its ticks
+FLEET_FAULTS = "straggler=2*4@0.3,preempt=0@6+120,fail=1@10"
+
+
+def phase_fleet_codist(dev: torch.device):
+    """qwen1.5-0.5b at full width and depth: the async runtime (2 peers,
+    4 steps of 2 x 128 tokens, sgdm, snapshots every 2 steps, peer 1 failing
+    at step 2) writes snapshots; 3 serving peers refresh from them
+    (keep-last, a stale one dropped, the bytes billed); the ensemble policy
+    with its canaries (row 8 on the prefill logits); a defended chaos run
+    with a preemption, a failure revived from the async snapshot, a
+    straggler and hedging; then the same policies in fp32 on the card and
+    on the CPU (reduced config), whose reports must be equal. Every canary
+    pair's mse is recomputed by row 8 and its plain version on the same
+    (1, V) fp32 logits. Returns the ensemble run's launches (rows 1-4 and
+    8)."""
+    import tempfile
+
+    from repro_torch.checkpoint.io import snapshot_meta
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.core.comm_model import (bits_per_exchange_event,
+                                             param_bits_of)
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import (fused_distill_loss,
+                                     fused_distill_loss_plain, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models import build_model
+    from repro_torch.runtime import AsyncScheduler, parse_faults
+    from repro_torch.serve.fleet import (ChaosConfig, FleetConfig,
+                                         FleetDefense, FleetRouter,
+                                         generate_workload)
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+    tc = TrainConfig(lr=1e-3, warmup_steps=0, total_steps=4,
+                     optimizer="sgdm")
+    fc = FleetConfig(max_slots=16, block_size=16, num_blocks=1025,
+                     max_blocks_per_slot=34, fused_attention=True)
+    wl = generate_workload("bursty", 16, cfg.padded_vocab, seed=1,
+                           max_prompt=256, max_new=16)
+    peers = []
+    for i in range(3):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2024 + i)
+        peers.append(model.init(gen, device=dev, weight_dtype=torch.bfloat16))
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        sched = AsyncScheduler(
+            model, tc, CodistConfig(n_models=2),
+            lambda step: make_lm_batch(task, 2, 128, step, None, seed=0,
+                                       device=dev),
+            parse_faults(CODIST_FAULTS, 2), checkpoint_dir=ckpt,
+            checkpoint_every=2, staleness_bound=1, device=dev)
+        sched.run()
+        sync(dev)
+        steps = [(snapshot_meta(ckpt, i) or {}).get("step") for i in range(2)]
+        log(f"fleet_codist: the async runtime wrote snapshots at steps "
+            f"{steps} in {time.perf_counter() - t0:.1f} s")
+        require(steps == [4, 2], f"async snapshots at steps {steps}")
+
+        # refresh: keep-last, a stale one dropped, the bytes billed
+        router = FleetRouter(model, peers, config=fc, policy="ensemble",
+                             snapshot_dir=ckpt, staleness_bound=1, device=dev)
+        per = int(bits_per_exchange_event(
+            "checkpoints", 2, b_model=param_bits_of(peers[0])) // 8)
+        n1, n2 = router.refresh_now(), router.refresh_now()
+        versions = [e.weights_version for e in router.engines]
+        log(f"  refresh: {n1} then {n2} peers adopted, versions {versions}, "
+            f"{router.refreshes_dropped_stale} stale drops, "
+            f"{router.refresh_bytes} bytes billed ({per} a snapshot)")
+        require((n1, n2, versions, router.refreshes_dropped_stale,
+                 router.refresh_bytes) == (1, 0, [4, -1, -1], 2, per),
+                "refresh: keep-last / staleness / billing")
+        def same(a, b):
+            if isinstance(a, dict):
+                return all(same(a[k], b[k]) for k in a)
+            return torch.equal(a, b.to(a.dtype))
+        require(same(router.engines[0].params, sched.peers[0].state.params),
+                "refresh: peer 0 does not hold its snapshot's weights")
+
+        # the ensemble policy: every request on all 3 peers, 2 canary pairs
+        # a request, each compared by distill_pair("mse") (row 8)
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = router.run(wl, slo_ms=50.0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        out = {n: launch_counts[n]
+               for n in ROWS_1_TO_4 + ("fused_distill_loss",)}
+        log(f"  ensemble: completed {rep.completed}/{len(wl.requests)}, "
+            f"canary {rep.canary}, {wall:.2f} s wall, launches {out}")
+        require(rep.completed == len(wl.requests) and rep.lost_tokens == 0
+                and rep.duplicated_tokens == 0, f"ensemble report {rep}")
+        require(rep.canary["count"] == 2 * len(wl.requests)
+                == out["fused_distill_loss"],
+                f"canary pairs {rep.canary['count']}, row 8 launches "
+                f"{out['fused_distill_loss']}")
+        want = serve_launches(router, cfg.num_layers, 0, True, False)
+        require({n: out[n] for n in want} == want,
+                f"ensemble: rows 1-4 launched {out}, want {want}")
+        require(rep.canary["mean_mse"] > 0 and math.isfinite(
+            rep.canary["max_mse"]), f"canary {rep.canary}")
+        # row 8 at the path's shape: every pair's prefill logits, (1, V)
+        # fp32, through the kernel and its plain version
+        errs, kern = {}, []
+        for i, (prec, srec) in enumerate(router._pairs):
+            a, b = (torch.as_tensor(r.prefill_logits, device=dev)[None]
+                    for r in (prec, srec))
+            kern.append(fused_distill_loss(a, b, "mse"))
+            check_loss_output("fused_distill_loss", f"canary pair {i}",
+                              kern[-1], fused_distill_loss_plain(a, b, "mse"),
+                              False, True, errs)
+        top = float(torch.cat(kern).max())
+        log(f"  canary: {len(kern)} pairs' mse by row 8 held against the "
+            f"plain version (fp32, 1e-5); the largest {top:.6f}")
+        require(len(kern) == rep.canary["count"] and abs(
+            top - rep.canary["max_mse"]) <= 1e-6 * top,
+            f"canary: the report's max mse {rep.canary['max_mse']} is not "
+            f"the kernel's {top}")
+        del router
+        torch.cuda.empty_cache()
+
+        # chaos, defended, with hedging; peer 1 revives from its snapshot
+        chaos = ChaosConfig(parse_faults(FLEET_FAULTS, 3, seed=0),
+                            recover_after_ms=40.0)
+        router = FleetRouter(model, peers, config=fc, cache_dtype=torch.bfloat16,
+                             snapshot_dir=ckpt, chaos=chaos,
+                             defense=FleetDefense(hedging=True), device=dev)
+        t0 = time.perf_counter()
+        rep = router.run(wl, slo_ms=50.0)
+        sync(dev)
+        log(f"  chaos: completed {rep.completed}/{len(wl.requests)}, lost "
+            f"{rep.lost_tokens}, duplicated {rep.duplicated_tokens}, "
+            f"migrations {rep.migrations}, hedges {rep.hedges} (wins "
+            f"{rep.hedge_wins}), preemptions {rep.preemptions}, died / "
+            f"recovered {rep.peers_died}/{rep.peers_recovered}, refresh bytes "
+            f"{rep.refresh_bytes}, peer 1 version "
+            f"{router.engines[1].weights_version}, p99 TTFT "
+            f"{rep.p99_ttft_ms:.1f} ms (sim), {time.perf_counter() - t0:.2f} "
+            "s wall")
+        require(rep.completed == len(wl.requests) and rep.lost_tokens == 0
+                and rep.duplicated_tokens == 0, "chaos: lost or duplicated")
+        require(rep.preemptions >= 1 and rep.peers_died == 1
+                and rep.peers_recovered == 1 and rep.hedges >= 1
+                and router.engines[1].weights_version == 2,
+                f"chaos: the faults or defenses did not all fire: {rep}")
+        del router, sched
+    del peers
+    torch.cuda.empty_cache()
+    codist_parity(dev)
+    return out
+
+
+def codist_parity(dev: torch.device) -> None:
+    """Reduced qwen1.5-0.5b in fp32, the card against the CPU on the same
+    weights, snapshots and workload: the ensemble policy, canaries every
+    second request, weight refresh, chaos with hedging and speculative
+    decoding; every ``FleetReport`` field equal (the canary's mse within
+    1e-5 relative: the card's fused kernel sums in another order)."""
+    import tempfile
+
+    from repro_torch.checkpoint.io import save_snapshot
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.runtime import parse_faults
+    from repro_torch.serve.fleet import (ChaosConfig, FleetConfig,
+                                         FleetDefense, FleetRouter,
+                                         SpecConfig, generate_workload)
+    cfg = get_reduced("qwen1.5-0.5b")
+    model = build_model(cfg)
+    params = {"cpu": []}
+    for i in range(3):
+        gen = torch.Generator()
+        gen.manual_seed(55 + i)
+        params["cpu"].append(model.init(gen, device="cpu"))
+    to_dev = lambda tree: ({k: to_dev(v) for k, v in tree.items()}  # noqa: E731
+                           if isinstance(tree, dict) else tree.to(dev))
+    params["card"] = [to_dev(p) for p in params["cpu"]]
+    devices = {"cpu": torch.device("cpu"), "card": dev}
+    wl = generate_workload("bursty", 12, cfg.padded_vocab, seed=4,
+                           max_prompt=40, max_new=12)
+    fc = FleetConfig(max_slots=3, block_size=4, num_blocks=64,
+                     max_blocks_per_slot=16, max_prefills_per_step=1)
+    with tempfile.TemporaryDirectory() as snap:
+        save_snapshot(snap, 0, {"params": params["cpu"][2]}, meta={"step": 5})
+        save_snapshot(snap, 1, {"params": params["cpu"][0]}, meta={"step": 3})
+        cases = {
+            "ensemble": dict(policy="ensemble"),
+            "canary + refresh": dict(canary_every=2, snapshot_dir=snap,
+                                     refresh_every_ms=5.0),
+            "chaos + hedge": dict(
+                chaos=ChaosConfig(parse_faults(FLEET_FAULTS, 3, seed=0),
+                                  recover_after_ms=40.0),
+                defense=FleetDefense(hedging=True, hedge_min_samples=3),
+                snapshot_dir=snap),
+            "speculative": dict(policy="speculative",
+                                spec=SpecConfig(k=SPEC_K)),
+        }
+        for label, kw in cases.items():
+            reps = {d: FleetRouter(model, params[d], config=fc,
+                                   device=devices[d], **kw).run(wl).to_dict()
+                    for d in devices}
+            a, b = reps["cpu"], reps["card"]
+            bad = {k: (a[k], b[k]) for k in a if k != "canary" and a[k] != b[k]}
+            for ck, cv in a["canary"].items():
+                cb = b["canary"][ck]
+                if not (cv == cb or (ck in ("mean_mse", "max_mse")
+                                     and abs(cv - cb) <= 1e-5 * abs(cv))):
+                    bad[f"canary.{ck}"] = (cv, cb)
+            log(f"  fp32 parity {label}: FleetReport card vs CPU "
+                f"{len(a) - len(bad)}/{len(a)} fields equal (lost "
+                f"{b['lost_tokens']}, duplicated {b['duplicated_tokens']}, "
+                f"canary {b['canary']['count']}, refreshes {b['refreshes']}, "
+                f"migrations {b['migrations']}, hedges {b['hedges']}, "
+                f"spec rounds {b['spec_rounds']})")
+            require(not bad, f"fp32 parity {label}: fields differ card vs "
+                    f"CPU: {bad}")
+            require(b["lost_tokens"] == 0 and b["duplicated_tokens"] == 0,
+                    f"fp32 parity {label}: lost or duplicated tokens")
 
 
 # ----------------------------------------------------------------------------
@@ -2370,6 +2991,7 @@ SWEEP_MODES = ["allreduce", "codist", "codist-ckpt", "codist-pipelined",
 # at 2.5 s
 ASYNC_FAULTS = "straggler=1*3@0.5,preempt=1@2+3,fail=0@4"
 ASYNC_JOIN = 2.5
+ASYNC_LAYERS = 12
 ASYNC_KW = dict(staleness_bound=1, checkpoint_every=2, recover_after=2.0,
                 join_burn_in=2)
 
@@ -2580,7 +3202,8 @@ def phase_sweep(dev: torch.device):
 # ----------------------------------------------------------------------------
 
 def phase_async(dev: torch.device):
-    """The async runtime at qwen1.5-0.5b's full width and depth, through
+    """The async runtime at qwen1.5-0.5b's full width and 12 of its 24
+    layers (``ASYNC_LAYERS``), through
     ``AsyncScheduler`` (batch 8 x seq 512 a peer): 2 peers and an elastic
     join, kl distillation, 5 steps under ``ASYNC_FAULTS`` with snapshots
     every 2 steps, recovery 2 s after a failure and a staleness bound of 1.
@@ -2603,11 +3226,15 @@ def phase_async(dev: torch.device):
     from repro_torch.runtime import AsyncScheduler, parse_faults
     from repro_torch.runtime.peer import PeerRuntime
     from repro_torch.train import History
-    cfg = get_config("qwen1.5-0.5b")
+    # full width at 12 of its 24 layers: the depth cut keeps the whole
+    # script near its time budget since the spec and fleet_codist phases
+    # came in (a snapshot of the peer state, fp32 params + AdamW m and v, is
+    # host I/O of 3.7 GB instead of 5.6)
+    cfg = replace(get_config("qwen1.5-0.5b"), num_layers=ASYNC_LAYERS)
     model = build_model(cfg)
-    # 5 steps: each snapshot of a full-width peer state (5.6 GB) takes ~13 s
-    # of host I/O on the H100 machine, so the phase keeps 6 of them and the
-    # one restore (peer 0 fails at its step 4, after its step-4 snapshot)
+    # 5 steps: each snapshot of a peer state took ~13 s of host I/O at full
+    # depth on the H100 machine, so the phase keeps 6 of them and the one
+    # restore (peer 0 fails at its step 4, after its step-4 snapshot)
     b, s, steps = TRAIN_T // 512, 512, 5
     task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
                     effective_vocab=256)
@@ -2619,7 +3246,7 @@ def phase_async(dev: torch.device):
     tc = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=2,
                      total_steps=steps, optimizer="adamw")
     cd = CodistConfig(n_models=2, distill_loss="kl")
-    # time the snapshots and restores (host I/O of 5.6 GB a peer state)
+    # time the snapshots and restores (host I/O of a peer state)
     io_s = {"snapshot": [0, 0.0], "restore": [0, 0.0]}
     orig = {name: getattr(PeerRuntime, name) for name in io_s}
 
@@ -2959,6 +3586,10 @@ def main(argv=None) -> int:
         kernel_rows = phase_scatter_kernels(dev, flush)
         kernel_rows.update(phase_kernels(dev, flush))
         kernel_rows.update(phase_quant_kernels(dev, flush))
+        verify = phase_verify_kernels(dev, flush)
+        kernel_rows["paged_attention_decode"].update(
+            {f"verify_{k}": v for k, v in verify.items()
+             if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
         kernel_rows.update(phase_ops_kernels(dev, flush))
         kernel_rows.update(phase_loss_kernels(dev, flush))
         kernel_rows.update(phase_distill_kernels(dev, flush))
@@ -3000,6 +3631,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_train_parity(dev)
         log(f"phase train_parity: {time.perf_counter() - t0:.1f} s")
+    if "spec" in phases:
+        t0 = time.perf_counter()
+        launches["spec"] = phase_spec(dev)
+        torch.cuda.empty_cache()
+        log(f"phase spec: {time.perf_counter() - t0:.1f} s")
+    if "fleet_codist" in phases:
+        t0 = time.perf_counter()
+        launches["fleet_codist"] = phase_fleet_codist(dev)
+        torch.cuda.empty_cache()
+        log(f"phase fleet_codist: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})
@@ -3015,7 +3656,9 @@ def main(argv=None) -> int:
             "ms": row.get("ms"), "kernel_ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
-            "library_ms": row.get("library_ms")})
+            "library_ms": row.get("library_ms"),
+            **{k: v for k, v in row.items()
+               if k.startswith(("verify_", "canary_"))}})
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

@@ -151,7 +151,8 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, table: torch.Tensor,
                            lengths: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           plan_slots: Optional[int] = None
                            ) -> torch.Tensor:
     """One-token decode for every slot, straight off the block pool.
 
@@ -161,6 +162,12 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     new token's position (valid keys are positions <= lengths[s]);
     k_scale / v_scale (NB, BS) fp32 row scales of quantized pools (both or
     neither; an fp32 or bf16 q). Returns (S, H, hd) in q's dtype.
+
+    ``plan_slots`` makes the kernel split its work as
+    ``decode_split_plan`` does for that many slots instead of S (the
+    speculative verify passes the plain tick's slot count, so each of its
+    pseudo-slots sums its softmax in the plain tick's order). The plain
+    version on the CPU walks every slot in one run either way.
     """
     quantized = k_scale is not None
     _require(quantized == (v_scale is not None),
@@ -197,6 +204,9 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     mb = table.shape[1]
     _check_index(table, (s, mb), "table")
     _check_index(lengths, (s,), "lengths")
+    _require(plan_slots is None
+             or (type(plan_slots) is int and plan_slots >= 1),
+             f"plan_slots must be a positive int, got {plan_slots!r}")
     if dev.type == "cpu":
         return paged_attention_decode_plain(q, k_pool, v_pool, table, lengths,
                                             k_scale, v_scale)
@@ -221,7 +231,7 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     if s == 0:
         return out
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    bps, nsplit = decode_split_plan(s, mb, _num_sms(index))
+    bps, nsplit = decode_split_plan(plan_slots or s, mb, _num_sms(index))
     part_ml = q.new_empty((2, s, nsplit, h), dtype=torch.float32)
     part_acc = q.new_empty((s, nsplit, h, hd), dtype=torch.float32)
     lib = _build.load("paged_attention")

@@ -7,8 +7,18 @@ The flags are the reference launcher's, plus ``--device`` (``cuda`` by
 default; ``cpu`` runs the kernels' plain versions). As in the reference,
 ``--reduced`` is a ``store_true`` flag that defaults to on, so the CLI
 serves the reduced config; ``chip_smoke.py`` drives the full-size config
-through ``FleetRouter`` directly. Flags of features the port has not reached
-exit with status 2 and name the slice that brings them.
+through ``FleetRouter`` directly.
+
+``--speculative`` (or ``--router speculative``) serves by peer-speculative
+decoding with ``--draft-k`` drafts a round, ring-paired or from the
+``--draft-peer``; ``--router ensemble`` and ``--canary-every N`` compare
+peers' prefill logits; ``--snapshot-dir`` refreshes peer weights from
+``checkpoint/io.py`` snapshots (the async runtime's ``runtime_ckpt/``);
+``--faults`` takes the training CLI's fault spec on the decode-tick clock
+(pauses in simulated ms), defended unless ``--no-defend``, with
+``--hedge``, ``--recover-after-ms`` and ``--degraded-admission``. Flags of
+features the port has not reached (``--single``, the observability flags)
+exit with status 2 and name the item that brings them.
 """
 from __future__ import annotations
 
@@ -22,33 +32,18 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.kernels.paged_cache import is_quantized_dtype
 from repro_torch.models import build_model
+from repro_torch.runtime.clock import parse_faults
 from repro_torch.serve import resolve_cache_dtype
-from repro_torch.serve.fleet import (SCENARIOS, FleetConfig, FleetRouter,
-                                     generate_workload)
-from repro_torch.serve.fleet.router import LATER_POLICIES, POLICIES
+from repro_torch.serve.fleet import (POLICIES, SCENARIOS, ChaosConfig,
+                                     FleetConfig, FleetDefense, FleetRouter,
+                                     SpecConfig, generate_workload)
 
-_CHAOS = "chaos serving (faults, defenses, hedging) comes in a later serving slice (ROADMAP Queue 1 item 8)"
 _OBS = "tracing, metrics and alerts come with the observability port (ROADMAP Queue 1 item 11)"
-_LATER_SLICE = "a later serving slice"
 
 
 def _unported(args) -> list:
     """(flag, reason) for every unported feature the arguments ask for."""
     out = []
-    if args.speculative:
-        out.append(("--speculative", "speculative decoding comes in " + _LATER_SLICE))
-    if args.router in LATER_POLICIES:
-        out.append((f"--router {args.router}",
-                    "ensemble canaries and speculative routing come in " + _LATER_SLICE))
-    if args.faults and args.faults != "none":
-        out.append(("--faults", _CHAOS))
-    if args.hedge:
-        out.append(("--hedge", _CHAOS))
-    if args.canary_every:
-        out.append(("--canary-every", "canary divergence comes in " + _LATER_SLICE))
-    if args.snapshot_dir:
-        out.append(("--snapshot-dir", "the fleet's weight refresh from the "
-                    "async runtime's snapshots comes with ROADMAP Queue 1 item 7"))
     for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
                       ("--alerts", args.alerts), ("--rules", args.rules),
                       ("--flight-recorder", args.flight_recorder)):
@@ -82,8 +77,7 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--slo-ms", type=float, default=50.0,
                     help="TTFT SLO (simulated ms)")
-    ap.add_argument("--router", default="round_robin",
-                    choices=list(POLICIES) + list(LATER_POLICIES))
+    ap.add_argument("--router", default="round_robin", choices=list(POLICIES))
     ap.add_argument("--canary-every", type=int, default=0)
     ap.add_argument("--slots", type=int, default=8, help="decode slots per peer")
     ap.add_argument("--block-size", type=int, default=8)
@@ -137,6 +131,23 @@ def main(argv=None) -> None:
     model = build_model(cfg)
     cache_dtype = resolve_cache_dtype(args.cache_dtype, device)
 
+    if args.speculative:
+        args.router = "speculative"
+    spec = None
+    if args.router == "speculative":
+        if args.draft_peer == "ring":
+            draft_peer = None
+        else:
+            try:
+                draft_peer = int(args.draft_peer)
+            except ValueError:
+                ap.error(f"--draft-peer {args.draft_peer!r}: expected "
+                         "'ring' or a peer index")
+            if not 0 <= draft_peer < args.peers:
+                ap.error(f"--draft-peer {draft_peer} out of range for "
+                         f"--peers {args.peers}")
+        spec = SpecConfig(k=args.draft_k, draft_peer=draft_peer)
+
     def peer_init(seed):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -153,8 +164,28 @@ def main(argv=None) -> None:
                               // args.block_size)),
                      fused_attention={"auto": None, "on": True,
                                       "off": False}[args.fused_attention])
+    chaos = defense = None
+    if args.faults and args.faults != "none":
+        chaos = ChaosConfig(
+            parse_faults(args.faults, args.peers, seed=args.seed),
+            horizon_ticks=args.fault_horizon,
+            recover_after_ms=args.recover_after_ms)
+    if (chaos is not None and not args.no_defend) or args.hedge:
+        defense = FleetDefense(
+            hedging=args.hedge,
+            degraded_admission=(args.degraded_admission == "on"))
     router = FleetRouter(model, peer_params, config=fc, policy=args.router,
-                         cache_dtype=cache_dtype, device=device)
+                         cache_dtype=cache_dtype,
+                         canary_every=args.canary_every,
+                         snapshot_dir=args.snapshot_dir or None,
+                         refresh_every_ms=args.refresh_every_ms,
+                         staleness_bound=args.staleness_bound,
+                         chaos=chaos, defense=defense, spec=spec,
+                         device=device)
+    if args.snapshot_dir:
+        n = router.refresh_now()
+        print(f"initial weight refresh: {n}/{args.peers} peers from "
+              f"{args.snapshot_dir}")
     wl = generate_workload(args.scenario, args.requests, cfg.padded_vocab,
                            seed=args.seed, max_prompt=args.max_prompt,
                            max_new=args.max_new)
@@ -174,7 +205,28 @@ def main(argv=None) -> None:
           f"{rep.slo_attainment:.3f}  sim tok/s = {rep.sim_tokens_per_s:.1f}"
           f"  wall tok/s = {rep.generated_tokens / max(wall, 1e-9):.1f}")
     print(f"pool peak util = {rep.peak_pool_utilization:.2f}  "
-          f"kv_bytes = {rep.kv_bytes_written}")
+          f"kv_bytes = {rep.kv_bytes_written}  refreshes = {rep.refreshes} "
+          f"(dropped stale: {rep.refreshes_dropped_stale})")
+    if rep.canary.get("count"):
+        print(f"canary: n={rep.canary['count']} "
+              f"mean_mse={rep.canary['mean_mse']:.4f} "
+              f"token_agreement={rep.canary['token_agreement']:.3f}")
+    if spec is not None:
+        print(f"speculative: k={spec.k} accept_rate="
+              f"{rep.spec_accept_rate:.3f} rounds={rep.spec_rounds} "
+              f"drafted/accepted = "
+              f"{rep.spec_drafted_tokens}/{rep.spec_accepted_tokens}  "
+              f"fallback_ticks={rep.spec_fallback_ticks}")
+    if chaos is not None or defense is not None:
+        print(f"chaos: defended={'no' if defense is None else 'yes'} "
+              f"goodput tok/s = {rep.goodput_tokens_per_s:.1f}  "
+              f"lost/dup tokens = {rep.lost_tokens}/{rep.duplicated_tokens}")
+        print(f"  migrations={rep.migrations} "
+              f"(failed: {rep.migration_failures})  hedges={rep.hedges} "
+              f"(wins: {rep.hedge_wins})  preemptions={rep.preemptions}  "
+              f"died/recovered={rep.peers_died}/{rep.peers_recovered}")
+    print(f"lost_tokens={rep.lost_tokens} "
+          f"duplicated_tokens={rep.duplicated_tokens}")
     print(f"stream digest = {rep.stream_digest}")
     if args.report:
         with open(args.report, "w") as f:

@@ -1,6 +1,7 @@
 """Continuous-batching scheduler: per-step join/evict of ragged requests
-into fixed decode slots over the paged KV pool (the reference's clean path:
-no chaos, tracer, metrics or alert hooks).
+into fixed decode slots over the paged KV pool (the reference's engine with
+its chaos hooks; its tracer, metrics and alert hooks come with the
+observability port).
 
 One ``FleetEngine`` serves one peer. Every engine tick:
 
@@ -17,6 +18,13 @@ Time is simulated (a deterministic per-step cost model), so the latency
 report is reproducible across machines and devices. Greedy decoding only;
 argmax runs over the full ``padded_vocab`` width, padded columns included,
 as the reference does.
+
+With a ``ChaosSchedule`` attached (``chaos.py``) each tick also consults
+the seeded fault schedule: the tick cost is scaled by the peer's slowdown,
+a scheduled preemption jumps the clock past the pause (in-flight slots
+frozen, KV intact), and a scheduled failure kills the engine at the start
+of the tick; a dead engine makes no progress until the router ``revive``s
+it. Without a schedule the engine runs the clean path unchanged.
 """
 from __future__ import annotations
 
@@ -54,26 +62,39 @@ class FleetConfig:
 
 @dataclass
 class RequestRecord:
-    """Per-request lifecycle + output stream (the determinism surface)."""
+    """Per-request lifecycle + output stream (the determinism surface).
+
+    ``origin`` is set on migrated continuations: the client's request, whose
+    arrival anchors TTFT and E2E however many peers the work visited.
+    ``migrations`` counts placements beyond the first (on the client-facing
+    record)."""
     request: Request
+    canary: bool = False
     admitted_ms: Optional[float] = None
     first_token_ms: Optional[float] = None
     finished_ms: Optional[float] = None
     rejected: bool = False
+    cancelled: bool = False          # hedge loser / harvested off a peer
+    origin: Optional[Request] = None
+    migrations: int = 0
     tokens: List[int] = field(default_factory=list)
-    prefill_logits: Optional[np.ndarray] = None
+    prefill_logits: Optional[np.ndarray] = None   # kept for canary compares
+
+    @property
+    def _arrival0_ms(self) -> float:
+        return (self.origin or self.request).arrival_ms
 
     @property
     def ttft_ms(self) -> Optional[float]:
         if self.first_token_ms is None:
             return None
-        return self.first_token_ms - self.request.arrival_ms
+        return self.first_token_ms - self._arrival0_ms
 
     @property
     def e2e_ms(self) -> Optional[float]:
         if self.finished_ms is None:
             return None
-        return self.finished_ms - self.request.arrival_ms
+        return self.finished_ms - self._arrival0_ms
 
 
 @dataclass
@@ -88,12 +109,22 @@ class FleetEngine:
 
     def __init__(self, model, params: PyTree, config: FleetConfig,
                  cache_dtype=torch.float32, keep_logits: bool = False,
-                 device="cuda"):
+                 device="cuda", peer_id: int = 0):
         self.model = model
         self.params = params
         self.config = config
         self.cache_dtype = cache_dtype
         self.keep_logits = keep_logits
+        self.peer_id = peer_id
+        # chaos hooks (None / untouched on the clean path)
+        self.chaos = None                # Optional[ChaosSchedule]
+        self.health = None               # Optional[PeerHealth]
+        self.dead = False
+        self._fail_fired = False         # scheduled permanent failure spent
+        self.died_at_ms: Optional[float] = None
+        self.offline_until_ms = 0.0
+        self.preemptions_hit = 0
+        self.max_queue_live = config.max_queue   # tightened when degraded
         self.pool = PagedCachePool(
             model, max_slots=config.max_slots, block_size=config.block_size,
             num_blocks=config.num_blocks,
@@ -104,6 +135,7 @@ class FleetEngine:
         self.now_ms = 0.0
         self.steps = 0
         self.decode_ticks = 0            # ticks that ran the decode step
+        self.weights_version = -1        # bumped by the router's refresh
         self.pending: Deque[RequestRecord] = deque()  # future arrivals
         self.waiting: Deque[RequestRecord] = deque()  # admission queue
         self.slots: Dict[int, _Slot] = {}             # slot id -> live req
@@ -123,15 +155,23 @@ class FleetEngine:
                                else cache_dtype)
 
     # ---- intake ------------------------------------------------------------
-    def enqueue(self, request: Request) -> RequestRecord:
-        rec = RequestRecord(request)
+    def set_params(self, params: PyTree) -> None:
+        self.params = params
+
+    def enqueue(self, request: Request, canary: bool = False) -> RequestRecord:
+        rec = RequestRecord(request, canary=canary)
         self.records.append(rec)
         self.pending.append(rec)     # router submits in arrival order
         return rec
 
     @property
     def load(self) -> int:
+        # pending counts too: the router enqueues at arrival time, and ticks
+        # may not run between close arrivals
         return len(self.slots) + len(self.waiting) + len(self.pending)
+
+    def has_work(self) -> bool:
+        return bool(self.slots or self.waiting or self.pending)
 
     def next_arrival_ms(self) -> Optional[float]:
         if not self.pending:
@@ -145,7 +185,7 @@ class FleetEngine:
             if rec.request.arrival_ms > self.now_ms:
                 self.pending.append(rec)
                 continue
-            if len(self.waiting) >= self.config.max_queue:
+            if len(self.waiting) >= self.max_queue_live:
                 rec.rejected = True
                 continue
             self.waiting.append(rec)
@@ -181,7 +221,7 @@ class FleetEngine:
             first = int(torch.argmax(logits[0, -1]))
             rec.admitted_ms = self.now_ms
             rec.tokens.append(first)
-            if self.keep_logits:
+            if self.keep_logits or rec.canary:
                 rec.prefill_logits = logits[0, -1].float().cpu().numpy()
             self.slots[slot] = _Slot(rec, remaining=req.max_new - 1,
                                      next_token=first)
@@ -232,6 +272,14 @@ class FleetEngine:
             self.kv_bytes_written += self._kv_bytes_per_token
         return ctx_rows
 
+    def _decode_cost_ms(self) -> float:
+        """Simulated cost of the tick's decode work (the speculative engine
+        charges its draft and verify instead of one plain step)."""
+        return self.config.decode_ms_per_step
+
+    def _defrag(self) -> None:
+        self.pool.defrag()
+
     def _evict(self, finish_ms: float) -> None:
         for s in [s for s, sl in self.slots.items() if sl.remaining <= 0]:
             sl = self.slots.pop(s)
@@ -241,6 +289,17 @@ class FleetEngine:
     def step(self) -> bool:
         """One engine tick; returns False when nothing could progress (the
         caller should jump the clock to the next arrival)."""
+        if self.dead:
+            return False
+        tick = self.steps
+        if self.chaos is not None and not self._fail_fired:
+            fail_tick = self.chaos.fails_at(self.peer_id)
+            if fail_tick is not None and tick >= fail_tick:
+                # a permanent failure fires once: the tick counter keeps
+                # counting after a revival, and must not kill it again
+                self._fail_fired = True
+                self.die()
+                return False
         self._intake()
         admitted_tokens = self._admit()
         newly = {s for s, sl in self.slots.items()
@@ -252,7 +311,13 @@ class FleetEngine:
             return False
         cost = (self.config.step_overhead_ms
                 + self.config.prefill_ms_per_token * admitted_tokens
-                + (self.config.decode_ms_per_step if decoded else 0.0))
+                + (self._decode_cost_ms() if decoded else 0.0))
+        if self.chaos is not None:
+            slow_mult = self.chaos.slowdown(self.peer_id, tick)
+            cost *= slow_mult
+            if self.health is not None:
+                # the health signal is the observed / clean cost ratio
+                self.health.observe(slow_mult)
         self.now_ms += cost
         # first-token times are read off before _evict pops any
         # single-step slot out of the slot table
@@ -264,14 +329,26 @@ class FleetEngine:
                                     self.pool.utilization())
         if self.config.defrag_every and \
                 self.steps % self.config.defrag_every == 0:
-            self.pool.defrag()
+            self._defrag()
+        if self.chaos is not None:
+            pause = self.chaos.pause_ms(self.peer_id, tick)
+            if pause > 0:
+                # preemption: the clock jumps past the pause, slots stay
+                # frozen, the router sees offline_until_ms
+                self.offline_until_ms = self.now_ms + pause
+                self.now_ms = self.offline_until_ms
+                self.preemptions_hit += 1
         return True
 
     def advance_to(self, t_ms: float) -> None:
         """Run ticks until the clock reaches ``t_ms`` (or work runs dry, in
-        which case the clock jumps forward — idle time is free)."""
+        which case the clock jumps forward — idle time is free). A dead
+        engine only follows the clock."""
         while self.now_ms < t_ms:
             if not self.step():
+                if self.dead:
+                    self.now_ms = t_ms
+                    break
                 nxt = self.next_arrival_ms()
                 self.now_ms = t_ms if nxt is None else min(
                     t_ms, max(nxt, self.now_ms))
@@ -281,7 +358,64 @@ class FleetEngine:
     def drain(self) -> None:
         while self.slots or self.waiting or self.pending:
             if not self.step():
+                if self.dead:
+                    break            # the router harvests what is left
                 nxt = self.next_arrival_ms()
                 if nxt is None:
                     break
                 self.now_ms = max(self.now_ms, nxt)
+
+    # ---- chaos lifecycle (not reached on the clean path) --------------------
+    def die(self) -> None:
+        """Permanent failure: the KV state is gone; records stay attached so
+        the router can harvest in-flight work for migration."""
+        self.dead = True
+        self.died_at_ms = self.now_ms
+
+    def revive(self, t_ms: float, params: Optional[PyTree] = None,
+               version: Optional[int] = None) -> None:
+        """Rejoin after a permanent failure, from recovered weights. The
+        router must have harvested the dead engine first: reviving with
+        live slots would resurrect stale KV state."""
+        if not self.dead:
+            raise RuntimeError("revive() on a live engine")
+        if self.slots or self.waiting:
+            raise RuntimeError("revive() before harvest(): in-flight work "
+                               "would be resurrected")
+        self.dead = False
+        self.died_at_ms = None
+        self.offline_until_ms = 0.0
+        self.now_ms = max(self.now_ms, t_ms)
+        if params is not None:
+            self.set_params(params)
+            if version is not None:
+                self.weights_version = version
+
+    def harvest(self) -> List[RequestRecord]:
+        """Strip every unfinished request (live slots, queued, future) for
+        re-routing, freeing their blocks. Deterministic order: slots by slot
+        id, then the waiting queue, then pending arrivals."""
+        out: List[RequestRecord] = []
+        for s in sorted(self.slots):
+            sl = self.slots.pop(s)
+            self.pool.free_slot(s)
+            out.append(sl.record)
+        out.extend(self.waiting)
+        self.waiting.clear()
+        out.extend(self.pending)
+        self.pending.clear()
+        for rec in out:
+            rec.cancelled = True
+        return out
+
+    def cancel(self, rec: RequestRecord) -> None:
+        """Remove one request wherever it sits (hedge loser / migration), by
+        identity: two copies of one hedged request compare equal by value
+        and must not alias."""
+        self.pending = deque(r for r in self.pending if r is not rec)
+        self.waiting = deque(r for r in self.waiting if r is not rec)
+        for s, sl in list(self.slots.items()):
+            if sl.record is rec:
+                del self.slots[s]
+                self.pool.free_slot(s)
+        rec.cancelled = True

@@ -15,6 +15,12 @@ one fp32 scale per row in ``k_scale`` / ``v_scale`` ``(L, NB, BS)`` beside
 scatter move them with their blocks. Prefill rows are quantized at insert
 time (``quantize_rows``), decode appends inside ``paged_scatter_quant_kv``.
 
+Speculative decoding keeps an undo log: ``snapshot_rows`` copies the rows a
+verify is about to overwrite (K/V and, quantized, their scales), and
+``restore_rows`` writes a rejected suffix back, so the pool ends
+bit-identical to one that never saw the draft. One-byte pools are copied
+through ``uint8`` views, so the copy is of bits on every pool dtype.
+
 The device pools are updated in place (the decode step's scatter kernel
 writes into them); the reference rebinds new arrays instead.
 """
@@ -135,6 +141,61 @@ class PagedCachePool:
             woff[blk] = pos % self.block_size
         return wslot, woff
 
+    def write_maps_k(self, active: np.ndarray,
+                     k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Writer maps for a k-token speculative append: row ``j`` maps each
+        active slot's position ``lengths[s] + j`` to its (block, offset).
+        Positions past a slot's reserved capacity are absent from the maps
+        (the verify's outputs there are never emitted). Within a row every
+        position belongs to another slot, and blocks are slot-exclusive, so
+        each row has at most one writer per block."""
+        wslots = np.full((k, self.num_blocks), -1, np.int32)
+        woffs = np.zeros((k, self.num_blocks), np.int32)
+        for s in np.nonzero(active)[0]:
+            cap = len(self.slot_blocks[s]) * self.block_size
+            base = int(self.lengths[s])
+            for j in range(min(k, cap - base)):
+                pos = base + j
+                blk = self.slot_blocks[s][pos // self.block_size]
+                wslots[j, blk] = s
+                woffs[j, blk] = pos % self.block_size
+        return wslots, woffs
+
+    # ---- speculative rollback (undo log) -----------------------------------
+    def snapshot_rows(self, slot: int, start_pos: int, n_rows: int):
+        """Copy the pool rows (K/V and, when quantized, their scales) of
+        positions ``[start_pos, start_pos + n_rows)`` of ``slot`` that lie
+        within its reserved blocks: the undo log a verify takes before it
+        scatters the draft. Freed blocks keep what their previous occupant
+        wrote, so the invariant is "restore the previous contents", not
+        "zero"."""
+        cap = len(self.slot_blocks[slot]) * self.block_size
+        pos = [p for p in range(start_pos, start_pos + n_rows) if p < cap]
+        blocks = np.asarray([self.slot_blocks[slot][p // self.block_size]
+                             for p in pos], np.int64)
+        offs = np.asarray([p % self.block_size for p in pos], np.int64)
+        data = {}
+        if pos:
+            b, o = self._index(blocks, offs)
+            data = {sub: {name: _raw(t)[:, b, o] for name, t in d.items()}
+                    for sub, d in self.kv.items()}
+        return blocks, offs, data
+
+    def restore_rows(self, snap, start: int = 0) -> None:
+        """Write back rows ``start..`` of a ``snapshot_rows`` snapshot
+        (``start`` counts rows of the snapshot, i.e. draft positions)."""
+        blocks, offs, data = snap
+        if start >= len(blocks):
+            return
+        b, o = self._index(blocks[start:], offs[start:])
+        for sub, d in data.items():
+            for name, saved in d.items():
+                _raw(self.kv[sub][name])[:, b, o] = saved[:, start:]
+
+    def _index(self, blocks: np.ndarray, offs: np.ndarray):
+        return (torch.as_tensor(blocks, device=self.device),
+                torch.as_tensor(offs, device=self.device))
+
     # ---- defrag ------------------------------------------------------------
     def defrag(self) -> int:
         """Compact live blocks to the lowest pool indices (stable in
@@ -165,3 +226,8 @@ class PagedCachePool:
             self.table[s, :n] = self.slot_blocks[s]
         self.free = list(range(used, self.num_blocks))
         return moved
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte pool (int8 / fp8) as its bits, so copies move bits."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t

@@ -10,7 +10,8 @@ hygiene.
 * The workload generator is a verbatim copy: same arguments, same requests.
 * The port imports nothing of ``jax`` or ``repro``; ``chip_smoke.py`` exits
   non-zero without a card; asking for CUDA without a card raises; the CLI
-  runs on the CPU and refuses unported features with status 2.
+  runs on the CPU (hedging and the ensemble policy too) and refuses
+  unported features with status 2.
 """
 import ast
 import hashlib
@@ -190,14 +191,18 @@ def test_cuda_without_a_card_raises():
 
 
 def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
+    """least_loaded, ``--hedge`` and ``--router ensemble`` serve on the
+    CPU; the dense ``--single`` path, the observability flags and an
+    unported arch still exit 2."""
     from repro_torch.launch.serve import main
-    main(["--device", "cpu", "--arch", "qwen2-7b", "--requests", "4",
-          "--max-new", "3", "--max-prompt", "8", "--slots", "2",
-          "--router", "least_loaded"])
-    out = capsys.readouterr().out
-    assert "completed=4 rejected=0" in out and "stream digest" in out
-    for argv in (["--hedge"], ["--router", "ensemble"], ["--single"],
-                 ["--trace", "t.json"], ["--arch", "rwkv6-1.6b"],
+    for extra in (["--router", "least_loaded"], ["--hedge"],
+                  ["--router", "ensemble"]):
+        main(["--device", "cpu", "--arch", "qwen2-7b", "--requests", "4",
+              "--max-new", "3", "--max-prompt", "8", "--slots", "2", *extra])
+        out = capsys.readouterr().out
+        assert "completed=4 rejected=0" in out and "stream digest" in out
+    for argv in (["--single"], ["--trace", "t.json"],
+                 ["--arch", "rwkv6-1.6b"],
                  ["--single", "--cache-dtype", "int8"]):
         with pytest.raises(SystemExit) as e:
             main(["--device", "cpu", *argv])
