@@ -139,7 +139,13 @@ exits non-zero:
 The kernels phase also holds row 1 at the verify's shape (16 slots x k = 4
 pseudo-slots, the plain tick's split plan): against the plain version at the
 same plan, and each pseudo-slot bit for bit against the 16-slot decode; and
-row 8 at the canary's shape, one (1, 152064) fp32 pair.
+row 8 at the canary's shape, one (1, 152064) fp32 pair. Rows 8 (mse, kl) and
+9, whose forward splits a row over a cluster of CTAs when the rows are few,
+are held and timed at T = 1 (fp32, bf16), 16, 128, 512 and 4096 (V =
+152064): at the plan's split count and forced to each cluster size 1-16
+(1 is the parent's one CTA a row), two calls bit-equal; a mutant copy of
+the kernel whose fold skips the rescale of each rank's sums, built beside
+the kernels, must fail the check at the canary's shape in kl mode.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of the JAX reference.
@@ -342,6 +348,7 @@ def phase_build() -> None:
         _build.load(name)
     report_flash_build(info["flash_attention"]["log"])
     report_decode_build(info["paged_attention"]["log"])
+    report_loss_build(info["fused_losses"]["log"])
 
 
 FLASH_KERNELS = ("flash_wgmma_kernel", "flash_mma_kernel", "flash_kernel")
@@ -423,6 +430,32 @@ def report_decode_build(nvcc_log: str) -> None:
             + ", ".join(insts))
     require(rows, "no decode kernel in the ptxas log")
     require(not spilled, f"decode kernels spill: {spilled}")
+
+
+def report_loss_build(nvcc_log: str) -> None:
+    """Registers and spills of each loss forward instance (fwd_kernel<dtype,
+    mode, split>) from a fresh build's ``-Xptxas -v``; fails on a spill."""
+    if not nvcc_log:
+        log("  loss forward kernels: cached build, no ptxas log")
+        return
+    rows, fn, spill, spilled = [], None, 0, []
+    for line in nvcc_log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"fwd_kernelI(\w+?)Li(\d)ELb([01])E",
+                          line.split("'")[1])
+            fn = (f"{DECODE_POOLS.get(m.group(1), m.group(1))} mode "
+                  f"{m.group(2)}{' split' if m.group(3) == '1' else ''}"
+                  if m else None)
+        elif fn and "spill" in line:
+            spill = sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+        elif fn and "Used" in line:
+            rows.append(f"{fn} {int(line.split('Used')[1].split()[0])}/{spill}")
+            if spill:
+                spilled.append(fn)
+            fn = None
+    log("  fwd_kernel (registers/spill bytes): " + ", ".join(sorted(rows)))
+    require(rows, "no loss forward kernel in the ptxas log")
+    require(not spilled, f"loss forward kernels spill: {spilled}")
 
 
 # ----------------------------------------------------------------------------
@@ -1707,6 +1740,162 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
         del xr, lib_mse
     torch.cuda.empty_cache()
     return results
+
+
+# the distillation forward's split over a cluster of CTAs (rows 8 and 9):
+# the canary's one row (fp32, and bf16), a few rows, the subsample wire's
+# 512 and the main path's 4096, at the full vocab
+SPLIT_SHAPES = [("canary", 1, torch.float32), ("canary bf16", 1, torch.bfloat16),
+                ("T=16", 16, torch.bfloat16), ("T=128", 128, torch.bfloat16),
+                ("subsample", SUB_T, torch.bfloat16),
+                ("main", TRAIN_T, torch.bfloat16)]
+# every cluster size the kernel takes, each timed beside the plan's
+SPLIT_COUNTS = (1, 2, 4, 8, 16)
+# the mutant of the split forward: rank 0 folds each rank's state without
+# the exp(m_r - M) rescale of s, st and u (the fold keeps rank 0's maxes)
+MUTANT_FROM = "for (int r = 1; r < splits; ++r) merge<MODE>(a, parts[r]);"
+MUTANT_TO = ("for (int r = 1; r < splits; ++r) { State b = parts[r]; "
+             "b.m = a.m; b.mt = a.mt; merge<MODE>(a, b); }")
+
+
+def start_mutant_build():
+    """Start nvcc on a copy of ``fused_losses.cu`` with the mutant fold
+    (``build/mutant``); returns (process, library path)."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "fused_losses.cu").read_text()
+    require(src.count(MUTANT_FROM) == 1,
+            "the split fold's line is not in fused_losses.cu exactly once")
+    out = _build.BUILD / "mutant"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / "fused_losses_mutant.cu", out / "fused_losses_mutant.so"
+    cu.write_text(src.replace(MUTANT_FROM, MUTANT_TO))
+    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                             str(so), str(cu)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def as_rows(out) -> torch.Tensor:
+    """A (T,) output or a tuple of them as (K, T) rows."""
+    return torch.stack(out) if isinstance(out, tuple) else out[None]
+
+
+def phase_distill_splits(dev: torch.device, flush: torch.Tensor, mutant):
+    """Rows 8 (mse, kl) and 9 at SPLIT_SHAPES: the plan's splits, the
+    kernel at the plan and forced to each cluster size of SPLIT_COUNTS
+    through the C entry (1: the parent's one CTA a row), each held against
+    the plain version; two calls bit-equal; the plain version, F.mse_loss
+    (mse) and the bound. Then the mutant fold must fail the check at the
+    canary's shape in kl mode. Returns {kernel: [a record a shape]}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.distill_loss import (distill_fwd_split_plan,
+                                                  fused_distill_kl_parts,
+                                                  fused_distill_kl_parts_plain,
+                                                  fused_distill_loss,
+                                                  fused_distill_loss_plain,
+                                                  fwd_runs, launch_fwd)
+    from repro_torch.kernels.paged_attention import _num_sms
+    sms = _num_sms(dev.index if dev.index is not None
+                   else torch.cuda.current_device())
+    errs, out = {}, {"fused_distill_loss": [], "fused_distill_kl_parts": []}
+    v = TRAIN_V
+    for si, (label, t, dtype) in enumerate(SPLIT_SHAPES):
+        x, tg, _lb, _g = loss_inputs(t, v, dtype, dev, 300 + si)
+        es, tv = x.element_size(), t * v
+        fp32 = dtype == torch.float32
+        plan = distill_fwd_split_plan(t, v, es, sms)
+        kl_ops = DISTILL_OPS["kl"][0] * tv
+        # (row, mode): wrapper, the C entry at a plan, plain, library, bound
+        specs = {
+            ("fused_distill_loss", "mse"): (
+                lambda: fused_distill_loss(x, tg, "mse"),
+                lambda pl: launch_fwd("distill_mse", x, tg, None, v,
+                                      plan=pl)[:1],
+                lambda: fused_distill_loss_plain(x, tg, "mse"),
+                lambda: F.mse_loss(x, tg),
+                (2 * tv * es + t * 4, DISTILL_OPS["mse"][0] * tv)),
+            ("fused_distill_loss", "kl"): (
+                lambda: fused_distill_loss(x, tg, "kl"),
+                lambda pl: launch_fwd("distill_kl", x, tg, None, v,
+                                      plan=pl)[:1],
+                lambda: fused_distill_loss_plain(x, tg, "kl"),
+                None, (2 * tv * es + t * 4, kl_ops)),
+            ("fused_distill_kl_parts", "kl"): (
+                lambda: fused_distill_kl_parts(x, tg),
+                lambda pl: launch_fwd("distill_kl", x, tg, None, v,
+                                      residuals=True, plan=pl),
+                lambda: fused_distill_kl_parts_plain(x, tg),
+                None, (2 * tv * es + 4 * t * 4, kl_ops)),
+        }
+        slow = t == TRAIN_T
+        for (name, mode), (kern, forced, plain, lib, (nb, nops)) in specs.items():
+            what = f"{name} {mode} {label} (T={t}, {str(dtype)[6:]})"
+            want, got = as_rows(plain()), as_rows(kern())
+            require(bits_equal(got, as_rows(kern())),
+                    f"{what}: two calls on the same inputs differ")
+            for a, b in zip(got, want):
+                check_loss_output(name, label, a, b, False, fp32, errs)
+            err = max_err(got, want)
+            per_split = {}
+            for k in SPLIT_COUNTS:
+                pl = fwd_runs(v, es, k)
+                for a, b in zip(forced(pl), want):
+                    check_loss_output(name, f"{label} splits {k}", a, b,
+                                      False, fp32, errs)
+                per_split[k] = time_ms(lambda: forced(pl), flush)
+            tb, tf = nb / HBM_BPS * 1e3, nops / PEAK_FLOPS[torch.float32] * 1e3
+            r = {"shape": label, "T": t, "V": v, "dtype": str(dtype)[6:],
+                 "mode": mode, "splits": plan[1], "vecs_per_split": plan[0],
+                 "ms": time_ms(kern, flush),
+                 "one_split_ms": per_split[1],
+                 "split_ms": {str(k): ms for k, ms in per_split.items()},
+                 "plain_ms": time_ms(plain, flush, iters=3 if slow else 10,
+                                     warmup=1),
+                 "library_ms": None if lib is None else time_ms(lib, flush),
+                 "bound_ms": max(tb, tf),
+                 "bound_by": "bytes" if tb >= tf else "operations",
+                 "max_abs_err": err}
+            out[name].append(r)
+            lib_txt = ("" if r["library_ms"] is None
+                       else f"  F.mse_loss {r['library_ms']:.4f} ms")
+            log(f"  {what}: plan {plan[1]} splits of {plan[0]} vectors: "
+                f"kernel {r['ms']:.4f} ms (one split {per_split[1]:.4f}; "
+                + ", ".join(f"{k}: {ms:.4f}" for k, ms in per_split.items())
+                + f")  plain {r['plain_ms']:.4f} ms{lib_txt}  bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']})  max|kernel-plain| "
+                f"{err:.2e}")
+            if label == "canary" and mode == "mse":
+                met = r["ms"] < r["library_ms"] and r["ms"] <= 0.010
+                log(f"  canary mse: kernel {r['ms']:.4f} ms vs F.mse_loss "
+                    f"{r['library_ms']:.4f} ms and 0.010 ms: "
+                    f"{'met' if met else 'NOT met'}")
+        if label == "canary":
+            # the mutant fold, through the same wrapper, must fail
+            proc, so = mutant
+            log_txt, _ = proc.communicate()
+            require(proc.returncode == 0, f"mutant build failed:\n{log_txt}")
+            real = _build.load("fused_losses")
+            _build._libs["fused_losses"] = _build.bind(so, "fused_losses")
+            try:
+                bad = fused_distill_loss(x, tg, "kl")
+            finally:
+                _build._libs["fused_losses"] = real
+            sync(dev)
+            try:
+                check_loss_output("fused_distill_loss", "mutant", bad,
+                                  fused_distill_loss_plain(x, tg, "kl"),
+                                  False, True, {})
+            except SmokeFailure as e:
+                log(f"  mutant without the fold's rescale fails as it "
+                    f"should: {e}")
+            else:
+                raise SmokeFailure("the mutant split fold passed the check "
+                                   "at the canary's shape (kl)")
+        del x, tg
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -3572,11 +3761,22 @@ def main(argv=None) -> int:
               "runs the port on an NVIDIA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi_line = phase_device()
+    # the split forward's mutant builds beside the kernels
+    mutant = start_mutant_build() if "kernels" in phases else None
+    try:
+        return run_phases(phases, dev, t_start, smi_line, mutant)
+    finally:
+        if mutant is not None and mutant[0].poll() is None:
+            mutant[0].kill()
+            mutant[0].wait()
+
+
+def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     if "build" in phases:
         phase_build()
     kernel_rows = {}
@@ -3593,6 +3793,8 @@ def main(argv=None) -> int:
         kernel_rows.update(phase_ops_kernels(dev, flush))
         kernel_rows.update(phase_loss_kernels(dev, flush))
         kernel_rows.update(phase_distill_kernels(dev, flush))
+        for name, recs in phase_distill_splits(dev, flush, mutant).items():
+            kernel_rows[name]["by_shape"] = recs
         del flush
         log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     launches = {}          # path -> {kernel: launches on that path's run}
@@ -3658,7 +3860,7 @@ def main(argv=None) -> int:
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
             **{k: v for k, v in row.items()
-               if k.startswith(("verify_", "canary_"))}})
+               if k.startswith(("verify_", "canary_", "by_shape"))}})
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

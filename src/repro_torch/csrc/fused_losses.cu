@@ -27,16 +27,23 @@
 // In mode 3, v_real is only the mse's denominator (the reference's
 // v_total): every column enters the sum, as in _mse_kernel.
 //
-// Forward. One CTA per token row streams the row's V columns once, 16-byte
-// vector loads in the middle and scalar loads for the unaligned head and
-// the tail. Each thread keeps the online state of the columns it saw: the
-// student's running max m and sum s of exp(x - m), the sum of x over
-// columns < v_real, and for mse the sum of (x - t)^2 over those columns,
-// for kl the target's (m_t, s_t) and U = sum exp(t - m_t) (t - x). A warp
-// shuffle and then a shared-memory pass over the warps merge the states,
-// rescaling s, s_t and U by exp(m_old - m_new). This loop inside the CTA
-// replaces the reference's sequential vocab grid axis (pl.program_id(1)
-// carrying VMEM scratch from tile to tile), which has no order on the GPU.
+// Forward. A token row is streamed once by a cluster of `splits` CTAs
+// (one CTA in modes 0, 1, 2 and 5, and in modes 3 and 4 whenever the rows
+// alone cover the SMs; the Python plan picks the count from the shapes):
+// CTA rank r takes a contiguous run of the row's 16-byte vectors, rank 0
+// also the unaligned scalar head and the last rank the scalar tail. Each
+// thread keeps the online state of the columns it saw: the student's running
+// max m and sum s of exp(x - m), the sum of x over columns < v_real, and for
+// mse the sum of (x - t)^2 over those columns, for kl the target's (m_t, s_t)
+// and U = sum exp(t - m_t) (t - x). A warp shuffle and then a shared-memory
+// pass over the warps merge the states, rescaling s, s_t and U by
+// exp(m_old - m_new). With more than one CTA a row, each rank stores its
+// State in rank 0's shared memory (distributed shared memory, between two
+// halves of the cluster barrier) and rank 0 folds ranks 0, 1, ... in that
+// order with the same merge, so the result does not change from call to
+// call. This replaces the reference's sequential vocab grid axis
+// (pl.program_id(1) carrying VMEM scratch from tile to tile), which has no
+// order on the GPU, without a workspace, a second launch or float atomics.
 // Thread 0 reads the true logit x[label] itself. The outputs are fp32
 // (K, T) rows: mode 0 [nll, smooth, logZ]; mode 1 [nll, smooth, dist,
 // logZ_s]; mode 2 [nll, smooth, dist, logZ_s, logZ_t, E] with E = U / s_t
@@ -63,14 +70,17 @@
 // the main-path shape (T = 4096, V = 152064, bf16) that is 1.25 GB per
 // (T, V) operand, 0.37 ms at 3.35 TB/s; the kl modes' two exps per element
 // (~1.25e9 at that shape) stay under it on the SFUs. The design reads nothing twice and
-// keeps every (T, V) intermediate in registers. Not yet done: cp.async/TMA
-// staging, more loads in flight per thread, and splitting a row over CTAs
-// when T is small (T CTAs of the forward leave most of the card idle for
-// T < ~500).
+// keeps every (T, V) intermediate in registers. A few rows (the serving
+// canary's one, a subsampled wire's hundreds) would leave most SMs idle at
+// one CTA a row, so modes 3 and 4 split each row over a cluster of up to 16
+// CTAs there, and a split mse row keeps 4 vector loads in flight a thread.
+// Not yet done: cp.async/TMA staging, and more loads in flight on the
+// one-CTA-a-row path.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -79,6 +89,9 @@ namespace {
 
 constexpr int kFwdThreads = 512;
 constexpr int kBwdThreads = 256;
+// the forward's largest cluster: 8 is portable, 16 needs the non-portable
+// cluster attribute (H100: a GPC holds at least 16 SMs)
+constexpr int kMaxSplits = 16;
 constexpr float kNeg = -1e30f;
 
 enum Mode { kCE = 0, kMSE = 1, kKL = 2, kDistMSE = 3, kDistKL = 4, kNLL = 5 };
@@ -235,52 +248,139 @@ __device__ __forceinline__ State warp_merge(State a) {
   return a;
 }
 
-template <typename T, int MODE>
+// 16-byte vectors of each operand a thread of a split row loads before it
+// visits any: 4 for mse, whose state is one sum; 1 for kl, whose five sums
+// and two exps an element, with 4 loads in flight, take the registers of a
+// second resident CTA on an SM (16 rows of 16 CTAs then run in two waves)
+template <int MODE>
+__device__ constexpr int split_loads() { return is_mse(MODE) ? 4 : 1; }
+
+// the cluster barrier in two halves: arrive (release: this thread's shared
+// stores, local or remote, are visible to whoever waits) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int MODE, typename T>
+__device__ __forceinline__ void visit_scalars(State& a, const T* xr, const T* tr,
+                                              int c0, int c1, int v_real) {
+  for (int c = c0 + (int)threadIdx.x; c < c1; c += blockDim.x) {
+    const float xa[1] = {to_f(xr[c])};
+    const float ta[1] = {has_target(MODE) ? to_f(tr[c]) : 0.f};
+    visit<MODE, 1>(a, xa, ta, c, v_real);
+  }
+}
+
+// Folds vectors [k0, k1) of a row into the thread's state, U vectors of
+// each operand loaded before any is visited (loads in flight for the few
+// vectors a thread of a split row sees); the visits run in the order of a
+// plain stride loop, so U changes no bit of the result.
+template <int MODE, int U, typename T>
+__device__ __forceinline__ void visit_vectors(State& a, const T* xr, const T* tr,
+                                              int head, int k0, int k1,
+                                              int v_real) {
+  constexpr int N = Vec<T>::n;
+  const int stride = blockDim.x;
+  for (int k = k0 + (int)threadIdx.x; k < k1; k += U * stride) {
+    uint4 xv[U], tv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c0 = head + (k + u * stride) * N;
+      if (k + u * stride < k1) {
+        xv[u] = __ldg(reinterpret_cast<const uint4*>(xr + c0));
+        if (has_target(MODE)) tv[u] = __ldg(reinterpret_cast<const uint4*>(tr + c0));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u * stride >= k1) break;
+      float xa[N], ta[N];
+      const T* xe = reinterpret_cast<const T*>(&xv[u]);
+      const T* te = reinterpret_cast<const T*>(&tv[u]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        xa[i] = to_f(xe[i]);
+        ta[i] = has_target(MODE) ? to_f(te[i]) : 0.f;
+      }
+      visit<MODE, N>(a, xa, ta, head + (k + u * stride) * N, v_real);
+    }
+  }
+}
+
+// grid (splits * T,), in clusters of (splits, 1, 1) when SPLIT: CTA rank r
+// of row blockIdx.x / splits streams its run of the row (below), the CTA's
+// threads merge into one State, every rank stores its State in rank 0's
+// shared memory, and rank 0 folds them in rank order and writes the row.
+// Without SPLIT, one CTA a row streams it whole (splits = 1).
+template <typename T, int MODE, bool SPLIT>
 __global__ void __launch_bounds__(kFwdThreads)
 fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
            const int* __restrict__ labels, float* __restrict__ out,
-           float* __restrict__ res, int n_tok, int V, int v_real, int vec) {
+           float* __restrict__ res, int n_tok, int V, int v_real, int vec,
+           int vps, int splits) {
   constexpr int N = Vec<T>::n;
-  const int row = blockIdx.x;
+  __shared__ State warps[kFwdThreads / 32];
+  __shared__ State parts[SPLIT ? kMaxSplits : 1];
+  // the first half of a barrier whose wait, after the stream, tells this
+  // CTA that every CTA of its cluster runs and can take a remote store
+  if (SPLIT) cluster_arrive_relaxed();
+  if (!SPLIT) splits = 1;
+  const int row = SPLIT ? blockIdx.x / splits : blockIdx.x;
+  const int rank = SPLIT ? blockIdx.x % splits : 0;
+  const bool last = rank == splits - 1;
   const T* xr = x + (size_t)row * V;
   const T* tr = has_target(MODE) ? tg + (size_t)row * V : nullptr;
-  const int head = row_head(xr, V, vec);
-  const int nvec = (V - head) / N;
-  const int tail0 = head + nvec * N;
 
+  // The run of rank r: vectors [r vps, (r + 1) vps) after the scalar head,
+  // the last rank to the row's last whole vector; rank 0 also takes the
+  // head, the last rank the tail. A row off the vector path is all scalar:
+  // runs of vps * N columns, the last rank to V. splits = 1 is one run, the
+  // whole row in the order head, vectors, tail.
   State a = empty_state();
-  for (int c = threadIdx.x; c < head; c += blockDim.x) {
-    const float xa[1] = {to_f(xr[c])};
-    const float ta[1] = {has_target(MODE) ? to_f(tr[c]) : 0.f};
-    visit<MODE, 1>(a, xa, ta, c, v_real);
-  }
-  for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
-    const int c0 = head + k * N;
-    float xa[N], ta[N];
-    load_vec(xr + c0, xa);
-    if (has_target(MODE)) {
-      load_vec(tr + c0, ta);
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) ta[i] = 0.f;
-    }
-    visit<MODE, N>(a, xa, ta, c0, v_real);
-  }
-  for (int c = tail0 + threadIdx.x; c < V; c += blockDim.x) {
-    const float xa[1] = {to_f(xr[c])};
-    const float ta[1] = {has_target(MODE) ? to_f(tr[c]) : 0.f};
-    visit<MODE, 1>(a, xa, ta, c, v_real);
+  if (vec) {
+    const int head = row_head(xr, V, vec);
+    const int nvec = (V - head) / N;
+    const int k0 = (int)min((long long)rank * vps, (long long)nvec);
+    const int k1 = last ? nvec : (int)min((long long)k0 + vps, (long long)nvec);
+    if (rank == 0) visit_scalars<MODE>(a, xr, tr, 0, head, v_real);
+    visit_vectors<MODE, SPLIT ? split_loads<MODE>() : 1>(a, xr, tr, head, k0, k1, v_real);
+    if (last) visit_scalars<MODE>(a, xr, tr, head + nvec * N, V, v_real);
+  } else {
+    const long long run = (long long)vps * N;
+    const int c0 = (int)min(rank * run, (long long)V);
+    const int c1 = last ? V : (int)min(c0 + run, (long long)V);
+    visit_scalars<MODE>(a, xr, tr, c0, c1, v_real);
   }
 
-  __shared__ State warps[kFwdThreads / 32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   a = warp_merge<MODE>(a);
   if (lane == 0) warps[warp] = a;
   __syncthreads();
-  if (warp != 0) return;
-  a = lane < (int)(blockDim.x / 32) ? warps[lane] : empty_state();
-  a = warp_merge<MODE>(a);
-  if (lane != 0) return;
+  if (warp == 0) {
+    a = lane < (int)(blockDim.x / 32) ? warps[lane] : empty_state();
+    a = warp_merge<MODE>(a);
+  }
+  if (SPLIT) {
+    cluster_wait();
+    if (threadIdx.x == 0) {
+      namespace cg = cooperative_groups;
+      *cg::this_cluster().map_shared_rank(&parts[rank], 0) = a;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (rank != 0) return;
+    if (threadIdx.x == 0) {
+      a = parts[0];
+      for (int r = 1; r < splits; ++r) merge<MODE>(a, parts[r]);
+    }
+  }
+  if (threadIdx.x != 0) return;
 
   const size_t n = (size_t)n_tok;
   const float logz = has_lse(MODE) ? a.m + logf(a.s) : 0.f;
@@ -433,23 +533,72 @@ int same_mod16(const void* a, const void* b, const void* c, const void* d) {
   return 1;
 }
 
+// one CTA a row
+template <typename T, int MODE>
+cudaError_t launch_fwd_one(const T* x, const T* t, const int* labels,
+                           float* out, float* res, int n_tok, int V,
+                           int v_real, int vec, int vps, cudaStream_t st) {
+  fwd_kernel<T, MODE, false><<<n_tok, kFwdThreads, 0, st>>>(
+      x, t, labels, out, res, n_tok, V, v_real, vec, vps, 1);
+  return cudaGetLastError();
+}
+
+// a cluster of `splits` CTAs a row (the distillation modes), or one CTA
+template <typename T, int MODE>
+cudaError_t launch_fwd_split(const T* x, const T* t, const int* labels,
+                             float* out, float* res, int n_tok, int V,
+                             int v_real, int vec, int vps, int splits,
+                             cudaStream_t st) {
+  if (splits == 1)
+    return launch_fwd_one<T, MODE>(x, t, labels, out, res, n_tok, V, v_real,
+                                   vec, vps, st);
+  auto kernel = fwd_kernel<T, MODE, true>;
+  if (splits > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_tok * (unsigned)splits);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, t, labels, out,
+                                           res, n_tok, V, v_real, vec, vps,
+                                           splits);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(int mode, const void* x, const void* t, const int* labels,
-               float* out, float* res, int n_tok, int V, int v_real,
-               cudaStream_t st) {
+               float* out, float* res, int n_tok, int V, int v_real, int vps,
+               int splits, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const T* tp = static_cast<const T*>(t);
   const int vec = same_mod16(x, t, nullptr, nullptr);
+  // only the distillation modes split a row; a grid of splits * T CTAs
+  if (splits < 1 || splits > kMaxSplits || vps < 1 ||
+      (splits > 1 && mode != kDistMSE && mode != kDistKL) ||
+      (long long)n_tok * splits > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
   switch (mode) {
-    case kCE: fwd_kernel<T, kCE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
-    case kMSE: fwd_kernel<T, kMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
-    case kKL: fwd_kernel<T, kKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
-    case kDistMSE: fwd_kernel<T, kDistMSE><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
-    case kDistKL: fwd_kernel<T, kDistKL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
-    case kNLL: fwd_kernel<T, kNLL><<<n_tok, kFwdThreads, 0, st>>>(xp, tp, labels, out, res, n_tok, V, v_real, vec); break;
+    case kCE: e = launch_fwd_one<T, kCE>(xp, tp, labels, out, res, n_tok, V, v_real, vec, vps, st); break;
+    case kMSE: e = launch_fwd_one<T, kMSE>(xp, tp, labels, out, res, n_tok, V, v_real, vec, vps, st); break;
+    case kKL: e = launch_fwd_one<T, kKL>(xp, tp, labels, out, res, n_tok, V, v_real, vec, vps, st); break;
+    case kDistMSE: e = launch_fwd_split<T, kDistMSE>(xp, tp, labels, out, res, n_tok, V, v_real, vec, vps, splits, st); break;
+    case kDistKL: e = launch_fwd_split<T, kDistKL>(xp, tp, labels, out, res, n_tok, V, v_real, vec, vps, splits, st); break;
+    case kNLL: e = launch_fwd_one<T, kNLL>(xp, tp, labels, out, res, n_tok, V, v_real, vec, vps, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 template <typename T>
@@ -490,15 +639,18 @@ const char* repro_error_string(int code) {
 // x, t (T, V); labels (T,) i32 (modes 0-2 and 5; unused, may be null, in
 // modes 3 and 4); out (K, T) fp32 with K = 3, 4, 6, 1, 1, 1 for modes 0-5.
 // t is unused (may be null) in modes 0 and 5. res (3, T) fp32 [logZ_s, logZ_t, E] is
-// written in mode 4 when not null, and unused otherwise.
+// written in mode 4 when not null, and unused otherwise. Each row is split
+// over `splits` CTAs (1..16; modes 3 and 4 only, else 1) of `vps` 16-byte
+// vectors each (>= 1), the last taking the rest of the row.
 int repro_fused_loss_fwd(const void* x, const void* t, const int* labels,
                          float* out, float* res, int n_tok, int V, int v_real,
-                         int mode, int dtype, void* stream) {
+                         int vps, int splits, int mode, int dtype,
+                         void* stream) {
   if (n_tok == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_fwd<float>(mode, x, t, labels, out, res, n_tok, V, v_real, st);
-    case 1: return launch_fwd<__nv_bfloat16>(mode, x, t, labels, out, res, n_tok, V, v_real, st);
+    case 0: return launch_fwd<float>(mode, x, t, labels, out, res, n_tok, V, v_real, vps, splits, st);
+    case 1: return launch_fwd<__nv_bfloat16>(mode, x, t, labels, out, res, n_tok, V, v_real, vps, splits, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -63,10 +63,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             c_void_p],
     },
     "fused_losses": {
-        # x, t, labels, out, res, T, V, v_real, mode, dtype, stream
+        # x, t, labels, out, res, T, V, v_real, vectors per split, splits,
+        # mode, dtype, stream
         "repro_fused_loss_fwd": [c_void_p, c_void_p, c_void_p, c_void_p,
                                  c_void_p, c_int, c_int, c_int, c_int, c_int,
-                                 c_void_p],
+                                 c_int, c_int, c_void_p],
         # x, t, labels, res, g, ds, dt, T, V, v_real, mode, dtype, inv_v,
         # two_inv_v, stream
         "repro_fused_loss_bwd": [c_void_p, c_void_p, c_void_p, c_void_p,
@@ -151,6 +152,19 @@ def build_all() -> Dict[str, Dict]:
     return out
 
 
+def bind(so: Path, name: str) -> ctypes.CDLL:
+    """Load the shared library ``so`` built from ``csrc/<name>.cu`` (or a
+    copy of it) and type its C functions."""
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = c_int
+    lib.repro_error_string.argtypes = [c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The bound library ``name``, building it first if needed."""
     lib = _libs.get(name)
@@ -159,14 +173,7 @@ def load(name: str) -> ctypes.CDLL:
     so = library_path(name)
     if not so.exists():
         build_all()
-    lib = ctypes.CDLL(str(so))
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = c_int
-    lib.repro_error_string.argtypes = [c_int]
-    lib.repro_error_string.restype = ctypes.c_char_p
-    _libs[name] = lib
+    lib = _libs[name] = bind(so, name)
     return lib
 
 

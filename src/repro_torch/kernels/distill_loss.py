@@ -21,18 +21,26 @@ target logits element once per direction and reads no labels:
 reference's ``_mse_kernel``. ``need_target_grad=False`` skips dB (a null
 pointer to the kernel): ``codist_loss`` detaches the targets.
 
+The forward splits each row over a cluster of CTAs when the rows are few
+(the serving canary's one, a subsampled wire's hundreds):
+``distill_fwd_split_plan`` picks (vectors per split, splits) from the
+shapes alone, each CTA keeps the fp32 online state of its run of columns
+(``fwd_run_columns``) and the first folds the others in rank order.
+``distill_split_merge_plain`` models that merge on the CPU for the tests.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_ce import (_check_logits, _resolve_v_real,
-                                          launch_bwd, launch_fwd)
+from repro_torch.kernels.fused_ce import (  # noqa: F401
+    NEG, _check_logits, _resolve_v_real, distill_fwd_split_plan, fwd_runs,
+    launch_bwd, launch_fwd)
 from repro_torch.kernels.paged_cache import _require, _same_device
 
 DISTILL_MODES = ("mse", "kl")
@@ -84,6 +92,73 @@ def fused_distill_kl_parts_plain(logits: torch.Tensor,
                                  target_logits: torch.Tensor):
     """Plain version of ``fused_distill_kl_parts``."""
     return _kl_parts_plain(logits.float(), target_logits.float())
+
+
+def fwd_run_columns(v: int, itemsize: int, head: int, vps: int, splits: int,
+                    vec: bool = True) -> List[List[Tuple[int, int]]]:
+    """The column ranges [lo, hi) each CTA of a row's cluster streams, in
+    rank order, as the forward kernel cuts a row of ``v`` elements of
+    ``itemsize`` bytes whose first 16-byte boundary falls ``head`` columns
+    in: rank r takes vectors [r vps, (r + 1) vps) after the head (the last
+    rank up to the row's last whole vector), rank 0 also the head and the
+    last rank the scalar tail. Off the vector path (``vec`` False: operands
+    at different offsets from a 16-byte boundary) the row is all scalar and
+    rank r takes columns [r vps n, (r + 1) vps n), the last rank to ``v``."""
+    n = 16 // itemsize
+    runs = []
+    for r in range(splits):
+        last = r == splits - 1
+        if vec:
+            h = min(v, head)
+            nvec = (v - h) // n
+            k0 = min(r * vps, nvec)
+            k1 = nvec if last else min(k0 + vps, nvec)
+            ranges = [(0, h)] if r == 0 else []
+            ranges.append((h + k0 * n, h + k1 * n))
+            if last:
+                ranges.append((h + nvec * n, v))
+        else:
+            c0 = min(r * vps * n, v)
+            ranges = [(c0, v if last else min(c0 + vps * n, v))]
+        runs.append([(lo, hi) for lo, hi in ranges if hi > lo])
+    return runs
+
+
+def distill_split_merge_plain(logits: torch.Tensor,
+                              target_logits: torch.Tensor, mode: str,
+                              plan: Tuple[int, int], head: int = 0,
+                              vec: bool = True, v_total: int = 0):
+    """A model of the split forward, for the tests: the fp32 state (m, s,
+    acc, mt, st, u) of each run of ``fwd_run_columns`` (its columns in one
+    block; the kernel's threads sum in other orders), folded in rank order
+    with the kernel's merge (both sides rescaled to the larger max).
+    Returns D (mse) or (D, logZ_a, logZ_b, E) (kl)."""
+    a_all, b_all = logits.float(), target_logits.float()
+    t, v = a_all.shape
+    fill = lambda x: torch.full((t,), x, dtype=torch.float32)
+    m, s, acc, mt, st, u = fill(NEG), fill(0.0), fill(0.0), fill(NEG), \
+        fill(0.0), fill(0.0)
+    for ranges in fwd_run_columns(v, logits.element_size(), head, *plan,
+                                  vec=vec):
+        cols = torch.cat([torch.arange(lo, hi) for lo, hi in ranges])
+        a, b = a_all[:, cols], b_all[:, cols]
+        d = a - b
+        acc = acc + (d * d).sum(dim=-1)
+        rm = a.max(dim=-1).values
+        rs = torch.exp(a - rm[:, None]).sum(dim=-1)
+        rmt = b.max(dim=-1).values
+        w = torch.exp(b - rmt[:, None])
+        rst, ru = w.sum(dim=-1), (w * (b - a)).sum(dim=-1)
+        big = torch.maximum(m, rm)
+        s = s * torch.exp(m - big) + rs * torch.exp(rm - big)
+        m = big
+        big = torch.maximum(mt, rmt)
+        ra, rb = torch.exp(mt - big), torch.exp(rmt - big)
+        st, u, mt = st * ra + rst * rb, u * ra + ru * rb, big
+    if mode == "mse":
+        return acc / (v_total or v)
+    logzs, logzt, e = m + torch.log(s), mt + torch.log(st), u / st
+    return e - logzt + logzs, logzs, logzt, e
 
 
 def fused_distill_mse_grad_plain(logits: torch.Tensor,

@@ -31,6 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import _num_sms
 from repro_torch.kernels.paged_cache import _require, _same_device
 
 NEG = -1e30
@@ -42,6 +43,11 @@ MODES = {"ce": 0, "mse": 1, "kl": 2, "distill_mse": 3, "distill_kl": 4,
 # fp32 (K, T) rows the forward writes, per mode
 N_OUT = {"ce": 3, "mse": 4, "kl": 6, "distill_mse": 1, "distill_kl": 1,
          "nll": 1}
+# the modes whose forward splits a row over a cluster of CTAs
+SPLIT_MODES = ("distill_mse", "distill_kl")
+# the split plan: at most FWD_MAX_SPLITS CTAs a row (the kernel's largest
+# cluster, a non-portable size that beat 8 at one row on an H100)
+FWD_MAX_SPLITS = 16
 
 
 def _check_logits(x: torch.Tensor, name: str) -> Tuple[int, int]:
@@ -86,23 +92,63 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def fwd_runs(v: int, itemsize: int, splits: int) -> Tuple[int, int]:
+    """(vectors per split, splits) of a row of ``v`` elements of
+    ``itemsize`` bytes cut into runs of whole 16-byte vectors: the largest
+    power of two up to ``splits`` whose runs are all non-empty at any
+    alignment of the row (a row holds at least (v - n + 1) // n whole
+    vectors of n elements after its scalar head). Run r is vectors
+    [r vps, (r + 1) vps); the last run also takes what is left."""
+    n = 16 // itemsize
+    nvec = max(0, (v - n + 1) // n)
+    splits = 1 << (splits.bit_length() - 1)
+    while splits > 1 and (splits - 1) * -(-nvec // splits) >= nvec:
+        splits //= 2
+    return max(1, -(-nvec // splits)), splits
+
+
+def distill_fwd_split_plan(n_tok: int, v: int, itemsize: int,
+                           num_sms: int) -> Tuple[int, int]:
+    """(vectors per split, splits) of the distillation forward's grid
+    (splits x T CTAs, a cluster of ``splits`` a row), from ints alone, so
+    the launch needs no value from the device: ceil(num_sms / T) splits,
+    enough that the T x splits CTAs cover the SMs once, down to a power of
+    two, at most ``FWD_MAX_SPLITS``, with no empty run; one split once the
+    rows alone cover the SMs (``chip_smoke.py``'s kernels phase times every
+    cluster size beside the plan's)."""
+    for val in (n_tok, v, itemsize, num_sms):
+        _require(type(val) is int and val > 0,
+                 f"the split plan takes positive ints, got {val!r}")
+    _require(itemsize in (2, 4), f"itemsize {itemsize} is not 2 or 4")
+    return fwd_runs(v, itemsize, min(FWD_MAX_SPLITS, -(-num_sms // n_tok)))
+
+
 def launch_fwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
                labels: Optional[torch.Tensor], v_real: int,
-               residuals: bool = False) -> torch.Tensor:
+               residuals: bool = False,
+               plan: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The forward kernel; returns its fp32 (K, T) output rows, followed
-    (``residuals``, mode ``distill_kl``) by the rows [logZ_s, logZ_t, E]."""
+    (``residuals``, mode ``distill_kl``) by the rows [logZ_s, logZ_t, E].
+    The distillation modes split each row as ``distill_fwd_split_plan``
+    says, or as ``plan`` = (vectors per split, splits) says; the others run
+    one CTA a row."""
     dev = logits.device
     t, v = logits.shape
     out = torch.empty((N_OUT[mode] + (3 if residuals else 0), t),
                       dtype=torch.float32, device=dev)
     if t == 0:
         return out
+    es = logits.element_size()
+    if plan is None and mode in SPLIT_MODES and v > 0:
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        plan = distill_fwd_split_plan(t, v, es, _num_sms(index))
+    vps, splits = plan or fwd_runs(v, es, 1)
     lib = _build.load("fused_losses")
     with torch.cuda.device(dev):
         rc = lib.repro_fused_loss_fwd(
             logits.data_ptr(), _ptr(target), _ptr(labels), out.data_ptr(),
             out[N_OUT[mode]].data_ptr() if residuals else None, t, v, v_real,
-            MODES[mode], _DTYPE_CODES[logits.dtype],
+            vps, splits, MODES[mode], _DTYPE_CODES[logits.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"fused loss forward ({mode})")
     return out
