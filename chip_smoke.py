@@ -135,8 +135,30 @@ exits non-zero:
                 the ensemble, canary + refresh, chaos + hedge and
                 speculative runs in fp32 on the card and on the CPU
                 (reduced config), every FleetReport field equal.
+ 14. single   — dense serving (``Engine.generate``, ``LM.decode``; the
+                CLI's ``--single``) at qwen2-7b's full width and depth,
+                seeded bf16 weights and a bf16 cache, at batch 4 and 16,
+                prompts of 64 and 16 new tokens: prefill ms, ms a decode
+                step (wall) and its device-busy share (torch.profiler),
+                tokens/s, two calls equal, no kernel launched (the dense
+                attention is torch.matmul, as the reference's einsums);
+                then in fp32 (TF32 off) at 4 of 28 layers: ragged equals
+                per-request, a 48-token window over 64-token prompts (the
+                ring wraps) within 5e-4 of the windowed teacher forcing, and
+                the card's tokens equal the CPU's at the reduced config;
+                last ``--single`` through the CLI on the card.
 
-The kernels phase also holds row 1 at the verify's shape (16 slots x k = 4
+On request only (not in the default run): ``rows`` times rows 1, 1q, 2
+and 4 at the main shapes and saves their outputs (``--dump``), and
+``parent`` runs ``rows`` in four processes — a copy of the parent commit
+in ``build/parent``, this tree twice, the parent —
+requiring bit-equal outputs and printing the times side by side.
+
+The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
+(H = KVh = 20, hd 128, the fleet's slots and lengths: the kernel's head
+groups) over fp32, bf16, int8 and fp8 pools, timed beside SDPA and its
+bound, and rows 2 and 4 at its rows of 2,560 values (the quantizing
+scatter's two-pass path), bit-exact, timed. It also holds row 1 at the verify's shape (16 slots x k = 4
 pseudo-slots, the plain tick's split plan): against the plain version at the
 same plan, and each pseudo-slot bit for bit against the 16-slot decode; and
 row 8 at the canary's shape, one (1, 152064) fp32 pair. Rows 8 (mse, kl) and
@@ -168,7 +190,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
-          "fleet_codist")
+          "fleet_codist", "single")
+# run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
+# and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
+# of the parent commit in PARENT and on this tree, and compares them
+ON_REQUEST = ("rows", "parent")
+PARENT = os.path.join(ROOT, "build", "parent")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
 # num_blocks=1025, max_blocks_per_slot=34))
@@ -409,11 +436,13 @@ def report_decode_build(nvcc_log: str) -> None:
     for line in nvcc_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            part = re.search(r"decode_partial_kernelI(\w+?)Li(\d+)ELi(\d+)E",
-                             mangled)
+            part = re.search(
+                r"decode_partial_kernelI(\w+?)Li(\d+)ELi(\d+)ELb([01])E",
+                mangled)
             comb = re.search(r"decode_combine_kernelI(\w+?)EEv", mangled)
             fn = (("partial", DECODE_POOLS.get(part.group(1), part.group(1)),
-                   f"hd {part.group(2)} GP {part.group(3)}") if part else
+                   f"hd {part.group(2)} GP {part.group(3)}"
+                   f"{' grouped' if part.group(4) == '1' else ''}") if part else
                   ("combine", "", "out " + DECODE_POOLS.get(comb.group(1),
                                                             comb.group(1)))
                   if comb else None)
@@ -534,13 +563,17 @@ def bf16_grad_misses(k: torch.Tensor, p: torch.Tensor) -> int:
 DECODE_SHAPES = [("main", S, MB, NB, LENGTHS),
                  ("k2", 16, 256, 4097, [255 + 256 * i for i in range(16)]),
                  ("k3", 1, 2048, 2050, [32767])]
-# held, not timed (label, slots, MB, NB, lengths, H, KVh, hd): qwen1.5-0.5b's
-# heads (H = KVh = 16, hd = 64: G = 1, one warp per KV head), and G = 4 at hd
-# 64 and G = 8 at hd 32, whose chunks take 2 and 1 steps; an inactive slot
-# and a full table among them
+# held (label, slots, MB, NB, lengths, H, KVh, hd): qwen1.5-0.5b's heads
+# (H = KVh = 16, hd = 64: G = 1, one warp per KV head), G = 4 at hd 64 and
+# G = 8 at hd 32, whose chunks take 2 and 1 steps (an inactive slot and a
+# full table among them), and qwen1.5-4b's heads (H = KVh = 20, hd 128: the
+# kernel splits them into head groups) at the fleet's slots and lengths,
+# the one of them also timed (TIMED_CHECKS)
 DECODE_CHECKS = [("qwen1.5-0.5b", 4, 8, 16, [0, 5, 40, 127], 16, 16, 64),
                  ("hd64 G4", 3, 6, 12, [0, 17, 95], 8, 2, 64),
-                 ("hd32 G8", 3, 6, 12, [0, 17, 95], 8, 1, 32)]
+                 ("hd32 G8", 3, 6, 12, [0, 17, 95], 8, 1, 32),
+                 ("qwen1.5-4b", S, MB, NB, LENGTHS, 20, 20, 128)]
+TIMED_CHECKS = ("qwen1.5-4b",)
 
 
 def decode_inputs(slots, mb, nb, lengths, dev: torch.device, seed: int,
@@ -623,9 +656,10 @@ def sdpa_on_gather(q, k, v, table, lengths):
     decode's library call (the gather is set-up, not timed)."""
     from repro_torch.kernels import paged_gather
     s, mb = table.shape
+    kvh, hd = k.shape[2], k.shape[3]
     n_live = ((lengths + BS) // BS).clamp(max=mb).to(torch.int32)
-    kx, vx = (paged_gather(x, table, n_live).view(s, mb * BS, KVH, HD)
-              .permute(0, 2, 1, 3).repeat_interleave(H // KVH, dim=1)
+    kx, vx = (paged_gather(x, table, n_live).view(s, mb * BS, kvh, hd)
+              .permute(0, 2, 1, 3).repeat_interleave(q.shape[1] // kvh, dim=1)
               .contiguous() for x in (k, v))
     mask = (torch.arange(mb * BS, device=q.device)[None, :]
             <= lengths[:, None])[:, None, None, :]
@@ -652,11 +686,11 @@ def time_decode(what: str, q, kp, vp, table, lengths, scales, flush, lib,
     bps = None if plan_slots is None else decode_split_plan(
         plan_slots, table.shape[1], _num_sms(torch.cuda.current_device()))[0]
     rows = int((lengths.long() + 1).sum())
-    row_b = KVH * HD * kp.element_size() + (4 if scales else 0)
+    row_b = kp.shape[2] * kp.shape[3] * kp.element_size() + (4 if scales else 0)
     nbytes = (2 * (byte_rows or rows) * row_b + 2 * q.numel() * q.element_size()
               + table.numel() * 4 + lengths.numel() * 4)
     tb = nbytes / HBM_BPS * 1e3
-    tf = 4 * H * HD * rows / PEAK_FLOPS[kp.dtype] * 1e3
+    tf = 4 * q.shape[1] * q.shape[2] * rows / PEAK_FLOPS[kp.dtype] * 1e3
 
     sc = scales or (None, None)
 
@@ -789,6 +823,12 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
                          paged_attention_decode_plain(qd, kd, vd, table,
                                                       lengths),
                          lengths, False, faults)
+        if label in TIMED_CHECKS:
+            time_decode(f"paged_attention_decode {label} bf16 (S={slots}, "
+                        f"H={h}, KVh={kvh}, hd={hd}, MB={mb})", qd, kd, vd,
+                        table, lengths, (), flush,
+                        sdpa_on_gather(qd, kd, vd, table, lengths))
+        del q, k, v, qd, kd, vd
     require(not faults, "; ".join(faults))
     return results
 
@@ -906,6 +946,13 @@ def phase_quant_kernels(dev: torch.device, flush: torch.Tensor):
                     paged_attention_decode_plain(qq, kq, vq, table, lengths,
                                                  ks, vs),
                     lengths, True, faults)
+            if label in TIMED_CHECKS:
+                time_decode(f"paged_attention_decode_quant {label} "
+                            f"{str(qdt)[6:]} (bf16 q, S={slots}, H={h}, "
+                            f"KVh={kvh}, hd={hd}, MB={mb})", qq, kq, vq, table,
+                            lengths, (ks, vs), flush, None)
+            del kq, ks, vq, vs
+        del q, k, v
     require(not faults, "; ".join(faults))
     return results
 
@@ -989,7 +1036,8 @@ def phase_verify_kernels(dev: torch.device, flush: torch.Tensor) -> dict:
 SCATTER_NBS = [("main", NB), ("k2", 4097), ("full", 16385)]
 
 
-def scatter_inputs(nb: int, dev: torch.device, seed: int):
+def scatter_inputs(nb: int, dev: torch.device, seed: int, kvh: int = KVH,
+                   hd: int = HD):
     """fp32 K and V pools (NB, BS, KVh, hd) made on the card from a seeded
     generator (null block 0 zero, the poisoned block NaN), S fp32 rows each
     for K and V, and write maps with 15 writers (slot 0 inactive): slots
@@ -998,12 +1046,12 @@ def scatter_inputs(nb: int, dev: torch.device, seed: int):
     (slot 1) and BS - 1 (slots 2 and 15) among them."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    k, v = (torch.randn((nb, BS, KVH, HD), generator=gen, device=dev)
+    k, v = (torch.randn((nb, BS, kvh, hd), generator=gen, device=dev)
             for _ in range(2))
     for x in (k, v):
         x[0] = 0.0
         x[POISON] = float("nan")
-    k_new, v_new = (torch.randn((S, KVH, HD), generator=gen, device=dev)
+    k_new, v_new = (torch.randn((S, kvh, hd), generator=gen, device=dev)
                     for _ in range(2))
     cpu = torch.Generator()
     cpu.manual_seed(seed)
@@ -1019,10 +1067,11 @@ def scatter_inputs(nb: int, dev: torch.device, seed: int):
     return k, v, k_new, v_new, ws.to(dev), wo.to(dev)
 
 
-def random_quant_pool(nb: int, dtype, dev: torch.device, gen):
+def random_quant_pool(nb: int, dtype, dev: torch.device, gen, kvh: int = KVH,
+                      hd: int = HD):
     """A quantized pool of random bytes and its random fp32 scales: the null
     block 0 and scale 0, the poisoned block NaN scales (and NaN fp8 rows)."""
-    q = torch.randint(-128, 128, (nb, BS, KVH, HD), generator=gen, device=dev,
+    q = torch.randint(-128, 128, (nb, BS, kvh, hd), generator=gen, device=dev,
                       dtype=torch.int8).view(dtype)
     sc = torch.rand((nb, BS), generator=gen, device=dev)
     q.view(torch.uint8)[0] = 0
@@ -1212,9 +1261,85 @@ def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
             results["paged_scatter_quant"] = r4[torch.int8]
         del kb, vb, qpools
         torch.cuda.empty_cache()
+    scatter_long_rows(dev, flush, faults)
     require(not faults, f"{len(faults)} scatter checks failed: "
             + "; ".join(faults))
     return results
+
+
+# qwen1.5-4b's pool rows: 20 KV heads x hd 128 = 2,560 values, past the
+# 2,048 that one warp of the quantizing scatter holds in registers
+LONG_KVH, LONG_HD = 20, 128
+
+
+def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults) -> None:
+    """Rows 2 and 4 at qwen1.5-4b's rows of 2,560 values in the fleet's pool
+    (NB = 1025): the K+V scatter over fp32 and bf16 pools and the quantizing
+    K+V scatter (its two-pass path) over int8 and fp8 pools from fp32 and
+    bf16 rows, 16-byte aligned and not, bit for bit against the plain
+    versions (null and poisoned blocks untouched); then the times of both
+    K+V launches from bf16 rows beside the plain versions and the bound.
+    Failures go into ``faults``."""
+    from repro_torch.kernels import (paged_scatter_kv, paged_scatter_kv_plain,
+                                     paged_scatter_quant_kv,
+                                     paged_scatter_quant_kv_plain)
+    k, v, k_new, v_new, ws, wo = scatter_inputs(NB, dev, 730, LONG_KVH,
+                                                LONG_HD)
+    writers = int((ws >= 0).sum())
+    label = f"rows of {LONG_KVH * LONG_HD} (NB={NB})"
+    for dtype in (torch.float32, torch.bfloat16):
+        kd, vd, kn, vn = (x.to(dtype) for x in (k, v, k_new, v_new))
+        got, want = (kd.clone(), vd.clone()), (kd.clone(), vd.clone())
+        paged_scatter_kv(*got, kn, vn, ws, wo)
+        paged_scatter_kv_plain(*want, kn, vn, ws, wo)
+        sync(dev)
+        scatter_faults(f"paged_scatter_kv {label} {str(dtype)[6:]}",
+                       [(got[0], want[0], kd), (got[1], want[1], vd)], faults)
+        del kd, vd, got, want
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(731)
+    qpools = {qdt: (*random_quant_pool(NB, qdt, dev, gen, LONG_KVH, LONG_HD),
+                    *random_quant_pool(NB, qdt, dev, gen, LONG_KVH, LONG_HD))
+              for qdt in QUANT}
+    rows = [(str(r)[6:], k_new.to(r), v_new.to(r), ws, wo)
+            for r in (torch.float32, torch.bfloat16)]
+    rows.append(("bfloat16 unaligned", *(off16(x, dev) for x in (
+        k_new.to(torch.bfloat16), v_new.to(torch.bfloat16), ws, wo))))
+    for qdt, pools in qpools.items():
+        for rname, kn, vn, wsx, wox in rows:
+            got = [x.clone() for x in pools]
+            want = [x.clone() for x in pools]
+            paged_scatter_quant_kv(*got, kn, vn, wsx, wox)
+            paged_scatter_quant_kv_plain(*want, kn, vn, ws, wo)
+            sync(dev)
+            scatter_faults(f"paged_scatter_quant_kv {label} {str(qdt)[6:]} "
+                           f"from {rname} rows",
+                           list(zip(got, want, pools)), faults)
+            del got, want
+    log(f"kernels scatter {label}, {writers} writers: K+V (fp32, bf16) and "
+        "quantizing K+V (int8, fp8 from fp32, bf16 and unaligned bf16 rows) "
+        "checked")
+    kb, vb, kn, vn = (x.to(torch.bfloat16) for x in (k, v, k_new, v_new))
+    del k, v
+    row_b = LONG_KVH * LONG_HD * 2
+    r2 = (time_ms(lambda: paged_scatter_kv(kb, vb, kn, vn, ws, wo), flush),
+          time_ms(lambda: paged_scatter_kv_plain(kb, vb, kn, vn, ws, wo),
+                  flush, iters=10),
+          (4 * writers * row_b + 2 * NB * 4) / HBM_BPS * 1e3)
+    log(f"  paged_scatter {label} bf16: K+V kernel {r2[0]:.4f} ms  plain "
+        f"{r2[1]:.4f} ms  bound {r2[2]:.7f} ms (bytes)")
+    for qdt, (kq, ks, vq, vs) in qpools.items():
+        qrow_b = LONG_KVH * LONG_HD * qdt.itemsize + 4
+        r4 = (time_ms(lambda: paged_scatter_quant_kv(kq, ks, vq, vs, kn, vn,
+                                                     ws, wo), flush),
+              time_ms(lambda: paged_scatter_quant_kv_plain(
+                  kq, ks, vq, vs, kn, vn, ws, wo), flush, iters=10),
+              (2 * writers * (row_b + qrow_b) + 2 * NB * 4) / HBM_BPS * 1e3)
+        log(f"  paged_scatter_quant {label} {str(qdt)[6:]} (bf16 rows): K+V "
+            f"kernel {r4[0]:.4f} ms  plain {r4[1]:.4f} ms  bound "
+            f"{r4[2]:.7f} ms (bytes)")
+    del kb, vb, qpools
+    torch.cuda.empty_cache()
 
 
 # the standalone flash attention's shapes: (label, B, S, T, H, KVh, hd,
@@ -3750,20 +3875,300 @@ def async_parity(dev: torch.device, model, task, init) -> None:
 
 # ----------------------------------------------------------------------------
 
+# ----------------------------------------------------------------------------
+# phase 14: dense serving (Engine.generate, LM.decode; ``--single``)
+# ----------------------------------------------------------------------------
+
+# the dense engine's batches: prompts of SINGLE_PROMPT tokens, SINGLE_NEW new
+# ones (the CLI's defaults), at batch 4 (the CLI's) and 16 (the fleet's slots)
+SINGLE_BATCHES, SINGLE_PROMPT, SINGLE_NEW = (4, 16), 64, 16
+# the ring-buffer check: a window shorter than the prompt, so the ring wraps
+SINGLE_WINDOW = 48
+
+
+def single_timings(model, params, eng, b: int, dev: torch.device) -> dict:
+    """At batch ``b`` of seeded prompts: prefill ms (wall), ms a decode step
+    (wall, the 15 steps after a prefill, argmax between), the device's busy
+    share of a step (torch.profiler over 5 more steps), and tokens/s of
+    ``Engine.generate`` (prefill included); two generate calls must give
+    equal tokens."""
+    cfg = model.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2100 + b)
+    toks = torch.randint(0, cfg.padded_vocab, (b, SINGLE_PROMPT),
+                         generator=gen, device=dev)
+    eng.generate({"tokens": toks}, 2)                          # warm-up
+    cap = SINGLE_PROMPT + SINGLE_NEW + 5
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, toks, cap, torch.bfloat16)
+        sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pos = [SINGLE_PROMPT]
+
+        def step():
+            nonlocal logits, cache
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = model.decode(params, cache, tok, pos[0])
+            pos[0] += 1
+
+        t0 = time.perf_counter()
+        for _ in range(SINGLE_NEW - 1):
+            step()
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / (SINGLE_NEW - 1)
+        log(f"  batch {b}: prefill of {SINGLE_PROMPT} tokens {prefill_ms:.2f} "
+            f"ms wall, decode {step_ms:.2f} ms wall a step")
+        busy = profile_device(step, step_ms, 5, "decode step")
+    sync(dev)
+    t0 = time.perf_counter()
+    r1 = eng.generate({"tokens": toks}, SINGLE_NEW)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    r2 = eng.generate({"tokens": toks}, SINGLE_NEW)
+    require(torch.equal(r1.tokens, r2.tokens),
+            f"single batch {b}: two generate calls differ")
+    new = r1.tokens[:, SINGLE_PROMPT:]
+    require(tuple(r1.tokens.shape) == (b, SINGLE_PROMPT + SINGLE_NEW)
+            and bool(((new >= 0) & (new < cfg.padded_vocab)).all()),
+            f"single batch {b}: tokens of shape {tuple(r1.tokens.shape)} or "
+            "out of range")
+    tps = b * SINGLE_NEW / wall
+    log(f"  batch {b}: Engine.generate {b} x {SINGLE_NEW} tokens in "
+        f"{wall * 1e3:.1f} ms wall, {tps:.1f} tokens/s (prefill included); "
+        "two calls equal")
+    return {"prefill_ms": prefill_ms, "step_ms": step_ms, "busy_ms": busy,
+            "tokens_per_s": tps}
+
+
+def phase_single(dev: torch.device):
+    """Dense serving on the card: ``Engine.generate`` at qwen2-7b's full
+    width and depth (28 layers, d 3584, 28 / 4 heads, hd 128, V 152064;
+    seeded bf16 weights, a bf16 cache) at batch 4 and 16, prompts of 64, 16
+    new tokens: times (``single_timings``), two calls equal, no launch of
+    rows 1-4. Then in fp32 (TF32 off since the device phase) at full width
+    and 4 of 28 layers (cut for time and memory): ragged equals
+    per-request; with a 48-token window and 64-token prompts (the ring
+    wraps) the decode's logits equal the windowed teacher forcing within
+    5e-4; and at the reduced config the card's tokens equal the port's on
+    the CPU (same weights), uniform and ragged. Last, ``--single`` through
+    the CLI on the card."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen2-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    params = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
+    sync(dev)
+    log(f"single: qwen2-7b {cfg.num_layers} layers in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    eng = Engine(model, params, cache_dtype=torch.bfloat16, device=dev)
+    reset_launch_counts()
+    for b in SINGLE_BATCHES:
+        single_timings(model, params, eng, b, dev)
+    launched = {k: n for k, n in launch_counts.items() if n}
+    require(not launched, f"single: the dense path launched {launched}")
+    log("single: no kernel of rows 1-14 launched (dense attention is "
+        "torch.matmul)")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # fp32 at 4 layers: ragged == per-request, the ring buffer
+    cfg4 = replace(cfg, num_layers=4, dtype="float32")
+    model4 = build_model(cfg4)
+    gen.manual_seed(2025)
+    p4 = model4.init(gen, device=dev, weight_dtype=torch.float32)
+    eng4 = Engine(model4, p4, cache_dtype=torch.float32, device=dev)
+    lens = [SINGLE_PROMPT, 17, 40, 33]
+    toks = torch.randint(0, cfg.padded_vocab, (len(lens), SINGLE_PROMPT),
+                         generator=gen, device=dev)
+    ragged = eng4.generate({"tokens": toks}, SINGLE_NEW, prompt_lens=lens)
+    for r, n in enumerate(lens):
+        one = eng4.generate({"tokens": toks[r:r + 1, :n]}, SINGLE_NEW)
+        require(torch.equal(ragged.tokens[r, SINGLE_PROMPT:],
+                            one.tokens[0, n:]),
+                f"single fp32: ragged row {r} (len {n}) != per-request")
+    log(f"single fp32 4 layers: ragged (lens {lens}) equals per-request")
+    modelw = build_model(replace(cfg4, sliding_window=SINGLE_WINDOW))
+    seq = torch.randint(0, cfg.padded_vocab, (2, SINGLE_PROMPT + SINGLE_NEW),
+                        generator=gen, device=dev)
+    worst = 0.0
+    with torch.no_grad():
+        full, _ = modelw.forward(p4, {"tokens": seq})
+        logits, cache = modelw.prefill(p4, seq[:, :SINGLE_PROMPT],
+                                       SINGLE_PROMPT + SINGLE_NEW,
+                                       torch.float32)
+        require(cache["sub0"]["k"].shape[2] == SINGLE_WINDOW,
+                "single: the windowed cache is not a ring of the window")
+        for i in range(SINGLE_PROMPT, SINGLE_PROMPT + SINGLE_NEW):
+            want = full[:, i - 1]
+            err = (logits[:, 0] - want).abs()
+            worst = max(worst, float(err.max()))
+            require(bool((err <= 5e-4 + 5e-4 * want.abs()).all()),
+                    f"single ring buffer: position {i - 1} beyond 5e-4 "
+                    f"(max {float(err.max()):.3e})")
+            logits, cache = modelw.decode(p4, cache, seq[:, i:i + 1], i)
+    log(f"single fp32 4 layers, window {SINGLE_WINDOW}, prompts of "
+        f"{SINGLE_PROMPT}: decode logits within {worst:.3e} of the windowed "
+        "teacher forcing (tol 5e-4)")
+    del eng4, p4, full, cache
+    torch.cuda.empty_cache()
+
+    # the card's tokens against the CPU's at the reduced config (fp32)
+    red = get_reduced("qwen2-7b")
+    modelr = build_model(red)
+    gcpu = torch.Generator()
+    gcpu.manual_seed(2026)
+    pr = modelr.init(gcpu, device="cpu", weight_dtype=torch.float32)
+    toks = torch.randint(0, red.padded_vocab, (4, 12), generator=gcpu)
+    lens = [12, 5, 9, 7]
+    outs = {}
+    for d in ("cpu", dev):
+        e = Engine(modelr, tree_map(lambda x: x.to(d), pr),
+                   cache_dtype=torch.float32, device=d)
+        outs[str(d)] = (e.generate({"tokens": toks.to(d)}, 8).tokens.cpu(),
+                        e.generate({"tokens": toks.to(d)}, 8,
+                                   prompt_lens=lens).tokens.cpu())
+    for name, a, b in zip(("uniform", "ragged"), outs["cpu"], outs[str(dev)]):
+        require(torch.equal(a, b), f"single reduced {name}: card tokens != "
+                "CPU tokens")
+    log("single reduced qwen2-7b fp32: card tokens equal the CPU's, uniform "
+        "and ragged")
+
+    # the CLI on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_main(["--single", "--arch", "qwen2-7b"])
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  cli: {line}")
+    require(len(lines) == 3 and lines[0].startswith("arch=qwen2-7b batch=4")
+            and lines[2].startswith("first sequence: ["),
+            f"single: --single printed {lines}")
+
+
+# ----------------------------------------------------------------------------
+# on request: rows 1, 1q, 2 and 4 against the parent commit
+# ----------------------------------------------------------------------------
+
+def phase_rows(dev: torch.device, dump: str) -> None:
+    """Rows 1, 1q, 2 and 4 at qwen2-7b's main shapes (``kernel_inputs``):
+    the decode over bf16 and fp32 pools (q of the pool's type) and over
+    int8 / fp8 pools (bf16 q), the K+V scatter of bf16 rows into bf16 pools
+    and the quantizing K+V scatter into int8 / fp8 pools; each output and
+    each launch's time (``time_ms``) saved to ``dump``. Uses only the
+    wrappers' public API, so the same phase runs on an older tree's package
+    (``--src``)."""
+    from repro_torch.kernels import (paged_attention_decode, paged_scatter_kv,
+                                     paged_scatter_quant_kv)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in kernel_inputs().items()}
+    lengths, table, ws, wo = t["lengths"], t["table"], t["wslot"], t["woff"]
+    out, ms = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, new = (t[x].to(dt) for x in ("q", "k", "v", "new"))
+        name = str(dt)[6:]
+        out[f"row1 {name}"] = paged_attention_decode(q, k, v, table, lengths)
+        ms[f"row1 {name}"] = time_ms(
+            lambda: paged_attention_decode(q, k, v, table, lengths), flush)
+        kk, vv = k.clone(), v.clone()
+        paged_scatter_kv(kk, vv, new, new, ws, wo)
+        out[f"row2 {name} k"], out[f"row2 {name} v"] = kk, vv
+        ms[f"row2 {name}"] = time_ms(
+            lambda: paged_scatter_kv(kk, vv, new, new, ws, wo), flush)
+    q, new = t["q"].to(torch.bfloat16), t["new"].to(torch.bfloat16)
+    for qdt in QUANT:
+        name = str(qdt)[6:]
+        kq, ks, vq, vs = quantized_pools(t["k"], t["v"], qdt)
+        out[f"row1q {name}"] = paged_attention_decode(q, kq, vq, table,
+                                                      lengths, ks, vs)
+        ms[f"row1q {name}"] = time_ms(lambda: paged_attention_decode(
+            q, kq, vq, table, lengths, ks, vs), flush)
+        pools = [x.clone() for x in (kq, ks, vq, vs)]
+        paged_scatter_quant_kv(*pools, new, new, ws, wo)
+        for key, x in zip(("k", "k_scale", "v", "v_scale"), pools):
+            out[f"row4 {name} {key}"] = x
+        ms[f"row4 {name}"] = time_ms(
+            lambda: paged_scatter_quant_kv(*pools, new, new, ws, wo), flush)
+    sync(dev)
+    torch.save({"out": {k: x.cpu() for k, x in out.items()}, "ms": ms}, dump)
+    log("rows: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+
+
+def phase_parent() -> None:
+    """``rows`` in four processes, in turns: the parent's tree (``PARENT``,
+    a ``git archive`` of the parent commit whose kernels build into its own
+    ``build/``), this tree, this tree, the parent. Every output must be bit
+    for bit the same in all four; prints each launch's time in the four
+    runs and this tree's mean over the parent's."""
+    runs = [("parent", PARENT), ("this", ROOT), ("this", ROOT),
+            ("parent", PARENT)]
+    got = []
+    for i, (who, root) in enumerate(runs):
+        dump = os.path.join(ROOT, "build", f"rows_{i}.pt")
+        os.makedirs(os.path.dirname(dump), exist_ok=True)
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--phases",
+             "device,rows", "--src", os.path.join(root, "src"), "--dump",
+             dump], capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0, f"parent: the {who} run {i} failed:\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        got.append(torch.load(dump))
+    for key in got[0]["out"]:
+        require(all(bits_equal(g["out"][key], got[0]["out"][key])
+                    for g in got[1:]),
+                f"parent: {key} differs between the parent and this tree")
+    log(f"parent: {len(got[0]['out'])} outputs bit for bit equal in the four "
+        "runs (parent, this, this, parent)")
+    for key in got[0]["ms"]:
+        t = [g["ms"][key] for g in got]
+        base, mine = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        log(f"  {key}: parent {t[0]:.4f}, {t[3]:.4f}  this {t[1]:.4f}, "
+            f"{t[2]:.4f} ms  (this / parent {mine / base:.4f})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + ON_REQUEST))
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the package tree to import (rows: an older tree's)")
+    ap.add_argument("--dump", default="",
+                    help="rows: write the outputs and times here")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    bad = sorted(set(phases) - set(PHASES + ON_REQUEST))
+    if bad:
+        ap.error(f"unknown phases {bad}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "runs the port on an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, args.src)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi_line = phase_device()
+    if "rows" in phases or "parent" in phases:
+        if "rows" in phases:
+            phase_rows(dev, args.dump)
+        if "parent" in phases:
+            phase_parent()
+        log(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     # the split forward's mutant builds beside the kernels
     mutant = start_mutant_build() if "kernels" in phases else None
     try:
@@ -3843,6 +4248,11 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         launches["fleet_codist"] = phase_fleet_codist(dev)
         torch.cuda.empty_cache()
         log(f"phase fleet_codist: {time.perf_counter() - t0:.1f} s")
+    if "single" in phases:
+        t0 = time.perf_counter()
+        phase_single(dev)
+        torch.cuda.empty_cache()
+        log(f"phase single: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})

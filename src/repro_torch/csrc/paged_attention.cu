@@ -26,18 +26,28 @@
 // short contexts the chain of dependent loads (lengths and table, then the
 // first block, then the combine's partials) sets the time.
 //
-// * Grid (split, slot): one CTA takes a run of `bps` table entries of one
-//   slot for every KV head, so a pool block, (BS, KVh, hd), is one
-//   contiguous span. The split plan (kernels/paged_attention.py
-//   `decode_split_plan`) comes from S, MB and the SM count alone; the launch
-//   reads nothing back from the device. Runs past n_live = min((len + BS) /
+// * Grid (split, slot, head group): one CTA takes a run of `bps` table
+//   entries of one slot for a group of KVg KV heads. Where the shapes let
+//   one CTA hold every KV head (KVg = KVh, one group: every config of the
+//   repo but qwen1.5-4b), a pool block, (BS, KVh, hd), is one contiguous
+//   span. Where they do not (20 KV heads at G = 1: too many warps, and a
+//   bf16 stage of 160 KB that leaves the ring one stage; an fp32 one that
+//   does not fit at all), the heads split into KVh / KVg groups sized so
+//   that at least two stages of the group's K and V rows fit the ring
+//   budget (kernels/paged_attention.py `decode_head_groups`: 4 heads in
+//   bf16, int8 and fp8, 2 in fp32 at qwen1.5-4b). A group's slice of a
+//   block is BS runs of KVg * hd contiguous elements, one row apart in the
+//   pool; the producer warp copies them as BS 1D bulk copies each for K
+//   and V, a lane a row. The split plan (`decode_split_plan`) comes from S,
+//   MB, the group count and the SM count alone; the launch reads nothing
+//   back from the device. Runs past n_live = min((len + BS) /
 //   BS, MB) exit at once; no pool load is issued for m >= n_live, and an
 //   out-of-range table entry reads the null block 0.
 // * A CTA loads q, the slot's length and the run's table entries together,
 //   once, and keeps up to 4 blocks in flight: per block one 1D bulk copy
-//   each for K and V (cp.async.bulk onto the stage's mbarrier; plus the
-//   block's two rows of scales in the quantized pools) into a ring of
-//   shared-memory stages. The last warp to release a stage (a shared-memory
+//   each for K and V (BS of each for a head group; cp.async.bulk onto the
+//   stage's mbarrier; plus the block's two rows of scales in the quantized
+//   pools) into a ring of shared-memory stages. The last warp to release a stage (a shared-memory
 //   count) issues the copies of the block `stages` ahead into it; no warp
 //   waits for another in the loop, and there is no __syncthreads there.
 // * Warps: WK per KV head (8 a CTA at qwen2-7b, two CTAs an SM: at most 128
@@ -70,9 +80,12 @@
 // is the zero row, so its output is exactly 0.
 //
 // Instances: hd in {32, 64, 128} (4 dims a lane), GP in {1, 2, 8} (at most
-// 8 warps a CTA for GP = 8, 16 otherwise), BS any (a multiple of 4 for the
-// quantized pools, whose scale rows are copied in bulk), every pool type;
-// q's type is read at run time. cudaFuncSetAttribute runs once per instance.
+// 8 warps a CTA for GP = 8, 16 otherwise; a head group of at most 8 KV heads
+// keeps within both), BS any whose K and V rows of one KV head fit shared
+// memory (a multiple of 4 for the quantized pools, whose scale rows are
+// copied in bulk), every pool type, each as a one-group and a head-group
+// instance; q's type is read at run time. cudaFuncSetAttribute runs once
+// per instance.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -203,10 +216,14 @@ struct Params {
   float* part_acc;  // (S, nsplit, H, hd)
   void* out;
   int S, H, KVh, hd, NB, BS, MB, bps, nsplit;
+  int KVg;          // KV heads a CTA takes (KVh: one group)
   int G, WK, stages, q_dtype;
   float scale;
-  int block_bytes;  // one pool block, BS * KVh * hd elements
-  int stage_bytes;  // K and V blocks (+ their scale rows), 128-byte aligned
+  int pool_block_bytes;  // one pool block, BS * KVh * hd elements
+  int row_bytes;    // one pool row, KVh * hd elements
+  int grow_bytes;   // a head group's slice of a row, KVg * hd elements
+  int block_bytes;  // a head group's slice of a block, BS * KVg * hd elements
+  int stage_bytes;  // K and V slices (+ their scale rows), 128-byte aligned
   int ring_bytes;   // the stages, or the warps' merge buffer if larger
 };
 
@@ -272,8 +289,11 @@ __device__ __forceinline__ float reduce_scores(float (&v)[T][GP], int lane) {
   return w[0];
 }
 
-template <typename KT, int HD, int GP>
-__global__ void __launch_bounds__(GP == 8 ? 256 : 512, GP == 8 ? 2 : 1)
+// GROUPED: a CTA takes a group of the KV heads (its own instances, so that
+// the one-group instances keep their code and registers; the grouped GP = 8
+// instances may use more than 128 registers, at one CTA an SM)
+template <typename KT, int HD, int GP, bool GROUPED>
+__global__ void __launch_bounds__(GP == 8 ? 256 : 512, GP == 8 && !GROUPED ? 2 : 1)
 decode_partial_kernel(const Params p) {
   using L = Layout<HD, GP>;
   constexpr int kLpk = L::kLpk, kKps = L::kKps, kChunk = L::kChunk;
@@ -282,11 +302,12 @@ decode_partial_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int split = blockIdx.x, s = blockIdx.y;
+  const int kh0 = GROUPED ? blockIdx.z * p.KVg : 0;  // the group's first KV head
   const int m_begin = split * p.bps;
 
-  const int nw = p.KVh * p.WK;
+  const int nw = p.KVg * p.WK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kh = warp / p.WK, wk = warp % p.WK;
+  const int kh = warp / p.WK, wk = warp % p.WK;  // kh within the group
   const int G = p.G;
   const int grp = lane / kLpk;   // key group of a step
   const int t = lane % kLpk;     // dims [4t, 4t + 4) of the row
@@ -303,7 +324,7 @@ decode_partial_kernel(const Params p) {
   for (int i = 0; i < GP; ++i)
     if ((i ^ hl) < G)
       load_q4(p.q, p.q_dtype,
-              ((size_t)s * p.H + (size_t)kh * G + (i ^ hl)) * HD + t * kDpl, qr[i]);
+              ((size_t)s * p.H + (size_t)(kh0 + kh) * G + (i ^ hl)) * HD + t * kDpl, qr[i]);
   const int len = p.lengths[s];
   for (int i = threadIdx.x; i < min(p.bps, p.MB - m_begin); i += blockDim.x) {
     const int b = p.table[(size_t)s * p.MB + m_begin + i];
@@ -318,24 +339,41 @@ decode_partial_kernel(const Params p) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // block i of the run into stage st: K, V (and their scale rows) in bulk
-  auto issue = [&](int i, int st) {
+  // block i of the run into stage st: K, V (and their scale rows) in bulk.
+  // One group: lane 0 alone, one copy each. Head groups: the whole warp,
+  // lane 0 arming the barrier, then a lane a row of K and of V.
+  auto issue = [&](int i, int st, int ln) {
     unsigned char* dst = smem + (size_t)st * p.stage_bytes;
-    mbar_expect_tx(full + st, 2 * p.block_bytes + (kQuant ? 8 * p.BS : 0));
-    const size_t off = (size_t)tbl[i] * p.block_bytes;
-    bulk_load(dst, static_cast<const char*>(p.k) + off, p.block_bytes, full + st);
-    bulk_load(dst + p.block_bytes, static_cast<const char*>(p.v) + off,
-              p.block_bytes, full + st);
+    const size_t off = (size_t)tbl[i] * p.pool_block_bytes;
+    const char* kg = static_cast<const char*>(p.k) + off;
+    const char* vg = static_cast<const char*>(p.v) + off;
+    const bool lead = !GROUPED || ln == 0;  // arms the barrier, copies the scales
+    if (lead) mbar_expect_tx(full + st, 2 * p.block_bytes + (kQuant ? 8 * p.BS : 0));
+    if constexpr (!GROUPED) {
+      bulk_load(dst, kg, p.block_bytes, full + st);
+      bulk_load(dst + p.block_bytes, vg, p.block_bytes, full + st);
+    } else {
+      __syncwarp();
+      const size_t g0 = (size_t)kh0 * HD * sizeof(KT);
+      for (int r = ln; r < p.BS; r += 32) {
+        const size_t src = (size_t)r * p.row_bytes + g0;
+        bulk_load(dst + r * p.grow_bytes, kg + src, p.grow_bytes, full + st);
+        bulk_load(dst + p.block_bytes + r * p.grow_bytes, vg + src, p.grow_bytes,
+                  full + st);
+      }
+    }
     if constexpr (kQuant) {
-      float* sc = reinterpret_cast<float*>(dst + 2 * p.block_bytes);
-      bulk_load(sc, p.ks + (size_t)tbl[i] * p.BS, 4 * p.BS, full + st);
-      bulk_load(sc + p.BS, p.vs + (size_t)tbl[i] * p.BS, 4 * p.BS, full + st);
+      if (lead) {
+        float* sc = reinterpret_cast<float*>(dst + 2 * p.block_bytes);
+        bulk_load(sc, p.ks + (size_t)tbl[i] * p.BS, 4 * p.BS, full + st);
+        bulk_load(sc + p.BS, p.vs + (size_t)tbl[i] * p.BS, 4 * p.BS, full + st);
+      }
     }
   };
-  if (threadIdx.x == 0)
-    for (int i = 0; i < min(p.stages, nblk); ++i) issue(i, i);
+  if (GROUPED ? warp == 0 : threadIdx.x == 0)
+    for (int i = 0; i < min(p.stages, nblk); ++i) issue(i, i, lane);
 
-  const int row_elems = p.KVh * HD;  // elements between two rows of a block
+  const int row_elems = p.KVg * HD;  // elements between two rows of a stage
   float acc[GP][kDpl];
 #pragma unroll
   for (int i = 0; i < GP; ++i) {
@@ -444,9 +482,18 @@ decode_partial_kernel(const Params p) {
     }
     // the last warp to release the stage refills it
     __syncwarp();
-    if (lane == 0 && atomicAdd(released + st, 1) == nw - 1) {
-      released[st] = 0;
-      if (it + p.stages < nblk) issue(it + p.stages, st);
+    if constexpr (!GROUPED) {
+      if (lane == 0 && atomicAdd(released + st, 1) == nw - 1) {
+        released[st] = 0;
+        if (it + p.stages < nblk) issue(it + p.stages, st, 0);
+      }
+    } else {
+      int last = 0;
+      if (lane == 0) last = atomicAdd(released + st, 1) == nw - 1;
+      if (__shfl_sync(kFull, last, 0)) {
+        if (lane == 0) released[st] = 0;
+        if (it + p.stages < nblk) issue(it + p.stages, st, lane);
+      }
     }
   }
 
@@ -482,7 +529,7 @@ decode_partial_kernel(const Params p) {
   // per head the warps' weights exp(m_w - M) once (this warp's p words
   // hold them), then each element's sum over the warps by FMAs alone
   const float* mk = reinterpret_cast<const float*>(smem) + (size_t)kh * p.WK * L::kMerge;
-  const size_t pbase = ((size_t)s * p.nsplit + split) * p.H + (size_t)kh * G;
+  const size_t pbase = ((size_t)s * p.nsplit + split) * p.H + (size_t)(kh0 + kh) * G;
   float* wt = pw;  // [WK][GP]
   if (lane < G) {
     float M = kNeg;
@@ -590,23 +637,32 @@ decode_combine_kernel(const Params p) {
 template <typename KT, int HD, int GP>
 int launch_partial(Params& p, cudaStream_t st) {
   using L = Layout<HD, GP>;
-  auto kern = decode_partial_kernel<KT, HD, GP>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool grouped = p.KVg != p.KVh;
+  auto kern = grouped ? decode_partial_kernel<KT, HD, GP, true>
+                      : decode_partial_kernel<KT, HD, GP, false>;
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(decode_partial_kernel<KT, HD, GP, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem),
+      cudaFuncSetAttribute(decode_partial_kernel<KT, HD, GP, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)};
+  if (attr[grouped] != cudaSuccess) return static_cast<int>(attr[grouped]);
+  if (p.KVg <= 0 || p.KVh % p.KVg != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (p.BS + L::kChunk - 1) / L::kChunk;
-  p.WK = std::max(1, std::min(chunks, 8 / p.KVh));  // 8 warps a CTA where it can
-  const int nw = p.KVh * p.WK;
+  p.WK = std::max(1, std::min(chunks, 8 / p.KVg));  // 8 warps a CTA where it can
+  const int nw = p.KVg * p.WK;
   if (nw > (GP == 8 ? 8 : 16)) return static_cast<int>(cudaErrorInvalidValue);
   const int esize = sizeof(KT);
-  p.block_bytes = p.BS * p.KVh * HD * esize;
+  p.row_bytes = p.KVh * HD * esize;
+  p.pool_block_bytes = p.BS * p.row_bytes;
+  p.grow_bytes = p.KVg * HD * esize;
+  p.block_bytes = p.BS * p.grow_bytes;
   p.stage_bytes = (2 * p.block_bytes + (IsQuant<KT>::value ? 8 * p.BS : 0) + 127) / 128 * 128;
   // one stage past the budget still fits a CTA an SM (fp32 pools, many KV heads)
   p.stages = std::min({kMaxStages, std::max(1, kRingBudget / p.stage_bytes), p.bps});
   p.ring_bytes = std::max(p.stages * p.stage_bytes, L::merge_bytes(nw));
   const int bytes = L::bytes(p.ring_bytes, p.bps, nw);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  kern<<<dim3(p.nsplit, p.S), nw * 32, bytes, st>>>(p);
+  kern<<<dim3(p.nsplit, p.S, p.KVh / p.KVg), nw * 32, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -650,7 +706,9 @@ const char* repro_error_string(int code) {
 // also 3 = int8, 4 = float8_e4m3fn, which need k_scale and v_scale (NB, BS)
 // fp32 (null for the other pools) and an fp32 or bf16 q. out has q's dtype.
 // scale is hd^-0.5, rounded to fp32 by the caller as the reference does.
-// bps: table entries per run (the caller's split plan); part_m, part_l:
+// bps: table entries per run (the caller's split plan); kvh_per_cta: the
+// KV heads a CTA takes, a divisor of KVh (the caller's head-group plan;
+// KVh for one group); part_m, part_l:
 // (S, ceil(MB / bps), H) fp32 scratch; part_acc: the same with a trailing hd
 // axis. The pools and scales start on a 16-byte boundary.
 int repro_paged_attention_decode(const void* q, const void* k_pool,
@@ -659,8 +717,8 @@ int repro_paged_attention_decode(const void* q, const void* k_pool,
                                  const int* lengths, float* part_m,
                                  float* part_l, float* part_acc, void* out,
                                  int S, int H, int KVh, int hd, int NB, int BS,
-                                 int MB, int bps, float scale, int q_dtype,
-                                 int kv_dtype, void* stream) {
+                                 int MB, int bps, int kvh_per_cta, float scale,
+                                 int q_dtype, int kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0 || KVh <= 0 || H % KVh != 0 || bps <= 0 || q_dtype < 0 || q_dtype > 2 ||
       (kv_dtype >= 3 && q_dtype == 2))
@@ -670,7 +728,7 @@ int repro_paged_attention_decode(const void* q, const void* k_pool,
   p.table = table; p.lengths = lengths;
   p.part_m = part_m; p.part_l = part_l; p.part_acc = part_acc; p.out = out;
   p.S = S; p.H = H; p.KVh = KVh; p.hd = hd; p.NB = NB; p.BS = BS; p.MB = MB;
-  p.bps = bps; p.nsplit = (MB + bps - 1) / bps;
+  p.bps = bps; p.nsplit = (MB + bps - 1) / bps; p.KVg = kvh_per_cta;
   p.G = H / KVh; p.q_dtype = q_dtype; p.scale = scale;
   int rc;
   switch (kv_dtype) {

@@ -78,6 +78,13 @@
 // mode never changes a value that the plain conversion would keep finite.
 // A unit's quantized bytes go out in one 4- or 8-byte store; lane 0 writes
 // the scale. It writes the payload rows and their scales and nothing else.
+// Rows longer than the registers hold (over kRegRow = 2,048 values, e.g.
+// qwen1.5-4b's 20 x 128 = 2,560) take two passes over the row instead: the
+// first reduces the absmax over chunks of the row, the second re-reads each
+// chunk (from L1 / L2, just read) and quantizes it with the same
+// arithmetic. The absmax is a max, which the order of the values does not
+// change, and the quantizing is elementwise, so the two-pass path is
+// bit-exact as well.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -381,6 +388,88 @@ scatter_quant_kernel(Q* k_pool, float* k_scales, const R* k_rows, Q* v_pool,
   });
 }
 
+// scatter_quant for rows longer than the registers hold: pass 1 reduces
+// each row's absmax over chunks of UPL units a lane (every load of the chunk
+// of both rows in flight; an index past the row reads its last unit again,
+// which a max ignores), pass 2 re-reads each chunk and quantizes it as
+// quant_rows does.
+template <typename R, typename Q, int VEC, int UPL, int NP>
+__device__ __forceinline__ void quant_rows_wide(Q* const (&pools)[2],
+                                                float* const (&scales)[2],
+                                                const R* const (&rows)[2], int w,
+                                                size_t row, int row_elems,
+                                                float qmax, int lane) {
+  const int n_units = row_elems / VEC;
+  auto load_chunk = [&](int base, float (&x)[NP][UPL * VEC]) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int k = 0; k < UPL; ++k)
+        load_unit<R, VEC>(&x[p][k * VEC],
+                          rows[p] + (size_t)w * row_elems +
+                              (size_t)min(base + lane + 32 * k, n_units - 1) * VEC);
+  };
+  float amax[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) amax[p] = 0.f;
+  for (int base = 0; base < n_units; base += 32 * UPL) {
+    float x[NP][UPL * VEC];
+    load_chunk(base, x);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < UPL * VEC; ++i) amax[p] = fmaxf(amax[p], fabsf(x[p][i]));
+  }
+  float scale[NP], inv[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    scale[p] = warp_absmax(amax[p]) / qmax;
+    inv[p] = scale[p] > 0.f ? 1.0f / fmaxf(scale[p], 1e-30f) : 0.f;
+  }
+  for (int base = 0; base < n_units; base += 32 * UPL) {
+    float x[NP][UPL * VEC];
+    load_chunk(base, x);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      Q* dst = pools[p] + row * row_elems;
+#pragma unroll
+      for (int k = 0; k < UPL; ++k) {
+        const int u = base + lane + 32 * k;
+        if (u < n_units)
+          store_unit<Q, VEC>(dst + (size_t)u * VEC, &x[p][k * VEC], inv[p]);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) scales[p][row] = scale[p];
+  }
+}
+
+template <typename R, typename Q, int VEC, int UPL>
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_quant_wide_kernel(Q* k_pool, float* k_scales, const R* k_rows, Q* v_pool,
+                          float* v_scales, const R* v_rows,
+                          const int* __restrict__ write_slot,
+                          const int* __restrict__ write_off, int num_blocks,
+                          int block_size, int row_elems, int num_slots,
+                          float qmax, bool vec_map) {
+  const int lane = threadIdx.x & 31;
+  Q* const pools[2] = {k_pool, v_pool};
+  float* const scales[2] = {k_scales, v_scales};
+  const R* const rows[2] = {k_rows, v_rows};
+  for_each_writer(write_slot, write_off, num_blocks, block_size, num_slots,
+                  vec_map, [&](int b, int w, int off) {
+    const size_t row = (size_t)b * block_size + off;
+    if (v_pool != nullptr)
+      quant_rows_wide<R, Q, VEC, UPL, 2>(pools, scales, rows, w, row,
+                                         row_elems, qmax, lane);
+    else
+      quant_rows_wide<R, Q, VEC, UPL, 1>(pools, scales, rows, w, row,
+                                         row_elems, qmax, lane);
+  });
+}
+
 struct QuantArgs {
   void* k_pool;
   float* k_scales;
@@ -405,13 +494,28 @@ void launch_scatter_quant(const QuantArgs& a, cudaStream_t st) {
           a.row_elems, a.num_slots, a.qmax, a.vec_map);
 }
 
+template <typename R, typename Q, int VEC, int UPL>
+void launch_scatter_quant_wide(const QuantArgs& a, cudaStream_t st) {
+  scatter_quant_wide_kernel<R, Q, VEC, UPL>
+      <<<(a.nb + kMapPerCta - 1) / kMapPerCta, kScatterThreads, 0, st>>>(
+          static_cast<Q*>(a.k_pool), a.k_scales,
+          static_cast<const R*>(a.k_rows), static_cast<Q*>(a.v_pool),
+          a.v_scales, static_cast<const R*>(a.v_rows), a.ws, a.wo, a.nb, a.bs,
+          a.row_elems, a.num_slots, a.qmax, a.vec_map);
+}
+
 bool aligned(const void* p, size_t a) {
   return (reinterpret_cast<uintptr_t>(p) % a) == 0;
 }
 
+// the longest row one warp holds in registers (32 lanes x 64 values)
+constexpr int kRegRow = 2048;
+
 // 16-byte units where the row length and every pointer allow (UPL the
 // smallest of 1, 2, 4, 8, 16 units a lane that holds the row), else one
-// element a unit (8, 16, 32 or 64 a lane)
+// element a unit (8, 16, 32 or 64 a lane); rows over kRegRow values take
+// the two-pass kernel in chunks of 4 units a lane (16 a lane one element a
+// unit)
 template <typename R, typename Q>
 int scatter_quant_units(const QuantArgs& a, cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(R);
@@ -420,7 +524,10 @@ int scatter_quant_units(const QuantArgs& a, cudaStream_t st) {
                    aligned(a.v_pool, kVec);
   const int per_lane = vec ? (a.row_elems / kVec + 31) / 32
                            : (a.row_elems + 31) / 32;
-  if (vec) {
+  if (a.row_elems > kRegRow) {
+    if (vec) launch_scatter_quant_wide<R, Q, kVec, 4>(a, st);
+    else launch_scatter_quant_wide<R, Q, 1, 16>(a, st);
+  } else if (vec) {
     if (per_lane <= 1) launch_scatter_quant<R, Q, kVec, 1>(a, st);
     else if (per_lane <= 2) launch_scatter_quant<R, Q, kVec, 2>(a, st);
     else if (per_lane <= 4) launch_scatter_quant<R, Q, kVec, 4>(a, st);
@@ -530,7 +637,7 @@ int repro_paged_gather(const void* pool, const int* table, const int* n_live,
 }
 
 // k_pool (NB, BS, row) int8 / e4m3 and k_scales (NB, BS) fp32 in place;
-// k_rows (S, row) with row = KVh * hd <= 2048; v_pool, v_scales, v_rows the
+// k_rows (S, row) with row = KVh * hd values; v_pool, v_scales, v_rows the
 // same for the layer's V pool, or all null for a single pool; row_dtype 0 =
 // float32, 1 = bfloat16; quant_dtype 0 = int8, 1 = float8_e4m3fn.
 int repro_paged_scatter_quant(void* k_pool, float* k_scales,
@@ -540,7 +647,7 @@ int repro_paged_scatter_quant(void* k_pool, float* k_scales,
                               int num_blocks, int block_size, int row_elems,
                               int num_slots, int row_dtype, int quant_dtype,
                               void* stream) {
-  if (row_elems > 32 * 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (row_elems <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   QuantArgs a{k_pool, k_scales, k_rows, v_pool, v_scales, v_rows,
               write_slot, write_off, num_blocks, block_size, row_elems,

@@ -55,12 +55,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_attention": {
         # q, k_pool, v_pool, k_scale, v_scale, table, lengths, part_m,
         # part_l, part_acc, out, S, H, KVh, hd, NB, BS, MB, blocks_per_split,
-        # scale, q_dtype, kv_dtype, stream
+        # KV heads a CTA, scale, q_dtype, kv_dtype, stream
         "repro_paged_attention_decode": [
             c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
             c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int,
-            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, c_int,
-            c_void_p],
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int,
+            c_int, c_void_p],
     },
     "fused_losses": {
         # x, t, labels, out, res, T, V, v_real, vectors per split, splits,

@@ -4,13 +4,15 @@ One-token GQA decode for every slot straight off the block pool: the kernel
 (``csrc/paged_attention.cu``) reads each live K/V block once through the
 block table and folds it into an fp32 online softmax, so no gathered
 ``(S, MB*BS, KVh, hd)`` context ever exists. One CTA takes a run of
-``blocks_per_split`` blocks of one slot for every KV head: a producer warp
-streams the run's pool blocks into a shared-memory ring with 1D bulk copies
-while the consumer warps, one or more per KV head, keep q and the
+``blocks_per_split`` blocks of one slot for a group of KV heads (every KV
+head where the shapes allow it): a producer warp streams the run's pool
+blocks (or the group's rows of them) into a shared-memory ring with 1D bulk
+copies while the consumer warps, one or more per KV head, keep q and the
 accumulators in registers and merge their softmax states at the end of the
-run. A second launch merges the runs of each slot. ``decode_split_plan``
-picks the run length from the shapes and the card's SM count alone, so the
-launch reads nothing back from the device.
+run. A second launch merges the runs of each slot. ``decode_head_groups``
+sizes the head groups and ``decode_split_plan`` the runs, from the shapes
+and the card's SM count alone, so the launch reads nothing back from the
+device.
 
 The plain version walks the same blocks with the same fp32 state (running
 max, denominator, accumulator; ``NEG`` masking for positions past the
@@ -48,27 +50,58 @@ NEG = -1e30
 # ring), and several slots' runs aim at WAVES waves over the SMs
 CTAS_PER_SM = 2
 WAVES = 3
+# the bytes of K/V stages a CTA's ring may hold (csrc/paged_attention.cu
+# kRingBudget: two CTAs an SM)
+RING_BUDGET = 100 * 1024
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _POOL_CODES = {**_DTYPE_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 
 
-def decode_split_plan(slots: int, max_blocks: int,
-                      num_sms: int) -> Tuple[int, int]:
+def decode_split_plan(slots: int, max_blocks: int, num_sms: int,
+                      groups: int = 1) -> Tuple[int, int]:
     """(blocks per split, splits per slot) of the decode kernel's grid
-    (slots x splits CTAs), from ints alone; the slots' lengths never enter,
-    so the launch needs no value from the device. A lone slot's runs split
-    its table evenly over one resident round (``CTAS_PER_SM`` CTAs on each
-    of ``num_sms`` SMs). Several slots are ragged, so their runs are short
-    enough for ``WAVES`` waves over the SMs and the live ones spread."""
-    for v in (slots, max_blocks, num_sms):
+    (splits x slots x ``groups`` head-group CTAs), from ints alone; the
+    slots' lengths never enter, so the launch needs no value from the
+    device. A lone slot's runs split its table evenly over one resident
+    round (``CTAS_PER_SM`` CTAs on each of ``num_sms`` SMs, shared by its
+    head groups). Several slots are ragged, so their runs are short enough
+    for ``WAVES`` waves over the SMs and the live ones spread. One group
+    gives the plan of the kernel without head groups."""
+    for v in (slots, max_blocks, num_sms, groups):
         _require(type(v) is int and v > 0,
                  f"the split plan takes positive ints, got {v!r}")
     if slots == 1:
-        bps = -(-max_blocks // (CTAS_PER_SM * num_sms))
+        bps = -(-max_blocks // max(1, CTAS_PER_SM * num_sms // groups))
     else:
-        bps = max(1, max_blocks // -(-WAVES * num_sms // slots))
+        bps = max(1, max_blocks // -(-WAVES * num_sms // (slots * groups)))
     return bps, -(-max_blocks // bps)
+
+
+def decode_head_groups(kvh: int, g: int, hd: int, block_size: int,
+                       elem_size: int, quantized: bool) -> int:
+    """The KV heads one CTA of the decode takes, a divisor of ``kvh``.
+    Every KV head wherever one CTA holds them all — at most 8 KV heads
+    (16 at G <= 2), a warp or more each, and a K and a V block within the
+    ring's shared memory; that is every config of the repo but
+    qwen1.5-4b. Else the most of 8, 4 and 2 that divides ``kvh`` and whose
+    K and V rows (and scale rows) fit the ring ``RING_BUDGET`` twice, so
+    that a stage is in flight behind the one being read; else 1."""
+    for v in (kvh, g, hd, block_size, elem_size):
+        _require(type(v) is int and v > 0,
+                 f"the head-group plan takes positive ints, got {v!r}")
+    if (kvh <= (8 if g > 2 else 16)
+            and 2 * block_size * kvh * hd * elem_size + 8 * block_size
+            <= 200 * 1024):
+        return kvh
+
+    def stage(n):
+        raw = 2 * block_size * n * hd * elem_size + (8 * block_size
+                                                      if quantized else 0)
+        return -(-raw // 128) * 128
+
+    return next((n for n in (8, 4, 2)
+                 if kvh % n == 0 and 2 * stage(n) <= RING_BUDGET), 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,14 +246,14 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     g = h // kvh
     es = k_pool.element_size()
     # the kernel's instances: 4 dims of a row per lane, G padded to 1, 2 or
-    # 8, one CTA over every KV head (a warp or more each, at most 8 warps at
-    # G > 2 and 16 otherwise) with a ring of at least one K and V block
-    _require(hd in (32, 64, 128) and g <= 8 and kvh <= (8 if g > 2 else 16),
-             f"the CUDA decode takes head_dim 32/64/128, G <= 8 and KVh <= 8 "
-             f"(16 at G <= 2), got head_dim {hd}, G {g}, KVh {kvh}")
-    _require(2 * bs * kvh * hd * es + 8 * bs <= 200 * 1024,
-             f"a K and a V block of {bs} x {kvh} x {hd} {k_pool.dtype} do not "
-             "fit the kernel's shared-memory ring")
+    # 8; any KV head count (split into head groups where one CTA cannot
+    # hold them all), with a ring of at least one K and V block of a head
+    _require(hd in (32, 64, 128) and g <= 8,
+             f"the CUDA decode takes head_dim 32/64/128 and G <= 8, got "
+             f"head_dim {hd}, G {g}")
+    _require(2 * bs * hd * es + 8 * bs <= 200 * 1024,
+             f"a K and a V block of {bs} x {hd} {k_pool.dtype} (one KV head) "
+             "do not fit the kernel's shared-memory ring")
     _require(not quantized or bs % 4 == 0,
              f"quantized pools need a block size that is a multiple of 4, "
              f"got {bs}")
@@ -231,7 +264,9 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     if s == 0:
         return out
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    bps, nsplit = decode_split_plan(plan_slots or s, mb, _num_sms(index))
+    kvg = decode_head_groups(kvh, g, hd, bs, es, quantized)
+    bps, nsplit = decode_split_plan(plan_slots or s, mb, _num_sms(index),
+                                    kvh // kvg)
     part_ml = q.new_empty((2, s, nsplit, h), dtype=torch.float32)
     part_acc = q.new_empty((s, nsplit, h, hd), dtype=torch.float32)
     lib = _build.load("paged_attention")
@@ -242,7 +277,7 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), lengths.data_ptr(), part_ml[0].data_ptr(),
             part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-            s, h, kvh, hd, nb, bs, mb, bps, hd ** -0.5,
+            s, h, kvh, hd, nb, bs, mb, bps, kvg, hd ** -0.5,
             _DTYPE_CODES[q.dtype], _POOL_CODES[k_pool.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     name = "paged_attention_decode" + ("_quant" if quantized else "")

@@ -42,8 +42,6 @@ from repro_torch.kernels import _build
 QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 _QUANT_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _ROW_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the quantizing scatter holds a row in one warp's registers: 32 lanes x 64
-MAX_QUANT_ROW = 2048
 
 
 def is_quantized_dtype(dtype) -> bool:
@@ -272,9 +270,6 @@ def _scatter_quant(k_pool, k_scales, k_new, v_pool, v_scales, v_new,
                          f"{tuple(k_scales.shape)} {k_scales.dtype}")
     if k_new.dtype not in _ROW_CODES:
         raise ValueError(f"new dtype {k_new.dtype} unsupported (fp32/bf16)")
-    if kvh * hd > MAX_QUANT_ROW:
-        raise ValueError(f"rows of {kvh * hd} values: the kernel takes at "
-                         f"most {MAX_QUANT_ROW}")
     if dev.type == "cpu":
         paged_scatter_quant_plain(k_pool, k_scales, k_new, write_slot,
                                   write_off)

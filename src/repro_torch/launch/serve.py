@@ -16,9 +16,11 @@ peers' prefill logits; ``--snapshot-dir`` refreshes peer weights from
 ``checkpoint/io.py`` snapshots (the async runtime's ``runtime_ckpt/``);
 ``--faults`` takes the training CLI's fault spec on the decode-tick clock
 (pauses in simulated ms), defended unless ``--no-defend``, with
-``--hedge``, ``--recover-after-ms`` and ``--degraded-admission``. Flags of
-features the port has not reached (``--single``, the observability flags)
-exit with status 2 and name the item that brings them.
+``--hedge``, ``--recover-after-ms`` and ``--degraded-admission``. The
+legacy single-engine path, ``--single``, runs one ``Engine.generate`` batch
+of ``--batch`` random prompts of ``--prompt-len`` tokens and ``--max-new``
+new ones (no fleet). Flags of features the port has not reached (the
+observability flags) exit with status 2 and name the item that brings them.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.kernels.paged_cache import is_quantized_dtype
 from repro_torch.models import build_model
 from repro_torch.runtime.clock import parse_faults
-from repro_torch.serve import resolve_cache_dtype
+from repro_torch.serve import Engine, resolve_cache_dtype
 from repro_torch.serve.fleet import (POLICIES, SCENARIOS, ChaosConfig,
                                      FleetConfig, FleetDefense, FleetRouter,
                                      SpecConfig, generate_workload)
@@ -49,9 +51,6 @@ def _unported(args) -> list:
                       ("--flight-recorder", args.flight_recorder)):
         if val:
             out.append((flag, _OBS))
-    if args.single:
-        out.append(("--single", "the dense Engine.generate path comes with "
-                    "ROADMAP Queue 1 item 6"))
     return out
 
 
@@ -117,6 +116,11 @@ def main(argv=None) -> None:
             resolve_cache_dtype(args.cache_dtype, "cpu")):
         ap.error(f"--cache-dtype {args.cache_dtype} is a quantized "
                  "paged-pool dtype: fleet mode only (drop --single)")
+    if args.single and (args.trace or args.metrics or args.alerts
+                        or args.flight_recorder):
+        ap.error("--trace/--metrics/--alerts/--flight-recorder "
+                 "instrument the fleet's simulated clock: fleet mode "
+                 "only (drop --single)")
     unported = _unported(args)
     if unported:
         for flag, why in unported:
@@ -130,6 +134,8 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     model = build_model(cfg)
     cache_dtype = resolve_cache_dtype(args.cache_dtype, device)
+    if args.single:
+        return _single(args, cfg, model, cache_dtype, device)
 
     if args.speculative:
         args.router = "speculative"
@@ -232,6 +238,30 @@ def main(argv=None) -> None:
         with open(args.report, "w") as f:
             f.write(rep.to_json() + "\n")
         print(f"wrote {args.report}")
+
+
+def _single(args, cfg, model, cache_dtype, device) -> None:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = model.init(gen, device=device, weight_dtype=cfg.activation_dtype)
+    engine = Engine(model, params, cache_dtype=cache_dtype, device=device)
+    gen.manual_seed(args.seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.padded_vocab,
+                                     (args.batch, args.prompt_len),
+                                     generator=gen, device=device)}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.time()
+    result = engine.generate(batch, args.max_new, args.temperature, args.seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    toks = args.batch * args.max_new
+    print(f"arch={args.arch} batch={args.batch} prompt={args.prompt_len} "
+          f"new={args.max_new}")
+    print(f"generated {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s, {dt / args.max_new * 1e3:.1f} ms/step)")
+    print("first sequence:", result.tokens[0, args.prompt_len:].tolist())
 
 
 if __name__ == "__main__":

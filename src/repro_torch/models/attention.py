@@ -1,9 +1,14 @@
-"""GQA attention: prefill forward (cache emit) and the dense KV cache.
+"""GQA attention: prefill forward (cache emit), the dense KV cache and the
+one-token decode that reads it.
 
 Query head ``h`` reads KV head ``h // G`` with ``G = H // KVh``. Keys are
-cached already rotated. Prefill attention is plain ``torch.matmul`` plus an
-fp32 softmax, as the reference computes it with einsums (it has no kernel
-there).
+cached already rotated, so a ring-buffer (sliding-window) cache never needs
+absolute positions at read time. Attention is plain ``torch.matmul`` plus
+an fp32 softmax, as the reference computes it with einsums (it has no
+kernel there). Unlike the reference's pure functions, the cache is updated
+in place: ``prefill_into_cache`` and ``attention_decode`` write into the
+buffers they are given (a layer's views of the stacked cache) and return
+the same dict.
 """
 from __future__ import annotations
 
@@ -78,11 +83,10 @@ def _softmax(scores: torch.Tensor) -> torch.Tensor:
 def attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                       positions: Optional[torch.Tensor] = None,
                       return_cache: bool = False):
-    """Causal full-sequence attention. x (B,S,d) -> (out, cache|None) with
-    cache = {"k": roped keys (B,S,KV,hd), "v": values}."""
-    if cfg.sliding_window > 0:
-        raise NotImplementedError("sliding-window attention is not in the "
-                                  "serving slice")
+    """Causal full-sequence attention, windowed when ``cfg.sliding_window``
+    > 0 (key j is visible from query i iff i - window < j <= i). x (B,S,d)
+    -> (out, cache|None) with cache = {"k": roped keys (B,S,KV,hd), "v":
+    values}."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
@@ -92,6 +96,8 @@ def attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     scores = _gqa_scores(q, k)                                       # b h s s
     i = torch.arange(s, device=x.device)
     mask = i[None, :] <= i[:, None]
+    if cfg.sliding_window > 0:
+        mask = mask & (i[:, None] - i[None, :] < cfg.sliding_window)
     scores = scores.masked_fill(~mask, NEG_INF)
     w = _softmax(scores).to(x.dtype)
     out = _out_proj(p, _gqa_combine(w, v))
@@ -100,22 +106,84 @@ def attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype,
                   device) -> Dict[str, torch.Tensor]:
-    """Full-length dense cache buffer (the ring-buffer variant is not in
-    this slice)."""
+    """Zero cache buffers (B, length, KV, hd): a ring buffer of
+    ``min(max_len, window)`` slots when ``cfg.sliding_window`` > 0, else
+    ``max_len``."""
+    length = (min(max_len, cfg.sliding_window) if cfg.sliding_window > 0
+              else max_len)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    shape = (batch, max_len, kv, hd)
+    shape = (batch, length, kv, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def prefill_into_cache(cache: Dict[str, torch.Tensor],
                        new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Copy prefill keys/values into the head of a full-length cache (in
-    place; returns the same dict)."""
+    """Copy prefill keys/values (B,S,KV,hd) into the cache buffers (in
+    place; returns the same dict). When S reaches the capacity (a ring
+    buffer shorter than the prompt), keep the trailing window rolled so
+    that position p lands in slot p % cap: decode writes at pos % cap and
+    must overwrite the oldest slot."""
     s = new["k"].shape[1]
     cap = cache["k"].shape[1]
-    if s > cap:
-        raise ValueError(f"prefill length {s} exceeds cache capacity {cap}")
     for name in ("k", "v"):
-        cache[name][:, :s] = new[name].to(cache[name].dtype)
+        buf = cache[name]
+        if s >= cap:
+            buf.copy_(torch.roll(new[name][:, s - cap:], s % cap, dims=1))
+        else:
+            buf[:, :s] = new[name].to(buf.dtype)
     return cache
+
+
+def attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], pos, cfg):
+    """One-token decode. x (B,1,d); ``pos`` the absolute position of the
+    token: an int (or 0-d tensor) shared by the rows, or a (B,) int tensor
+    of per-row positions (ragged batching; full-length caches only).
+
+    Writes the token's roped K and V into ``cache`` in place — at pos % cap
+    in a ring buffer (``cfg.sliding_window`` > 0), else at pos — and
+    attends over the valid slots: those at or before ``pos`` in a
+    full-length cache; in a ring buffer the slots whose absolute position
+    (pos - age, age = (write - slot) % cap) is >= 0 and whose age is below
+    min(cap, pos + 1). Returns (out (B,1,d), cache)."""
+    b = x.shape[0]
+    cap = cache["k"].shape[1]
+    dev = x.device
+    vector_pos = torch.is_tensor(pos) and pos.dim() == 1
+    if vector_pos:
+        if cfg.sliding_window > 0:
+            raise ValueError("per-row positions require a full-length "
+                             "(non-ring) cache")
+        positions = pos.to(device=dev, dtype=torch.int32)[:, None]
+    else:
+        pos = int(pos)
+        if cfg.sliding_window <= 0 and not 0 <= pos < cap:
+            raise ValueError(f"position {pos} outside a cache of {cap}")
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    q, k_new, v_new = _project_qkv(p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+
+    slot = torch.arange(cap, device=dev)
+    if vector_pos:
+        rows = torch.arange(b, device=dev)
+        idx = positions[:, 0].long()
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache[name][rows, idx] = new[:, 0].to(cache[name].dtype)
+        valid = (slot[None, :] <= idx[:, None])[:, None, None, :]  # (B,1,1,cap)
+    else:
+        write_idx = pos % cap if cfg.sliding_window > 0 else pos
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache[name][:, write_idx] = new[:, 0].to(cache[name].dtype)
+        if cfg.sliding_window > 0:
+            age = (write_idx - slot) % cap              # 0 == just written
+            valid = (pos - age >= 0) & (age < min(cap, pos + 1))
+        else:
+            valid = slot <= pos
+        valid = valid[None, None, None, :]
+
+    scores = _gqa_scores(q, cache["k"])                              # b h 1 cap
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = _softmax(scores).to(x.dtype)
+    return _out_proj(p, _gqa_combine(w, cache["v"])), cache

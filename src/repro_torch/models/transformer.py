@@ -8,6 +8,8 @@ API:
     init(generator, device, weight_dtype) -> params
     forward(params, batch, remat) -> (logits, aux)       (training)
     prefill(params, tokens, cap, cache_dtype) -> (last-token logits, cache)
+    init_cache(batch, cap, dtype, device) -> cache
+    decode(params, cache, tokens, pos) -> (logits, cache)   (one token)
 
 Weights may be fp32 masters: every op casts its weight to the activation
 dtype inside (as the reference does), so the gradient flows back through
@@ -90,6 +92,17 @@ def _sublayer_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                                    return_cache=cache is not None)
     if cache is not None:
         attn.prefill_into_cache(cache, kv)
+    x = x + h
+    h2 = ffn_forward(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg)
+    return x + h2
+
+
+def _sublayer_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict[str, torch.Tensor], pos) -> torch.Tensor:
+    """One token through one attention + dense-FFN sub-layer, writing its
+    K/V into ``cache`` (this layer's views of the stacked buffers)."""
+    h = apply_norm(p["norm1"], x, cfg.norm_eps)
+    h, _ = attn.attention_decode(p["mix"], h, cache, pos, cfg)
     x = x + h
     h2 = ffn_forward(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg)
     return x + h2
@@ -188,25 +201,38 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return lm_head(params["embed"], x), aux
 
+    def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
+                   device="cuda") -> PyTree:
+        """Zero caches ``{"sub0": {"k","v": (L,B,cap,KV,hd)}}``, the layout
+        ``prefill`` emits; ``cap`` becomes ``min(cap, window)`` (a ring
+        buffer) when ``cfg.sliding_window`` > 0."""
+        cfg = self.cfg
+        n = _n_scan(cfg)
+        dev = resolve_device(device)
+        cache = {}
+        for i in range(len(_sub_kinds(cfg))):
+            one = attn.init_kv_cache(cfg, batch * n, cap, dtype, dev)
+            cache[f"sub{i}"] = {k: v.unflatten(0, (n, batch))
+                                for k, v in one.items()}
+        return cache
+
     def prefill(self, params: PyTree, tokens: torch.Tensor, cap: int,
                 cache_dtype=torch.float32) -> Tuple[torch.Tensor, PyTree]:
         """tokens (B,S) -> (logits (B,1,V) of the last position, cache) with
-        cache ``{"sub0": {"k","v": (L,B,cap,KV,hd)}}`` in ``cache_dtype``."""
+        cache ``{"sub0": {"k","v": (L,B,cap,KV,hd)}}`` in ``cache_dtype``.
+        ``cap`` may be below S only with a sliding window: the ring buffer
+        then keeps the trailing window."""
         cfg = self.cfg
         kinds = _sub_kinds(cfg)
         n = _n_scan(cfg)
         b, s = tokens.shape
-        if cap < s:
+        if cfg.sliding_window <= 0 and cap < s:
             raise ValueError(f"cache capacity {cap} smaller than prefill "
                              f"length {s}")
         dev = tokens.device
         x = embed_tokens(params["embed"], tokens, cfg.activation_dtype)
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
-        cache = {}
-        for i, _k in enumerate(kinds):
-            one = attn.init_kv_cache(cfg, b * n, cap, cache_dtype, dev)
-            cache[f"sub{i}"] = {k: v.unflatten(0, (n, b))
-                                for k, v in one.items()}
+        cache = self.init_cache(b, cap, cache_dtype, dev)
         for li in range(n):
             lp = layer_params(params["layers"], li)
             for i, _k in enumerate(kinds):
@@ -215,3 +241,22 @@ class LM:
                                       {k: v[li] for k, v in cache[name].items()})
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         return lm_head(params["embed"], x[:, -1:]), cache
+
+    def decode(self, params: PyTree, cache: PyTree, tokens: torch.Tensor,
+               pos) -> Tuple[torch.Tensor, PyTree]:
+        """tokens (B,1) -> (logits (B,1,V), cache). ``pos``: the tokens'
+        absolute position, an int shared by the rows or a (B,) int tensor
+        of per-row positions (ragged decode; see ``attention_decode``).
+        The cache is updated in place and returned."""
+        cfg = self.cfg
+        kinds = _sub_kinds(cfg)
+        x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
+        for li in range(_n_scan(cfg)):
+            lp = layer_params(params["layers"], li)
+            for i, _k in enumerate(kinds):
+                name = f"sub{i}"
+                x = _sublayer_decode(lp[name], x, cfg,
+                                     {k: v[li] for k, v in cache[name].items()},
+                                     pos)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        return lm_head(params["embed"], x), cache

@@ -1,2 +1,2 @@
-from repro_torch.serve.engine import (default_cache_dtype,  # noqa: F401
-                                      resolve_cache_dtype)
+from repro_torch.serve.engine import (Engine, GenerationResult,  # noqa: F401
+                                      default_cache_dtype, resolve_cache_dtype)

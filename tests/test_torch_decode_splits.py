@@ -14,7 +14,15 @@ version does the same when it is given ``blocks_per_split``:
   waves it aims for at MB = 1, 34, 256 and 2048;
 * the launch path takes its grid from the shapes alone: with a recording
   stand-in for the CUDA library, two calls that differ only in ``lengths``
-  launch the same grid, and no tensor value is read on the host.
+  launch the same grid, and no tensor value is read on the host;
+* ``decode_head_groups`` keeps one CTA over every KV head wherever the
+  kernel without head groups took the shape, and splits qwen1.5-4b's 20 KV
+  heads (G = 1, hd 128) into groups whose stages fit the ring twice; the
+  split plan counts the groups' CTAs;
+* the plain decode at qwen1.5-4b's head shape (H = KVh = 20, hd 128) matches
+  ``paged_attention_decode_ref`` within 1e-5, over fp32 and int8 pools;
+* the wrapper raises only for head_dim not in {32, 64, 128} or G > 8: at
+  20 KV heads it launches with 4 heads a CTA (bf16; 2 in fp32).
 """
 import contextlib
 import types
@@ -169,6 +177,119 @@ def test_launch_grid_comes_from_shapes_alone(monkeypatch):
     grids = [c[11:19] for c in calls]
     assert grids[0] == grids[1] == (16, 28, 4, 128, kv[0].shape[0], 16,
                                     34, pa.decode_split_plan(16, 34, SMS)[0])
+
+
+# every (KVh, G) a kernel without head groups took: KVh <= 8, or <= 16 at
+# G <= 2, and a K and a V block within 200 KB
+ONE_CTA = [(kvh, g) for g in (1, 2, 3, 7, 8) for kvh in range(1, 17)
+           if kvh <= (8 if g > 2 else 16)]
+
+
+@pytest.mark.parametrize("hd,bs,es,quant", [(32, 16, 4, False),
+                                            (64, 16, 4, False),
+                                            (128, 16, 2, False),
+                                            (128, 16, 1, True),
+                                            (128, 32, 4, False)])
+def test_head_groups_keep_one_cta_where_the_kernel_took_the_shape(hd, bs, es,
+                                                                  quant):
+    for kvh, g in ONE_CTA:
+        legal = 2 * bs * kvh * hd * es + 8 * bs <= 200 * 1024
+        got = pa.decode_head_groups(kvh, g, hd, bs, es, quant)
+        if legal:
+            assert got == kvh, (kvh, g)
+        else:
+            assert kvh % got == 0 and got < kvh, (kvh, g)
+
+
+@pytest.mark.parametrize("es,quant,want", [(4, False, 2), (2, False, 4),
+                                           (1, True, 4)],
+                         ids=["fp32", "bf16", "int8/fp8"])
+def test_head_groups_split_twenty_kv_heads(es, quant, want):
+    """qwen1.5-4b: 20 KV heads at G = 1, hd 128, blocks of 16. One CTA
+    would need 20 warps and a 160 KB bf16 stage (320 KB in fp32)."""
+    kvg = pa.decode_head_groups(20, 1, 128, 16, es, quant)
+    assert kvg == want and 20 % kvg == 0
+    stage = 2 * 16 * kvg * 128 * es + (8 * 16 if quant else 0)
+    assert 2 * stage <= pa.RING_BUDGET, "two stages in flight"
+    groups = 20 // kvg
+    for slots, mb in ((1, 2048), (16, 34), (16, 256)):
+        bps, nsplit = pa.decode_split_plan(slots, mb, SMS, groups)
+        assert (nsplit - 1) * bps < mb <= nsplit * bps
+        if slots == 1:      # one round of the SMs' CTA slots over the groups
+            assert nsplit * groups <= pa.CTAS_PER_SM * SMS
+        else:
+            assert slots * nsplit * groups >= pa.WAVES * SMS
+    assert pa.decode_split_plan(16, 34, SMS, 1) == \
+        pa.decode_split_plan(16, 34, SMS)
+
+
+@pytest.mark.parametrize("pool", ["fp32", "int8"])
+def test_plain_decode_at_qwen15_4b_heads_matches_reference(pool):
+    q, kv, scales, table, lengths = _inputs([0, 21, 5], kvh=20, g=1, hd=128,
+                                            bs=8, mb=4, pool=pool, seed=3)
+    t = [torch.from_numpy(a) for a in (q, *kv, table, lengths, *scales)]
+    got = pa.paged_attention_decode(*t[:5], *t[5:]).numpy()
+    jargs = [jnp.asarray(a) for a in (q, *kv, table, lengths)]
+    jsc = dict(zip(("k_scale", "v_scale"), map(jnp.asarray, scales)))
+    ref = np.asarray(paged_attention_decode_ref(*jargs, **jsc))
+    assert np.isfinite(got).all() and not got[0].any()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def _stub_launch(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors against a stand-in library
+    that records its arguments (as ``test_launch_grid_comes_from_shapes_
+    alone``). Returns the list of recorded calls."""
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return 0
+
+    lib = types.SimpleNamespace(repro_paged_attention_decode=record)
+    monkeypatch.setattr(pa, "_same_device",
+                        lambda *ts: torch.device("cuda", 0))
+    monkeypatch.setattr(pa, "_num_sms", lambda index: SMS)
+    monkeypatch.setattr(pa._build, "load", lambda name: lib)
+    monkeypatch.setattr(pa._build, "launch_counts", dict(_build.launch_counts))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("h,kvh,hd,dtype,ok", [
+    (20, 20, 128, torch.bfloat16, True),   # qwen1.5-4b
+    (20, 20, 128, torch.float32, True),
+    (40, 20, 64, torch.bfloat16, True),
+    (64, 32, 32, torch.float32, True),     # 32 KV heads, G 2
+    (64, 8, 128, torch.bfloat16, True),    # G 8
+    (20, 20, 96, torch.bfloat16, False),   # head_dim 96
+    (16, 16, 16, torch.float32, False),    # head_dim 16
+    (36, 4, 128, torch.bfloat16, False),   # G 9
+])
+def test_wrapper_limits_are_head_dim_and_group_size(monkeypatch, h, kvh, hd,
+                                                    dtype, ok):
+    calls = _stub_launch(monkeypatch)
+    s, mb, bs = 3, 4, 16
+    q = torch.zeros((s, h, hd), dtype=dtype)
+    pool = torch.zeros((2 + s * mb, bs, kvh, hd), dtype=dtype)
+    table = torch.arange(2, 2 + s * mb, dtype=torch.int32).view(s, mb)
+    lens = torch.tensor([0, 20, 63], dtype=torch.int32)
+    if not ok:
+        with pytest.raises(ValueError, match="head_dim 32/64/128 and G <= 8"):
+            pa.paged_attention_decode(q, pool, pool.clone(), table, lens)
+        return
+    pa.paged_attention_decode(q, pool, pool.clone(), table, lens)
+    (c,) = calls
+    kvg = pa.decode_head_groups(kvh, h // kvh, hd, bs, pool.element_size(),
+                                False)
+    # S, H, KVh, hd, NB, BS, MB, blocks per split, KV heads a CTA
+    assert c[11:20] == (s, h, kvh, hd, pool.shape[0], bs, mb,
+                        pa.decode_split_plan(s, mb, SMS, kvh // kvg)[0], kvg)
+    if kvh == 20:
+        assert kvg == (4 if dtype == torch.bfloat16 and hd == 128 else
+                       2 if hd == 128 else 4)
 
 
 def _no_host_read(*_a, **_k):

@@ -192,7 +192,7 @@ def test_cuda_without_a_card_raises():
 
 def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
     """least_loaded, ``--hedge`` and ``--router ensemble`` serve on the
-    CPU; the dense ``--single`` path, the observability flags and an
+    CPU; the observability flags, a quantized ``--single`` and an
     unported arch still exit 2."""
     from repro_torch.launch.serve import main
     for extra in (["--router", "least_loaded"], ["--hedge"],
@@ -201,7 +201,7 @@ def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
               "--max-new", "3", "--max-prompt", "8", "--slots", "2", *extra])
         out = capsys.readouterr().out
         assert "completed=4 rejected=0" in out and "stream digest" in out
-    for argv in (["--single"], ["--trace", "t.json"],
+    for argv in (["--trace", "t.json"],
                  ["--arch", "rwkv6-1.6b"],
                  ["--single", "--cache-dtype", "int8"]):
         with pytest.raises(SystemExit) as e:

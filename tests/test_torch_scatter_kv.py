@@ -12,6 +12,9 @@ CUDA kernels against on the card. Here:
 * on a map with an inactive slot, writers in block 1 and block NB - 1, at
   offsets 0 and BS - 1, an NB that is a multiple of neither 4 nor 128, a
   NaN-poisoned free block (untouched) and the null block (stays 0);
+* ``paged_scatter_quant_kv`` takes rows of any length: at qwen1.5-4b's
+  2,560 values (20 KV heads x 128; the kernel's two-pass path past 2,048)
+  it equals two calls of ``paged_scatter_quant_ref`` bit for bit;
 * the wrappers reject pools, scales or rows of K and V that differ, and
   int64 or mis-shaped maps;
 * the decode step (``model_exec``) calls one K+V scatter per attention
@@ -108,13 +111,13 @@ def test_scatter_kv_equals_two_reference_scatters_bitwise(dtype):
             assert not np.array_equal(_bits(got[b, o]), _bits(before[b, o]))
 
 
-def _quant_pools(rng, dtype):
+def _quant_pools(rng, dtype, kvh=KVH, hd=HD):
     """(jax pool, torch pool, jax scales, torch scales) for K and for V:
     random rows quantized, the null block and its scales 0, the poisoned
     block NaN scales (and NaN fp8 rows)."""
     out = []
     for _ in range(2):
-        full = rng.standard_normal((NB, BS, KVH, HD)).astype(np.float32)
+        full = rng.standard_normal((NB, BS, kvh, hd)).astype(np.float32)
         jq, jsc = jax_paged_cache.quantize_rows(jnp.asarray(full), JNP[dtype])
         pool, scales = np.array(_bits(jq)), np.array(jsc, np.float32)
         pool[0], scales[0] = 0, 0.0
@@ -132,11 +135,27 @@ def _quant_pools(rng, dtype):
 @pytest.mark.parametrize("dtype", QUANT, ids=["int8", "fp8"])
 def test_scatter_quant_kv_equals_two_reference_scatters_bitwise(dtype,
                                                                 row_dtype):
-    rng = np.random.default_rng(1)
-    k, v = _quant_pools(rng, dtype)
+    _check_quant_kv(dtype, row_dtype, KVH, HD, seed=1)
+
+
+@pytest.mark.parametrize("row_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32_rows", "bf16_rows"])
+@pytest.mark.parametrize("dtype", QUANT, ids=["int8", "fp8"])
+def test_scatter_quant_kv_takes_long_rows_bitwise(dtype, row_dtype):
+    """Rows of 2,560 values (qwen1.5-4b: 20 KV heads x 128), which the
+    wrapper refused while the kernel held a row in one warp's registers."""
+    _check_quant_kv(dtype, row_dtype, 20, 128, seed=11)
+
+
+def _check_quant_kv(dtype, row_dtype, kvh, hd, seed):
+    """``paged_scatter_quant_kv`` on (NB, BS, kvh, hd) pools against two
+    calls of the reference's oracle, bit for bit, in place; the null and
+    poisoned blocks untouched; an all-zero row takes scale 0."""
+    rng = np.random.default_rng(seed)
+    k, v = _quant_pools(rng, dtype, kvh, hd)
     news = []
     for _ in range(2):
-        x = (rng.standard_normal((S, KVH, HD)) * 3).astype(np.float32)
+        x = (rng.standard_normal((S, kvh, hd)) * 3).astype(np.float32)
         x[3] = 0.0                                    # an all-zero row
         news.append(_pair(x, row_dtype))
     (jkn, tkn), (jvn, tvn) = news
