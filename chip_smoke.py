@@ -147,6 +147,22 @@ exits non-zero:
                 ring wraps) within 5e-4 of the windowed teacher forcing, and
                 the card's tokens equal the CPU's at the reduced config;
                 last ``--single`` through the CLI on the card.
+ 15. obs      — the observability layer: (a) qwen2-7b at full width and
+                depth, seeded bf16 weights, 2 peers, the fleet phase's
+                FleetConfig and bursty workload under a straggler and a
+                preemption, defended with hedging, obs off and on in turns
+                (a warm-up, then off, on, on, off, off, on; on = a tracer,
+                a registry, the default rules and a flight recorder):
+                every file passes ``tools/trace_check.py``, the three
+                on-runs write byte-identical files, all reports and launch
+                counts are equal; wall a tick on and off with the spread,
+                and the host time inside the hooks a tick; (b) the same at
+                the reduced config in fp32, card against CPU: trace and
+                alert log byte-equal; (c) ``codist-async`` at
+                qwen1.5-0.5b's full width and 12 layers, kl, under the
+                async faults (no recovery) with every obs output; (d) a
+                2-cell sweep (all-reduce, codist; 3 steps at full width)
+                through the sweep CLI with ``--trace --metrics --alerts``.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -190,7 +206,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
-          "fleet_codist", "single")
+          "fleet_codist", "single", "obs")
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them
@@ -247,22 +263,22 @@ SOURCES = {
 ROWS_1_TO_4 = ("paged_attention_decode", "paged_attention_decode_quant",
                "paged_scatter", "paged_scatter_quant", "paged_gather")
 # the paths each kernel belongs to (each must launch it where it ran)
-PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist"),
+PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs"),
          "paged_gather": ("fleet", "spec"),
-         "paged_attention_decode": ("fleet", "spec", "fleet_codist"),
+         "paged_attention_decode": ("fleet", "spec", "fleet_codist", "obs"),
          "paged_attention_decode_quant": ("fleet", "spec"),
          "paged_scatter_quant": ("fleet", "spec"),
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
-                                       "async"),
+                                       "async", "obs"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
-                                      "async"),
-         "fused_ce_distill_parts": ("train", "train_peers", "sweep"),
-         "fused_ce_distill_grad": ("train", "train_peers", "sweep"),
+                                      "async", "obs"),
+         "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs"),
+         "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
-         "fused_distill_kl_parts": ("train_peers", "async"),
+         "fused_distill_kl_parts": ("train_peers", "async", "obs"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
-         "fused_distill_kl_grad": ("train_peers", "async")}
+         "fused_distill_kl_grad": ("train_peers", "async", "obs")}
 
 # training main path (qwen1.5-0.5b, 2 peers, batch 8 x seq 512 per peer):
 # T tokens per peer, padded vocab V
@@ -4058,6 +4074,371 @@ def phase_single(dev: torch.device):
 
 
 # ----------------------------------------------------------------------------
+# phase 15: the observability layer (tracer, metrics, Watchtower, recorder)
+# ----------------------------------------------------------------------------
+
+# the obs phase's chaos: peer 1 straggles 4x over 30% of its ticks, peer 0
+# is preempted for 120 simulated ms after its tick 6; defended, hedging
+OBS_FAULTS = "straggler=1*4@0.3,preempt=0@6+120"
+# the async runtime's faults without the elastic join, and the failed peer
+# stays dead: no snapshot or restore (the async phase times those)
+OBS_ASYNC_STEPS = 5
+OBS_SWEEP_STEPS = 3
+# obs off and on in turns, after a warm-up run
+OBS_ORDER = ("off", "on", "on", "off", "off", "on")
+
+
+def trace_checked(paths) -> None:
+    """``tools/trace_check.py`` over obs files (it imports nothing of the
+    JAX package); its per-file lines go to the log."""
+    import contextlib
+    import io
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import trace_check
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = trace_check.main(list(paths))
+    require(rc == 0, f"trace_check failed: {out.getvalue()}")
+    log(f"  trace_check: {len(paths)} files OK")
+
+
+def obs_files(out_dir: str) -> dict:
+    """{relative path: text} of every file an obs run wrote."""
+    out = {}
+    for base, _dirs, names in os.walk(out_dir):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path) as f:
+                out[os.path.relpath(path, out_dir)] = f.read()
+    return out
+
+
+def obs_fleet_run(model, peers, fc, wl, dev, out_dir=None) -> dict:
+    """One seeded, defended chaos run (``OBS_FAULTS``, hedging) through
+    ``FleetRouter.run``; with ``out_dir`` a tracer, a registry, the default
+    rules and a flight recorder ride along and their files are written
+    there, and the host time inside the per-tick hooks is taken (the
+    engine's trace and metrics hooks and the Watchtower's evaluation, less
+    the bundle dumps, which are timed on their own). Launch counts are set to 0 just before the run
+    and read just after. Returns the report, the counts of rows 1-4, the
+    run's wall s, its engine ticks, the files, the seconds in each hook and
+    those spent in bundle dumps and in saving the other files."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchtower,
+                                 default_rules, for_sim_ms)
+    from repro_torch.runtime import parse_faults
+    from repro_torch.serve.fleet import (ChaosConfig, FleetDefense,
+                                         FleetEngine, FleetRouter)
+    kw, dump_s = {}, [0.0]
+    hook_s = dict.fromkeys(("trace", "metrics", "watch"), 0.0)
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            t0, d0 = time.perf_counter(), dump_s[0]
+            try:
+                return fn(*a, **k)
+            finally:
+                hook_s[key] += time.perf_counter() - t0 - (dump_s[0] - d0)
+        return wrapped
+    hooks = {"_trace_tick": FleetEngine._trace_tick,
+             "_record_tick": FleetEngine._record_tick}
+    if out_dir is not None:
+        tracer, metrics = for_sim_ms(), MetricsRegistry()
+        watch = Watchtower(metrics, default_rules(slo_ms=50.0),
+                           unit_us=1000.0, clock="sim_ms")
+        recorder = FlightRecorder(os.path.join(out_dir, "postmortem"),
+                                  metrics=metrics)
+        dump = recorder.dump
+
+        def timed_dump(*a, **k):     # a file write and an fsync each
+            t0 = time.perf_counter()
+            path = dump(*a, **k)
+            dump_s[0] += time.perf_counter() - t0
+            return path
+        recorder.dump = timed_dump
+        tracer.recorder = recorder
+        watch.on_alert(recorder.on_alert)
+        watch.on_fault(recorder.on_fault)
+        watch.evaluate = timed("watch", watch.evaluate)
+        kw = dict(tracer=tracer, metrics=metrics, watch=watch)
+    router = FleetRouter(
+        model, peers, config=fc, device=dev,
+        chaos=ChaosConfig(parse_faults(OBS_FAULTS, len(peers), seed=0)),
+        defense=FleetDefense(hedging=True, hedge_min_samples=3), **kw)
+    FleetEngine._trace_tick = timed("trace", hooks["_trace_tick"])
+    FleetEngine._record_tick = timed("metrics", hooks["_record_tick"])
+    try:
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = router.run(wl, slo_ms=50.0)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in hooks.items():
+            setattr(FleetEngine, name, fn)
+    counts = {k: launch_counts[k] for k in ROWS_1_TO_4}
+    save_s = 0.0
+    if out_dir is not None:
+        t0 = time.perf_counter()
+        tracer.save(os.path.join(out_dir, "trace.json"))
+        metrics.save(os.path.join(out_dir, "metrics.json"))
+        watch.save(os.path.join(out_dir, "alerts.jsonl"))
+        save_s = time.perf_counter() - t0
+    return {"report": rep.to_dict(), "counts": counts, "wall": wall,
+            "ticks": sum(e.steps for e in router.engines),
+            "files": obs_files(out_dir) if out_dir else {},
+            "hook_s": hook_s, "dump_s": dump_s[0], "save_s": save_s}
+
+
+def spread(xs) -> str:
+    return (f"median {np.median(xs):.2f}, min {min(xs):.2f}, max "
+            f"{max(xs):.2f} ({', '.join(f'{x:.2f}' for x in xs)})")
+
+
+def phase_obs(dev: torch.device, smi_line: str):
+    """The observability layer on the card. (a) qwen2-7b at full width and
+    depth, seeded bf16 weights, 2 peers, the fleet phase's FleetConfig and
+    bursty workload under ``OBS_FAULTS``, defended with hedging: after a
+    warm-up run, obs-off and obs-on runs in turns (``OBS_ORDER``), each
+    on-run with a tracer, a registry, the default rules and a flight
+    recorder; the files pass trace_check, the on-runs write byte-identical
+    files, every run's ``FleetReport`` and launch counts equal; wall a tick
+    with obs on and off, and the host time inside the hooks a tick. (b) The same scenario at the reduced config in fp32 on the
+    card and on the CPU: byte-equal trace and alert log. (c) ``codist-async``
+    at qwen1.5-0.5b's full width and ``ASYNC_LAYERS`` layers, kl, under
+    ``ASYNC_FAULTS`` (the failed peer not recovered) with tracer, registry,
+    rules and flight recorder: the files pass trace_check. (d) A 2-cell sweep (all-reduce and codist,
+    ``OBS_SWEEP_STEPS`` steps at full width) through the sweep CLI with
+    ``--trace --metrics --alerts``: every file passes trace_check. Returns
+    the launches of (a)'s on-runs, (c) and (d)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import yaml
+
+    from repro_torch.configs import (CodistConfig, TrainConfig, get_config,
+                                     get_reduced)
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sweep as sweep_cli
+    from repro_torch.models import build_model
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchtower,
+                                 default_rules, for_sim_seconds)
+    from repro_torch.runtime import AsyncScheduler, parse_faults
+    from repro_torch.serve.fleet import FleetConfig, generate_workload
+    launches = dict.fromkeys(SOURCES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # ---- (a) the chaos fleet at full width and depth ----
+    cfg = get_config("qwen2-7b")
+    model = build_model(cfg)
+    peers = []
+    for i in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1234 + i)
+        peers.append(model.init(gen, device=dev, weight_dtype=torch.bfloat16))
+    fc = FleetConfig(max_slots=16, block_size=16, num_blocks=1025,
+                     max_blocks_per_slot=34, fused_attention=True)
+    wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
+                           max_prompt=512, max_new=32)
+    runs = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, kind in enumerate(("warm-up",) + OBS_ORDER):
+            out_dir = os.path.join(tmp, f"run{i}") if kind == "on" else None
+            r = obs_fleet_run(model, peers, fc, wl, dev, out_dir)
+            runs.setdefault(kind, []).append(r)
+            rep = r["report"]
+            log(f"  obs {kind} run {i}: {r['ticks']} ticks in {r['wall']:.2f} "
+                f"s wall = {r['wall'] / r['ticks'] * 1e3:.2f} ms a tick; "
+                f"completed {rep['completed']}, migrations "
+                f"{rep['migrations']}, hedges {rep['hedges']}, preemptions "
+                f"{rep['preemptions']}, lost {rep['lost_tokens']}, "
+                f"duplicated {rep['duplicated_tokens']}"
+                + (f"; {len(r['files'])} files, hooks (no dumps) "
+                   + ", ".join(f"{k} {v * 1e3:.2f}"
+                               for k, v in r["hook_s"].items())
+                   + f" ms, bundle dumps {r['dump_s'] * 1e3:.1f} ms, saves "
+                   f"{r['save_s'] * 1e3:.1f} ms" if kind == "on" else ""))
+        on, off = runs["on"], runs["off"]
+        first = on[0]
+        trace_checked([os.path.join(tmp, f"run{OBS_ORDER.index('on') + 1}",
+                                    name) for name in sorted(first["files"])])
+    for r in on + off + runs["warm-up"]:
+        require(r["report"] == first["report"],
+                "obs: a run's FleetReport differs from the first on-run's")
+        require(r["counts"] == first["counts"],
+                f"obs: launches {r['counts']} != {first['counts']}")
+    for r in on[1:]:
+        require(r["files"] == first["files"],
+                "obs: two seeded on-runs wrote different files: " + ", ".join(
+                    n for n in first["files"]
+                    if r["files"].get(n) != first["files"][n]))
+    rep = first["report"]
+    require(rep["completed"] == len(wl.requests) and rep["lost_tokens"] == 0
+            and rep["duplicated_tokens"] == 0 and rep["preemptions"] >= 1,
+            f"obs chaos run: {rep}")
+    alerts = [json.loads(line) for line in
+              first["files"]["alerts.jsonl"].splitlines()[1:]]
+    bundles = sorted(n for n in first["files"] if n.startswith("postmortem"))
+    require(any(n.endswith("fault-preempt.json") for n in bundles),
+            f"obs: no preemption bundle in {bundles}")
+    tick = {k: [r["wall"] / r["ticks"] * 1e3 for r in runs[k]]
+            for k in ("on", "off")}
+    hook_ms = [sum(r["hook_s"].values()) / r["ticks"] * 1e3 for r in on]
+    dump_ms = [r["dump_s"] / r["ticks"] * 1e3 for r in on]
+    log(f"obs chaos fleet (qwen2-7b {cfg.num_layers} layers, bf16, 2 peers, "
+        f"{len(wl.requests)} bursty requests, {OBS_FAULTS}, hedging): "
+        f"report and launches equal in all {len(OBS_ORDER) + 1} runs "
+        f"({ {k: n for k, n in first['counts'].items() if n} }); "
+        f"{len(alerts)} alert events "
+        f"({sorted({a['rule'] + ':' + a['state'] for a in alerts})}), "
+        f"{len(bundles)} bundles, files byte-identical in {len(on)} seeded "
+        "runs")
+    log(f"obs wall a tick [{smi_line}]: on {spread(tick['on'])} ms, off "
+        f"{spread(tick['off'])} ms; median on / off "
+        f"{np.median(tick['on']) / np.median(tick['off']):.4f}; host time "
+        f"in the hooks {spread(hook_ms)} ms a tick, bundle dumps "
+        f"{spread(dump_ms)} ms a tick (together "
+        f"{(np.median(hook_ms) + np.median(dump_ms)) / np.median(tick['off']):.2%}"
+        f" of the off tick's median); bundle dumps "
+        f"{spread([r['dump_s'] * 1e3 for r in on])} ms a run")
+    add(first["counts"])
+    del peers, model
+    torch.cuda.empty_cache()
+
+    # ---- (b) fp32 (TF32 off): the card's trace and alerts against the CPU's
+    cfg = get_reduced("qwen2-7b")
+    model = build_model(cfg)
+    cpu_peers = []
+    for i in range(2):
+        gen = torch.Generator()
+        gen.manual_seed(77 + i)
+        cpu_peers.append(model.init(gen, device="cpu"))
+    to_dev = lambda tree: ({k: to_dev(v) for k, v in tree.items()}  # noqa: E731
+                           if isinstance(tree, dict) else tree.to(dev))
+    small = FleetConfig(max_slots=3, block_size=4, num_blocks=64,
+                        max_blocks_per_slot=16, max_prefills_per_step=1)
+    swl = generate_workload("bursty", 12, cfg.padded_vocab, seed=4,
+                            max_prompt=40, max_new=12)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {d: obs_fleet_run(model, p, small, swl, torch.device(d_),
+                                os.path.join(tmp, d))
+               for d, p, d_ in (("cpu", cpu_peers, "cpu"),
+                                ("card", [to_dev(p) for p in cpu_peers],
+                                 dev.type))}
+    a, b = res["cpu"], res["card"]
+    same = sorted(n for n in a["files"] if b["files"].get(n) == a["files"][n])
+    log(f"  obs fp32 parity (reduced qwen2-7b): card vs CPU files equal: "
+        f"{same} of {sorted(a['files'])}; migrations "
+        f"{b['report']['migrations']}, hedges {b['report']['hedges']}")
+    require(a["report"] == b["report"], "obs fp32: reports differ")
+    for name in ("trace.json", "alerts.jsonl"):
+        require(a["files"][name] == b["files"][name],
+                f"obs fp32: {name} differs card vs CPU")
+
+    # ---- (c) the async runtime with its faults ----
+    cfg = replace(get_config("qwen1.5-0.5b"), num_layers=ASYNC_LAYERS)
+    model = build_model(cfg)
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+
+    def batches(step):
+        return make_lm_batch(task, TRAIN_T // 512, 512, step, None, seed=0,
+                             device=dev)
+    tc = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=2,
+                     total_steps=OBS_ASYNC_STEPS, optimizer="adamw")
+    with tempfile.TemporaryDirectory() as tmp:
+        tracer, metrics = for_sim_seconds(), MetricsRegistry()
+        watch = Watchtower(metrics, default_rules(), unit_us=1_000_000.0,
+                           clock="sim_s")
+        recorder = FlightRecorder(os.path.join(tmp, "postmortem"),
+                                  metrics=metrics)
+        tracer.recorder = recorder
+        watch.on_alert(recorder.on_alert)
+        watch.on_fault(recorder.on_fault)
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = AsyncScheduler(
+            model, tc, CodistConfig(n_models=2, distill_loss="kl"), batches,
+            parse_faults(ASYNC_FAULTS, 2), staleness_bound=1, device=dev,
+            tracer=tracer, metrics=metrics, watch=watch).run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+        paths = [os.path.join(tmp, n) for n in ("trace.json", "metrics.json",
+                                                "alerts.jsonl")]
+        tracer.save(paths[0])
+        metrics.save(paths[1])
+        watch.save(paths[2])
+        trace_checked(paths + recorder.dumped)
+        names = {e["name"] for e in tracer.to_dict()["traceEvents"]}
+    log(f"  obs async (qwen1.5-0.5b {ASYNC_LAYERS} layers, kl, "
+        f"{ASYNC_FAULTS}): {wall:.1f} s wall, sim_time {report.sim_time}, "
+        f"{tracer.n_events} trace events, alerts {watch.summary()}, "
+        f"{len(recorder.dumped)} bundles; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require({"step", "publish", "die", "preempted"} <= names,
+            f"obs async: trace events {sorted(names)}")
+    require(any(p.endswith("fault-fail.json") for p in recorder.dumped),
+            f"obs async: bundles {recorder.dumped}")
+    for k in ("fused_cross_entropy_parts", "fused_cross_entropy_grad",
+              "fused_distill_kl_parts", "fused_distill_kl_grad"):
+        require(counts[k] > 0, f"obs async: {k} never launched")
+    add(counts)
+    del model, report
+    torch.cuda.empty_cache()
+
+    # ---- (d) a 2-cell sweep through the CLI with every obs flag ----
+    doc = {"name": "obs_sweep", "arch": "qwen1.5-0.5b", "seq_len": 512,
+           "steps": OBS_SWEEP_STEPS, "optimizer": "adamw",
+           "distill_loss": "mse", "seeds": [0],
+           "batch_sizes": [TRAIN_T // 512],
+           "lr_schedules": [{"name": "cos1e3", "kind": "cosine", "lr": 1e-3,
+                             "warmup_frac": 0.1}],
+           "modes": ["allreduce", "codist"],
+           "alpha_schedules": [{"name": "const", "alpha0": 1.0}],
+           "peers": [2], "model_overrides": FULL_OVERRIDES}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = os.path.join(tmp, "obs_sweep.yaml")
+        with open(spec_path, "w") as f:
+            yaml.safe_dump(doc, f)
+        out = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = sweep_cli.main(["--spec", spec_path, "--out", tmp,
+                                 "--device", dev.type, "--trace",
+                                 "--metrics", "--alerts"])
+        wall = time.perf_counter() - t0
+        counts = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+        require(rc == 0 and "ran=2 skipped=0 failed=0" in out.getvalue(),
+                f"obs sweep exit {rc}: {out.getvalue()}")
+        sweep_dir = os.path.join(tmp, "obs_sweep")
+        files = sorted(os.path.join(sweep_dir, n) for n in os.listdir(sweep_dir)
+                       if n == "alerts.jsonl" or n.endswith(
+                           (".trace.json", ".metrics.json", ".alerts.jsonl")))
+        require(len(files) == 7, f"obs sweep files {files}")
+        trace_checked(files)
+    log(f"  obs sweep (2 cells, qwen1.5-0.5b full width, {OBS_SWEEP_STEPS} "
+        f"steps): {wall:.1f} s wall, "
+        + next(line for line in out.getvalue().splitlines()
+               if line.startswith("sweep alerts:"))
+        + f"; launches { {k: v for k, v in counts.items() if v} }")
+    want = sweep_expected("allreduce", 0, OBS_SWEEP_STEPS)
+    for k, v in sweep_expected("codist", 0, OBS_SWEEP_STEPS).items():
+        want[k] += v
+    require(counts == want, f"obs sweep launches {counts} != {want}")
+    add(counts)
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # on request: rows 1, 1q, 2 and 4 against the parent commit
 # ----------------------------------------------------------------------------
 
@@ -4253,6 +4634,11 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         phase_single(dev)
         torch.cuda.empty_cache()
         log(f"phase single: {time.perf_counter() - t0:.1f} s")
+    if "obs" in phases:
+        t0 = time.perf_counter()
+        launches["obs"] = phase_obs(dev, smi_line)
+        torch.cuda.empty_cache()
+        log(f"phase obs: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})

@@ -20,9 +20,10 @@ sweep directory.
 
 Cells run on ``device`` (``"cuda"`` by default). On the card the sweep
 frees the allocator's cache between cells and logs each cell's peak
-memory. The reference's observability hooks (per-cell traces, metrics and
-alerts) come with the observability port (ROADMAP Queue 1 item 11) and
-raise here.
+memory. With ``trace`` / ``metrics`` / ``alerts`` each cell writes the
+reference's observability files next to its result (sync modes on the step
+clock, async on the runtime's simulated seconds), and ``alerts`` adds a
+sweep-level Watchtower over the codist-vs-baseline loss gap.
 """
 from __future__ import annotations
 
@@ -40,15 +41,13 @@ from repro_torch.data import MarkovLM, make_lm_batch
 from repro_torch.experiments.spec import (ASYNC_MODES, Cell, SweepSpec,
                                           cell_to_dict, spec_to_dict)
 from repro_torch.models import build_model
+from repro_torch.obs import (MetricsRegistry, Watchtower, default_rules,
+                             for_sim_seconds, for_steps, load_rules)
 from repro_torch.runtime import AsyncScheduler, FaultConfig
 from repro_torch.train import (History, stack_batches, train_allreduce,
                                train_codist)
 
 SCHEMA_VERSION = 1
-
-_OBS = ("per-cell traces, metrics and alerts come with the observability "
-        "port (ROADMAP Queue 1 item 11)")
-
 
 # ----------------------------------------------------------------------------
 # paths + resume validation
@@ -154,16 +153,31 @@ def run_cell(cell: Cell, steps: Optional[int] = None, *,
 
     The summary's ``final`` block carries what the aggregator needs: final
     task loss (the paper's quality metric), accuracy, and the Section-3
-    communication accounting. ``trace_path`` / ``metrics_path`` /
-    ``alerts_path`` / ``rules`` are the reference's observability hooks
-    and raise ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
-    if (trace_path is not None or metrics_path is not None
-            or alerts_path is not None or rules is not None):
-        raise NotImplementedError(_OBS)
+    communication accounting. ``trace_path`` / ``metrics_path`` enable the
+    ``repro_torch.obs`` hooks for this cell and write its Perfetto trace /
+    metrics registry there (sync modes trace on the step clock, async on
+    the runtime's simulated seconds); ``None`` leaves the run
+    uninstrumented. ``alerts_path`` also evaluates a Watchtower (``rules``,
+    or the built-in pack) over the cell's live metrics on the same clock
+    and writes its alert JSONL there."""
     dev = resolve_device(device)
     steps = int(steps or cell.steps)
     model, task = _build_cell_setup(cell)
     tc = _train_config(cell, steps)
+    is_async = cell.mode in ASYNC_MODES
+    # alerting needs a live registry even when no metrics file is asked
+    # for; the internal registry is then not written out
+    metrics = (MetricsRegistry() if metrics_path or alerts_path else None)
+    watch = None
+    if alerts_path:
+        watch = Watchtower(
+            metrics, rules if rules is not None else default_rules(),
+            unit_us=(1_000_000.0 if is_async else 1000.0),
+            clock=("sim_s" if is_async else "steps"))
+    tracer = None
+    if trace_path:
+        tracer = for_sim_seconds() if is_async else for_steps()
+    obs = dict(tracer=tracer, metrics=metrics, watch=watch)
 
     def lm_batch(step, group=None):
         return make_lm_batch(task, cell.batch, cell.seq_len, step, group,
@@ -175,14 +189,15 @@ def run_cell(cell: Cell, steps: Optional[int] = None, *,
             while True:
                 yield lm_batch(s)
                 s += 1
-        _, hist = train_allreduce(model, tc, it(), log_every=1, device=dev)
+        _, hist = train_allreduce(model, tc, it(), log_every=1, device=dev,
+                                  **obs)
         comm = {"comm_events": hist.last("comm_events"),
                 "comm_bytes": hist.last("comm_bytes")}
     elif cell.mode in ASYNC_MODES:
         codist = _codist_config(cell, steps)
         faults = FaultConfig(n_peers=cell.peers, seed=cell.seed)
         report = AsyncScheduler(model, tc, codist, lm_batch, faults,
-                                log_every=1, device=dev).run()
+                                log_every=1, device=dev, **obs).run()
         records = sorted(
             (r for h in report.histories.values() for r in h.records),
             key=lambda r: (r["step"], r.get("peer", 0)))
@@ -197,7 +212,7 @@ def run_cell(cell: Cell, steps: Optional[int] = None, *,
             return stack_batches([lm_batch(step, None if coordinated else g)
                                   for g in range(cell.peers)])
         _, hist = train_codist(model, codist, tc, batches, log_every=1,
-                               device=dev)
+                               device=dev, **obs)
         comm = {"comm_events": hist.last("comm_events"),
                 "comm_bytes": hist.last("comm_bytes")}
 
@@ -231,12 +246,48 @@ def run_cell(cell: Cell, steps: Optional[int] = None, *,
         "steps": steps,
         "final": final,
     }
+    if tracer is not None:
+        tracer.save(trace_path)
+    if metrics is not None and metrics_path:
+        metrics.save(metrics_path)
+    if watch is not None:
+        watch.save(alerts_path)
     return summary, hist
 
 
 # ----------------------------------------------------------------------------
 # the sweep driver
 # ----------------------------------------------------------------------------
+
+def _observe_loss_gap(watch, by_key: Dict[tuple, Dict[str, float]],
+                      cell: Cell, summary: Dict, idx: int) -> None:
+    """Feed one finished cell into the sweep-level loss-gap Watchtower.
+
+    ``by_key`` maps ``baseline_key`` (batch, lr) -> {mode: final task_loss}.
+    Whenever a codist cell and its allreduce baseline are both known, the
+    ``sweep/loss_gap`` gauge is set to codist - baseline and the watch is
+    evaluated at the cell index (one cell renders as 1 ms on the sweep
+    clock), so the EWMA-drift rule sees gaps in deterministic cell order.
+    """
+    final = summary.get("final") or {}
+    task_loss = final.get("task_loss")
+    if task_loss is None:
+        return
+    key = tuple(summary.get("baseline_key", cell.baseline_key))
+    slot = by_key.setdefault(key, {})
+    slot[cell.mode] = float(task_loss)
+    base = slot.get("allreduce")
+    if base is None:
+        return
+    if cell.mode == "allreduce":
+        # the baseline arrived after its codist partners: flush them in order
+        pairs = [(m, v) for m, v in sorted(slot.items()) if m != "allreduce"]
+    else:
+        pairs = [(cell.mode, slot[cell.mode])]
+    for _, loss in pairs:
+        watch.registry.gauge("sweep/loss_gap").set(round(loss - base, 6))
+        watch.evaluate(idx)
+
 
 @dataclass
 class CellResult:
@@ -261,11 +312,15 @@ def run_sweep(spec: SweepSpec, out_root: str = "results/sweeps", *,
     one bad cell never costs the finished ones. The caller decides whether
     failures are fatal (the CLI exits 1 if any cell failed). On the card,
     each cell starts from an emptied allocator cache and its log line
-    carries its peak memory. ``trace`` / ``metrics`` / ``alerts`` /
-    ``rules_path`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+    carries its peak memory.
+
+    ``trace`` / ``metrics`` write per-cell observability files next to each
+    result: ``<cell_id>.trace.json`` (Perfetto trace) and
+    ``<cell_id>.metrics.json`` (the registry). ``alerts`` adds
+    ``<cell_id>.alerts.jsonl`` per cell plus a sweep-level ``alerts.jsonl``
+    watching the codist-vs-baseline loss gap across cells (``rules_path``
+    overrides the built-in rule pack for both).
     """
-    if trace or metrics or alerts or rules_path:
-        raise NotImplementedError(_OBS)
     dev = resolve_device(device)
     sweep_dir = sweep_dir_for(spec.name, out_root)
     os.makedirs(sweep_dir, exist_ok=True)
@@ -276,20 +331,42 @@ def run_sweep(spec: SweepSpec, out_root: str = "results/sweeps", *,
         cells = cells[:max_cells]
     eff_steps = int(steps or 0)
     results: List[CellResult] = []
+    cell_rules = None
+    swatch = None
+    by_key: Dict[tuple, Dict[str, float]] = {}
+    if alerts:
+        cell_rules = load_rules(rules_path) if rules_path else None
+        swatch = Watchtower(
+            MetricsRegistry(),
+            cell_rules if cell_rules is not None else default_rules(),
+            unit_us=1000.0, clock="cells")
     for i, cell in enumerate(cells):
         n_steps = eff_steps or cell.steps
         tag = f"[{i + 1}/{len(cells)}] {cell.cell_id}"
         if resume and summary_is_valid(sweep_dir, cell, n_steps):
             log(f"{tag}: skipped (already complete)")
-            results.append(CellResult(cell, "skipped", 0.0,
-                                      load_summary(sweep_dir, cell)))
+            summary = load_summary(sweep_dir, cell)
+            if swatch is not None and summary:
+                _observe_loss_gap(swatch, by_key, cell, summary, i)
+            results.append(CellResult(cell, "skipped", 0.0, summary))
             continue
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         try:
-            summary, hist = run_cell(cell, n_steps, device=dev)
+            summary, hist = run_cell(
+                cell, n_steps,
+                trace_path=(os.path.join(
+                    sweep_dir, f"{cell.cell_id}.trace.json")
+                    if trace else None),
+                metrics_path=(os.path.join(
+                    sweep_dir, f"{cell.cell_id}.metrics.json")
+                    if metrics else None),
+                alerts_path=(os.path.join(
+                    sweep_dir, f"{cell.cell_id}.alerts.jsonl")
+                    if alerts else None),
+                rules=cell_rules, device=dev)
         except Exception as e:  # noqa: BLE001 - record and keep sweeping
             dt = time.time() - t0
             log(f"{tag}: FAILED after {dt:.1f}s ({type(e).__name__}: {e})")
@@ -299,6 +376,8 @@ def run_sweep(spec: SweepSpec, out_root: str = "results/sweeps", *,
         summary_path, hist_path = cell_paths(sweep_dir, cell)
         hist.save(hist_path)          # history first...
         _write_atomic(summary_path, summary)  # ...summary marks completion
+        if swatch is not None:
+            _observe_loss_gap(swatch, by_key, cell, summary, i)
         dt = time.time() - t0
         peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
                 "GiB" if dev.type == "cuda" else "")
@@ -307,6 +386,11 @@ def run_sweep(spec: SweepSpec, out_root: str = "results/sweeps", *,
         results.append(CellResult(cell, "ran", dt, summary))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    if swatch is not None:
+        swatch.save(os.path.join(sweep_dir, "alerts.jsonl"))
+        s = swatch.summary()
+        log(f"sweep alerts: {s['n_events']} events, still firing: "
+            f"{', '.join(s['firing']) or 'none'}")
     counts = {s: sum(1 for r in results if r.status == s)
               for s in ("ran", "skipped", "failed")}
     log(f"sweep {spec.name}: total={len(results)} ran={counts['ran']} "

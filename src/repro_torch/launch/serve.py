@@ -19,8 +19,11 @@ peers' prefill logits; ``--snapshot-dir`` refreshes peer weights from
 ``--hedge``, ``--recover-after-ms`` and ``--degraded-admission``. The
 legacy single-engine path, ``--single``, runs one ``Engine.generate`` batch
 of ``--batch`` random prompts of ``--prompt-len`` tokens and ``--max-new``
-new ones (no fleet). Flags of features the port has not reached (the
-observability flags) exit with status 2 and name the item that brings them.
+new ones (no fleet). ``--trace``, ``--metrics`` and ``--alerts`` write the
+reference's observability files on the fleet's simulated clock,
+``--rules`` a rules file and ``--flight-recorder`` a postmortem directory
+(both need ``--alerts``); with ``--single`` these flags exit with status 2,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -40,18 +43,8 @@ from repro_torch.serve.fleet import (POLICIES, SCENARIOS, ChaosConfig,
                                      FleetConfig, FleetDefense, FleetRouter,
                                      SpecConfig, generate_workload)
 
-_OBS = "tracing, metrics and alerts come with the observability port (ROADMAP Queue 1 item 11)"
-
-
-def _unported(args) -> list:
-    """(flag, reason) for every unported feature the arguments ask for."""
-    out = []
-    for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
-                      ("--alerts", args.alerts), ("--rules", args.rules),
-                      ("--flight-recorder", args.flight_recorder)):
-        if val:
-            out.append((flag, _OBS))
-    return out
+from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchtower,
+                             default_rules, for_sim_ms, load_rules)
 
 
 def main(argv=None) -> None:
@@ -100,11 +93,21 @@ def main(argv=None) -> None:
     ap.add_argument("--degraded-admission", default="on", choices=("on", "off"))
     ap.add_argument("--report", default="", help="write the JSON report here")
     # ---- observability ----
-    ap.add_argument("--trace", default="")
-    ap.add_argument("--metrics", default="")
-    ap.add_argument("--alerts", default="")
-    ap.add_argument("--rules", default="")
-    ap.add_argument("--flight-recorder", default="")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome/Perfetto trace of the run here "
+                         "(simulated-ms clock; byte-identical per seed)")
+    ap.add_argument("--metrics", default="",
+                    help="write the metrics registry as JSON here")
+    ap.add_argument("--alerts", default="",
+                    help="evaluate Watchtower alert rules on the decode-tick "
+                         "clock and write the alert JSONL here")
+    ap.add_argument("--rules", default="",
+                    help="JSON alert-rules file for --alerts (default: the "
+                         "built-in pack, SLO from --slo-ms)")
+    ap.add_argument("--flight-recorder", default="",
+                    help="dump postmortem bundles into this directory on "
+                         "every fired alert or injected fault (needs "
+                         "--alerts)")
     # ---- legacy single-engine mode ----
     ap.add_argument("--single", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -121,11 +124,12 @@ def main(argv=None) -> None:
         ap.error("--trace/--metrics/--alerts/--flight-recorder "
                  "instrument the fleet's simulated clock: fleet mode "
                  "only (drop --single)")
-    unported = _unported(args)
-    if unported:
-        for flag, why in unported:
-            print(f"{flag}: not in the port yet — {why}", file=sys.stderr)
-        sys.exit(2)
+    if not args.single:
+        if args.rules and not args.alerts:
+            ap.error("--rules requires --alerts")
+        if args.flight_recorder and not args.alerts:
+            ap.error("--flight-recorder requires --alerts (bundles dump on "
+                     "fired alerts and injected faults)")
     try:
         cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     except NotImplementedError as e:
@@ -180,14 +184,41 @@ def main(argv=None) -> None:
         defense = FleetDefense(
             hedging=args.hedge,
             degraded_admission=(args.degraded_admission == "on"))
+    # the flight recorder rides the tracer's events, so it implies an
+    # internal tracer; alerting implies an internal registry (neither is
+    # written unless asked for)
+    tracer = (for_sim_ms() if args.trace or args.flight_recorder else None)
+    metrics = (MetricsRegistry() if args.metrics or args.alerts else None)
+    watch = recorder = None
+    if args.alerts:
+        rules = (load_rules(args.rules) if args.rules
+                 else default_rules(slo_ms=args.slo_ms))
+        watch = Watchtower(metrics, rules, unit_us=1000.0, clock="sim_ms")
+        if args.flight_recorder:
+            recorder = FlightRecorder(args.flight_recorder, metrics=metrics)
+            tracer.recorder = recorder
+            watch.on_alert(recorder.on_alert)
+            watch.on_fault(recorder.on_fault)
     router = FleetRouter(model, peer_params, config=fc, policy=args.router,
                          cache_dtype=cache_dtype,
                          canary_every=args.canary_every,
                          snapshot_dir=args.snapshot_dir or None,
                          refresh_every_ms=args.refresh_every_ms,
                          staleness_bound=args.staleness_bound,
-                         chaos=chaos, defense=defense, spec=spec,
+                         chaos=chaos, defense=defense, tracer=tracer,
+                         metrics=metrics, watch=watch, spec=spec,
                          device=device)
+    if recorder is not None:
+        # postmortems carry the offending ids: each peer's live requests and
+        # queue at dump time (simulated-clock state only)
+        recorder.context_fn = lambda: {
+            "peers": [
+                {"peer": i, "dead": e.dead,
+                 "now_ms": round(e.now_ms, 6),
+                 "live_rids": sorted(sl.record.request.rid
+                                     for sl in e.slots.values()),
+                 "queued": len(e.waiting)}
+                for i, e in enumerate(router.engines)]}
     if args.snapshot_dir:
         n = router.refresh_now()
         print(f"initial weight refresh: {n}/{args.peers} peers from "
@@ -238,6 +269,20 @@ def main(argv=None) -> None:
         with open(args.report, "w") as f:
             f.write(rep.to_json() + "\n")
         print(f"wrote {args.report}")
+    if tracer is not None and args.trace:
+        tracer.save(args.trace)
+        print(f"wrote {args.trace} ({tracer.n_events} trace events)")
+    if metrics is not None and args.metrics:
+        metrics.save(args.metrics)
+        print(f"wrote {args.metrics}")
+    if watch is not None:
+        watch.save(args.alerts)
+        s = watch.summary()
+        print(f"wrote {args.alerts} ({s['n_events']} alert events; "
+              f"still firing: {', '.join(s['firing']) or 'none'})")
+    if recorder is not None:
+        print(f"flight recorder: {len(recorder.dumped)} postmortem "
+              f"bundle(s) in {args.flight_recorder}")
 
 
 def _single(args, cfg, model, cache_dtype, device) -> None:

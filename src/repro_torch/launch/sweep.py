@@ -4,7 +4,8 @@ card by default.
     PYTHONPATH=src python -m repro_torch.launch.sweep \\
         --spec experiments/specs/paper_grid_small.yaml \\
         [--out results/sweeps] [--resume] [--max-cells N] [--steps N] \\
-        [--list] [--aggregate-only] [--no-aggregate] [--device cuda|cpu]
+        [--list] [--aggregate-only] [--no-aggregate] [--device cuda|cpu] \\
+        [--trace] [--metrics] [--alerts] [--rules RULES.json]
 
 The reference launcher's flags, plus ``--device`` (``cpu`` runs the loss
 kernels' plain versions). Cells persist individually under
@@ -13,9 +14,11 @@ kernels' plain versions). Cells persist individually under
 (completed cells are validated and skipped — rerunning a finished sweep
 with ``--resume`` is a no-op). Aggregation runs after every sweep (and
 standalone via ``--aggregate-only``), writing ``SWEEP_<name>.json`` +
-``SWEEP_<name>.md`` with the per-cell codist-vs-allreduce gaps. The
-observability flags (``--trace``, ``--metrics``, ``--alerts``,
-``--rules``) exit with status 2: they come with ROADMAP Queue 1 item 11.
+``SWEEP_<name>.md`` with the per-cell codist-vs-allreduce gaps.
+``--trace`` / ``--metrics`` / ``--alerts`` write each cell's trace, metrics
+and alert log next to its result, and ``--alerts`` a sweep-level
+``alerts.jsonl`` over the codist-vs-allreduce loss gap; ``--rules`` (with
+``--alerts``) overrides the built-in rule pack.
 """
 from __future__ import annotations
 
@@ -45,20 +48,22 @@ def main(argv=None) -> int:
                     help="run cells but skip the aggregation pass")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
-    ap.add_argument("--trace", action="store_true")
-    ap.add_argument("--metrics", action="store_true")
-    ap.add_argument("--alerts", action="store_true")
-    ap.add_argument("--rules", default="")
+    ap.add_argument("--trace", action="store_true",
+                    help="write a per-cell Perfetto trace next to each "
+                         "result (<cell_id>.trace.json)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="write a per-cell metrics dump next to each result "
+                         "(<cell_id>.metrics.json)")
+    ap.add_argument("--alerts", action="store_true",
+                    help="evaluate Watchtower rules per cell "
+                         "(<cell_id>.alerts.jsonl) plus a sweep-level "
+                         "loss-gap watch (alerts.jsonl)")
+    ap.add_argument("--rules", default="",
+                    help="JSON rules file overriding the built-in rule pack "
+                         "(needs --alerts)")
     args = ap.parse_args(argv)
-    obs = [f for f, on in (("--trace", args.trace),
-                           ("--metrics", args.metrics),
-                           ("--alerts", args.alerts),
-                           ("--rules", args.rules)) if on]
-    if obs:
-        from repro_torch.experiments.runner import _OBS
-        for flag in obs:
-            print(f"{flag}: not in the port yet — {_OBS}", file=sys.stderr)
-        sys.exit(2)
+    if args.rules and not args.alerts:
+        ap.error("--rules requires --alerts")
 
     from repro_torch.experiments import (aggregate_and_write, load_spec,
                                          run_sweep, sweep_dir_for)
@@ -75,7 +80,10 @@ def main(argv=None) -> int:
     if not args.aggregate_only:
         results = run_sweep(spec, args.out, resume=args.resume,
                             max_cells=args.max_cells or None,
-                            steps=args.steps or None, device=args.device)
+                            steps=args.steps or None, device=args.device,
+                            trace=args.trace, metrics=args.metrics,
+                            alerts=args.alerts,
+                            rules_path=args.rules or None)
         failed = sum(1 for r in results if r.status == "failed")
 
     if not args.no_aggregate:

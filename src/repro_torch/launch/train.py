@@ -26,10 +26,12 @@ for the subsample count, so ``--compression subsample`` sends the full
 logits, and the async-runtime flags are read only by ``codist-async``.
 ``--reduced`` is a ``store_true`` flag that defaults to on, so the CLI
 trains the reduced config; ``chip_smoke.py`` drives the full-size config
-through ``train_codist``, ``train_allreduce`` and ``AsyncScheduler``. The
-modes and flags of features the port has not reached (``codist-shardmap``,
-the observability flags) exit with status 2 and name the work that brings
-them. ``--out DIR`` writes ``DIR/history.json`` (the reference's record
+through ``train_codist``, ``train_allreduce`` and ``AsyncScheduler``.
+``--mode codist-shardmap`` exits with status 2 and names the work that
+brings it. ``--trace``, ``--metrics`` and ``--alerts`` write the
+reference's observability files (``codist-async`` on the virtual cluster
+clock, the other modes on the step clock); ``--rules`` and
+``--flight-recorder`` need ``--alerts``. ``--out DIR`` writes ``DIR/history.json`` (the reference's record
 list) and the final parameters as ``DIR/final.npz`` +
 ``DIR/final.tree.json`` (``checkpoint/io.py``; codistilled peers in the
 reference's stacked layout, so its ``load_pytree`` reads them); with
@@ -55,6 +57,9 @@ from repro_torch.configs import (CodistConfig, TrainConfig, get_config,
                                  get_reduced, list_archs)
 from repro_torch.data import MarkovLM, make_lm_batch
 from repro_torch.models import build_model
+from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchtower,
+                             default_rules, for_sim_seconds, for_steps,
+                             load_rules)
 from repro_torch.runtime import AsyncScheduler, parse_faults
 from repro_torch.train import stack_batches, train_allreduce, train_codist
 
@@ -62,22 +67,49 @@ MODES = ["codist", "codist-ckpt", "codist-pipelined", "codist-shardmap",
          "codist-async", "allreduce"]
 
 _SHARDMAP = ("the shard_map compressed exchange needs torch.distributed "
-             "(ROADMAP Queue 1 item 11)")
-_OBS = ("tracing, metrics and alerts come with the observability port "
-        "(ROADMAP Queue 1 item 11)")
+             "(ROADMAP Queue 1 item 11e)")
 
 
-def _unported(args) -> list:
-    """(flag, reason) for every unported feature the arguments ask for."""
-    out = []
-    if args.mode == "codist-shardmap":
-        out.append((f"--mode {args.mode}", _SHARDMAP))
-    for flag, val in (("--trace", args.trace), ("--metrics", args.metrics),
-                      ("--alerts", args.alerts), ("--rules", args.rules),
-                      ("--flight-recorder", args.flight_recorder)):
-        if val:
-            out.append((flag, _OBS))
-    return out
+def _obs(args):
+    """The observability hooks the flags ask for, on the run's clock: the
+    async runtime's simulated seconds for ``codist-async``, the step clock
+    otherwise. The flight recorder rides the tracer's events (an internal
+    tracer without ``--trace``); alerting needs a registry (an internal one
+    without ``--metrics``). Returns (tracer, metrics, watch, recorder)."""
+    is_async = args.mode == "codist-async"
+    tracer = metrics = watch = recorder = None
+    if args.trace or args.flight_recorder:
+        tracer = for_sim_seconds() if is_async else for_steps()
+    if args.metrics or args.alerts:
+        metrics = MetricsRegistry()
+    if args.alerts:
+        rules = load_rules(args.rules) if args.rules else default_rules()
+        watch = (Watchtower(metrics, rules, unit_us=1_000_000.0, clock="sim_s")
+                 if is_async else
+                 Watchtower(metrics, rules, unit_us=1000.0, clock="steps"))
+    if args.flight_recorder:
+        recorder = FlightRecorder(args.flight_recorder, metrics=metrics)
+        tracer.recorder = recorder
+        watch.on_alert(recorder.on_alert)
+        watch.on_fault(recorder.on_fault)
+    return tracer, metrics, watch, recorder
+
+
+def _save_obs(args, tracer, metrics, watch, recorder) -> None:
+    if tracer is not None and args.trace:
+        tracer.save(args.trace)
+        print(f"wrote {args.trace} ({tracer.n_events} trace events)")
+    if metrics is not None and args.metrics:
+        metrics.save(args.metrics)
+        print(f"wrote {args.metrics}")
+    if watch is not None:
+        watch.save(args.alerts)
+        s = watch.summary()
+        print(f"wrote {args.alerts} ({s['n_events']} alert events; "
+              f"still firing: {', '.join(s['firing']) or 'none'})")
+    if recorder is not None:
+        print(f"flight recorder: {len(recorder.dumped)} postmortem "
+              f"bundle(s) in {args.flight_recorder}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,22 +166,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default="")
-    ap.add_argument("--trace", default="")
-    ap.add_argument("--metrics", default="")
-    ap.add_argument("--alerts", default="")
-    ap.add_argument("--rules", default="")
-    ap.add_argument("--flight-recorder", default="")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome/Perfetto trace here (codist-async: "
+                         "the virtual cluster clock; other modes: the step "
+                         "clock)")
+    ap.add_argument("--metrics", default="",
+                    help="write the metrics registry as JSON here")
+    ap.add_argument("--alerts", default="",
+                    help="evaluate Watchtower alert rules on the run's clock "
+                         "and write the alert JSONL here")
+    ap.add_argument("--rules", default="",
+                    help="JSON alert-rules file for --alerts (default: the "
+                         "built-in pack)")
+    ap.add_argument("--flight-recorder", default="",
+                    help="dump postmortem bundles into this directory on "
+                         "every fired alert or injected fault (needs "
+                         "--alerts)")
     return ap
 
 
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        for flag, why in unported:
-            print(f"{flag}: not in the port yet — {why}", file=sys.stderr)
+    if args.mode == "codist-shardmap":
+        print(f"--mode {args.mode}: not in the port yet — {_SHARDMAP}",
+              file=sys.stderr)
         sys.exit(2)
+    if args.rules and not args.alerts:
+        ap.error("--rules requires --alerts")
+    if args.flight_recorder and not args.alerts:
+        ap.error("--flight-recorder requires --alerts")
     try:
         cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     except NotImplementedError as e:
@@ -178,10 +224,13 @@ def main(argv=None) -> None:
         return stack_batches([lm_batch(10_000 + step, args.seed + 1)
                               for _ in range(args.codist_n)])
 
+    obs = _obs(args)
     if args.mode == "codist-async":
-        _train_async(args, model, task, tc, device)
+        _train_async(args, model, task, tc, device, obs)
+        _save_obs(args, *obs)
         return
 
+    tracer, metrics, watch, _ = obs
     t0 = time.time()
     if args.mode == "allreduce":
         def it():
@@ -192,7 +241,9 @@ def main(argv=None) -> None:
         state, hist = train_allreduce(model, tc, it(),
                                       eval_batches=eval_batches,
                                       eval_every=args.eval_every,
-                                      log_every=args.log_every, device=device)
+                                      log_every=args.log_every, device=device,
+                                      tracer=tracer, metrics=metrics,
+                                      watch=watch)
     else:
         codist = CodistConfig(
             n_models=args.codist_n,
@@ -216,7 +267,9 @@ def main(argv=None) -> None:
         state, hist = train_codist(model, codist, tc, batches,
                                    eval_batches=eval_batches,
                                    eval_every=args.eval_every,
-                                   log_every=args.log_every, device=device)
+                                   log_every=args.log_every, device=device,
+                                   tracer=tracer, metrics=metrics,
+                                   watch=watch)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -238,9 +291,10 @@ def main(argv=None) -> None:
                   else peer_params_to_numpy(state.params))
         save_pytree(os.path.join(args.out, "final"), params)
         print(f"wrote {args.out}/history.json and final checkpoint")
+    _save_obs(args, *obs)
 
 
-def _train_async(args, model, task, tc: TrainConfig, device) -> None:
+def _train_async(args, model, task, tc: TrainConfig, device, obs) -> None:
     """``--mode codist-async``: the async runtime on a seeded fault
     schedule, one coordinated batch stream for every peer."""
     faults = parse_faults(args.faults, args.codist_n, seed=args.seed)
@@ -268,7 +322,7 @@ def _train_async(args, model, task, tc: TrainConfig, device) -> None:
         recover_after=(args.recover_after if args.checkpoint_every
                        else None),
         join_burn_in=args.join_burn_in, log_every=args.log_every,
-        device=device).run()
+        tracer=obs[0], metrics=obs[1], watch=obs[2], device=device).run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0

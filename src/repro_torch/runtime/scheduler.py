@@ -19,9 +19,12 @@ restart-from-checkpoint stall.
 
 The reference's scheduler, on the card: every peer's state, the published
 wires and the operands live on ``device``; the host holds the clock, the
-mailbox's bookkeeping and the histories. Its observability hooks (tracer,
-metrics, watch) come with the observability port (ROADMAP Queue 1 item 11)
-and raise here.
+mailbox's bookkeeping and the histories. Its observability hooks are the
+reference's, on the virtual cluster clock (simulated seconds): per-peer
+``step`` and ``preempted`` spans, join / recover / die / publish markers,
+the mailbox's comm counter, the ``runtime/*`` metrics with live mailbox
+staleness gauges, and a Watchtower evaluated once a scheduler round. They
+read only host state.
 """
 from __future__ import annotations
 
@@ -47,10 +50,6 @@ from repro_torch.tree import tree_map
 
 PyTree = Any
 Batches = Callable[[int], Dict]
-
-_OBS = ("tracer / metrics / watch hooks come with the observability port "
-        "(ROADMAP Queue 1 item 11)")
-
 
 def join_seed(seed: int, pid: int) -> int:
     """The generator seed of elastic joiner ``pid``'s init (the reference
@@ -97,10 +96,12 @@ class AsyncScheduler:
                  log_every: int = 1,
                  max_sim_time: float = float("inf"),
                  tracer=None, metrics=None, watch=None, device="cuda"):
-        if tracer is not None or metrics is not None or watch is not None:
-            raise NotImplementedError(_OBS)
         self.model, self.tc, self.codist = model, tc, codist
         self.device = resolve_device(device)
+        # observability on the virtual cluster clock (None: untouched)
+        self.tracer = tracer
+        self.metrics = metrics
+        self.watch = watch
         self.batches = batches
         self.faults = faults
         self.schedule = FaultSchedule(faults, tc.total_steps)
@@ -122,6 +123,9 @@ class AsyncScheduler:
         self.peers: Dict[int, PeerRuntime] = {
             p: PeerRuntime(p, self._state(params))
             for p, params in enumerate(self._init_params())}
+        if tracer is not None:
+            for p in self.peers:
+                tracer.name_process(p, f"peer{p}")
 
         # the wire's shape and dtypes, from a forward's logits shape on the
         # meta device (the reference's eval_shape); one zero wire fills
@@ -240,8 +244,38 @@ class AsyncScheduler:
         if (self.checkpoint_dir and self.checkpoint_every
                 and peer.step % self.checkpoint_every == 0):
             peer.snapshot(self.checkpoint_dir)
-        return (self.schedule.duration(peer.pid, step)
-                + self.schedule.pause_after(peer.pid, step))
+        dur = self.schedule.duration(peer.pid, step)
+        pause = self.schedule.pause_after(peer.pid, step)
+        if self.tracer is not None:
+            self.tracer.complete("step", now, now + dur, pid=peer.pid,
+                                 cat="runtime",
+                                 args={"step": step, "variant": variant})
+            if pause > 0:
+                self.tracer.complete("preempted", now + dur,
+                                     now + dur + pause, pid=peer.pid,
+                                     cat="chaos")
+        if self.metrics is not None:
+            self.metrics.histogram("runtime/step_s").observe(dur)
+            self.metrics.counter("runtime/steps").inc()
+        return dur + pause
+
+    # ---- observability -------------------------------------------------
+    def _staleness_gauges(self) -> None:
+        for k, v in self.mailbox.stats.as_dict().items():
+            self.metrics.gauge(f"runtime/mailbox_staleness_{k}").set(v)
+
+    def _observe_publish(self, p: int, step: int, t: float) -> None:
+        if self.tracer is not None:
+            self.tracer.instant("publish", t, pid=p, cat="runtime",
+                                args={"step": step})
+            self.tracer.counter(
+                "mailbox", t,
+                {"bytes_delivered": float(self.mailbox.bytes_delivered)})
+        if self.metrics is not None:
+            self.metrics.counter("runtime/publishes").inc()
+            # the live staleness view for alert rules (the same names and
+            # final values as the end-of-run gauges)
+            self._staleness_gauges()
 
     # ------------------------------------------------------------------
     def run(self) -> RunReport:
@@ -270,11 +304,17 @@ class AsyncScheduler:
                     pending_joins.remove((pid, jt))
                     self.peers[pid] = self._fresh_peer(pid, jt)
                     clock.add_peer(pid, at=jt)
+                    if self.tracer is not None:
+                        self.tracer.name_process(pid, f"peer{pid}")
+                        self.tracer.instant("join", jt, pid=pid, cat="chaos")
             for pid, rt in list(pending_recoveries):
                 if rt <= clock.now + 1e-9:
                     pending_recoveries.remove((pid, rt))
                     self.peers[pid].restore(self.checkpoint_dir, rt)
                     clock.add_peer(pid, at=rt)
+                    if self.tracer is not None:
+                        self.tracer.instant("recover", rt, pid=pid,
+                                            cat="chaos")
             if not clock.ready_at:
                 continue
 
@@ -292,6 +332,11 @@ class AsyncScheduler:
                     peer.die()
                     clock.remove_peer(p)
                     self.mailbox.drop_peer(p)
+                    if self.tracer is not None:
+                        self.tracer.instant("die", t, pid=p, cat="chaos")
+                    if self.watch is not None:
+                        self.watch.note_fault("fail", t,
+                                              {"peer": p, "step": peer.step})
                     if (self.recover_after is not None
                             and peer.can_recover(self.checkpoint_dir)):
                         pending_recoveries.append(
@@ -307,6 +352,7 @@ class AsyncScheduler:
                     wire = self._publish(peer.state.params,
                                          self._batch(peer.step))
                     self.mailbox.post(p, peer.step, t, wire)
+                    self._observe_publish(p, peer.step, t)
             # phase 2: step
             for p in live:
                 peer = self.peers[p]
@@ -317,7 +363,15 @@ class AsyncScheduler:
                     clock.remove_peer(p)
                 else:
                     clock.advance(p, dur)
+            if self.watch is not None:
+                self.watch.evaluate(t)
 
+        if self.metrics is not None:
+            m = self.metrics
+            m.counter("runtime/comm_events").inc(self.comm_events)
+            m.counter("runtime/comm_bytes").inc(
+                int(self.mailbox.bytes_delivered))
+            self._staleness_gauges()
         completion = {p: pr.completed_at for p, pr in self.peers.items()
                       if pr.completed_at is not None}
         finals = {}

@@ -1,7 +1,6 @@
 """Continuous-batching scheduler: per-step join/evict of ragged requests
 into fixed decode slots over the paged KV pool (the reference's engine with
-its chaos hooks; its tracer, metrics and alert hooks come with the
-observability port).
+its chaos and observability hooks).
 
 One ``FleetEngine`` serves one peer. Every engine tick:
 
@@ -25,6 +24,13 @@ a scheduled preemption jumps the clock past the pause (in-flight slots
 frozen, KV intact), and a scheduled failure kills the engine at the start
 of the tick; a dead engine makes no progress until the router ``revive``s
 it. Without a schedule the engine runs the clean path unchanged.
+
+With a tracer, a metrics registry or a Watchtower attached (``repro_torch.
+obs``) each tick records the reference's events on the simulated clock: the
+``tick`` span, the ``kv_pool`` and ``decode_analytic`` counters, the
+``fleet/*`` metrics, the preemption marker and span, and one alert
+evaluation. They read only host state (the slot table, the simulated clock,
+the counts of the tick); without them every hook is one attribute check.
 """
 from __future__ import annotations
 
@@ -40,6 +46,12 @@ from repro_torch.serve.fleet.model_exec import build_decode_step
 from repro_torch.serve.fleet.workload import Request
 
 PyTree = Any
+
+# trace process rows (the reference's): the router is pid 0, peer engines
+# 1 + peer_id, and the per-request span trees have their own process row, so
+# a migrated request's tree stays on one row
+ROUTER_PID = 0
+REQUEST_PID = 1000
 
 
 @dataclass(frozen=True)
@@ -79,6 +91,10 @@ class RequestRecord:
     migrations: int = 0
     tokens: List[int] = field(default_factory=list)
     prefill_logits: Optional[np.ndarray] = None   # kept for canary compares
+    # trace bookkeeping (the router's): only client-facing placements are
+    # traced, and each physical placement emits its span tree once
+    traced: bool = False
+    trace_emitted: bool = False
 
     @property
     def _arrival0_ms(self) -> float:
@@ -109,13 +125,18 @@ class FleetEngine:
 
     def __init__(self, model, params: PyTree, config: FleetConfig,
                  cache_dtype=torch.float32, keep_logits: bool = False,
-                 device="cuda", peer_id: int = 0):
+                 device="cuda", peer_id: int = 0, tracer=None, metrics=None):
         self.model = model
         self.params = params
         self.config = config
         self.cache_dtype = cache_dtype
         self.keep_logits = keep_logits
         self.peer_id = peer_id
+        # observability (None: each hook is one attribute check)
+        self.tracer = tracer
+        self.metrics = metrics
+        self.watch = None                # Watchtower, set by the router
+        self._pid = peer_id + 1          # trace process row (0 = router)
         # chaos hooks (None / untouched on the clean path)
         self.chaos = None                # Optional[ChaosSchedule]
         self.health = None               # Optional[PeerHealth]
@@ -149,10 +170,18 @@ class FleetEngine:
         if self.pool.quantized:
             per_row += 4             # one fp32 scale per stored row
         self._kv_bytes_per_token = int(n_attn * 2 * per_row)
+        # analytic decode cost per attended context row: qk and av are each a
+        # multiply-accumulate over num_heads * head_dim lanes per attention
+        # sub-layer (2 FLOPs a MAC: factor 4)
+        self._flops_per_ctx_row = int(
+            4 * n_attn * cfg.num_heads * cfg.resolved_head_dim)
         # quantized pools are quantized at insert time: prefill runs with an
         # fp32 cache, so there are exact rows to quantize
         self._prefill_dtype = (torch.float32 if self.pool.quantized
                                else cache_dtype)
+        if self.tracer is not None:
+            self.tracer.name_process(self._pid, f"peer{peer_id}")
+            self.tracer.name_thread(self._pid, 0, "engine")
 
     # ---- intake ------------------------------------------------------------
     def set_params(self, params: PyTree) -> None:
@@ -300,11 +329,13 @@ class FleetEngine:
                 self._fail_fired = True
                 self.die()
                 return False
+        t0 = self.now_ms
         self._intake()
         admitted_tokens = self._admit()
         newly = {s for s, sl in self.slots.items()
                  if sl.record.admitted_ms == self.now_ms}
-        decoded = self._decode_tick() > 0
+        ctx_rows = self._decode_tick()
+        decoded = ctx_rows > 0
         if admitted_tokens == 0 and not decoded:
             # single-token requests can still finish on prefill alone
             self._evict(self.now_ms)
@@ -312,6 +343,7 @@ class FleetEngine:
         cost = (self.config.step_overhead_ms
                 + self.config.prefill_ms_per_token * admitted_tokens
                 + (self._decode_cost_ms() if decoded else 0.0))
+        slow_mult = 1.0
         if self.chaos is not None:
             slow_mult = self.chaos.slowdown(self.peer_id, tick)
             cost *= slow_mult
@@ -321,8 +353,12 @@ class FleetEngine:
         self.now_ms += cost
         # first-token times are read off before _evict pops any
         # single-step slot out of the slot table
+        new_ttfts: List[float] = []
         for s in newly:
-            self.slots[s].record.first_token_ms = self.now_ms
+            rec = self.slots[s].record
+            rec.first_token_ms = self.now_ms
+            if rec.ttft_ms is not None:
+                new_ttfts.append(rec.ttft_ms)
         self._evict(self.now_ms)
         self.steps += 1
         self.peak_utilization = max(self.peak_utilization,
@@ -330,15 +366,73 @@ class FleetEngine:
         if self.config.defrag_every and \
                 self.steps % self.config.defrag_every == 0:
             self._defrag()
+        if self.tracer is not None:
+            self._trace_tick(t0, tick, admitted_tokens, ctx_rows)
+        if self.metrics is not None:
+            self._record_tick(cost, slow_mult, new_ttfts, admitted_tokens,
+                              ctx_rows)
         if self.chaos is not None:
             pause = self.chaos.pause_ms(self.peer_id, tick)
             if pause > 0:
                 # preemption: the clock jumps past the pause, slots stay
                 # frozen, the router sees offline_until_ms
                 self.offline_until_ms = self.now_ms + pause
+                if self.tracer is not None:
+                    self.tracer.instant("preempt", self.now_ms, pid=self._pid,
+                                        cat="chaos", args={"pause_ms": pause})
+                    self.tracer.complete("preempted", self.now_ms,
+                                         self.offline_until_ms,
+                                         pid=self._pid, cat="chaos")
+                if self.watch is not None:
+                    self.watch.note_fault(
+                        "preempt", self.now_ms,
+                        {"peer": self.peer_id, "pause_ms": pause,
+                         "live_rids": self._live_rids()})
                 self.now_ms = self.offline_until_ms
                 self.preemptions_hit += 1
+        if self.watch is not None:
+            self.watch.evaluate(self.now_ms)
         return True
+
+    # ---- observability (the reference's events, names and values) ----------
+    def _live_rids(self) -> List[int]:
+        return sorted(sl.record.request.rid for sl in self.slots.values())
+
+    def _trace_tick(self, t0: float, tick: int, admitted_tokens: int,
+                    ctx_rows: int) -> None:
+        self.tracer.complete(
+            "tick", t0, self.now_ms, pid=self._pid, cat="engine",
+            args={"tick": tick, "admitted_tokens": admitted_tokens,
+                  "live_slots": len(self.slots), "queued": len(self.waiting)})
+        self.tracer.counter(
+            "kv_pool", self.now_ms,
+            {"utilization": round(self.pool.utilization(), 6),
+             "kv_bytes_written": self.kv_bytes_written}, pid=self._pid)
+        if ctx_rows:
+            self.tracer.counter(
+                "decode_analytic", self.now_ms,
+                {"hbm_bytes": ctx_rows * self._kv_bytes_per_token,
+                 "flops": ctx_rows * self._flops_per_ctx_row}, pid=self._pid)
+
+    def _record_tick(self, cost: float, slow_mult: float,
+                     new_ttfts: List[float], admitted_tokens: int,
+                     ctx_rows: int) -> None:
+        m = self.metrics
+        m.histogram("fleet/tick_cost_ms").observe(cost)
+        m.gauge("fleet/kv_utilization").set(round(self.pool.utilization(), 6))
+        for ttft in new_ttfts:
+            m.histogram("fleet/ttft_live_ms").observe(ttft)
+        if self.chaos is not None:
+            # the live straggler signal: observed / clean tick-cost ratio
+            m.gauge("fleet/slowdown").set(slow_mult)
+        if admitted_tokens:
+            m.counter("fleet/prefill_tokens").inc(admitted_tokens)
+        if ctx_rows:
+            m.counter("fleet/decode_ctx_rows").inc(ctx_rows)
+            m.counter("fleet/analytic_hbm_bytes").inc(
+                ctx_rows * self._kv_bytes_per_token)
+            m.counter("fleet/analytic_flops").inc(
+                ctx_rows * self._flops_per_ctx_row)
 
     def advance_to(self, t_ms: float) -> None:
         """Run ticks until the clock reaches ``t_ms`` (or work runs dry, in
@@ -371,6 +465,13 @@ class FleetEngine:
         the router can harvest in-flight work for migration."""
         self.dead = True
         self.died_at_ms = self.now_ms
+        if self.tracer is not None:
+            self.tracer.instant("die", self.now_ms, pid=self._pid,
+                                cat="chaos")
+        if self.watch is not None:
+            self.watch.note_fault("fail", self.now_ms,
+                                  {"peer": self.peer_id,
+                                   "live_rids": self._live_rids()})
 
     def revive(self, t_ms: float, params: Optional[PyTree] = None,
                version: Optional[int] = None) -> None:
@@ -390,6 +491,9 @@ class FleetEngine:
             self.set_params(params)
             if version is not None:
                 self.weights_version = version
+        if self.tracer is not None:
+            self.tracer.instant("revive", self.now_ms, pid=self._pid,
+                                cat="chaos")
 
     def harvest(self) -> List[RequestRecord]:
         """Strip every unfinished request (live slots, queued, future) for

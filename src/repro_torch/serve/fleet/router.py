@@ -32,8 +32,12 @@ is the clean one.
 ``FleetReport`` carries every field of the reference's report, and
 ``stream_digest`` is the same sha256 over the client token streams, so a
 port run and a reference run on the same weights and workload compare by
-digest. The reference's tracer, metrics and alert hooks come with the
-observability port.
+digest. With a tracer, a metrics registry or a Watchtower (``repro_torch.
+obs``) the router records the reference's events: each request's async
+span tree (request, queue, admit, prefill, decode, migrate, re-prefill,
+emit), the hedge and hedge-win markers, the TTFT and e2e histograms and
+every numeric report field as a ``report/*`` gauge, and it hands the
+Watchtower to its engines; a traced run's report equals an untraced one's.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ from repro_torch.checkpoint.io import (has_snapshot, load_snapshot_params,
 from repro_torch.core.codistillation import distill_pair
 from repro_torch.core.comm_model import bits_per_exchange_event, param_bits_of
 from repro_torch.obs.metrics import Histogram
-from repro_torch.serve.fleet.batcher import (FleetConfig, FleetEngine,
+from repro_torch.serve.fleet.batcher import (REQUEST_PID, ROUTER_PID,
+                                             FleetConfig, FleetEngine,
                                              RequestRecord)
 from repro_torch.serve.fleet.chaos import (ChaosConfig, ChaosSchedule,
                                            ChaosStats, FleetDefense,
@@ -158,6 +163,7 @@ class FleetRouter:
                  staleness_bound: int = 0,
                  chaos: Optional[ChaosConfig] = None,
                  defense: Optional[FleetDefense] = None,
+                 tracer=None, metrics=None, watch=None,
                  spec: Optional[SpecConfig] = None,
                  draft_model=None, draft_params: PyTree = None,
                  device="cuda"):
@@ -167,6 +173,16 @@ class FleetRouter:
             raise ValueError("a fleet needs at least one peer")
         self.policy = policy
         self.config = config or FleetConfig()
+        # observability (None: every hook is one attribute check); the
+        # engines evaluate the Watchtower each tick, the router once more
+        # after the end-of-run report gauges land
+        self.tracer = tracer
+        self.metrics = metrics
+        self.watch = watch
+        if tracer is not None:
+            tracer.name_process(ROUTER_PID, "router")
+            tracer.name_process(REQUEST_PID, "requests")
+        obs = dict(tracer=tracer, metrics=metrics)
         # speculative pairing: every serving peer is a SpecEngine whose draft
         # is its ring neighbour, a dedicated peer (out of the serving
         # rotation) or a static student; _spec_serving is None otherwise
@@ -184,11 +200,11 @@ class FleetRouter:
                     "(or pass draft_model/draft_params for a student draft)")
             self.engines = [
                 FleetEngine(model, p, self.config, cache_dtype=cache_dtype,
-                            device=device, peer_id=i)
+                            device=device, peer_id=i, **obs)
                 if i == dedicated else
                 SpecEngine(model, p, self.config, sc, cache_dtype=cache_dtype,
                            device=device, peer_id=i, draft_model=draft_model,
-                           draft_params=draft_params)
+                           draft_params=draft_params, **obs)
                 for i, p in enumerate(peer_params)]
             serving = [i for i, e in enumerate(self.engines)
                        if isinstance(e, SpecEngine)]
@@ -202,8 +218,11 @@ class FleetRouter:
             self.engines = [FleetEngine(model, p, self.config,
                                         cache_dtype=cache_dtype,
                                         keep_logits=(policy == "ensemble"),
-                                        device=device, peer_id=i)
+                                        device=device, peer_id=i, **obs)
                             for i, p in enumerate(peer_params)]
+        if watch is not None:
+            for eng in self.engines:
+                eng.watch = watch
         self.canary_every = canary_every
         self.snapshot_dir = snapshot_dir
         self.refresh_every_ms = refresh_every_ms
@@ -240,8 +259,12 @@ class FleetRouter:
         self._phys2logical: Dict[int, RequestRecord] = {}
         self._hedge_pairs: List[_HedgePair] = []
         self._hedge_by_id: Dict[int, _HedgePair] = {}
-        # the hedging threshold over request sizes
-        self._size_hist = Histogram(name="router/hedge_size_tokens")
+        # the hedging threshold over request sizes (the registry's
+        # histogram when there is one, so the export carries it)
+        self._size_hist = (metrics.histogram("router/hedge_size_tokens")
+                           if metrics is not None
+                           else Histogram(name="router/hedge_size_tokens"))
+        self._trace_close: Dict[int, float] = {}   # rid -> last child end
 
     # ---- peer selection ----------------------------------------------------
     def _serving(self, peers: List[int]) -> List[int]:
@@ -289,6 +312,17 @@ class FleetRouter:
     def _route(self, request) -> None:
         n = len(self.engines)
         t = request.arrival_ms
+        if self.tracer is not None:
+            # one async wrapper per client request, opened at arrival and
+            # closed at report time, keyed by the request id so the tree
+            # survives migration; children land on the request's thread row
+            self.tracer.name_thread(REQUEST_PID, request.rid,
+                                    f"req{request.rid}")
+            self.tracer.async_begin(
+                "request", request.rid, "request", t, pid=REQUEST_PID,
+                tid=request.rid,
+                args={"prompt_len": request.prompt_len,
+                      "max_new": request.max_new})
         if self.policy == "ensemble":
             if self.defense is None:
                 avail = list(range(n))
@@ -303,6 +337,7 @@ class FleetRouter:
                 if primary in avail:
                     break
             prec = self.engines[primary].enqueue(request)
+            prec.traced = True
             self._primaries.append(prec)
             for off in range(1, n):
                 peer = (primary + off) % n
@@ -316,6 +351,7 @@ class FleetRouter:
             self._no_capacity(request, t)
             return
         prec = self.engines[peer].enqueue(request)
+        prec.traced = True
         self._primaries.append(prec)
         self._since_canary += 1
         if (self.canary_every and n > 1
@@ -344,7 +380,7 @@ class FleetRouter:
         """Every peer is dead or offline at arrival."""
         alive = self._serving([i for i, e in enumerate(self.engines)
                                if not e.dead])
-        rec = RequestRecord(request)
+        rec = RequestRecord(request, traced=True)
         if self.defense is not None and alive:
             # park: the orphan machinery places it when a peer returns
             self._primaries.append(rec)
@@ -354,7 +390,9 @@ class FleetRouter:
             # undefended: queue on whichever peer comes back soonest
             peer = min(alive, key=lambda i: (self.engines[i].offline_until_ms,
                                              i))
-            self._primaries.append(self.engines[peer].enqueue(request))
+            prec = self.engines[peer].enqueue(request)
+            prec.traced = True
+            self._primaries.append(prec)
             return
         rec.rejected = True
         self._primaries.append(rec)
@@ -383,6 +421,10 @@ class FleetRouter:
         self._hedge_by_id[id(prec)] = pair
         self._hedge_by_id[id(hrec)] = pair
         self.chaos_stats.hedges += 1
+        if self.tracer is not None:
+            self.tracer.instant("hedge", request.arrival_ms, pid=REQUEST_PID,
+                                tid=request.rid, cat="request",
+                                args={"to_peer": hpeer})
 
     # ---- weight refresh (keep-last, staleness-bounded) ---------------------
     def refresh_now(self) -> int:
@@ -418,6 +460,90 @@ class FleetRouter:
                           // self.refresh_every_ms) + 1
             self._next_refresh_ms += periods * self.refresh_every_ms
             self.refresh_now()
+
+    # ---- request-tree tracing ----------------------------------------------
+    def _bump_close(self, rid: int, t: float) -> None:
+        cur = self._trace_close.get(rid)
+        if cur is None or t > cur:
+            self._trace_close[rid] = t
+
+    def _trace_placement(self, rec: RequestRecord, end_t: float, *,
+                         cancelled: bool = False,
+                         note: Optional[str] = None) -> None:
+        """Emit the spans of ONE physical placement of a traced request —
+        queue, admit, prefill (re-prefill for a migrated continuation),
+        decode — on the request's own row, once, when the placement
+        concludes (finish, harvest or end of run) and every time is known;
+        the export's (ts, seq) order interleaves them."""
+        tr = self.tracer
+        if tr is None or not rec.traced or rec.trace_emitted:
+            return
+        rec.trace_emitted = True
+        rid = rec.request.rid
+        base: Dict = {}
+        if note:
+            base["note"] = note
+        if cancelled:
+            base["cancelled"] = True
+        args = base or None
+        arr = rec.request.arrival_ms
+        if rec.admitted_ms is None:
+            if not rec.rejected:
+                # still queued or pending when the placement was torn down
+                t1 = max(arr, end_t)
+                tr.complete("queue", arr, t1, pid=REQUEST_PID, tid=rid,
+                            cat="request", args=args)
+                self._bump_close(rid, t1)
+            return
+        adm = max(arr, rec.admitted_ms)
+        tr.complete("queue", arr, adm, pid=REQUEST_PID, tid=rid,
+                    cat="request")
+        tr.instant("admit", adm, pid=REQUEST_PID, tid=rid, cat="request")
+        name = "re-prefill" if rec.origin is not None else "prefill"
+        first = (rec.first_token_ms if rec.first_token_ms is not None
+                 else max(adm, end_t))
+        first = max(adm, first)
+        tr.complete(name, adm, first, pid=REQUEST_PID, tid=rid,
+                    cat="request", args=args)
+        last = first
+        if rec.first_token_ms is not None:
+            dend = (rec.finished_ms if rec.finished_ms is not None
+                    else max(first, end_t))
+            dargs = dict(base)
+            dargs["tokens"] = len(rec.tokens)
+            tr.complete("decode", first, dend, pid=REQUEST_PID, tid=rid,
+                        cat="request", args=dargs)
+            last = dend
+        self._bump_close(rid, last)
+
+    def _finalize_trace(self, end_ms: float) -> None:
+        """Flush every placement whose spans were never emitted (clean
+        finishes, strandings on undefended dead peers) and close every
+        request's async wrapper: the export needs balanced trees, rejected
+        and unfinished requests included."""
+        if self.tracer is None:
+            return
+        for r in sorted(self._primaries, key=lambda r: r.request.rid):
+            if not r.traced:
+                continue
+            rid = r.request.rid
+            finished = r.finished_ms is not None
+            if not r.trace_emitted:
+                self._trace_placement(
+                    r, end_ms, cancelled=not finished and not r.rejected)
+            if finished:
+                self.tracer.instant("emit", r.finished_ms, pid=REQUEST_PID,
+                                    tid=rid, cat="request",
+                                    args={"tokens": len(r.tokens)})
+            close = self._trace_close.get(rid, r.request.arrival_ms)
+            if finished:
+                close = max(close, r.finished_ms)
+            status = ("completed" if finished
+                      else "rejected" if r.rejected else "unfinished")
+            self.tracer.async_end(
+                "request", rid, "request", max(close, r.request.arrival_ms),
+                pid=REQUEST_PID, tid=rid,
+                args={"status": status, "migrations": r.migrations})
 
     # ---- migration / hedging / recovery maintenance ------------------------
     def _logical_of(self, rec: RequestRecord) -> RequestRecord:
@@ -459,6 +585,9 @@ class FleetRouter:
     def _absorb_harvested(self, recs: List[RequestRecord],
                           t_ms: float) -> None:
         for rec in recs:
+            # this placement is dead: emit its partial span tree now, while
+            # its times still describe what ran on the peer
+            self._trace_placement(rec, t_ms, cancelled=True, note="harvest")
             pair = self._hedge_by_id.get(id(rec))
             if pair is not None:
                 if rec is pair.rec:
@@ -492,6 +621,7 @@ class FleetRouter:
                 del self._phys2logical[id(prec)]
                 self._queue_migration(logical, t_ms)
             elif prec.finished_ms is not None:
+                self._trace_placement(prec, t_ms)
                 self._continuations.remove(prec)
                 del self._phys2logical[id(prec)]
                 self._fold(logical, prec)
@@ -521,6 +651,11 @@ class FleetRouter:
                 prec.rejected = False
                 prec.cancelled = False
                 self.chaos_stats.hedge_wins += 1
+                if self.tracer is not None and prec.traced:
+                    self.tracer.instant("hedge_win", hrec.finished_ms,
+                                        pid=REQUEST_PID, tid=prec.request.rid,
+                                        cat="request",
+                                        args={"peer": pair.hpeer})
                 self._unhedge(pair)
             elif not pair.palive and not pair.halive:
                 # both copies rejected at admission: the shed stands
@@ -585,10 +720,16 @@ class FleetRouter:
                                      max(req0.arrival_ms, t_ms))
             new_rec = self.engines[peer].enqueue(cont)
             new_rec.origin = req0
+            new_rec.traced = logical.traced
             self._phys2logical[id(new_rec)] = logical
             self._continuations.append(new_rec)
             logical.migrations += 1
             self.chaos_stats.migrations += 1
+            if self.tracer is not None and logical.traced:
+                self.tracer.instant(
+                    "migrate", t_ms, pid=REQUEST_PID, tid=req0.rid,
+                    cat="request",
+                    args={"attempt": logical.migrations, "to_peer": peer})
             self._orphans.remove(orph)
 
     def _update_admission(self, t_ms: float) -> None:
@@ -655,14 +796,22 @@ class FleetRouter:
         self._maybe_refresh(end_ms)
         for prec, srec in self._pairs:
             self.canary_stats.observe(prec, srec)
-        return self._report(workload, slo_ms, end_ms)
+        rep = self._report(workload, slo_ms, end_ms)
+        if self.watch is not None:
+            # one last evaluation after the report gauges land, so the
+            # end-of-run rules (canary divergence) see their signals
+            self.watch.evaluate(end_ms)
+        return rep
 
     def _report(self, workload: Workload, slo_ms: float,
                 end_ms: float) -> FleetReport:
         done = [r for r in self._primaries if r.finished_ms is not None]
         ttfts = [r.ttft_ms for r in done]
-        ttft_h = Histogram(name="fleet/ttft_ms")
-        e2e_h = Histogram(name="fleet/e2e_ms")
+        m = self.metrics
+        ttft_h = (m.histogram("fleet/ttft_ms") if m is not None
+                  else Histogram(name="fleet/ttft_ms"))
+        e2e_h = (m.histogram("fleet/e2e_ms") if m is not None
+                 else Histogram(name="fleet/e2e_ms"))
         for t in ttfts:
             ttft_h.observe(t)
         for r in done:
@@ -679,7 +828,7 @@ class FleetRouter:
                   if isinstance(e, SpecEngine)]
         sp_drafted = sum(s.drafted for s in sstats)
         sp_accepted = sum(s.accepted for s in sstats)
-        return FleetReport(
+        rep = FleetReport(
             scenario=workload.scenario,
             router=self.policy,
             peers=len(self.engines),
@@ -725,3 +874,14 @@ class FleetRouter:
                               else 0.0),
             spec_fallback_ticks=sum(s.fallback_ticks for s in sstats),
         )
+        self._finalize_trace(end_ms)
+        if m is not None:
+            # every numeric report field doubles as a gauge, and so do the
+            # canary's divergence numbers the canary rule watches
+            for k, v in rep.to_dict().items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    m.gauge(f"report/{k}").set(v)
+            m.gauge("report/canary_mean_mse").set(rep.canary["mean_mse"])
+            m.gauge("report/canary_token_agreement").set(
+                rep.canary["token_agreement"])
+        return rep

@@ -29,7 +29,9 @@ pool missed a row), so after an outage the engine decodes plain until the
 in-flight slots drain, then speculates again on fresh admissions.
 
 The accept rate is a live codistillation-quality signal (how often the
-peers' argmaxes agree on real traffic): ``FleetReport.spec_accept_rate``.
+peers' argmaxes agree on real traffic): ``FleetReport.spec_accept_rate``,
+and with a registry the ``fleet/spec_accept`` histogram and the running
+``fleet/spec_accept_rate`` gauge.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.serve.fleet.batcher import FleetConfig, FleetEngine
+from repro_torch.serve.fleet.batcher import (REQUEST_PID, FleetConfig,
+                                             FleetEngine)
 from repro_torch.serve.fleet.cache import PagedCachePool
 from repro_torch.serve.fleet.model_exec import (build_decode_step,
                                                 build_verify_step)
@@ -82,10 +85,11 @@ class SpecEngine(FleetEngine):
     def __init__(self, model, params: PyTree, config: FleetConfig,
                  spec: SpecConfig, cache_dtype=torch.float32,
                  keep_logits: bool = False, device="cuda", peer_id: int = 0,
-                 draft_model=None, draft_params: PyTree = None):
+                 draft_model=None, draft_params: PyTree = None,
+                 tracer=None, metrics=None):
         super().__init__(model, params, config, cache_dtype=cache_dtype,
                          keep_logits=keep_logits, device=device,
-                         peer_id=peer_id)
+                         peer_id=peer_id, tracer=tracer, metrics=metrics)
         self.spec = spec
         self.spec_stats = SpecStats()
         self.partner: Optional[FleetEngine] = None   # ring / dedicated
@@ -190,6 +194,8 @@ class SpecEngine(FleetEngine):
             self._last_spec = False
             self._draft_dirty.update(live)
             self.spec_stats.fallback_ticks += 1
+            if self.metrics is not None:
+                self.metrics.counter("fleet/spec_fallback_ticks").inc()
             return super()._decode_tick()
         self._last_spec = True
         return self._spec_round(live)
@@ -237,6 +243,7 @@ class SpecEngine(FleetEngine):
 
         # --- accept the matching prefix, resample the divergence, roll back
         ctx_rows = 0
+        total_m = 0
         for s in live:
             sl = self.slots[s]
             m = 0
@@ -257,7 +264,44 @@ class SpecEngine(FleetEngine):
             self.kv_bytes_written += e * (self._kv_bytes_per_token
                                           + self._draft_kv_bytes_per_token)
             ctx_rows += sum(int(base_len[s]) + j + 1 for j in range(k))
+            total_m += m
             self.spec_stats.drafted += k
             self.spec_stats.accepted += m
+            if self.metrics is not None:
+                self.metrics.histogram("fleet/spec_accept").observe(float(m))
+            if self.tracer is not None and sl.record.traced:
+                self.tracer.instant(
+                    "spec_round", self.now_ms, pid=REQUEST_PID,
+                    tid=sl.record.request.rid, cat="request",
+                    args={"accepted": m, "drafted": k})
         self.spec_stats.rounds += 1
+        if self.metrics is not None:
+            self._record_round(k, len(live), total_m)
+        if self.tracer is not None:
+            self._trace_round(k, len(live), total_m)
         return ctx_rows
+
+    def _record_round(self, k: int, n_live: int, total_m: int) -> None:
+        m = self.metrics
+        m.counter("fleet/spec_rounds").inc()
+        m.counter("fleet/spec_drafted_tokens").inc(k * n_live)
+        m.counter("fleet/spec_accepted_tokens").inc(total_m)
+        # this engine's running accept rate: the live view of the quality
+        # canary the accept-collapse rule watches
+        m.gauge("fleet/spec_accept_rate").set(
+            round(self.spec_stats.accepted
+                  / max(1, self.spec_stats.drafted), 6))
+
+    def _trace_round(self, k: int, n_live: int, total_m: int) -> None:
+        # the round's draft and verify spans on the simulated clock, the
+        # reference's expressions term for term
+        d0 = self.now_ms
+        d1 = d0 + k * self.spec.draft_ms_per_token
+        self.tracer.complete(
+            "draft", d0, d1, pid=self._pid, cat="spec",
+            args={"k": k, "slots": n_live,
+                  "draft_peer": (self.partner.peer_id
+                                 if self.partner is not None else -1)})
+        self.tracer.complete(
+            "verify", d1, d1 + self._verify_ms, pid=self._pid, cat="spec",
+            args={"accepted": total_m, "drafted": k * n_live})

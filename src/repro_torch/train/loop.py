@@ -5,8 +5,11 @@ Strategy-agnostic, as the reference's: ``strategy.plan(k)`` picks the step
 variant and says when an exchange happens, the strategy's
 ``host_exchange`` does any host-side communication (the checkpoint-mode
 stale refresh, inside ``StepBundle.apply``), ``strategy.comm_bytes`` prices
-each exchange event. The tracer / metrics / watch hooks of the reference are
-the observability port's (ROADMAP Queue 1 item 11): here they must be None.
+each exchange event. The reference's observability hooks run on the step
+clock (one step renders as 1 ms): a ``step`` span a step, an ``exchange``
+marker, the ``comm`` counter and the ``train/*`` metrics at the log points,
+and a Watchtower evaluated there. They read only what ``History`` already
+logged, so they add no host sync.
 """
 from __future__ import annotations
 
@@ -79,7 +82,9 @@ class History:
                 raise ValueError(
                     f"{path}: History schema_version {version} is not "
                     f"supported by this reader (expects "
-                    f"{HISTORY_SCHEMA_VERSION})")
+                    f"{HISTORY_SCHEMA_VERSION}). Re-generate the JSONL with "
+                    "this version of the repo, or load it with the matching "
+                    "older version.")
             rows = rows[1:]
         return cls(rows)
 
@@ -98,11 +103,12 @@ def train(model, tc: TrainConfig, batches: Callable[[int], Dict],
     """Strategy-driven loop. ``batches(step)`` returns the batch of that step
     (with a leading n axis for codist strategies); batches are moved to
     ``device`` (or to the given ``state``'s device). A new state is drawn
-    from a ``torch.Generator`` seeded with ``tc.seed`` on ``device``."""
-    if tracer is not None or metrics is not None or watch is not None:
-        raise NotImplementedError(
-            "tracer / metrics / watch hooks come with the observability port "
-            "(ROADMAP Queue 1 item 11)")
+    from a ``torch.Generator`` seeded with ``tc.seed`` on ``device``.
+
+    ``tracer`` / ``metrics`` are optional ``repro_torch.obs`` hooks on the
+    step clock: per-step spans with exchange markers and comm counters.
+    ``watch`` is an optional Watchtower on the same clock, evaluated at each
+    log point against the live ``train/task_loss`` gauge."""
     from repro_torch.optim import make_optimizer
     opt_init, _ = make_optimizer(tc.optimizer, momentum=tc.momentum,
                                  b1=tc.adam_b1, b2=tc.adam_b2,
@@ -127,11 +133,21 @@ def train(model, tc: TrainConfig, batches: Callable[[int], Dict],
     bytes_per_event = strategy.comm_bytes(model, state, example, tc.microbatch)
     hist = History()
     comm_events = 0
+    mreg = metrics                   # the obs registry; the loop's local
+    del metrics                      # ``metrics`` name is the step's dict
+    if tracer is not None:
+        tracer.name_process(0, "train")
+        tracer.name_thread(0, 0, strategy.__class__.__name__)
     for k in range(tc.total_steps):
         batch = example if k == 0 else _to_device(batches(k), dev)
         state, metrics, plan = bundle.apply(state, batch, k)
         if plan.exchange:
             comm_events += 1
+        if tracer is not None:
+            tracer.complete("step", k, k + 1, cat="train",
+                            args={"step": k, "exchange": bool(plan.exchange)})
+            if plan.exchange:
+                tracer.instant("exchange", k, cat="train")
         if k % log_every == 0 or k == tc.total_steps - 1:
             extra = {"comm_events": comm_events,
                      "comm_bytes": comm_events * bytes_per_event}
@@ -143,6 +159,30 @@ def train(model, tc: TrainConfig, batches: Callable[[int], Dict],
                 metrics = {**metrics, **eval_fn(
                     state.params, _to_device(eval_batches(k), dev))}
             hist.log(k, metrics, **extra)
+            if tracer is not None:
+                tracer.counter("comm", k, {"events": comm_events,
+                                           "bytes": extra["comm_bytes"]})
+            if mreg is not None:
+                # the live loss stream for alert rules, from the record just
+                # logged: "task_loss", or one "task_loss_<i>" a peer,
+                # averaged into one gauge
+                rec = hist.records[-1]
+                losses = [v for name, v in sorted(rec.items())
+                          if name == "task_loss"
+                          or name.startswith("task_loss_")]
+                if losses:
+                    mreg.gauge("train/task_loss").set(
+                        sum(losses) / len(losses))
+            if watch is not None:
+                watch.evaluate(k)
+    if mreg is not None:
+        mreg.counter("train/comm_events").inc(comm_events)
+        mreg.counter("train/comm_bytes").inc(comm_events * bytes_per_event)
+        mreg.gauge("train/steps").set(tc.total_steps)
+        try:
+            mreg.gauge("train/final_task_loss").set(hist.last("task_loss"))
+        except KeyError:
+            pass
     return state, hist
 
 

@@ -14,11 +14,14 @@ reduced sizes of ``paper_grid_small.yaml``'s overrides.
   directory (the port's, and a synthetic fixture), JSON and markdown, and
   the reference reads the port's histories.
 * The sweep CLI runs ``paper_grid_small.yaml --max-cells 4 --steps 5
-  --device cpu``, its ``--resume`` re-run is a no-op, and the obs flags
-  exit 2.
+  --device cpu``, its ``--resume`` re-run is a no-op; with ``--trace
+  --metrics --alerts`` (and a ``--rules`` file) it writes each cell's files
+  and the sweep-level alert log, which ``tools/trace_check.py`` passes;
+  ``--rules`` without ``--alerts`` exits 2.
 """
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -191,10 +194,19 @@ def test_resume_skips_completed_and_reruns_corrupt(tmp_path):
     assert not summary_is_valid(sweep_dir, again[0].cell, 99)
     for cell in tiny_spec(lr_schedules=(LRPoint("cos", lr=5e-4),)).cells():
         assert not summary_is_valid(sweep_dir, cell, cell.steps)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        run_sweep(spec, out, trace=True, **quiet)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        run_cell(victim, metrics_path="m.json", device="cpu")
+    # with the obs flags a resumed sweep skips its cells and writes only
+    # the sweep-level alert log; a cell run writes its trace and metrics
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import trace_check
+    fourth = run_sweep(spec, out, resume=True, trace=True, alerts=True,
+                       **quiet)
+    assert [r.status for r in fourth] == ["skipped", "skipped"]
+    assert trace_check.main([os.path.join(sweep_dir, "alerts.jsonl")]) == 0
+    obs = [str(tmp_path / "c.trace.json"), str(tmp_path / "c.metrics.json")]
+    s5, _ = run_cell(victim, trace_path=obs[0], metrics_path=obs[1],
+                     device="cpu")
+    assert s5 == third[1].summary
+    assert trace_check.main(obs) == 0
 
 
 def _write_cell(sweep_dir, cell_id, mode, batch, lr, alpha, peers, seed,
@@ -287,8 +299,26 @@ def test_sweep_cli_on_cpu(tmp_path, capsys):
     assert os.path.exists(os.path.join(sweep_dir, "SWEEP_paper_grid_small.md"))
     assert main(["--spec", SPECS[0], "--list"]) == 0
     assert "# 6 cells (paper_grid_small)" in capsys.readouterr().out
-    for flag in (["--trace"], ["--metrics"], ["--alerts"],
-                 ["--alerts", "--rules", "r.json"]):
-        with pytest.raises(SystemExit) as e:
-            main(argv + flag)
-        assert e.value.code == 2, flag
+    rules = tmp_path / "rules.json"
+    rules.write_text(json.dumps({"rules": [
+        {"name": "loss-high", "metric": "train/task_loss",
+         "kind": "threshold", "op": ">", "value": 0.0}]}))
+    out_obs = str(tmp_path / "obs")
+    assert main(argv[:3] + [out_obs] + argv[4:] + [
+        "--max-cells", "2", "--trace", "--metrics", "--alerts", "--rules",
+        str(rules)]) == 0
+    out = capsys.readouterr().out
+    assert "ran=2 skipped=0 failed=0" in out and "sweep alerts:" in out
+    obs_dir = sweep_dir_for("paper_grid_small", out_obs)
+    files = sorted(os.path.join(obs_dir, f) for f in os.listdir(obs_dir)
+                   if f.endswith((".trace.json", ".metrics.json",
+                                  ".alerts.jsonl")) or f == "alerts.jsonl")
+    assert len(files) == 2 * 3 + 1, files
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import trace_check
+    assert trace_check.main(files) == 0
+    with open([f for f in files if f.endswith(".alerts.jsonl")][0]) as f:
+        assert '"rule":"loss-high"' in f.read()
+    with pytest.raises(SystemExit) as e:
+        main(argv + ["--rules", str(rules)])
+    assert e.value.code == 2

@@ -10,8 +10,12 @@ hygiene.
 * The workload generator is a verbatim copy: same arguments, same requests.
 * The port imports nothing of ``jax`` or ``repro``; ``chip_smoke.py`` exits
   non-zero without a card; asking for CUDA without a card raises; the CLI
-  runs on the CPU (hedging and the ensemble policy too) and refuses
+  runs on the CPU (hedging and the ensemble policy too) and writes its
+  trace, metrics, alert log and postmortem bundles, which
+  ``tools/trace_check.py`` passes; it refuses what the reference refuses
+  (``--rules`` or ``--flight-recorder`` without ``--alerts``) and
   unported features with status 2.
+* The hygiene scan covers every module of the port, ``obs/`` included.
 """
 import ast
 import hashlib
@@ -148,7 +152,12 @@ def _port_files():
 
 def test_port_imports_no_jax_and_no_reference():
     banned = {"jax", "jaxlib", "repro"}
-    for path in _port_files():
+    files = _port_files()
+    # the scan covers the port's copy of every module of the reference's
+    # obs layer (pure Python, imported nowhere from the reference)
+    obs = {p.name for p in files if p.parent.name == "obs"}
+    assert obs >= {p.name for p in (ROOT / "src" / "repro" / "obs").glob("*.py")}
+    for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -190,10 +199,12 @@ def test_cuda_without_a_card_raises():
                        max_blocks_per_slot=2)
 
 
-def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
+def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     """least_loaded, ``--hedge`` and ``--router ensemble`` serve on the
-    CPU; the observability flags, a quantized ``--single`` and an
-    unported arch still exit 2."""
+    CPU; a chaos run writes ``--trace``, ``--metrics``, ``--alerts`` and
+    ``--flight-recorder`` files that ``tools/trace_check.py`` passes;
+    ``--rules`` or ``--flight-recorder`` without ``--alerts``, a quantized
+    ``--single`` and an unported arch exit 2."""
     from repro_torch.launch.serve import main
     for extra in (["--router", "least_loaded"], ["--hedge"],
                   ["--router", "ensemble"]):
@@ -201,7 +212,22 @@ def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
               "--max-new", "3", "--max-prompt", "8", "--slots", "2", *extra])
         out = capsys.readouterr().out
         assert "completed=4 rejected=0" in out and "stream digest" in out
-    for argv in (["--trace", "t.json"],
+    obs = {k: str(tmp_path / f"o.{k}") for k in ("trace", "metrics",
+                                                 "alerts")}
+    bundles = tmp_path / "pm"
+    main(["--device", "cpu", "--arch", "qwen2-7b", "--requests", "6",
+          "--max-new", "3", "--max-prompt", "8", "--slots", "2", "--faults",
+          "preempt=1@2+40", "--trace", obs["trace"], "--metrics",
+          obs["metrics"], "--alerts", obs["alerts"], "--flight-recorder",
+          str(bundles)])
+    out = capsys.readouterr().out
+    assert "completed=6 rejected=0" in out and f"wrote {obs['trace']}" in out
+    dumped = sorted(str(b) for b in bundles.iterdir())
+    assert dumped and f"{len(dumped)} postmortem bundle(s)" in out
+    sys.path.insert(0, str(ROOT / "tools"))
+    import trace_check
+    assert trace_check.main([*obs.values(), *dumped]) == 0
+    for argv in (["--rules", "r.json"], ["--flight-recorder", "d"],
                  ["--arch", "rwkv6-1.6b"],
                  ["--single", "--cache-dtype", "int8"]):
         with pytest.raises(SystemExit) as e:

@@ -15,11 +15,17 @@ weights, optimizer states and batches (numpy, handed to both sides).
 * ``period=2`` takes the off variant (task CE only) on step 1.
 * ``microbatch=2`` equals ``microbatch=1`` within 1e-5 (the port alone).
 * The port's ``History.save`` is read by the reference's ``History.load``.
-* The CLI trains on the CPU and exits 2 on every unported flag (the
-  shard_map mode and the observability flags).
+* The CLI trains on the CPU; with ``--trace``, ``--metrics``,
+  ``--alerts`` and ``--flight-recorder`` it writes files that
+  ``tools/trace_check.py`` passes. It exits 2 on the shard_map mode and,
+  as the reference, on ``--rules`` or ``--flight-recorder`` without
+  ``--alerts``.
 * Entry points default to the card; the checkpoint and pipelined
   strategies resolve, the shard_map one raises.
 """
+import json
+import os
+import sys
 from dataclasses import replace
 
 import jax
@@ -50,6 +56,7 @@ from repro_torch.train import (AllReduce, History, PredictionExchange,
 from repro_torch.train.state import CodistState, TrainState, trainable_params
 
 torch.set_num_threads(2)
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 ARCH = "qwen1.5-0.5b"
 B, S = 2, 8
@@ -278,9 +285,22 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
           "--compression", "bf16"])
     out = capsys.readouterr().out
     assert out.count("done: 1 steps") == 2
-    for argv in (["--mode", "codist-shardmap"], ["--trace", "t.json"],
-                 ["--metrics", "m.json"], ["--alerts", "a.jsonl"],
-                 ["--rules", "r.json"], ["--flight-recorder", "d"]):
+    # the obs flags on the step clock: trace, metrics and alert log valid
+    obs = {k: str(tmp_path / f"o.{k}") for k in ("trace", "metrics",
+                                                 "alerts")}
+    main(["--device", "cpu", "--mode", "codist", "--steps", "2", "--batch",
+          "2", "--seq", "8", "--log-every", "1", "--trace", obs["trace"],
+          "--metrics", obs["metrics"], "--alerts", obs["alerts"],
+          "--flight-recorder", str(tmp_path / "pm")])
+    out = capsys.readouterr().out
+    assert f"wrote {obs['trace']}" in out and "done: 2 steps" in out
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import trace_check
+    assert trace_check.main(list(obs.values())) == 0
+    with open(obs["metrics"]) as f:
+        assert json.load(f)["counters"]["train/comm_events"] == 2
+    for argv in (["--mode", "codist-shardmap"], ["--rules", "r.json"],
+                 ["--flight-recorder", "d"]):
         with pytest.raises(SystemExit) as e:
             main(["--device", "cpu", *argv])
         assert e.value.code == 2, argv
