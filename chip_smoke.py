@@ -109,16 +109,21 @@ exits non-zero:
                 the async phase's faults card against CPU; per-step losses
                 within 1e-4 relative.
  12. spec     — peer-speculative decoding (k = 4, ring pairing) at
-                qwen2-7b's full width and depth with the fleet phase's
-                FleetConfig and bursty workload: identical peers and a
-                noised copy of peer 0 over bf16 pools, identical peers over
-                int8 and fp8 pools and through the gather path, each run
-                plain and speculative (everything completes, nothing lost
-                or duplicated, rows 1-4 launched exactly as the ticks and
+                qwen2-7b's full width with the fleet phase's FleetConfig
+                and bursty workload: identical peers and a noised copy of
+                peer 0 over bf16 pools at full depth, identical peers over
+                int8 and fp8 pools and through the gather path at
+                SPEC_CUT_LAYERS of 28 (the time budget), each run plain and
+                speculative (everything completes, nothing lost or
+                duplicated, rows 1-4 launched exactly as the ticks and
                 rounds imply; accept rate, tokens equal to the plain run's
-                and wall per round against k plain ticks printed); a
-                verify against k plain ticks on 16 live slots over bf16,
-                int8 and fp8 pools (printed); then in fp32
+                and wall per round against k plain ticks printed; for the
+                identical bf16, int8 and fp8 streams each request's first
+                divergence from the plain stream with the plain tick's
+                top-2 logit margin there, against the verify's max
+                |dlogits| at that pool dtype); a verify against k plain
+                ticks on 16 live slots over bf16 pools at 28 layers and
+                int8 and fp8 pools at the cut depth (printed); then in fp32
                 (TF32 off) at 4 layers: speculative streams equal plain
                 ones token for token, verify argmax equal to plain decode
                 at every position, and restore_rows leaving the pools bit
@@ -163,6 +168,21 @@ exits non-zero:
                 async faults (no recovery) with every obs output; (d) a
                 2-cell sweep (all-reduce, codist; 3 steps at full width)
                 through the sweep CLI with ``--trace --metrics --alerts``.
+ 16. paper    — the paper's own models at full width and depth through
+                ``build_model`` and ``train_codist`` / ``train_allreduce``:
+                resnet50 (2 peers x 8 images of 224^2, mse, 3 codist steps
+                and 1 all-reduce step), wrn28x10 (2 peers x 128 images of
+                32^2, mse, stem and stage 0 frozen by ``freeze_mask`` and
+                bit-unchanged), transformer-big (2 peers x 14 x 256 source
+                and target tokens, bf16 activations, fp32 masters, AdamW)
+                and the Section-5.1 multi-view MLP (8 peers x 256, kl,
+                each peer its own view): History finite, loss-kernel
+                launches exact, ms a step, busy share, peak memory; rows 6,
+                7, 12, 13 (and 9, 11) against their plain versions and
+                timed at this path's shapes (T 8 / V 1000 and T 256 / V 10
+                fp32, T 3584 / V 32768 bf16); then the reduced models in
+                fp32 (TF32 off), card against CPU, History losses within
+                1e-5 relative over 3 codist steps.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -206,7 +226,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
-          "fleet_codist", "single", "obs")
+          "fleet_codist", "single", "obs", "paper")
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them
@@ -270,15 +290,17 @@ PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs"),
          "paged_scatter_quant": ("fleet", "spec"),
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
-                                       "async", "obs"),
+                                       "async", "obs", "paper"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
-                                      "async", "obs"),
-         "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs"),
-         "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs"),
+                                      "async", "obs", "paper"),
+         "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
+                                    "paper"),
+         "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs",
+                                   "paper"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
-         "fused_distill_kl_parts": ("train_peers", "async", "obs"),
+         "fused_distill_kl_parts": ("train_peers", "async", "obs", "paper"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
-         "fused_distill_kl_grad": ("train_peers", "async", "obs")}
+         "fused_distill_kl_grad": ("train_peers", "async", "obs", "paper")}
 
 # training main path (qwen1.5-0.5b, 2 peers, batch 8 x seq 512 per peer):
 # T tokens per peer, padded vocab V
@@ -2071,14 +2093,24 @@ def serve_launches(router, n_layers: int, k: int, fused: bool,
     return want
 
 
-def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None):
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    """The gap between the largest and second-largest logit of each row."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None,
+              margins=None):
     """One seeded fleet run through ``FleetRouter.run`` (round robin, or
     speculative with ``SpecConfig(k=spec)``), launch counts set to 0 just
     before and read just after, the wall time of each decode tick or
     speculative round on the side. Checks completion, nothing lost or
     duplicated, token ids in range and count, and rows 1-4's launches
-    against the ticks and rounds. Returns (router, report, counts of rows
-    1-4, per-tick or per-round wall ms, wall s)."""
+    against the ticks and rounds. A plain run given a ``margins`` dict
+    fills it with the top-2 logit margin behind each token, keyed (request
+    id, token index): the prefill's for token 0, each tick's after.
+    Returns (router, report, counts of rows 1-4, per-tick or per-round
+    wall ms, wall s)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve.fleet import (FleetEngine, FleetRouter,
                                          SpecConfig, SpecEngine)
@@ -2086,6 +2118,7 @@ def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None):
     cls, name = (SpecEngine, "_spec_round") if spec else (FleetEngine,
                                                           "_decode_tick")
     orig, walls = getattr(cls, name), []
+    orig_logits = FleetEngine.decode_logits
 
     def timed(self, *a):
         t0 = time.perf_counter()
@@ -2094,10 +2127,25 @@ def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None):
             walls.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    def recorded(self, active, tokens):
+        out = orig_logits(self, active, tokens)
+        gap = top2_margin(out).cpu().numpy()
+        for s, sl in self.slots.items():
+            if active[s]:
+                margins[(sl.record.request.rid, len(sl.record.tokens))] = \
+                    float(gap[s])
+        return out
+
     router = FleetRouter(model, peers, config=fc, policy=policy,
                          cache_dtype=cache_dtype, device=dev,
                          spec=SpecConfig(k=spec) if spec else None)
+    record = margins is not None and not spec
+    if record:
+        for eng in router.engines:
+            eng.keep_logits = True    # the prefill's logits, for token 0
     setattr(cls, name, timed)
+    if record:
+        FleetEngine.decode_logits = recorded
     try:
         sync(dev)
         reset_launch_counts()
@@ -2107,6 +2155,11 @@ def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None):
         wall = time.perf_counter() - t0
     finally:
         setattr(cls, name, orig)
+        FleetEngine.decode_logits = orig_logits
+    if record:
+        for r in router._primaries:
+            margins[(r.request.rid, 0)] = float(top2_margin(
+                torch.from_numpy(r.prefill_logits)))
     counts = {k: launch_counts[k] for k in ROWS_1_TO_4}
     quantized = cache_dtype in QUANT
     log(f"  {label} {policy}: completed {rep.completed}/{len(wl.requests)}, "
@@ -2443,6 +2496,8 @@ def phase_parity(dev: torch.device):
 # ----------------------------------------------------------------------------
 
 SPEC_K = 4
+# the depth of the spec phase's int8, fp8 and gather-path runs (of 28)
+SPEC_CUT_LAYERS = 14
 # a noised peer: each weight plus this share of its leaf's std (bf16 runs:
 # partial accepts; the fp32 check: enough to reject drafts at 4 layers)
 SPEC_NOISE = 0.02
@@ -2465,23 +2520,41 @@ def noised_copy(params, rel: float, seed: int, dev: torch.device):
     return walk(params)
 
 
-def compare_streams(plain, spec, label: str) -> float:
+def compare_streams(plain, spec, label: str, margins=None):
     """The share of the speculative run's tokens equal to the plain run's
-    at the same place, and the first divergence (for information)."""
+    at the same place. With the plain run's ``margins`` (``serve_run``),
+    each request's first divergence is printed with the plain tick's top-2
+    logit margin there, and their margins are returned beside the share
+    (after a request's first divergence the two runs decode different
+    contexts, so only that first token can tell rounding from a fault)."""
     a = {r.request.rid: r.tokens for r in plain._primaries}
     b = {r.request.rid: r.tokens for r in spec._primaries}
     same = n = 0
-    first = None
+    firsts = []
     for rid in sorted(a):
+        first = None
         for i, (x, y) in enumerate(zip(a[rid], b[rid])):
             n += 1
             same += int(x == y)
             if x != y and first is None:
-                first = (rid, i)
-    log(f"  {label}: {same}/{n} tokens ({same / max(n, 1):.1%}) equal to the "
-        f"plain run's; first divergence "
-        f"{'none' if first is None else f'request {first[0]} token {first[1]}'}")
-    return same / max(n, 1)
+                first = i
+        if first is not None:
+            firsts.append((rid, first))
+    share = same / max(n, 1)
+    log(f"  {label}: {same}/{n} tokens ({share:.1%}) equal to the plain "
+        f"run's; {len(firsts)} of {len(a)} requests leave it"
+        + ("" if firsts else ": none"))
+    if margins is None:
+        return share
+    gaps = [margins[f] for f in firsts]
+    if firsts:
+        log(f"    first divergence (request, token, plain top-2 margin): "
+            + ", ".join(f"({r}, {i}, {margins[(r, i)]:.4f})"
+                        for r, i in firsts)
+            + f"; margins there max {max(gaps):.4f}, median "
+            f"{float(np.median(gaps)):.4f}; all tokens' median margin "
+            f"{float(np.median(list(margins.values()))):.4f}")
+    return share, gaps
 
 
 def verify_check(model, peer, fc, wl, cache_dtype, dev, label: str,
@@ -2556,6 +2629,7 @@ def verify_check(model, peer, fc, wl, cache_dtype, dev, label: str,
     if exact:
         require(all(a == S for a in agree),
                 f"{label}: verify argmax differs from plain decode: {agree}")
+    return max(diffs)
 
 
 def phase_spec(dev: torch.device):
@@ -2583,19 +2657,37 @@ def phase_spec(dev: torch.device):
                      max_blocks_per_slot=34, fused_attention=True)
     wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
                            max_prompt=512, max_new=32)
+    # the int8, fp8 and gather-path runs at SPEC_CUT_LAYERS of 28 (views of
+    # peer 0's first layers): the script's time budget
+    cut = SPEC_CUT_LAYERS
+    model_cut = build_model(replace(cfg, num_layers=cut))
+    p_cut = {**p0, "layers": {sub: {g: {n: t[:cut] for n, t in d.items()}
+                                    for g, d in sd.items()}
+                              for sub, sd in p0["layers"].items()}}
     out = {}
-    runs = [("bf16 identical", [p0, p0], torch.bfloat16, fc),
-            ("bf16 noised", [p0, pn], torch.bfloat16, fc),
-            ("int8 identical", [p0, p0], torch.int8, fc),
-            ("fp8 identical", [p0, p0], torch.float8_e4m3fn, fc),
-            ("bf16 identical gather", [p0, p0], torch.bfloat16,
-             replace(fc, fused_attention=False))]
-    for label, peers, dtype, f in runs:
-        plain, _rp, _c, ticks, _w = serve_run(model, peers, f, wl, dtype, dev,
-                                              label)
-        spec, rep, counts, rounds, _w = serve_run(model, peers, f, wl, dtype,
+    gather = replace(fc, fused_attention=False)
+    runs = [("bf16 identical", model, [p0, p0], torch.bfloat16, fc),
+            ("bf16 noised", model, [p0, pn], torch.bfloat16, fc),
+            (f"int8 identical ({cut} layers)", model_cut, [p_cut, p_cut],
+             torch.int8, fc),
+            (f"fp8 identical ({cut} layers)", model_cut, [p_cut, p_cut],
+             torch.float8_e4m3fn, fc),
+            (f"bf16 identical gather ({cut} layers)", model_cut,
+             [p_cut, p_cut], torch.bfloat16, gather)]
+    # where each identical stream first leaves the plain one, and the plain
+    # tick's top-2 margin there (ROADMAP Queue 3: fp8 streams leave most)
+    diverged = {}
+    for label, m, peers, dtype, f in runs:
+        margins = {} if "identical" in label and f is fc else None
+        plain, _rp, _c, ticks, _w = serve_run(m, peers, f, wl, dtype, dev,
+                                              label, margins=margins)
+        spec, rep, counts, rounds, _w = serve_run(m, peers, f, wl, dtype,
                                                   dev, label, spec=SPEC_K)
-        compare_streams(plain, spec, label)
+        if margins is None:
+            compare_streams(plain, spec, label)
+        else:
+            diverged[dtype] = (label,) + compare_streams(plain, spec, label,
+                                                         margins)
         log(f"  {label}: {np.mean(rounds):.2f} ms wall a speculative round "
             f"against {SPEC_K} plain ticks' {SPEC_K * np.mean(ticks):.2f} ms "
             f"({np.mean(rounds) / (SPEC_K * np.mean(ticks)):.2f}x); "
@@ -2605,11 +2697,20 @@ def phase_spec(dev: torch.device):
             out[n] = out.get(n, 0) + c
         del plain, spec
         torch.cuda.empty_cache()
-    for cdt in (torch.bfloat16, *QUANT):
-        verify_check(model, p0, fc, wl, cdt, dev,
-                     f"verify bf16 {str(cdt)[6:]} pools (28 layers)",
-                     exact=False)
-    del p0, pn
+    delta = {torch.bfloat16: verify_check(
+        model, p0, fc, wl, torch.bfloat16, dev,
+        f"verify bf16 bfloat16 pools ({cfg.num_layers} layers)", exact=False)}
+    for cdt in QUANT:
+        delta[cdt] = verify_check(
+            model_cut, p_cut, fc, wl, cdt, dev,
+            f"verify bf16 {str(cdt)[6:]} pools ({cut} layers)", exact=False)
+    for cdt, (label, share, gaps) in diverged.items():
+        inside = sum(g <= delta[cdt] for g in gaps)
+        log(f"  divergence {label}: {share:.1%} of tokens equal; {inside} of "
+            f"{len(gaps)} first divergences at a plain top-2 margin within "
+            f"the verify's max|dlogits| {delta[cdt]:.4f} at its pool dtype"
+            + (f" (the largest margin {max(gaps):.4f})" if gaps else ""))
+    del p0, pn, p_cut
     torch.cuda.empty_cache()
 
     # exactness in fp32 (TF32 off since the device phase) at 4 layers
@@ -4439,6 +4540,478 @@ def phase_obs(dev: torch.device, smi_line: str):
 
 
 # ----------------------------------------------------------------------------
+# phase 16: the paper's own models
+# ----------------------------------------------------------------------------
+
+PAPER_STEPS = 3
+# the Section-5.1 MLP of examples/multiview_nway.py on its multi-view task
+PAPER_MLP = dict(in_dim=64, hidden=(128, 128), num_classes=10)
+PAPER_VIEWS = dict(n_views=8, view_dim=8, latent_dim=24, num_classes=10,
+                   seed=0)
+# the loss kernels' shapes on this path: one row an image (resnet50's 1000
+# classes at 8 images a peer, the MLP's 10 classes at 256 samples; the
+# heads are fp32) and transformer-big's 14 x 256 target tokens in bf16
+PAPER_LOSS_SHAPES = [("T8 V1000 fp32", 8, 1000, torch.float32),
+                     ("T256 V10 fp32", 256, 10, torch.float32),
+                     ("T3584 V32768 bf16", 14 * 256, 32768, torch.bfloat16)]
+
+
+def frozen_leaves(params, mask) -> list:
+    """Clones of the leaves of ``params`` whose ``mask`` leaf is 0."""
+    from repro_torch.tree import tree_leaves
+    return [p.detach().clone() for p, m in zip(tree_leaves(params),
+                                               tree_leaves(mask)) if m == 0]
+
+
+def paper_train(label: str, model, cd, tc, batches, dev, want, state=None,
+                trainable=None):
+    """``train_codist`` over ``batches`` (one a step, on the card) from
+    ``state`` (None: drawn from ``tc.seed``), launch counts set to 0 just
+    before and read just after: History finite, loss-kernel launches equal
+    to ``want``. Prints the losses, the wall ms of each step after step 0
+    (from the loop's request for its batch to the next one's; each step
+    ends in a sync), peak memory, and the device's busy share of 2 more
+    steps (torch.profiler). Returns (state, records, launches)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import (build_train_step, resolve_strategy,
+                                   train_codist)
+    steps = len(batches)
+    feed, stamps = stamped(batches, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, hist = train_codist(model, cd, tc, feed, log_every=1, state=state,
+                               trainable=trainable, device=dev)
+    sync(dev)
+    t_end = time.perf_counter()
+    got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = finite_records(hist, f"paper {label}")
+    require(len(recs) == steps, f"paper {label}: {len(recs)} History steps")
+    walls = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:] + [t_end])]
+    step_ms = float(np.mean(walls))
+    log(f"paper {label}: loss by step "
+        f"{[round(r['loss'], 4) for r in recs]}, distill "
+        f"{[round(r['distill_loss'], 6) for r in recs]}; {step_ms:.1f} ms "
+        f"wall a step (steps 1-{steps - 1}: "
+        f"{', '.join(f'{w:.1f}' for w in walls)}), peak {peak:.2f} GiB, "
+        f"comm_bytes {recs[-1]['comm_bytes']:.0f}; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    require(got == want, f"paper {label}: launches {got} != {want}")
+    bundle = build_train_step(model, tc, cd, resolve_strategy(cd), trainable)
+    profile_device(lambda: bundle.apply(state, batches[-1], steps), step_ms,
+                   2, "step")
+    return state, recs, got
+
+
+def phase_paper(dev: torch.device):
+    """The paper's own models at full width and depth through
+    ``build_model`` and ``train_codist`` / ``train_allreduce``: resnet50 (2
+    peers, 8 images of 224^2 a peer, mse, 3 codist steps, then 1 all-reduce
+    step), wrn28x10 (2 peers, 128 images of 32^2, mse, ``freeze_mask(
+    ("stem", "s0"))`` as ``trainable``: the frozen leaves bit-unchanged),
+    transformer-big (2 peers, 14 x 256 source and target tokens, bf16
+    activations, fp32 masters, AdamW) and the multi-view MLP (8 peers, 256
+    samples, kl, alpha0 2, each peer its own view); every loss-kernel
+    launch as ``codist_loss``'s loop makes it. Then the loss kernels at this
+    path's shapes (``PAPER_LOSS_SHAPES``), and the reduced models in fp32 on
+    the card against the CPU. Returns (the path's launches, the kernels'
+    times by shape)."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.data import (MarkovLM, MultiViewTask,
+                                  classification_batch, make_lm_batch,
+                                  multiview_batch)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.conv import freeze_mask
+    from repro_torch.models.mlp import MLP, MLPConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (PredictionExchange, stack_batches,
+                                   train_allreduce)
+    from repro_torch.tree import tree_leaves
+    log(f"paper: TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"TF32 {torch.backends.cudnn.allow_tf32} (fp32 convolutions and heads "
+        "run in full fp32)")
+    launches = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    gen = torch.Generator(device=dev)
+    steps = PAPER_STEPS
+    # SGD-momentum, the paper's vision optimizer, at a rate these random
+    # inits survive: the reference's blocks end in a GroupNorm of scale 1
+    # (no zero-init residual), so the first logits are large, and lr 0.1
+    # or 0.01 diverges within 2 steps on this data (wrn28x10 at 8 images
+    # a peer on the CPU; 1e-3 still oscillates there)
+    sgd = TrainConfig(lr=1e-3, lr_schedule="constant", warmup_steps=0,
+                      total_steps=steps, optimizer="sgdm", weight_decay=5e-4)
+
+    def images(cfg, b, k):
+        gen.manual_seed(1000 + k)
+        return classification_batch(gen, b, 3072, cfg.num_classes,
+                                    image=True, image_size=cfg.image_size)
+
+    # ---- (a) resnet50: 3 codist steps, then 1 all-reduce step ----
+    t0 = time.perf_counter()
+    cfg = get_config("resnet50")
+    model = build_model(cfg)
+    batches = [stack_batches([images(cfg, 8, k)] * 2) for k in range(steps)]
+    state, _r, got = paper_train(
+        "resnet50 codist (2 peers x 8 images 224^2, mse)", model,
+        CodistConfig(n_models=2), sgd, batches, dev,
+        expected_launches(2, "mse", steps, combined=True, task_ce=False,
+                          standalone=0))
+    add(got)
+    n_params = sum(p.numel() for p in tree_leaves(state.params[0]))
+    # where the memory goes: one peer's forward (the tensors autograd
+    # saves) and its backward, above what was allocated before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one = {k: v[0] for k, v in batches[0].items()}
+    logits, _ = model.forward(state.params[0], one)
+    saved = torch.cuda.memory_allocated() - base
+    torch.autograd.grad(logits.float().square().mean(),
+                        tree_leaves(state.params[0]))
+    sync(dev)
+    log(f"paper resnet50 memory, one peer at 8 images: the forward saves "
+        f"{saved / 2**30:.2f} GiB for the backward; forward and backward "
+        f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+        "above the state and batches")
+    del state, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ta = time.perf_counter()
+    _s, hist = train_allreduce(model, replace(sgd, total_steps=1),
+                               iter([images(cfg, 8, 0)]), log_every=1,
+                               device=dev)
+    sync(dev)
+    got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+    recs = finite_records(hist, "paper resnet50 all-reduce")
+    log(f"paper resnet50 all-reduce (8 images): loss {recs[0]['loss']:.4f}, "
+        f"{(time.perf_counter() - ta) * 1e3:.1f} ms wall with the init, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{n_params / 1e6:.2f} M params a peer; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    want = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    want["fused_cross_entropy_parts"] = want["fused_cross_entropy_grad"] = 1
+    require(got == want, f"paper resnet50 all-reduce launches {got}")
+    add(got)
+    del _s, hist, batches
+    torch.cuda.empty_cache()
+    log(f"paper resnet50: {time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) wrn28x10 with a frozen stem and stage 0 ----
+    t0 = time.perf_counter()
+    cfg = get_config("wrn28x10")
+    model = build_model(cfg)
+    cd = CodistConfig(n_models=2)
+    gen.manual_seed(28)
+    opt_init, _ = make_optimizer(sgd.optimizer)
+    state = PredictionExchange(cd).init_state(model, sgd, gen, opt_init,
+                                              device=dev)
+    mask = freeze_mask(state.params[0], ("stem", "s0"))
+    before = [frozen_leaves(p, mask) for p in state.params]
+    head0 = state.params[0]["head"].detach().clone()
+    batches = [stack_batches([images(cfg, 128, k)] * 2) for k in range(steps)]
+    state, _r, got = paper_train(
+        "wrn28x10 codist (2 peers x 128 images 32^2, mse, stem + s0 frozen)",
+        model, cd, replace(sgd, lr=1e-4), batches, dev,
+        expected_launches(2, "mse", steps, combined=True, task_ce=False,
+                          standalone=0), state=state, trainable=mask)
+    add(got)
+    after = [frozen_leaves(p, mask) for p in state.params]
+    same = all(bits_equal(a, b) for pa, pb in zip(before, after)
+               for a, b in zip(pa, pb))
+    require(same and len(before[0]) > 0,
+            "paper wrn28x10: a frozen leaf changed")
+    require(not torch.equal(state.params[0]["head"], head0),
+            "paper wrn28x10: the trainable head did not move")
+    log(f"paper wrn28x10: {len(before[0])} frozen leaves a peer "
+        f"({sum(t.numel() for t in before[0]) / 1e6:.2f} M params) "
+        f"bit-unchanged after {steps + 2} steps; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del state, before, after, batches
+    torch.cuda.empty_cache()
+
+    # ---- (c) transformer-big: source tokens, bf16 activations ----
+    t0 = time.perf_counter()
+    cfg = get_config("transformer-big")
+    model = build_model(cfg)
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+    batches = []
+    for k in range(steps):
+        one = make_lm_batch(task, 14, 256, k, None, seed=0, device=dev)
+        gen.manual_seed(2000 + k)
+        one["src_tokens"] = torch.randint(0, cfg.vocab_size, (14, 256),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32)
+        batches.append(stack_batches([one] * 2))
+    adam = TrainConfig(lr=1e-3, lr_schedule="constant", warmup_steps=0,
+                       total_steps=steps, optimizer="adamw",
+                       label_smoothing=0.1)
+    state, _r, got = paper_train(
+        f"transformer-big codist (2 peers x 14 x 256 tokens, {cfg.dtype} "
+        "activations, fp32 masters, AdamW, mse)", model,
+        CodistConfig(n_models=2), adam, batches, dev,
+        expected_launches(2, "mse", steps, combined=True, task_ce=False,
+                          standalone=0))
+    add(got)
+    del state, batches
+    torch.cuda.empty_cache()
+    log(f"paper transformer-big: {time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) the Section-5.1 MLP: 8 peers, one view each ----
+    t0 = time.perf_counter()
+    model = MLP(MLPConfig(**PAPER_MLP))
+    mv = MultiViewTask(**PAPER_VIEWS)
+    batches = []
+    for k in range(steps):
+        raw = multiview_batch(mv, 256, k, device=dev)
+        batches.append(stack_batches([
+            {"features": raw["features"] * mv.view_mask(i % mv.n_views, dev),
+             "labels": raw["labels"]} for i in range(8)]))
+    state, _r, got = paper_train(
+        "multi-view MLP codist (8 peers x 256, kl, alpha0 2)", model,
+        CodistConfig(n_models=8, distill_loss="kl", alpha0=2.0),
+        replace(adam, lr=3e-3, label_smoothing=0.0), batches, dev,
+        expected_launches(8, "kl", steps, combined=True, task_ce=False,
+                          standalone=6))
+    add(got)
+    del state, batches
+    log(f"paper MLP: {time.perf_counter() - t0:.1f} s")
+
+    rows = paper_loss_times(dev)
+    paper_parity(dev)
+    return launches, rows
+
+
+def _flat_outputs(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _flat_outputs(o)]
+    return [out]
+
+
+def paper_loss_times(dev: torch.device) -> dict:
+    """Rows 6, 7, 12 and 13 (and 9, 11 at the MLP's shape) against their
+    plain versions at ``PAPER_LOSS_SHAPES``, with kernel, plain and library
+    times and the bound; returns {kernel: {shape: record}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (fused_ce_distill_grad,
+                                     fused_ce_distill_grad_plain,
+                                     fused_ce_distill_parts,
+                                     fused_ce_distill_parts_plain,
+                                     fused_cross_entropy_grad,
+                                     fused_cross_entropy_grad_plain,
+                                     fused_cross_entropy_parts,
+                                     fused_cross_entropy_parts_plain,
+                                     fused_distill_kl_grad,
+                                     fused_distill_kl_grad_plain,
+                                     fused_distill_kl_parts,
+                                     fused_distill_kl_parts_plain)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def bound(n_bytes, n_ops):
+        tb = n_bytes / HBM_BPS * 1e3
+        tf = n_ops / PEAK_FLOPS[torch.float32] * 1e3
+        return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+    rows = {}
+    for si, (label, t, v, dtype) in enumerate(PAPER_LOSS_SHAPES):
+        x, tg, lb, g = loss_inputs(t, v, dtype, dev, 300 + si)
+        gd = g[2].contiguous()
+        es, tv = x.element_size(), t * v
+        lb64 = lb.long()
+        xr = x.detach().clone().requires_grad_(True)
+        lib_y = F.cross_entropy(xr, lb64, reduction="none")
+        logz = fused_cross_entropy_parts_plain(x, lb)[2]
+        # name, mode, kernel, plain, library call, bound, is a gradient
+        specs = [
+            ("fused_cross_entropy_parts", "",
+             lambda: fused_cross_entropy_parts(x, lb),
+             lambda: fused_cross_entropy_parts_plain(x, lb),
+             lambda: F.cross_entropy(x, lb64, reduction="none"),
+             bound(tv * es + 4 * t * 4, LOSS_OPS["ce"][0] * tv), False),
+            ("fused_cross_entropy_grad", "",
+             lambda: fused_cross_entropy_grad(x, lb, logz, g[0], g[1]),
+             lambda: fused_cross_entropy_grad_plain(x, lb, logz, g[0], g[1]),
+             lambda: torch.autograd.grad(lib_y, xr, g[0], retain_graph=True),
+             bound(2 * tv * es + 4 * t * 4, LOSS_OPS["ce"][1] * tv), True)]
+        for mode in (("mse", "kl") if t == 256 else ("mse",)):
+            res = fused_ce_distill_parts_plain(x, tg, lb, mode)[1]
+            extra = 5 if mode == "mse" else 7
+            specs += [
+                ("fused_ce_distill_parts", mode,
+                 lambda m=mode: fused_ce_distill_parts(x, tg, lb, m),
+                 lambda m=mode: fused_ce_distill_parts_plain(x, tg, lb, m),
+                 None, bound(2 * tv * es + extra * t * 4,
+                             LOSS_OPS[mode][0] * tv), False),
+                ("fused_ce_distill_grad", mode,
+                 lambda m=mode, r=res: fused_ce_distill_grad(
+                     x, tg, lb, r, g[0], g[1], g[2], m,
+                     need_target_grad=False),
+                 lambda m=mode, r=res: fused_ce_distill_grad_plain(
+                     x, tg, lb, r, g[0], g[1], g[2], m,
+                     need_target_grad=False),
+                 None, bound(3 * tv * es + extra * t * 4,
+                             LOSS_OPS[mode][1] * tv), True)]
+        if t == 256:
+            kres = fused_distill_kl_parts_plain(x, tg)[1:]
+            specs += [
+                ("fused_distill_kl_parts", "kl",
+                 lambda: fused_distill_kl_parts(x, tg),
+                 lambda: fused_distill_kl_parts_plain(x, tg), None,
+                 bound(2 * tv * es + 4 * t * 4, DISTILL_OPS["kl"][0] * tv),
+                 False),
+                ("fused_distill_kl_grad", "kl",
+                 lambda: fused_distill_kl_grad(x, tg, *kres, gd,
+                                               need_target_grad=False),
+                 lambda: fused_distill_kl_grad_plain(x, tg, *kres, gd,
+                                                     need_target_grad=False),
+                 None, bound(3 * tv * es + 4 * t * 4,
+                             DISTILL_OPS["kl"][1] * tv), True)]
+        errs = {}
+        for name, mode, kern, plain, lib, (b_ms, b_by), grad in specs:
+            outs_k = [o for o in _flat_outputs(kern()) if o is not None]
+            outs_p = [o for o in _flat_outputs(plain()) if o is not None]
+            require(len(outs_k) == len(outs_p), f"{name} {label}: outputs")
+            err = max(check_loss_output(name, label, a, b, grad,
+                                        dtype == torch.float32, errs)
+                      for a, b in zip(outs_k, outs_p))
+            r = {"ms": time_ms(kern, flush, iters=20),
+                 "plain_ms": time_ms(plain, flush, iters=5, warmup=1),
+                 "library_ms": None if lib is None else time_ms(lib, flush,
+                                                                iters=20),
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+            key = f"{label}{' ' + mode if mode else ''}"
+            rows.setdefault(name, {})[key] = r
+            lib_txt = ("—" if r["library_ms"] is None
+                       else f"{r['library_ms']:.4f} ms")
+            log(f"  paper shape {key}: {name} kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {lib_txt}  bound "
+                f"{b_ms:.3e} ms ({b_by}); max|kernel-plain| {err:.2e}")
+        del xr, lib_y
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paper_parity(dev: torch.device) -> None:
+    """The reduced resnet50 and wrn28x10, transformer-big reading frames
+    and source tokens, and the 8-peer MLP, in fp32 (TF32 off): 3 codist
+    steps through ``train_codist`` on the card (the kernels) and on the CPU
+    (their plain versions) from the same initial trees and batches, made on
+    the CPU; History losses and comm_bytes within 1e-5 relative, the card's
+    launches as ``codist_loss``'s loop makes them."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_reduced
+    from repro_torch.data import (MultiViewTask, classification_batch,
+                                  multiview_batch)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.mlp import MLP, MLPConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import stack_batches, train_codist
+    from repro_torch.train.state import CodistState, trainable_params
+    from repro_torch.tree import tree_map
+    gen = torch.Generator()
+    steps = PAPER_STEPS
+    tc = TrainConfig(lr=0.05, warmup_steps=0, total_steps=steps,
+                     optimizer="sgdm", label_smoothing=0.1, fused_losses=True)
+    mv = MultiViewTask(**PAPER_VIEWS)
+
+    def conv_batches(cfg):
+        out = []
+        for k in range(steps):
+            gen.manual_seed(3000 + k)
+            one = classification_batch(gen, 4, 96, cfg.num_classes,
+                                       image=True, image_size=cfg.image_size)
+            out.append(stack_batches([one] * 2))
+        return out
+
+    def encdec_batches(cfg):
+        out = []
+        for k in range(steps):
+            gen.manual_seed(4000 + k)
+            one = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                           generator=gen),
+                   "labels": torch.randint(0, cfg.vocab_size, (2, 16),
+                                           generator=gen),
+                   "mask": (torch.rand((2, 16), generator=gen) > 0.2).float()}
+            if cfg.num_audio_frames:
+                one["frames"] = torch.randn(
+                    (2, cfg.num_audio_frames, cfg.d_model), generator=gen)
+            else:
+                one["src_tokens"] = torch.randint(0, cfg.vocab_size, (2, 12),
+                                                  generator=gen)
+            out.append(stack_batches([one] * 2))
+        return out
+
+    def mlp_batches():
+        out = []
+        for k in range(steps):
+            raw = multiview_batch(mv, 64, k, device="cpu")
+            out.append(stack_batches([
+                {"features": raw["features"] * mv.view_mask(i, "cpu"),
+                 "labels": raw["labels"]} for i in range(8)]))
+        return out
+
+    mse2 = expected_launches(2, "mse", steps, combined=True, task_ce=False,
+                             standalone=0)
+    frames = get_reduced("transformer-big")
+    tokens = replace(frames, num_audio_frames=0)
+    cases = [
+        ("resnet50-reduced", build_model(get_reduced("resnet50")),
+         CodistConfig(n_models=2), conv_batches(get_reduced("resnet50")),
+         mse2),
+        ("wrn28x10-reduced", build_model(get_reduced("wrn28x10")),
+         CodistConfig(n_models=2), conv_batches(get_reduced("wrn28x10")),
+         mse2),
+        ("transformer-big-reduced frames", build_model(frames),
+         CodistConfig(n_models=2), encdec_batches(frames), mse2),
+        ("transformer-big-reduced source tokens", build_model(tokens),
+         CodistConfig(n_models=2), encdec_batches(tokens), mse2),
+        ("MLP 8 peers kl", MLP(MLPConfig(**PAPER_MLP)),
+         CodistConfig(n_models=8, distill_loss="kl", alpha0=2.0),
+         mlp_batches(), expected_launches(8, "kl", steps, combined=True,
+                                          task_ce=False, standalone=6)),
+    ]
+    worst = 0.0
+    for name, model, cd, batches, want in cases:
+        gen.manual_seed(7)
+        init = [model.init(gen, device="cpu") for _ in range(cd.n_models)]
+        recs = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            params = trainable_params(tree_map(
+                lambda p: p.detach().clone().to(d), init))
+            opt_init, _ = make_optimizer(tc.optimizer)
+            state = CodistState(params, opt_init(params), 0)
+            reset_launch_counts()
+            _s, hist = train_codist(
+                model, cd, tc, lambda k: {a: v.to(d)
+                                          for a, v in batches[k].items()},
+                log_every=1, state=state, device=d)
+            recs[where] = finite_records(hist, f"paper parity {name}")
+            if where == "card":
+                got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+                require(got == want, f"paper parity {name}: card launches "
+                        f"{got} != {want}")
+        for a, c in zip(recs["cpu"], recs["card"]):
+            for m in ("loss", "task_loss", "distill_loss", "comm_bytes"):
+                rel = abs(c[m] - a[m]) / max(abs(a[m]), 1e-12)
+                worst = max(worst, rel)
+                require(rel <= 1e-5, f"paper parity {name} step {a['step']} "
+                        f"{m}: card {c[m]} vs cpu {a[m]} (rel {rel:.2e})")
+        log(f"paper parity {name}: card vs CPU loss by step "
+            + "; ".join(f"{a['loss']:.7f}/{c['loss']:.7f}"
+                        for a, c in zip(recs["cpu"], recs["card"])))
+    log(f"paper parity: worst relative difference {worst:.2e} (tol 1e-5)")
+
+
+# ----------------------------------------------------------------------------
 # on request: rows 1, 1q, 2 and 4 against the parent commit
 # ----------------------------------------------------------------------------
 
@@ -4639,6 +5212,13 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         launches["obs"] = phase_obs(dev, smi_line)
         torch.cuda.empty_cache()
         log(f"phase obs: {time.perf_counter() - t0:.1f} s")
+    if "paper" in phases:
+        t0 = time.perf_counter()
+        launches["paper"], paper_rows = phase_paper(dev)
+        for name, recs in paper_rows.items():
+            kernel_rows.setdefault(name, {})["paper_shapes"] = recs
+        torch.cuda.empty_cache()
+        log(f"phase paper: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})
@@ -4656,7 +5236,8 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
             "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
             **{k: v for k, v in row.items()
-               if k.startswith(("verify_", "canary_", "by_shape"))}})
+               if k.startswith(("verify_", "canary_", "by_shape",
+                                "paper_"))}})
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

@@ -19,9 +19,13 @@ dequantizing decode, and the two standalone kernels of ``kernels/ops.py``
 reference has a counterpart. Slice 8 adds the paper-grid harness
 (``experiments/``: spec -> runner -> aggregate, ``launch/sweep.py``) and
 the async peer runtime (``runtime/``: fault clock, mailbox, peers,
-``AsyncScheduler``; ``--mode codist-async``). The kernels are written by
-hand in CUDA C++ for Hopper (``csrc/``); the models are the dense
-attention LMs.
+``AsyncScheduler``; ``--mode codist-async``). Slice 13 adds the paper's
+own models (``models/conv.py`` resnet50 / wrn28x10 with GroupNorm,
+``models/encdec.py`` transformer-big, ``models/mlp.py`` and
+``data/multiview.py`` for the Section-5.1 study), trained through
+``build_model`` and ``train/loop.py``. The kernels are written by hand in
+CUDA C++ for Hopper (``csrc/``); the models are the dense attention LMs,
+the enc-dec transformer, the conv nets and the MLP.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 asking for CUDA without a card raises (nothing falls back to the CPU). On a

@@ -1,9 +1,12 @@
 """Bridge between the reference's parameter tree and the port's.
 
 The reference stacks per-layer parameters on a leading axis
-(``LM.init`` vmaps the layer init), and the port keeps them stacked the same
-way: the two trees have the same keys, shapes and layouts, leaf for leaf, so
-the bridge is a leaf-wise conversion between numpy arrays and tensors.
+(``LM.init`` vmaps the layer init; ``EncDecLM`` its ``enc_layers`` and
+``dec_layers``), and the port keeps them stacked the same way; the conv
+nets' trees are flat per block (HWIO weights, GroupNorm scale and bias) and
+the MLP's ``w{i}`` / ``b{i}`` in both. The two trees have the same keys,
+shapes and layouts, leaf for leaf, so the bridge is a leaf-wise conversion
+between numpy arrays and tensors.
 
 Training keeps fp32 master weights. The reference trains n codistilling
 peers as ONE tree with a leading peer axis; the port keeps a list of n

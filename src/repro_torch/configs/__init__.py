@@ -1,8 +1,9 @@
 """Architecture config registry.
 
 Knows every arch id of the reference's registry, so ``--arch`` spells the
-same names; only the dense attention archs of the port resolve.
-The others raise ``NotImplementedError`` naming the slice that ports them.
+same names. The dense attention LMs and the paper's own models (resnet50,
+wrn28x10 and transformer-big) resolve; the other families raise
+``NotImplementedError`` naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -13,15 +14,20 @@ from repro_torch.configs.base import (CodistConfig, ModelConfig,  # noqa: F401
                                       TrainConfig, reduced)
 
 _PORTED = {
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    # the paper's own workloads
+    "transformer-big": "repro_torch.configs.transformer_big",
+    "resnet50": "repro_torch.configs.resnet50",
+    "wrn28x10": "repro_torch.configs.wrn28_10",
 }
 
-# reference arch ids whose families (moe / hybrid / ssm / vlm / audio / conv,
-# and dense archs not yet carried over) the port has not reached
-_LATER = ("deepseek-67b", "internvl2-76b", "arctic-480b", "jamba-v0.1-52b",
-          "grok-1-314b", "qwen1.5-4b", "whisper-tiny", "rwkv6-1.6b",
-          "transformer-big", "resnet50", "wrn28x10")
+# reference arch ids whose families (moe / hybrid / ssm / vlm / audio) the
+# port has not reached
+_LATER = ("internvl2-76b", "arctic-480b", "jamba-v0.1-52b", "grok-1-314b",
+          "whisper-tiny", "rwkv6-1.6b")
 
 
 def list_archs() -> List[str]:
@@ -33,16 +39,15 @@ def _module(arch: str):
         return importlib.import_module(_PORTED[arch])
     if arch in _LATER:
         raise NotImplementedError(
-            f"arch {arch!r} is not in the port yet: the serving slice carries "
-            f"the dense archs {sorted(_PORTED)}; the other families come "
-            "with ROADMAP Queue 1 item 11 (\"the rest\"), after the training "
-            "slice")
+            f"arch {arch!r} is not in the port yet: it carries "
+            f"{sorted(_PORTED)}; the other families (moe, hybrid, ssm, vlm, "
+            "audio) come with ROADMAP Queue 1 item 11 (\"the rest\")")
     raise KeyError(f"unknown arch {arch!r}; known: {sorted(list_archs())}")
 
 
-def get_config(arch: str) -> ModelConfig:
+def get_config(arch: str):
     return _module(arch).CONFIG
 
 
-def get_reduced(arch: str) -> ModelConfig:
+def get_reduced(arch: str):
     return _module(arch).reduced()

@@ -3,7 +3,8 @@
 The fields, ``padded_vocab``, ``resolved_head_dim`` and ``reduced()`` are
 those of the reference's ``configs/base.py``; ``activation_dtype`` is a
 ``torch.dtype`` here. Family-specific sub-configs (moe / ssm / rwkv) stay
-opaque: the port runs the dense attention archs only. ``CodistConfig`` and
+opaque: the port runs no MoE, SSM or RWKV arch yet. The conv nets' config
+is ``models.conv.ConvConfig``, as in the reference. ``CodistConfig`` and
 ``TrainConfig`` are the reference's field for field, with its defaults.
 """
 from __future__ import annotations

@@ -91,3 +91,30 @@ def lm_batch_iterator(task: MarkovLM, batch: int, seq_len: int,
     while True:
         yield make_lm_batch(task, batch, seq_len, step, g, seed, device)
         step += 1
+
+
+def classification_batch(generator: torch.Generator, batch: int, dim: int,
+                         num_classes: int, noise: float = 1.0,
+                         image: bool = False, image_size: int = 32
+                         ) -> Dict[str, torch.Tensor]:
+    """Gaussian-cluster classification data drawn from ``generator`` (on
+    its device): class centres N(0, 2^2), int32 labels, features centre +
+    N(0, noise^2); with ``image`` the features are tiled into (B, side,
+    side, 3) NHWC images instead, as the reference shapes them."""
+    dev = generator.device
+    centers = torch.randn((num_classes, dim), generator=generator,
+                          device=dev) * 2.0
+    labels = torch.randint(0, num_classes, (batch,), generator=generator,
+                           device=dev, dtype=torch.int32)
+    x = centers[labels.long()] + noise * torch.randn(
+        (batch, dim), generator=generator, device=dev)
+    out: Dict[str, torch.Tensor] = {"labels": labels}
+    if image:
+        side = image_size
+        need = side * side * 3
+        reps = -(-need // dim)
+        out["images"] = x.repeat(1, reps)[:, :need].reshape(batch, side,
+                                                            side, 3)
+    else:
+        out["features"] = x
+    return out

@@ -135,6 +135,12 @@ def main(argv=None) -> None:
     except NotImplementedError as e:
         print(f"--arch {args.arch}: {e}", file=sys.stderr)
         sys.exit(2)
+    if not hasattr(cfg, "is_encdec") or cfg.is_encdec:
+        # the reference's launcher cannot reach these archs either
+        print(f"--arch {args.arch}: this CLI serves decoder LMs; enc-dec "
+              "serving comes with ROADMAP Queue 1 item 11d, and a "
+              "classifier is not served", file=sys.stderr)
+        sys.exit(2)
     device = resolve_device(args.device)
     model = build_model(cfg)
     cache_dtype = resolve_cache_dtype(args.cache_dtype, device)

@@ -201,6 +201,13 @@ def main(argv=None) -> None:
     except NotImplementedError as e:
         print(f"--arch {args.arch}: {e}", file=sys.stderr)
         sys.exit(2)
+    if not hasattr(cfg, "is_encdec") or cfg.is_encdec:
+        # the reference's launcher cannot reach these archs either (its
+        # Markov-LM data is token streams)
+        print(f"--arch {args.arch}: this CLI trains decoder LMs; the paper's "
+              "conv and enc-dec models run through build_model with "
+              "train_codist / train_allreduce", file=sys.stderr)
+        sys.exit(2)
     device = resolve_device(args.device)
     model = build_model(cfg)
     vocab = min(cfg.vocab_size, 512)

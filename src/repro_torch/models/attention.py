@@ -1,5 +1,7 @@
-"""GQA attention: prefill forward (cache emit), the dense KV cache and the
-one-token decode that reads it.
+"""GQA attention: the full-sequence forward (causal, or not for an
+encoder; cache emit for prefill), the dense KV cache and the one-token
+decode that reads it, and the enc-dec cross attention (forward, decode over
+the encoder's K/V cache).
 
 Query head ``h`` reads KV head ``h // G`` with ``G = H // KVh``. Keys are
 cached already rotated, so a ring-buffer (sliding-window) cache never needs
@@ -82,10 +84,11 @@ def _softmax(scores: torch.Tensor) -> torch.Tensor:
 
 def attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                       positions: Optional[torch.Tensor] = None,
-                      return_cache: bool = False):
-    """Causal full-sequence attention, windowed when ``cfg.sliding_window``
-    > 0 (key j is visible from query i iff i - window < j <= i). x (B,S,d)
-    -> (out, cache|None) with cache = {"k": roped keys (B,S,KV,hd), "v":
+                      causal: bool = True, return_cache: bool = False):
+    """Full-sequence attention. ``causal`` masks key j from query i unless
+    j <= i, windowed when ``cfg.sliding_window`` > 0 (i - window < j <= i);
+    the enc-dec encoder passes ``causal=False`` (no mask). x (B,S,d) ->
+    (out, cache|None) with cache = {"k": roped keys (B,S,KV,hd), "v":
     values}."""
     b, s, _ = x.shape
     if positions is None:
@@ -94,14 +97,51 @@ def attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scores = _gqa_scores(q, k)                                       # b h s s
-    i = torch.arange(s, device=x.device)
-    mask = i[None, :] <= i[:, None]
-    if cfg.sliding_window > 0:
-        mask = mask & (i[:, None] - i[None, :] < cfg.sliding_window)
-    scores = scores.masked_fill(~mask, NEG_INF)
+    if causal:
+        i = torch.arange(s, device=x.device)
+        mask = i[None, :] <= i[:, None]
+        if cfg.sliding_window > 0:
+            mask = mask & (i[:, None] - i[None, :] < cfg.sliding_window)
+        scores = scores.masked_fill(~mask, NEG_INF)
     w = _softmax(scores).to(x.dtype)
     out = _out_proj(p, _gqa_combine(w, v))
     return out, ({"k": k, "v": v} if return_cache else None)
+
+
+def _cross(p: Dict[str, torch.Tensor], x: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    w = _softmax(_gqa_scores(q, k.to(x.dtype))).to(x.dtype)
+    return _out_proj(p, _gqa_combine(w, v.to(x.dtype)))
+
+
+def cross_attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                            memory: torch.Tensor, cfg) -> torch.Tensor:
+    """Decoder-to-encoder attention: queries from x (B,S,d), keys and
+    values from ``memory`` (B,T,d) in x's dtype; no RoPE, no mask."""
+    kv = encoder_kv(p, memory.to(x.dtype), cfg)
+    return _cross(p, x, kv["k"], kv["v"])
+
+
+def cross_attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                           mem_cache: Dict[str, torch.Tensor],
+                           cfg) -> torch.Tensor:
+    """Decode-time cross attention of x (B,1,d) over the encoder's K/V
+    cache, read in x's dtype, every row (no mask)."""
+    return _cross(p, x, mem_cache["k"], mem_cache["v"])
+
+
+def encoder_kv(p: Dict[str, torch.Tensor], memory: torch.Tensor,
+               cfg) -> Dict[str, torch.Tensor]:
+    """The cross-attention keys and values of ``memory`` (B,T,d), in its
+    dtype, with the optional biases."""
+    k, v = _proj(memory, p["wk"]), _proj(memory, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(memory.dtype)
+        v = v + p["bv"].to(memory.dtype)
+    return {"k": k, "v": v}
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype,

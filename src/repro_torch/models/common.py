@@ -50,10 +50,29 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """fp32 inside (mean, biased variance), cast back to ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def init_layer_norm(d: int, dtype=torch.float32, device="cuda"
+                    ) -> Dict[str, torch.Tensor]:
+    """Scale 1 and bias 0: the tree whose ``bias`` makes ``apply_norm``
+    take layer norm."""
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
+
+
 def apply_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm when the parameters hold a ``bias``, else RMS norm."""
     if "bias" in params:
-        raise NotImplementedError("layer_norm archs are not in the serving slice")
+        return layer_norm(x, params["scale"], params["bias"], eps)
     return rms_norm(x, params["scale"], eps)
 
 
@@ -111,7 +130,7 @@ def lm_head(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 def activation(name: str):
-    """The gate activation of the gated FFN (silu => SwiGLU, geglu)."""
+    """The FFN activation: silu (SwiGLU's gate) or gelu / geglu."""
     if name == "silu":
         return F.silu
     if name in ("gelu", "geglu"):

@@ -116,6 +116,67 @@ def _layer_fwd(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ----------------------------------------------------------------------------
+# stacked (leading L axis) parameter inits, shared with the enc-dec model
+# ----------------------------------------------------------------------------
+
+def stacked_dense(n: int, shape, in_dim: int, generator: torch.Generator,
+                  dtype: torch.dtype, device, scale: float = 1.0) -> torch.Tensor:
+    """n fan-in inits of ``shape`` stacked on a leading axis; each slice is
+    drawn in fp32 and cast on store, so a bf16 init never holds an fp32
+    copy of the whole stack."""
+    t = torch.empty((n, *shape), dtype=dtype, device=device)
+    for i in range(n):
+        dense_init_(t[i], in_dim, generator, scale)
+    return t
+
+
+def stacked_const(n: int, shape, value: float, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    return torch.full((n, *shape), value, dtype=dtype, device=device)
+
+
+def init_embedding(cfg: ModelConfig, generator: torch.Generator,
+                   dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """The token table (N(0, 0.02)) and, untied, the fan-in head."""
+    esh = embedding_shapes(cfg)
+    embed = {"tokens": embed_init_(
+        torch.empty(esh["tokens"], dtype=dtype, device=device), generator)}
+    if "head" in esh:
+        embed["head"] = dense_init_(
+            torch.empty(esh["head"], dtype=dtype, device=device), cfg.d_model,
+            generator)
+    return embed
+
+
+def init_stacked_attention(cfg: ModelConfig, n: int,
+                           generator: torch.Generator, dtype: torch.dtype,
+                           device) -> Dict[str, torch.Tensor]:
+    """wq, wk, wv, wo (and the zero QKV biases) of n layers; ``wo`` scaled
+    by 1 / sqrt(num_layers), as the reference's."""
+    ash = attn.attention_shapes(cfg)
+    d = cfg.d_model
+    down_scale = 1.0 / max(1, cfg.num_layers) ** 0.5
+    p = {name: stacked_dense(n, ash[name], d, generator, dtype, device)
+         for name in ("wq", "wk", "wv")}
+    p["wo"] = stacked_dense(n, ash["wo"], ash["wo"][0], generator, dtype,
+                            device, down_scale)
+    for b in ("bq", "bk", "bv"):
+        if b in ash:
+            p[b] = stacked_const(n, ash[b], 0.0, dtype, device)
+    return p
+
+
+def init_stacked_ffn(cfg: ModelConfig, n: int, generator: torch.Generator,
+                     dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """The FFN's matrices of n layers (gated: w_gate, w_up, w_down; plain:
+    w_up, w_down); ``w_down`` scaled by 1 / sqrt(num_layers)."""
+    down_scale = 1.0 / max(1, cfg.num_layers) ** 0.5
+    return {name: stacked_dense(n, shape, shape[0], generator, dtype, device,
+                                down_scale if name == "w_down" else 1.0)
+            for name, shape in ffn_shapes(cfg).items()}
+
+
+# ----------------------------------------------------------------------------
 # the model
 # ----------------------------------------------------------------------------
 
@@ -138,44 +199,15 @@ class LM:
         wdt = weight_dtype or pdt
         n = _n_scan(cfg)
         d = cfg.d_model
-        down_scale = 1.0 / max(1, cfg.num_layers) ** 0.5
-
-        def stacked(shape, in_dim, scale=1.0):
-            t = torch.empty((n, *shape), dtype=wdt, device=dev)
-            for i in range(n):
-                dense_init_(t[i], in_dim, generator, scale)
-            return t
-
-        def const(shape, value, dtype):
-            return torch.full((n, *shape), value, dtype=dtype, device=dev)
-
         layers: Dict = {}
         for i in range(len(_sub_kinds(cfg))):
-            ash = attn.attention_shapes(cfg)
-            mix = {
-                "wq": stacked(ash["wq"], d), "wk": stacked(ash["wk"], d),
-                "wv": stacked(ash["wv"], d),
-                "wo": stacked(ash["wo"], ash["wo"][0], down_scale),
-            }
-            for b in ("bq", "bk", "bv"):
-                if b in ash:
-                    mix[b] = const(ash[b], 0.0, wdt)
-            fsh = ffn_shapes(cfg)
             layers[f"sub{i}"] = {
-                "norm1": {"scale": const((d,), 1.0, pdt)},
-                "mix": mix,
-                "norm2": {"scale": const((d,), 1.0, pdt)},
-                "ffn": {"w_gate": stacked(fsh["w_gate"], d),
-                        "w_up": stacked(fsh["w_up"], d),
-                        "w_down": stacked(fsh["w_down"], cfg.d_ff, down_scale)},
+                "norm1": {"scale": stacked_const(n, (d,), 1.0, pdt, dev)},
+                "mix": init_stacked_attention(cfg, n, generator, wdt, dev),
+                "norm2": {"scale": stacked_const(n, (d,), 1.0, pdt, dev)},
+                "ffn": init_stacked_ffn(cfg, n, generator, wdt, dev),
             }
-        esh = embedding_shapes(cfg)
-        embed = {"tokens": embed_init_(
-            torch.empty(esh["tokens"], dtype=wdt, device=dev), generator)}
-        if "head" in esh:
-            embed["head"] = dense_init_(
-                torch.empty(esh["head"], dtype=wdt, device=dev), d, generator)
-        return {"embed": embed,
+        return {"embed": init_embedding(cfg, generator, wdt, dev),
                 "final_norm": {"scale": torch.ones(d, dtype=pdt, device=dev)},
                 "layers": layers}
 

@@ -35,6 +35,11 @@ def _zeros(params: PyTree, dtype) -> PyTree:
 
 def _leaf_triples(params, grads, state_trees, trainable):
     """Flat (param, grad, *state, mask) tuples over matching trees."""
+    if (trainable is not None and isinstance(params, list)
+            and not isinstance(trainable, list)):
+        # one mask for every peer of a peer list, as the reference's mask
+        # broadcasts over its stacked peer axis
+        trainable = [trainable] * len(params)
     cols = [tree_leaves(params), tree_leaves(grads)]
     cols += [tree_leaves(t) for t in state_trees]
     cols.append(tree_leaves(trainable) if trainable is not None
@@ -47,7 +52,11 @@ def _leaf_triples(params, grads, state_trees, trainable):
 
 def _write(p: torch.Tensor, new32: torch.Tensor, mask) -> None:
     if mask is not None:
-        new32 = torch.where(mask > 0, new32, p.float())
+        if not torch.is_tensor(mask):
+            if mask <= 0:            # a frozen leaf of a 0/1 number mask
+                return
+        else:
+            new32 = torch.where(mask > 0, new32, p.float())
     p.copy_(new32)
 
 

@@ -96,6 +96,10 @@ def make_schedules(tc: TrainConfig, codist: Optional[CodistConfig] = None):
 # ----------------------------------------------------------------------------
 
 def _task_forward(model, params: PyTree, batch: Dict, remat: bool):
+    """One forward over LM / enc-dec / conv / MLP models: a config with a
+    ``kind`` (``ConvConfig``, ``MLPConfig``) takes no ``remat``."""
+    if hasattr(model.cfg, "kind"):
+        return model.forward(params, batch)
     return model.forward(params, batch, remat=remat)
 
 
@@ -329,15 +333,26 @@ class PredictionExchange(ExchangeStrategy):
         return "on" if plan.distill else "off"
 
     def comm_bytes(self, model, state, batch_all, microbatch=0) -> float:
-        """(n-1) peers' fp32 logits of every sequence of the batch (the
-        port's models are LMs: labels (n, [k,] B, S))."""
+        """(n-1) peers' fp32 logits of every sample of the batch: a
+        sequence of an LM (labels (n, [k,] B, S)), or one logit vector of a
+        classifier (labels (n, B)). A model without the Section-3
+        metadata (no ``num_classes``) reports 0, as the reference's."""
         cfg = self.codist
-        labels = batch_all["labels"]
-        seq = labels.shape[-1]
-        samples = labels.numel() // (cfg.n_models * seq)
-        b_pred = cm.prediction_bits_lm(model.cfg, seq, 32, cfg.compression,
-                                       cfg.topk, cfg.subsample)
-        return (cfg.n_models - 1) * b_pred * samples / 8.0
+        try:
+            labels = batch_all["labels"]
+            n = cfg.n_models
+            mcfg = getattr(model, "cfg", None)
+            if labels.dim() >= 3:         # LM: (n, [k,] B, S)
+                seq = labels.shape[-1]
+                samples = labels.numel() // (n * seq)
+                b_pred = cm.prediction_bits_lm(mcfg, seq, 32, cfg.compression,
+                                               cfg.topk, cfg.subsample)
+            else:                         # classifier: (n, B)
+                samples = labels.numel() // n
+                b_pred = cm.prediction_bits_classifier(mcfg.num_classes)
+            return (n - 1) * b_pred * samples / 8.0
+        except (KeyError, AttributeError, TypeError):
+            return 0.0
 
 
 class CheckpointExchange(PredictionExchange):
@@ -408,9 +423,21 @@ class PipelinedPredictions(ExchangeStrategy):
     def ensure_state(self, state, model, tc, example_batch=None):
         if state.peer is not None or example_batch is None:
             return state
-        # logits (n, [k, B/k,] B, S, V): the tokens' shape, vocab-wide
-        shape = tuple(example_batch["tokens"].shape) + (model.cfg.padded_vocab,)
-        return state._replace(peer=init_peer_state(example_batch, shape))
+        n = self.codist.n_models
+        k = tc.microbatch
+        lead = (n, k) if k > 1 else (n,)
+        # the logits' shape from a forward of peer 0 on (microbatch 0 of)
+        # its slice, on the meta device: shapes only, as the reference's
+        # eval_shape
+        meta = tree_map(lambda x: x.detach().to("meta"),
+                        {"params": state.params[0],
+                         "batch": tree_map(lambda x: x[0][0] if k > 1
+                                           else x[0], example_batch)})
+        with torch.no_grad():
+            shape = _task_forward(model, meta["params"], meta["batch"],
+                                  False)[0].shape
+        return state._replace(peer=init_peer_state(example_batch,
+                                                   lead + tuple(shape)))
 
     def plan(self, step: int) -> StepPlan:
         # the (stale) logits collective overlaps every step
