@@ -182,7 +182,29 @@ exits non-zero:
                 timed at this path's shapes (T 8 / V 1000 and T 256 / V 10
                 fp32, T 3584 / V 32768 bf16); then the reduced models in
                 fp32 (TF32 off), card against CPU, History losses within
-                1e-5 relative over 3 codist steps.
+                1e-5 relative over 3 codist steps; row 7 at T 256 / V 10
+                and its library backward timed in turns.
+ 17. families — the MoE and hybrid families at full width and the depth
+                one card holds (grok-1 4 of 64 layers, arctic 2 of 35,
+                jamba one 8-layer step of 32: seven Mamba sub-layers, one
+                attention, four MoE FFNs), seeded bf16 weights, one model
+                on the card at a time: a 2-peer fleet sharing one weight
+                set (16 slots, 16 bursty requests, prompts <= 128) with
+                rows 1 and 2 launched exactly once per attention
+                sub-layer per tick, the same requests through
+                ``Engine.generate`` at batch 4 (tokens compared, each first
+                divergence with the fleet's top-2 margin; at least 75%
+                equal, and the median first divergence at a margin within
+                the tick check's 5% of max|logits|), a fused-vs-gather tick
+                (row 3; a slot whose experts flip must flip at a router
+                margin under 1e-2) and 5 timed ticks with their device
+                profile, and for grok-1 the fleet over int8 pools (rows 1q,
+                4); then grok-1 trained at full width, 1 of 64 layers: 2
+                peers x 512 tokens, bf16 weights, plain SGD, 3 codist steps
+                (rows 12, 13 at V 131072) and 1 all-reduce step (rows 6, 7),
+                aux loss, ms a step, busy share, peak memory; last the
+                reduced configs in fp32, card against CPU: 3 codist steps
+                within 1e-5 relative and equal FleetReports.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -194,7 +216,10 @@ The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
 (H = KVh = 20, hd 128, the fleet's slots and lengths: the kernel's head
 groups) over fp32, bf16, int8 and fp8 pools, timed beside SDPA and its
 bound, and rows 2 and 4 at its rows of 2,560 values (the quantizing
-scatter's two-pass path), bit-exact, timed. It also holds row 1 at the verify's shape (16 slots x k = 4
+scatter's two-pass path), bit-exact, timed. It holds rows 1 and 1q the same
+way (untimed) at the families' heads, hd 128 over 8 KV heads: grok-1's 48
+(G 6), arctic's 56 (G 7) and jamba's 32 (G 4), and rows 2 and 4 at their
+rows of 1,024 values, bit-exact, timed. It also holds row 1 at the verify's shape (16 slots x k = 4
 pseudo-slots, the plain tick's split plan): against the plain version at the
 same plan, and each pseudo-slot bit for bit against the 16-slot decode; and
 row 8 at the canary's shape, one (1, 152064) fp32 pair. Rows 8 (mse, kl) and
@@ -226,7 +251,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
-          "fleet_codist", "single", "obs", "paper")
+          "fleet_codist", "single", "obs", "paper", "families")
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them
@@ -283,20 +308,22 @@ SOURCES = {
 ROWS_1_TO_4 = ("paged_attention_decode", "paged_attention_decode_quant",
                "paged_scatter", "paged_scatter_quant", "paged_gather")
 # the paths each kernel belongs to (each must launch it where it ran)
-PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs"),
-         "paged_gather": ("fleet", "spec"),
-         "paged_attention_decode": ("fleet", "spec", "fleet_codist", "obs"),
-         "paged_attention_decode_quant": ("fleet", "spec"),
-         "paged_scatter_quant": ("fleet", "spec"),
+PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs",
+                           "families"),
+         "paged_gather": ("fleet", "spec", "families"),
+         "paged_attention_decode": ("fleet", "spec", "fleet_codist", "obs",
+                                    "families"),
+         "paged_attention_decode_quant": ("fleet", "spec", "families"),
+         "paged_scatter_quant": ("fleet", "spec", "families"),
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
-                                       "async", "obs", "paper"),
+                                       "async", "obs", "paper", "families"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
-                                      "async", "obs", "paper"),
+                                      "async", "obs", "paper", "families"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
-                                    "paper"),
+                                    "paper", "families"),
          "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs",
-                                   "paper"),
+                                   "paper", "families"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
          "fused_distill_kl_parts": ("train_peers", "async", "obs", "paper"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
@@ -606,11 +633,16 @@ DECODE_SHAPES = [("main", S, MB, NB, LENGTHS),
 # G = 8 at hd 32, whose chunks take 2 and 1 steps (an inactive slot and a
 # full table among them), and qwen1.5-4b's heads (H = KVh = 20, hd 128: the
 # kernel splits them into head groups) at the fleet's slots and lengths,
-# the one of them also timed (TIMED_CHECKS)
+# the one of them also timed (TIMED_CHECKS); and the families' heads at the
+# fleet's slots and lengths, hd 128 over 8 KV heads: grok-1 48 (G 6),
+# arctic 56 (G 7), jamba 32 (G 4)
 DECODE_CHECKS = [("qwen1.5-0.5b", 4, 8, 16, [0, 5, 40, 127], 16, 16, 64),
                  ("hd64 G4", 3, 6, 12, [0, 17, 95], 8, 2, 64),
                  ("hd32 G8", 3, 6, 12, [0, 17, 95], 8, 1, 32),
-                 ("qwen1.5-4b", S, MB, NB, LENGTHS, 20, 20, 128)]
+                 ("qwen1.5-4b", S, MB, NB, LENGTHS, 20, 20, 128),
+                 ("grok-1", S, MB, NB, LENGTHS, 48, 8, 128),
+                 ("arctic", S, MB, NB, LENGTHS, 56, 8, 128),
+                 ("jamba", S, MB, NB, LENGTHS, 32, 8, 128)]
 TIMED_CHECKS = ("qwen1.5-4b",)
 
 
@@ -1299,19 +1331,23 @@ def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
             results["paged_scatter_quant"] = r4[torch.int8]
         del kb, vb, qpools
         torch.cuda.empty_cache()
-    scatter_long_rows(dev, flush, faults)
+    for kvh, hd, seed in LONG_ROWS:
+        scatter_long_rows(dev, flush, faults, kvh, hd, seed)
     require(not faults, f"{len(faults)} scatter checks failed: "
             + "; ".join(faults))
     return results
 
 
-# qwen1.5-4b's pool rows: 20 KV heads x hd 128 = 2,560 values, past the
-# 2,048 that one warp of the quantizing scatter holds in registers
-LONG_KVH, LONG_HD = 20, 128
+# (KV heads, hd, seed) of the pool rows held beside the main path's:
+# qwen1.5-4b's 20 x 128 = 2,560 values, past the 2,048 that one warp of the
+# quantizing scatter holds in registers, and the families' (grok-1, arctic,
+# jamba) 8 x 128 = 1,024
+LONG_ROWS = [(20, 128, 730), (8, 128, 740)]
 
 
-def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults) -> None:
-    """Rows 2 and 4 at qwen1.5-4b's rows of 2,560 values in the fleet's pool
+def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults,
+                      kvh: int, hd: int, seed: int) -> None:
+    """Rows 2 and 4 at rows of ``kvh`` x ``hd`` values in the fleet's pool
     (NB = 1025): the K+V scatter over fp32 and bf16 pools and the quantizing
     K+V scatter (its two-pass path) over int8 and fp8 pools from fp32 and
     bf16 rows, 16-byte aligned and not, bit for bit against the plain
@@ -1321,10 +1357,9 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults) -> None:
     from repro_torch.kernels import (paged_scatter_kv, paged_scatter_kv_plain,
                                      paged_scatter_quant_kv,
                                      paged_scatter_quant_kv_plain)
-    k, v, k_new, v_new, ws, wo = scatter_inputs(NB, dev, 730, LONG_KVH,
-                                                LONG_HD)
+    k, v, k_new, v_new, ws, wo = scatter_inputs(NB, dev, seed, kvh, hd)
     writers = int((ws >= 0).sum())
-    label = f"rows of {LONG_KVH * LONG_HD} (NB={NB})"
+    label = f"rows of {kvh * hd} (NB={NB})"
     for dtype in (torch.float32, torch.bfloat16):
         kd, vd, kn, vn = (x.to(dtype) for x in (k, v, k_new, v_new))
         got, want = (kd.clone(), vd.clone()), (kd.clone(), vd.clone())
@@ -1335,9 +1370,9 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults) -> None:
                        [(got[0], want[0], kd), (got[1], want[1], vd)], faults)
         del kd, vd, got, want
     gen = torch.Generator(device=dev)
-    gen.manual_seed(731)
-    qpools = {qdt: (*random_quant_pool(NB, qdt, dev, gen, LONG_KVH, LONG_HD),
-                    *random_quant_pool(NB, qdt, dev, gen, LONG_KVH, LONG_HD))
+    gen.manual_seed(seed + 1)
+    qpools = {qdt: (*random_quant_pool(NB, qdt, dev, gen, kvh, hd),
+                    *random_quant_pool(NB, qdt, dev, gen, kvh, hd))
               for qdt in QUANT}
     rows = [(str(r)[6:], k_new.to(r), v_new.to(r), ws, wo)
             for r in (torch.float32, torch.bfloat16)]
@@ -1359,7 +1394,7 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults) -> None:
         "checked")
     kb, vb, kn, vn = (x.to(torch.bfloat16) for x in (k, v, k_new, v_new))
     del k, v
-    row_b = LONG_KVH * LONG_HD * 2
+    row_b = kvh * hd * 2
     r2 = (time_ms(lambda: paged_scatter_kv(kb, vb, kn, vn, ws, wo), flush),
           time_ms(lambda: paged_scatter_kv_plain(kb, vb, kn, vn, ws, wo),
                   flush, iters=10),
@@ -1367,7 +1402,7 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults) -> None:
     log(f"  paged_scatter {label} bf16: K+V kernel {r2[0]:.4f} ms  plain "
         f"{r2[1]:.4f} ms  bound {r2[2]:.7f} ms (bytes)")
     for qdt, (kq, ks, vq, vs) in qpools.items():
-        qrow_b = LONG_KVH * LONG_HD * qdt.itemsize + 4
+        qrow_b = kvh * hd * qdt.itemsize + 4
         r4 = (time_ms(lambda: paged_scatter_quant_kv(kq, ks, vq, vs, kn, vn,
                                                      ws, wo), flush),
               time_ms(lambda: paged_scatter_quant_kv_plain(
@@ -2070,14 +2105,22 @@ def serving_kernels(quantized: bool):
             if quantized else ("paged_attention_decode", "paged_scatter"))
 
 
+def attn_sublayers(pool) -> int:
+    """The attention sub-layers of a pool's model (its layers, for a
+    dense model; one in each 8-layer step of jamba): the pool holds KV
+    only for these, and the decode step launches rows 1-4 only there."""
+    return len(pool.kv_subs) * pool.n_scan
+
+
 def serve_launches(router, n_layers: int, k: int, fused: bool,
                    quantized: bool) -> dict:
-    """Launches of rows 1-4 in one fleet run: a plain tick (a plain
-    engine's, or a speculative engine's fallback) launches the decode and
-    one K+V scatter per layer; a speculative round launches k draft ticks
-    and one verify: k + 1 decodes (the verify's over S*k pseudo-slots) and
-    2k scatters per layer. The gather path gathers K and V (and their two
-    scale pools) instead of each decode."""
+    """Launches of rows 1-4 in one fleet run, ``n_layers`` attention
+    sub-layers deep: a plain tick (a plain engine's, or a speculative
+    engine's fallback) launches the decode and one K+V scatter per
+    attention sub-layer; a speculative round launches k draft ticks and
+    one verify: k + 1 decodes (the verify's over S*k pseudo-slots) and 2k
+    scatters per attention sub-layer. The gather path gathers K and V (and
+    their two scale pools) instead of each decode."""
     from repro_torch.serve.fleet import SpecEngine
     plain = sum(e.decode_ticks for e in router.engines)
     rounds = sum(e.spec_stats.rounds for e in router.engines
@@ -2182,18 +2225,50 @@ def serve_run(model, peers, fc, wl, cache_dtype, dev, label, spec=None,
     require(all(0 <= t < model.cfg.padded_vocab for t in toks)
             and len(toks) == rep.generated_tokens,
             f"{label} {policy}: token ids out of range or miscounted")
-    want = serve_launches(router, model.cfg.num_layers, spec or 0,
-                          fc.fused_attention is not False, quantized)
+    want = serve_launches(router, attn_sublayers(router.engines[0].pool),
+                          spec or 0, fc.fused_attention is not False,
+                          quantized)
     require(counts == want, f"{label} {policy}: launches {counts} != "
             f"{want} (from the ticks and rounds)")
     return router, rep, counts, walls, wall
 
 
+class routes_recorded:
+    """Within the block, every MoE routing decision of the port
+    (``models.moe._route``) appends (each token's set of chosen experts,
+    sorted ids (G, T, k); router probs (G, T, E)) to the list the ``with``
+    yields (on the host)."""
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe_mod
+        self.mod, self.orig, self.out = moe_mod, moe_mod._route, []
+
+        def rec(m, logits, cap):
+            r = self.orig(m, logits, cap)
+            self.out.append((r[0].sort(-1).values.cpu(),
+                             torch.softmax(logits, -1).cpu()))
+            return r
+        moe_mod._route = rec
+        return self.out
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+        return False
+
+
+# the widest router margin (2nd - 3rd expert probability) at which the
+# fused and gather ticks may route a slot to other experts: the two
+# attention paths differ by bf16 rounding, which moves a probability by
+# ~1e-3 (the flips on the card came at 7.9e-4 and 8.8e-4)
+FLIP_MARGIN = 1e-2
+
+
 def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
     """One engine with 16 live slots: a fused tick against a gather tick on
-    the same pool, launch counts of the gather tick, then the wall time of
-    5 fused ticks. Returns (engine, active, tokens, gather counts, ms per
-    tick)."""
+    the same pool (and the same recurrent states), launch counts of the
+    gather tick, then the wall time of 5 fused ticks. Returns (engine,
+    active, tokens, gather counts, ms per tick, the logits' tolerance: 5%
+    of the fused tick's max|logits|)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve.fleet import FleetEngine, Request
     from repro_torch.serve.fleet.model_exec import build_decode_step
@@ -2209,26 +2284,60 @@ def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
     tokens = np.zeros((S, 1), np.int32)
     for s, sl in eng.slots.items():
         tokens[s, 0] = sl.next_token
-    fused = eng.decode_logits(active, tokens).float()
+    # a hybrid's recurrent states advance with each tick: the gather tick
+    # starts from the states the fused tick started from
+    states = {sub: {k: v.clone() for k, v in d.items()}
+              for sub, d in eng.pool.states.items()}
+    with routes_recorded() as fused_routes:
+        fused = eng.decode_logits(active, tokens).float()
     fused_step, eng._decode = eng._decode, build_decode_step(
         model, fused_attention=False)
+    eng.pool.states.update(states)
     reset_launch_counts()
-    oracle = eng.decode_logits(active, tokens).float()
+    with routes_recorded() as oracle_routes:
+        oracle = eng.decode_logits(active, tokens).float()
     sync(dev)
     oracle_counts = dict(launch_counts)
     eng._decode = fused_step
+    # an MoE layer routes each slot by the top-2 of its router logits: a
+    # rounding difference between the two attention paths can flip a
+    # near-tie to another expert, a different function of that slot from
+    # there on. The logits are held on the slots routed alike in every
+    # layer; a flipped slot must flip where its router is within rounding
+    # of a tie (2nd - 3rd probability under FLIP_MARGIN), and at least half
+    # the slots must be routed alike
+    same = torch.ones(S, dtype=torch.bool)
+    flip_gaps = []
+    for (ia, pa), (ib, _pb) in zip(fused_routes, oracle_routes):
+        moved = (ia != ib).flatten(1).any(1)
+        if bool((moved & same).any()):
+            top = torch.topk(pa.flatten(1, -2), 3, dim=-1).values  # (S,T,3)
+            gap = (top[..., 1] - top[..., 2]).amin(-1)
+            flip_gaps += [float(gap[i]) for i in torch.nonzero(moved & same)]
+        same &= ~moved
     scale = float(fused.abs().max())
-    diff = float((fused - oracle).abs().max())
+    diff = float((fused - oracle)[same].abs().max()) if bool(same.any()) \
+        else float("nan")
     agree = int((fused.argmax(-1) == oracle.argmax(-1)).sum())
     # bf16 activations round differently on the two attention paths (fp32
     # kernel state vs bf16 scores/weights of the oracle), and the difference
     # compounds over 28 layers: allow 5% of the logits' max magnitude
-    log(f"fused vs gather tick {name}: max|dlogits| = {diff:.4f} "
-        f"(max|logits| {scale:.3f}, tol {0.05 * scale:.4f}), argmax agree "
-        f"{agree}/{S}, gather launches "
+    log(f"fused vs gather tick {name}: max|dlogits| = {diff:.4f} over "
+        f"{int(same.sum())}/{S} slots routed alike (max|logits| "
+        f"{scale:.3f}, tol {0.05 * scale:.4f}), argmax agree {agree}/{S}"
+        + (f"; {len(flip_gaps)} slots' experts flipped at router margins "
+           f"(2nd - 3rd prob) {', '.join(f'{g:.2e}' for g in flip_gaps)}"
+           if flip_gaps else "")
+        + f", gather launches "
         f"{ {k: n for k, n in oracle_counts.items() if n} }")
     require(bool(torch.isfinite(fused).all() and torch.isfinite(oracle).all()),
             f"non-finite decode logits ({name})")
+    require(2 * int(same.sum()) >= S,
+            f"fused vs gather: only {int(same.sum())} of {S} slots routed "
+            f"alike ({name})")
+    require(all(g < FLIP_MARGIN for g in flip_gaps),
+            f"fused vs gather: experts flipped at router margins "
+            f"{flip_gaps}, not all under {FLIP_MARGIN} ({name})")
     require(diff <= 0.05 * scale,
             f"fused vs gather logits differ by {diff} ({name})")
     sync(dev)
@@ -2242,7 +2351,7 @@ def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
     log(f"decode tick {name} (16 live slots, contexts {min(ctx)}.."
         f"{max(ctx)}): {tick_ms:.2f} ms wall/tick = {S / tick_ms * 1e3:.1f} "
         "tokens/s")
-    return eng, active, tokens, oracle_counts, tick_ms
+    return eng, active, tokens, oracle_counts, tick_ms, 0.05 * scale
 
 
 def phase_fleet(dev: torch.device, cfg):
@@ -2274,7 +2383,7 @@ def phase_fleet(dev: torch.device, cfg):
                                              torch.bfloat16, dev, "fleet bf16")
     bf16_tokens = {r.request.rid: r.tokens for r in router._primaries}
     out = {k: counts[k] for k in ("paged_scatter", "paged_attention_decode")}
-    eng, active, tokens, g_counts, tick_ms = tick_check(
+    eng, active, tokens, g_counts, tick_ms, _tol = tick_check(
         model, peers[0], fc, wl, torch.bfloat16, dev)
     require(g_counts["paged_gather"] == 2 * n_layers
             and g_counts["paged_scatter"] == n_layers
@@ -2303,7 +2412,7 @@ def phase_fleet(dev: torch.device, cfg):
         log(f"fleet {name}: {same}/{n_tok} tokens equal to the bf16 run's "
             f"({same / n_tok:.1%}; for information)")
         del router
-        eng, active, tokens, g_counts, tick_ms = tick_check(
+        eng, active, tokens, g_counts, tick_ms, _tol = tick_check(
             model, peers[0], fc, wl, qdt, dev)
         require(g_counts["paged_gather"] == 4 * n_layers
                 and g_counts["paged_scatter_quant"] == n_layers
@@ -2522,13 +2631,14 @@ def noised_copy(params, rel: float, seed: int, dev: torch.device):
 
 def compare_streams(plain, spec, label: str, margins=None):
     """The share of the speculative run's tokens equal to the plain run's
-    at the same place. With the plain run's ``margins`` (``serve_run``),
+    at the same place (each a router or a dict of streams by request). With the plain run's ``margins`` (``serve_run``),
     each request's first divergence is printed with the plain tick's top-2
     logit margin there, and their margins are returned beside the share
     (after a request's first divergence the two runs decode different
     contexts, so only that first token can tell rounding from a fault)."""
-    a = {r.request.rid: r.tokens for r in plain._primaries}
-    b = {r.request.rid: r.tokens for r in spec._primaries}
+    a, b = (x if isinstance(x, dict) else
+            {r.request.rid: r.tokens for r in x._primaries}
+            for x in (plain, spec))
     same = n = 0
     firsts = []
     for rid in sorted(a):
@@ -4785,6 +4895,8 @@ def phase_paper(dev: torch.device):
     log(f"paper MLP: {time.perf_counter() - t0:.1f} s")
 
     rows = paper_loss_times(dev)
+    rows["fused_cross_entropy_grad"]["T256 V10 fp32 in turns"] = \
+        row7_in_turns(dev)
     paper_parity(dev)
     return launches, rows
 
@@ -4900,6 +5012,40 @@ def paper_loss_times(dev: torch.device) -> dict:
     return rows
 
 
+ROW7_TURNS = 10
+
+
+def row7_in_turns(dev: torch.device) -> dict:
+    """Row 7 (``fused_cross_entropy_grad``) at the paper path's T 256 /
+    V 10 fp32 and its library backward (``F.cross_entropy``'s autograd) on
+    the same inputs, timed in turns in this one process: kernel, library,
+    kernel, ... ROW7_TURNS times (20 calls each, the L2 flushed before
+    every call). Returns the medians and every turn's time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (fused_cross_entropy_grad,
+                                     fused_cross_entropy_parts_plain)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    x, _tg, lb, g = loss_inputs(256, 10, torch.float32, dev, 301)
+    logz = fused_cross_entropy_parts_plain(x, lb)[2]
+    xr = x.detach().clone().requires_grad_(True)
+    lib_y = F.cross_entropy(xr, lb.long(), reduction="none")
+    kern = lambda: fused_cross_entropy_grad(x, lb, logz, g[0], g[1])  # noqa: E731
+    lib = lambda: torch.autograd.grad(lib_y, xr, g[0], retain_graph=True)  # noqa: E731
+    ks, ls = [], []
+    for _ in range(ROW7_TURNS):
+        ks.append(time_ms(kern, flush, iters=20))
+        ls.append(time_ms(lib, flush, iters=20))
+    out = {"ms": float(np.median(ks)), "library_ms": float(np.median(ls)),
+           "turns_ms": ks, "library_turns_ms": ls}
+    log(f"  row 7 at T 256 / V 10 fp32 in {ROW7_TURNS} turns: kernel median "
+        f"{out['ms']:.4f} ms ({min(ks):.4f}..{max(ks):.4f}), library backward "
+        f"median {out['library_ms']:.4f} ms ({min(ls):.4f}..{max(ls):.4f})")
+    del flush, xr, lib_y
+    torch.cuda.empty_cache()
+    return out
+
+
 def paper_parity(dev: torch.device) -> None:
     """The reduced resnet50 and wrn28x10, transformer-big reading frames
     and source tokens, and the 8-peer MLP, in fp32 (TF32 off): 3 codist
@@ -5009,6 +5155,340 @@ def paper_parity(dev: torch.device) -> None:
             + "; ".join(f"{a['loss']:.7f}/{c['loss']:.7f}"
                         for a, c in zip(recs["cpu"], recs["card"])))
     log(f"paper parity: worst relative difference {worst:.2e} (tol 1e-5)")
+
+
+# ----------------------------------------------------------------------------
+# phase 17: the MoE and hybrid families (grok-1, arctic, jamba)
+# ----------------------------------------------------------------------------
+
+# serving depth of each family at full width: as many layers as one card
+# holds beside the fleet's pools (bf16 weights): grok-1 4 of 64 (~42 GB),
+# arctic 2 of 35 (~55 GB), jamba one 8-layer step of 32 (~27 GB)
+FAMILY_LAYERS = {"grok-1-314b": 4, "arctic-480b": 2, "jamba-v0.1-52b": 8}
+# prompts of at most 128 tokens: a jamba prefill longer than one scan chunk
+# must be a multiple of it (the reference's mamba_scan asserts)
+FAMILY_PROMPT, FAMILY_NEW, FAMILY_REQUESTS = 128, 16, 16
+FAMILY_BATCH = 4          # Engine.generate's batch
+FAMILY_TRAIN_T = 512      # grok-1 training tokens a peer (1 x 512)
+FAMILY_STEPS = 3
+
+
+def family_fleet_config():
+    """16 slots of blocks of 16, room for a prompt of FAMILY_PROMPT and the
+    gather tick's 32 new tokens."""
+    from repro_torch.serve.fleet import FleetConfig
+    return FleetConfig(max_slots=S, block_size=16, num_blocks=1025,
+                       max_blocks_per_slot=-(-(FAMILY_PROMPT + 32) // 16),
+                       fused_attention=True)
+
+
+def engine_streams(model, params, wl, dev) -> dict:
+    """Every request of ``wl`` through ``Engine.generate`` in ragged batches
+    of FAMILY_BATCH (bf16 cache): {rid: tokens}, each cut to its request's
+    max_new."""
+    from repro_torch.serve import Engine
+    eng = Engine(model, params, cache_dtype=torch.bfloat16, device=dev)
+    out = {}
+    reqs = wl.requests
+    for i in range(0, len(reqs), FAMILY_BATCH):
+        group = reqs[i:i + FAMILY_BATCH]
+        lens = [r.prompt_len for r in group]
+        toks = torch.zeros((len(group), max(lens)), dtype=torch.long,
+                           device=dev)
+        for j, r in enumerate(group):
+            toks[j, :r.prompt_len] = torch.as_tensor(r.prompt, device=dev)
+        res = eng.generate({"tokens": toks}, max(r.max_new for r in group),
+                           prompt_lens=lens)
+        for j, r in enumerate(group):
+            out[r.rid] = res.tokens[j, max(lens):max(lens) + r.max_new].tolist()
+    return out
+
+
+def family_serve(arch: str, dev: torch.device, launches: dict,
+                 summary: dict) -> None:
+    """One family at full width and FAMILY_LAYERS depth, one seeded bf16
+    weight set shared by 2 fleet peers: the bursty fleet (bf16 pools, rows
+    1 and 2 counted exactly), the same requests through Engine.generate at
+    batch 4 (tokens compared, each request's first divergence with the
+    fleet's top-2 margin there), one fused-vs-gather tick on 16 live slots
+    (row 3) with 5 timed fused ticks and their device profile; for grok-1
+    also the fleet over int8 pools (rows 1q and 4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.fleet import generate_workload
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(arch), num_layers=FAMILY_LAYERS[arch])
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2500)
+    params = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
+    sync(dev)
+    n_params = sum(t.numel() for _p, t in _leaves(params))
+    log(f"families {arch}: {cfg.num_layers} of {get_config(arch).num_layers}"
+        f" layers at full width (d {cfg.d_model}, {cfg.num_heads} over "
+        f"{cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, V "
+        f"{cfg.padded_vocab}), {n_params / 1e9:.2f} B params in bf16, "
+        f"initialised in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    fc = family_fleet_config()
+    wl = generate_workload("bursty", FAMILY_REQUESTS, cfg.padded_vocab,
+                           seed=5, max_prompt=FAMILY_PROMPT,
+                           max_new=FAMILY_NEW)
+    margins = {}
+    router, _rep, counts, walls, _w = serve_run(
+        model, [params, params], fc, wl, torch.bfloat16, dev,
+        f"families {arch} bf16", margins=margins)
+    n_attn = attn_sublayers(router.engines[0].pool)
+    fleet = {r.request.rid: r.tokens for r in router._primaries}
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    del router
+    t1 = time.perf_counter()
+    single = engine_streams(model, params, wl, dev)
+    sync(dev)
+    engine_s = time.perf_counter() - t1
+    share, gaps = compare_streams(fleet, single,
+                                  f"families {arch}: Engine.generate (batch "
+                                  f"{FAMILY_BATCH}, bf16) against the fleet",
+                                  margins)
+    eng, active, tokens, g_counts, tick_ms, tol = tick_check(
+        model, params, fc, wl, torch.bfloat16, dev)
+    # the engine's dense decode and the fleet's paged one round apart in
+    # bf16, and an expert flip at a near-tie changes a request from there
+    # on; a fault in either path leaves most tokens and first divergences
+    # at wide margins
+    med = float(np.median(gaps)) if gaps else 0.0
+    log(f"families {arch}: Engine.generate vs fleet {share:.1%} equal "
+        f"(>= 75%), median first-divergence margin {med:.4f} (<= {tol:.4f})")
+    require(share >= 0.75, f"families {arch}: only {share:.1%} of "
+            "Engine.generate's tokens equal the fleet's")
+    require(med <= tol, f"families {arch}: median first divergence at a "
+            f"top-2 margin {med:.4f} > {tol:.4f}")
+    require(g_counts["paged_gather"] == 2 * n_attn
+            and g_counts["paged_scatter"] == n_attn
+            and g_counts["paged_attention_decode"] == 0,
+            f"families {arch} gather tick launches {g_counts}")
+    launches["paged_gather"] = (launches.get("paged_gather", 0)
+                                + g_counts["paged_gather"])
+    busy = profile_device(lambda: eng.decode_logits(active, tokens), tick_ms,
+                          3, "tick", detail=("decode_", "scatter"))
+    del eng
+    torch.cuda.empty_cache()
+    if arch == "grok-1-314b":
+        router, _rep, counts, _t, _w = serve_run(
+            model, [params, params], fc, wl, torch.int8, dev,
+            f"families {arch} int8")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        # another function of the weights (int8 K/V), so only printed;
+        # rows 1q and 4 at these heads are held in the kernels phase
+        compare_streams(fleet, router, f"families {arch}: int8 pools "
+                        "against bf16 pools (for information)")
+        del router
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary[arch] = dict(layers=cfg.num_layers, attn=n_attn,
+                         fleet_tick_ms=float(np.mean(walls)),
+                         tick_ms=tick_ms, busy=busy, equal=share,
+                         margins=gaps, engine_s=engine_s, peak=peak)
+    log(f"families {arch}: fleet {np.mean(walls):.2f} ms wall a tick, 16 "
+        f"live slots {tick_ms:.2f} ms wall a tick, device busy "
+        + (f"{busy / tick_ms:.1%}" if busy else "not measured")
+        + f"; Engine.generate {engine_s:.2f} s for {len(wl.requests)} "
+        f"requests; {n_attn} attention sub-layers (rows 1, 2 per tick); "
+        f"peak {peak:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def family_train(dev: torch.device, launches: dict) -> None:
+    """grok-1 at full width, 1 of 64 layers: 2 peers of seeded bf16
+    weights, plain SGD (no buffer; the update in slices of each leaf),
+    1 x FAMILY_TRAIN_T tokens a peer, FAMILY_STEPS codist steps (mse, rows
+    12 and 13 at V 131072), then 1 all-reduce step of peer 0 (rows 6, 7):
+    launches exact, aux_loss, ms a step, busy share and peak memory."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptState
+    from repro_torch.train import stack_batches, train_allreduce
+    from repro_torch.train.state import (CodistState, TrainState,
+                                         trainable_params)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = replace(get_config("grok-1-314b"), num_layers=1)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2600)
+    params = trainable_params([model.init(gen, device=dev,
+                                          weight_dtype=torch.bfloat16)
+                               for _ in range(2)])
+    # plain SGD keeps no buffer: 2 peers' weights and gradients take ~49
+    # GiB, and a momentum-0 buffer (the gradient again, 24 GiB even in
+    # bf16) leaves no room on an 80 GB card for the backward's transients
+    tc = TrainConfig(lr=1e-3, lr_schedule="constant", warmup_steps=0,
+                     total_steps=FAMILY_STEPS, optimizer="sgdm", momentum=0.0,
+                     weight_decay=0.0)
+    state = CodistState(params, OptState(0, None, None), 0)
+    sync(dev)
+    log(f"families train: grok-1 1 of 64 layers at full width, 2 peers of "
+        f"bf16 weights (plain SGD, no buffer) initialised in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+    batches = [stack_batches([make_lm_batch(task, 1, FAMILY_TRAIN_T, k, None,
+                                            seed=0, device=dev)] * 2)
+               for k in range(FAMILY_STEPS)]
+    state, recs, got = paper_train(
+        f"families grok-1 codist (2 peers x 1 x {FAMILY_TRAIN_T} tokens, "
+        "bf16, SGD, mse)", model, CodistConfig(n_models=2), tc, batches, dev,
+        expected_launches(2, "mse", FAMILY_STEPS, combined=True,
+                          task_ce=False, standalone=0), state=state)
+    log(f"families train: aux_loss by step "
+        f"{[round(r['aux_loss'], 6) for r in recs]}")
+    require(all(r["aux_loss"] > 0 for r in recs),
+            "families train: the MoE aux loss is not in the metrics")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    one = {k: v[0] for k, v in batches[0].items()}
+    p0 = state.params[0]
+    del state, batches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ta = time.perf_counter()
+    _s, hist = train_allreduce(
+        model, replace(tc, total_steps=1), iter([one]), log_every=1,
+        state=TrainState(p0, OptState(0, None, None), 0), device=dev)
+    sync(dev)
+    got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+    rec = finite_records(hist, "families grok-1 all-reduce")[0]
+    want = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    want["fused_cross_entropy_parts"] = want["fused_cross_entropy_grad"] = 1
+    log(f"families train: all-reduce step of peer 0: loss {rec['loss']:.4f}"
+        f", aux {rec['aux_loss']:.6f}, "
+        f"{(time.perf_counter() - ta) * 1e3:.1f} ms wall, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    require(got == want, f"families all-reduce launches {got} != {want}")
+    for k, v in got.items():
+        launches[k] += v
+    del _s, hist, p0, one
+    torch.cuda.empty_cache()
+    log(f"families train: {time.perf_counter() - t0:.1f} s")
+
+
+def family_parity(dev: torch.device) -> None:
+    """The reduced configs of the three families in fp32 (TF32 off), the
+    card against the CPU from the same weights and inputs: 3 codist steps
+    (History losses and aux within 1e-5 relative, loss-kernel launches
+    exact), and a bursty fleet of 2 peers over fp32 pools (every
+    FleetReport field, and so the stream digest, equal)."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serve.fleet import (FleetConfig, FleetRouter,
+                                         generate_workload)
+    from repro_torch.train import train_codist
+    from repro_torch.train.state import CodistState, trainable_params
+    from repro_torch.tree import tree_map
+    steps = FAMILY_STEPS
+    tc = TrainConfig(lr=0.05, warmup_steps=0, total_steps=steps,
+                     optimizer="sgdm", label_smoothing=0.1, fused_losses=True)
+    want = expected_launches(2, "mse", steps, combined=True, task_ce=False,
+                             standalone=0)
+    worst = 0.0
+    for arch in FAMILY_LAYERS:
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        gen = torch.Generator()
+        gen.manual_seed(31)
+        init = [model.init(gen, device="cpu") for _ in range(2)]
+        batches = []
+        for _ in range(steps):
+            lead = (2, 2, 32)
+            batches.append({
+                "tokens": torch.randint(0, cfg.vocab_size, lead, generator=gen),
+                "labels": torch.randint(0, cfg.vocab_size, lead, generator=gen),
+                "mask": (torch.rand(lead, generator=gen) > 0.2).float()})
+        recs = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            params = trainable_params(tree_map(
+                lambda p: p.detach().clone().to(d), init))
+            opt_init, _ = make_optimizer(tc.optimizer)
+            reset_launch_counts()
+            _s, hist = train_codist(
+                model, CodistConfig(n_models=2), tc,
+                lambda k: {a: v.to(d) for a, v in batches[k].items()},
+                log_every=1, state=CodistState(params, opt_init(params), 0),
+                device=d)
+            recs[where] = finite_records(hist, f"families parity {arch}")
+            if where == "card":
+                got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+                require(got == want, f"families parity {arch}: launches "
+                        f"{got} != {want}")
+        for a, c in zip(recs["cpu"], recs["card"]):
+            for m in ("loss", "task_loss", "distill_loss", "aux_loss",
+                      "comm_bytes"):
+                rel = abs(c[m] - a[m]) / max(abs(a[m]), 1e-12)
+                worst = max(worst, rel)
+                require(rel <= 1e-5, f"families parity {arch} step "
+                        f"{a['step']} {m}: card {c[m]} vs cpu {a[m]}")
+        wl = generate_workload("bursty", 8, cfg.padded_vocab, seed=3,
+                               max_prompt=40, max_new=8)
+        fc = FleetConfig(max_slots=3, block_size=4, num_blocks=64,
+                         max_blocks_per_slot=12, max_prefills_per_step=1)
+        reps = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            peers = [tree_map(lambda p: p.detach().to(d), t) for t in init]
+            reps[where] = FleetRouter(model, peers, config=fc,
+                                      policy="least_loaded",
+                                      cache_dtype=torch.float32,
+                                      device=d).run(wl).to_dict()
+        bad = {k: (reps["cpu"][k], reps["card"][k]) for k in reps["cpu"]
+               if reps["cpu"][k] != reps["card"][k]}
+        log(f"families parity {arch} (fp32): card vs CPU loss by step "
+            + "; ".join(f"{a['loss']:.7f}/{c['loss']:.7f}"
+                        for a, c in zip(recs["cpu"], recs["card"]))
+            + f"; aux {recs['card'][-1]['aux_loss']:.7f}; FleetReport "
+            f"{len(reps['cpu']) - len(bad)}/{len(reps['cpu'])} fields equal "
+            f"({reps['card']['stream_digest'][:16]})")
+        require(not bad, f"families parity {arch}: FleetReport fields differ "
+                f"card vs CPU: {bad}")
+    log(f"families parity: worst relative difference {worst:.2e} (tol 1e-5)")
+
+
+def phase_families(dev: torch.device, smi_line: str) -> dict:
+    """The MoE and hybrid families on the card (module docstring, phase
+    17); returns the path's launches of rows 1-4, 6, 7, 12 and 13."""
+    launches: dict = {}
+    summary: dict = {}
+    for arch in FAMILY_LAYERS:
+        family_serve(arch, dev, launches, summary)
+    family_train(dev, launches)
+    family_parity(dev)
+    for arch, r in summary.items():
+        log(f"families summary {arch} ({r['layers']} layers, {r['attn']} "
+            f"attention): fleet tick {r['fleet_tick_ms']:.2f} ms wall, 16 "
+            f"live slots {r['tick_ms']:.2f} ms, busy "
+            + (f"{r['busy'] / r['tick_ms']:.1%}" if r["busy"] else
+               "not measured")
+            + f", Engine tokens equal {r['equal']:.1%}, peak "
+            f"{r['peak']:.2f} GiB ({smi_line})")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -5219,6 +5699,11 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
             kernel_rows.setdefault(name, {})["paper_shapes"] = recs
         torch.cuda.empty_cache()
         log(f"phase paper: {time.perf_counter() - t0:.1f} s")
+    if "families" in phases:
+        t0 = time.perf_counter()
+        launches["families"] = phase_families(dev, smi_line)
+        torch.cuda.empty_cache()
+        log(f"phase families: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})

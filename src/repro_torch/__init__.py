@@ -23,9 +23,13 @@ the async peer runtime (``runtime/``: fault clock, mailbox, peers,
 own models (``models/conv.py`` resnet50 / wrn28x10 with GroupNorm,
 ``models/encdec.py`` transformer-big, ``models/mlp.py`` and
 ``data/multiview.py`` for the Section-5.1 study), trained through
-``build_model`` and ``train/loop.py``. The kernels are written by hand in
-CUDA C++ for Hopper (``csrc/``); the models are the dense attention LMs,
-the enc-dec transformer, the conv nets and the MLP.
+``build_model`` and ``train/loop.py``. Slice 14 adds the MoE and hybrid
+families (``models/moe.py``, ``models/mamba.py``: grok-1, arctic, jamba)
+to training, ``Engine.generate`` and the paged fleet, whose pool keeps
+dense per-slot recurrent states beside the paged KV. The kernels are
+written by hand in CUDA C++ for Hopper (``csrc/``); the models are the
+dense, MoE and hybrid LMs, the enc-dec transformer, the conv nets and the
+MLP.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 asking for CUDA without a card raises (nothing falls back to the CPU). On a

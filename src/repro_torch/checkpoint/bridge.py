@@ -4,9 +4,14 @@ The reference stacks per-layer parameters on a leading axis
 (``LM.init`` vmaps the layer init; ``EncDecLM`` its ``enc_layers`` and
 ``dec_layers``), and the port keeps them stacked the same way; the conv
 nets' trees are flat per block (HWIO weights, GroupNorm scale and bias) and
-the MLP's ``w{i}`` / ``b{i}`` in both. The two trees have the same keys,
-shapes and layouts, leaf for leaf, so the bridge is a leaf-wise conversion
-between numpy arrays and tensors.
+the MLP's ``w{i}`` / ``b{i}`` in both. The MoE and hybrid families keep
+the reference's trees too: expert stacks ``(L, E, d, f)`` beside the
+``router`` ``(L, d, E)``, arctic's dense ``residual`` FFN, the Mamba leaves
+(``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``,
+``A_log``, ``D``, ``out_proj``) and jamba's per-sub-layer keys ``sub0`` ..
+``sub7`` of one layer step. The two trees have the same keys, shapes and
+layouts, leaf for leaf, so the bridge is a leaf-wise conversion between
+numpy arrays and tensors.
 
 Training keeps fp32 master weights. The reference trains n codistilling
 peers as ONE tree with a leading peer axis; the port keeps a list of n
@@ -19,8 +24,10 @@ Serving holds weights in the activation dtype on the card. The reference
 keeps fp32 parameters and casts each weight to ``x.dtype`` inside every
 einsum (``attention.py:46-52``, ``ffn.py:35-39``, ``common.py:133,145``), so
 casting once at load (``serving_params``) gives the same numbers without
-re-reading the fp32 tree every decode step. Norm scales are the exception:
-the reference reads them in fp32 (``rms_norm``), so they stay fp32.
+re-reading the fp32 tree every decode step. The leaves the reference reads
+in fp32 are the exception and keep their dtype: norm scales (``rms_norm``),
+the MoE ``router`` (``moe.py:108-109``) and Mamba's ``dt_bias``, ``A_log``
+and ``D`` (``mamba.py:49-66, 131``).
 """
 from __future__ import annotations
 
@@ -70,12 +77,17 @@ def params_to_numpy(params: PyTree) -> PyTree:
     return _map(params, leaf)
 
 
+# leaves the reference reads in fp32 whatever the activation dtype
+_FP32_READ = ("router", "dt_bias", "A_log", "D")
+
+
 def serving_params(params: PyTree, dtype: torch.dtype) -> PyTree:
     """Cast every weight, embedding and bias to ``dtype`` once; norm scales
-    keep their dtype (see the module docstring)."""
+    and the other leaves read in fp32 keep their dtype (see the module
+    docstring)."""
     def leaf(path, t):
         is_norm = path[-1] == "scale" and "norm" in path[-2]
-        return t if is_norm else t.to(dtype)
+        return t if is_norm or path[-1] in _FP32_READ else t.to(dtype)
 
     return _map(params, leaf)
 

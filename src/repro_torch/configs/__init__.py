@@ -1,9 +1,10 @@
 """Architecture config registry.
 
 Knows every arch id of the reference's registry, so ``--arch`` spells the
-same names. The dense attention LMs and the paper's own models (resnet50,
-wrn28x10 and transformer-big) resolve; the other families raise
-``NotImplementedError`` naming the slice that ports them.
+same names. The dense attention LMs, the MoE and hybrid families (grok-1,
+arctic, jamba) and the paper's own models (resnet50, wrn28x10 and
+transformer-big) resolve; the other families raise ``NotImplementedError``
+naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ from repro_torch.configs.base import (CodistConfig, ModelConfig,  # noqa: F401
                                       TrainConfig, reduced)
 
 _PORTED = {
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
@@ -24,10 +28,9 @@ _PORTED = {
     "wrn28x10": "repro_torch.configs.wrn28_10",
 }
 
-# reference arch ids whose families (moe / hybrid / ssm / vlm / audio) the
-# port has not reached
-_LATER = ("internvl2-76b", "arctic-480b", "jamba-v0.1-52b", "grok-1-314b",
-          "whisper-tiny", "rwkv6-1.6b")
+# reference arch ids whose families (ssm / vlm / audio) the port has not
+# reached
+_LATER = ("internvl2-76b", "whisper-tiny", "rwkv6-1.6b")
 
 
 def list_archs() -> List[str]:
@@ -40,8 +43,8 @@ def _module(arch: str):
     if arch in _LATER:
         raise NotImplementedError(
             f"arch {arch!r} is not in the port yet: it carries "
-            f"{sorted(_PORTED)}; the other families (moe, hybrid, ssm, vlm, "
-            "audio) come with ROADMAP Queue 1 item 11 (\"the rest\")")
+            f"{sorted(_PORTED)}; the other families (ssm, vlm, audio) "
+            "come with ROADMAP Queue 1 item 11 (\"the rest\")")
     raise KeyError(f"unknown arch {arch!r}; known: {sorted(list_archs())}")
 
 

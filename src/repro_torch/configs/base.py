@@ -2,8 +2,9 @@
 
 The fields, ``padded_vocab``, ``resolved_head_dim`` and ``reduced()`` are
 those of the reference's ``configs/base.py``; ``activation_dtype`` is a
-``torch.dtype`` here. Family-specific sub-configs (moe / ssm / rwkv) stay
-opaque: the port runs no MoE, SSM or RWKV arch yet. The conv nets' config
+``torch.dtype`` here. ``MoEConfig`` and ``SSMConfig`` are the reference's
+(grok-1, arctic and jamba run in the port); the RWKV sub-config stays
+opaque, as the port runs no RWKV arch yet. The conv nets' config
 is ``models.conv.ConvConfig``, as in the reference. ``CodistConfig`` and
 ``TrainConfig`` are the reference's field for field, with its defaults.
 """
@@ -30,6 +31,30 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int = 2
+    # period (in layers) at which FFN blocks are MoE; 1 => every layer
+    layer_period: int = 1
+    # Arctic-style dense FFN residual running in parallel with the experts
+    dense_residual: bool = False
+    # weight of the auxiliary load-balance loss (Switch-style)
+    load_balance_weight: float = 0.01
+    # router jitter for training (the reference's LM never passes the key
+    # that turns it on)
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM parameters (used by hybrid archs)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 => ceil(d_model/16)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | hybrid | ssm | vlm | audio | conv
@@ -44,11 +69,14 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    act: str = "silu"  # silu => SwiGLU
+    act: str = "silu"  # silu => SwiGLU, geglu => gated tanh-GeLU
+    # attention variant: 0 => full causal; >0 => sliding window of that size
     sliding_window: int = 0
+    # hybrid (jamba): one attention layer every `attn_layer_period` layers
+    # (the rest Mamba); 0 => all layers are attention
     attn_layer_period: int = 0
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[Any] = None
     encoder_layers: int = 0
     num_audio_frames: int = 1500

@@ -1,0 +1,23 @@
+"""grok-1-314b [moe] — 8 experts top-2 [hf:xai-org/grok-1].
+
+64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072, MoE 8e top-2.
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig, reduced as _reduced
+
+CONFIG = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    num_layers=64,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=32768,
+    vocab_size=131072,
+    act="geglu",  # gated GeLU FFN — matches the 314B parameter count
+    moe=MoEConfig(num_experts=8, top_k=2),
+    source="Grok-1 [hf:xai-org/grok-1]",
+)
+
+
+def reduced():
+    return _reduced(CONFIG)

@@ -30,6 +30,25 @@ def dense_init_(out: torch.Tensor, in_dim: int, gen: torch.Generator,
     return out
 
 
+def stacked_dense(n: int, shape, in_dim: int, generator: torch.Generator,
+                  dtype: torch.dtype, device, scale: float = 1.0,
+                  batch_dims: int = 0) -> torch.Tensor:
+    """n fan-in inits of ``shape`` stacked on a leading axis; each slice is
+    drawn in fp32 and cast on store, so a bf16 init never holds an fp32
+    copy of the whole stack. ``batch_dims`` leading dims of ``shape`` are
+    drawn slice by slice too (an expert stack ``(E, d, f)``: one matrix at
+    a time)."""
+    t = torch.empty((n, *shape), dtype=dtype, device=device)
+    for sl in t.reshape(-1, *shape[batch_dims:]):
+        dense_init_(sl, in_dim, generator, scale)
+    return t
+
+
+def stacked_const(n: int, shape, value: float, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    return torch.full((n, *shape), value, dtype=dtype, device=device)
+
+
 def embed_init_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     tmp.normal_(0.0, 1.0, generator=gen)

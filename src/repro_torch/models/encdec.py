@@ -36,12 +36,12 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models.common import apply_norm, embed_tokens, lm_head
-from repro_torch.models.ffn import ffn_forward
+from repro_torch.models.common import (apply_norm, embed_tokens, lm_head,
+                                       stacked_const)
+from repro_torch.models.ffn import ffn_forward, init_stacked_ffn
 from repro_torch.models.transformer import (init_embedding,
                                             init_stacked_attention,
-                                            init_stacked_ffn, layer_params,
-                                            stacked_const, unbind_layers)
+                                            layer_params, unbind_layers)
 
 PyTree = Any
 

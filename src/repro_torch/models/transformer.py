@@ -1,8 +1,14 @@
-"""Decoder-only LM for the dense family: attention + dense-FFN sub-layers.
+"""Decoder-only LM: the dense, MoE and hybrid (attention + Mamba)
+families.
 
 Per-layer parameters are stacked on a leading ``L`` axis as in the
 reference's scanned tree (``params["layers"]["sub0"][...]``); the forward is
-a Python loop over that axis, reading per-layer views (no copies).
+a Python loop over that axis, reading per-layer views (no copies). A
+hybrid (jamba) model steps over blocks of ``attn_layer_period``
+sub-layers ``sub0 .. sub{p-1}``, so the stacked tree stays homogeneous:
+attention at ``i = p - 1``, Mamba elsewhere, and an MoE FFN wherever
+``cfg.is_moe_layer(i)``. RWKV, encoder-decoder and VLM configs raise,
+naming the ROADMAP item that ports them.
 
 API:
     init(generator, device, weight_dtype) -> params
@@ -10,6 +16,12 @@ API:
     prefill(params, tokens, cap, cache_dtype) -> (last-token logits, cache)
     init_cache(batch, cap, dtype, device) -> cache
     decode(params, cache, tokens, pos) -> (logits, cache)   (one token)
+
+``aux`` is the MoE load-balance loss summed over the sub-layers of a step
+and over the steps, as the reference's scan sums it; training routes with
+the GShard capacity factor 1.25, prefill and decode with 0 (no drops).
+A cache holds per sub-layer either attention K/V ``{"k", "v"}`` or a Mamba
+state ``{"h", "conv"}``, each stacked on the leading ``L`` axis.
 
 Weights may be fp32 masters: every op casts its weight to the activation
 dtype inside (as the reference does), so the gradient flows back through
@@ -26,33 +38,41 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
-                                       embed_tokens, embedding_shapes, lm_head)
-from repro_torch.models.ffn import ffn_forward, ffn_shapes
+                                       embed_tokens, embedding_shapes, lm_head,
+                                       stacked_const, stacked_dense)
+from repro_torch.models.ffn import ffn_forward, init_stacked_ffn
+from repro_torch.models.moe import init_stacked_moe, moe_forward
 
 PyTree = Any
-
 
 # ----------------------------------------------------------------------------
 # sub-layer templates
 # ----------------------------------------------------------------------------
 
+_MIXERS = ("attn", "ssm")
+_FFNS = ("dense", "moe")
+
+
 def _sub_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """(mixer, ffn) kind per scanned sub-layer within one layer step. The
-    serving slice carries attention mixers with dense FFNs; every other
-    family raises, naming the slice that ports it."""
+    """(mixer, ffn) kind per sub-layer within one layer step: mixers
+    ``attn`` and ``ssm`` (Mamba) with FFNs ``dense`` and ``moe``. RWKV,
+    encoder-decoder and VLM configs raise, naming the ROADMAP item that
+    ports them."""
     if cfg.family == "ssm":
         kinds = [("rwkv", "rwkv")]
     else:
         period = cfg.attn_layer_period or 1
         kinds = [(cfg.layer_kind(i), "moe" if cfg.is_moe_layer(i) else "dense")
                  for i in range(period)]
-    bad = [k for k in kinds if k != ("attn", "dense")]
+    bad = [k for k in kinds if k[0] not in _MIXERS or k[1] not in _FFNS]
     if bad or cfg.is_encdec or cfg.num_patches:
         raise NotImplementedError(
             f"{cfg.name}: sub-layers {bad or kinds} (family {cfg.family!r}) "
-            "are not in the serving slice, which ports attention + dense-FFN "
-            "LMs; the other mixers come with ROADMAP Queue 1 item 11")
+            "are not in the port's decoder LM, which carries attention and "
+            "Mamba mixers with dense and MoE FFNs; RWKV, VLM patches and "
+            "enc-dec serving come with ROADMAP Queue 1 item 11 (11d-ii)")
     return kinds
 
 
@@ -81,59 +101,104 @@ def unbind_layers(layers: PyTree, n: int) -> List[PyTree]:
     return list(layers.unbind(0))
 
 
+def ffn_block(p: Dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
+              capacity_factor: float = 1.25):
+    """The sub-layer's FFN on the normed input -> (out, aux); a dense FFN's
+    aux is None."""
+    if kind == "moe":
+        return moe_forward(p, h, cfg, capacity_factor)
+    return ffn_forward(p, h, cfg), None
+
+
 def _sublayer_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor,
+                      mixer: str, ffn: str, positions: torch.Tensor,
                       cache: Optional[Dict[str, torch.Tensor]] = None):
-    """Forward one attention + dense-FFN sub-layer over the full sequence,
-    writing its roped K/V into ``cache`` (this layer's views of the stacked
-    buffers) when one is given; the training forward passes none."""
+    """One sub-layer over the full sequence -> (x, aux or None). With a
+    ``cache`` (this layer's views of the stacked buffers) attention writes
+    its roped K/V there and Mamba its decode state, and the MoE FFN routes
+    with no drops (the reference's prefill); the training forward passes
+    none and routes at the capacity factor 1.25."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
-    h, kv = attn.attention_forward(p["mix"], h, cfg, positions,
-                                   return_cache=cache is not None)
-    if cache is not None:
-        attn.prefill_into_cache(cache, kv)
+    if mixer == "attn":
+        h, kv = attn.attention_forward(p["mix"], h, cfg, positions,
+                                       return_cache=cache is not None)
+        if cache is not None:
+            attn.prefill_into_cache(cache, kv)
+    elif cache is not None:
+        h, state = mb.mamba_prefill(p["mix"], h, cfg)
+        for k, v in state.items():
+            cache[k].copy_(v)
+    else:
+        h = mb.mamba_forward(p["mix"], h, cfg)
     x = x + h
-    h2 = ffn_forward(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg)
-    return x + h2
+    h2, aux = ffn_block(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps),
+                        cfg, ffn, 0.0 if cache is not None else 1.25)
+    return x + h2, aux
 
 
-def _sublayer_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                     cache: Dict[str, torch.Tensor], pos) -> torch.Tensor:
-    """One token through one attention + dense-FFN sub-layer, writing its
-    K/V into ``cache`` (this layer's views of the stacked buffers)."""
-    h = apply_norm(p["norm1"], x, cfg.norm_eps)
-    h, _ = attn.attention_decode(p["mix"], h, cache, pos, cfg)
-    x = x + h
-    h2 = ffn_forward(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg)
+def mixer_decode(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
+                 cache: Dict[str, torch.Tensor], pos) -> torch.Tensor:
+    """One token through a sub-layer's mixer (normed input ``h``),
+    updating ``cache`` (this layer's views of the stacked buffers) in
+    place: attention writes its K/V row, Mamba its new state (the
+    position is not read)."""
+    if mixer == "attn":
+        return attn.attention_decode(p, h, cache, pos, cfg)[0]
+    out, state = mb.mamba_decode(p, h, cache, cfg)
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return out
+
+
+def _sublayer_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, mixer: str,
+                     ffn: str, cache: Dict[str, torch.Tensor],
+                     pos) -> torch.Tensor:
+    """One token through one sub-layer; the MoE FFN routes with no drops."""
+    x = x + mixer_decode(p["mix"], apply_norm(p["norm1"], x, cfg.norm_eps),
+                         cfg, mixer, cache, pos)
+    h2, _ = ffn_block(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg,
+                      ffn, 0.0)
     return x + h2
 
 
 def _layer_fwd(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor) -> torch.Tensor:
-    for i in range(len(_sub_kinds(cfg))):
-        x = _sublayer_prefill(lp[f"sub{i}"], x, cfg, positions)
-    return x
+               positions: torch.Tensor):
+    """One layer step (every sub-layer) -> (x, the step's aux, fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (m, f) in enumerate(_sub_kinds(cfg)):
+        x, a = _sublayer_prefill(lp[f"sub{i}"], x, cfg, m, f, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def promote_states(cache: PyTree, cfg: ModelConfig) -> None:
+    """Give every Mamba ``conv`` buffer of ``cache`` the promoted dtype of
+    its own and the activation dtype, as the reference's decode leaves it
+    (``mamba_decode`` concatenates the state with the new input)."""
+    for sub in cache.values():
+        if "conv" in sub:
+            cdt = torch.promote_types(sub["conv"].dtype, cfg.activation_dtype)
+            if sub["conv"].dtype != cdt:
+                sub["conv"] = sub["conv"].to(cdt)
+
+
+def init_states(cfg: ModelConfig, n: int, batch: int, dtype,
+                device) -> PyTree:
+    """Zero Mamba states ``{"sub{i}": {"h", "conv"}}`` (leaves ``(n, batch,
+    ...)``) of the non-attention sub-layers; ``conv`` in ``dtype``."""
+    out = {}
+    for i, (m, _f) in enumerate(_sub_kinds(cfg)):
+        if m != "attn":
+            one = mb.init_mamba_state(cfg, n * batch, dtype, device)
+            out[f"sub{i}"] = {k: v.unflatten(0, (n, batch))
+                              for k, v in one.items()}
+    return out
 
 
 # ----------------------------------------------------------------------------
 # stacked (leading L axis) parameter inits, shared with the enc-dec model
 # ----------------------------------------------------------------------------
-
-def stacked_dense(n: int, shape, in_dim: int, generator: torch.Generator,
-                  dtype: torch.dtype, device, scale: float = 1.0) -> torch.Tensor:
-    """n fan-in inits of ``shape`` stacked on a leading axis; each slice is
-    drawn in fp32 and cast on store, so a bf16 init never holds an fp32
-    copy of the whole stack."""
-    t = torch.empty((n, *shape), dtype=dtype, device=device)
-    for i in range(n):
-        dense_init_(t[i], in_dim, generator, scale)
-    return t
-
-
-def stacked_const(n: int, shape, value: float, dtype: torch.dtype,
-                  device) -> torch.Tensor:
-    return torch.full((n, *shape), value, dtype=dtype, device=device)
-
 
 def init_embedding(cfg: ModelConfig, generator: torch.Generator,
                    dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
@@ -166,16 +231,6 @@ def init_stacked_attention(cfg: ModelConfig, n: int,
     return p
 
 
-def init_stacked_ffn(cfg: ModelConfig, n: int, generator: torch.Generator,
-                     dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
-    """The FFN's matrices of n layers (gated: w_gate, w_up, w_down; plain:
-    w_up, w_down); ``w_down`` scaled by 1 / sqrt(num_layers)."""
-    down_scale = 1.0 / max(1, cfg.num_layers) ** 0.5
-    return {name: stacked_dense(n, shape, shape[0], generator, dtype, device,
-                                down_scale if name == "w_down" else 1.0)
-            for name, shape in ffn_shapes(cfg).items()}
-
-
 # ----------------------------------------------------------------------------
 # the model
 # ----------------------------------------------------------------------------
@@ -190,9 +245,11 @@ class LM:
         ``device``): truncated-normal fan-in matrices and N(0, 0.02)
         embeddings, as the reference draws them. Matrices, embeddings and
         biases are stored in ``weight_dtype`` (default ``cfg.param_dtype``);
-        norm scales stay in ``cfg.param_dtype``. Each stacked layer slice is
-        drawn in fp32 and cast on store, so a bf16 full-size init never
-        holds the fp32 tree."""
+        norm scales and the leaves the reference reads in fp32 (the MoE
+        router, Mamba's ``dt_bias``, ``A_log`` and ``D``) stay in
+        ``cfg.param_dtype``. Each stacked slice (an expert's matrix for an
+        expert stack) is drawn in fp32 and cast on store, so a bf16
+        full-size init never holds the fp32 tree."""
         cfg = self.cfg
         dev = resolve_device(device)
         pdt = torch_dtype(cfg.param_dtype)
@@ -200,12 +257,17 @@ class LM:
         n = _n_scan(cfg)
         d = cfg.d_model
         layers: Dict = {}
-        for i in range(len(_sub_kinds(cfg))):
+        for i, (m, f) in enumerate(_sub_kinds(cfg)):
             layers[f"sub{i}"] = {
                 "norm1": {"scale": stacked_const(n, (d,), 1.0, pdt, dev)},
-                "mix": init_stacked_attention(cfg, n, generator, wdt, dev),
+                "mix": (init_stacked_attention(cfg, n, generator, wdt, dev)
+                        if m == "attn" else
+                        mb.init_stacked_mamba(cfg, n, generator, wdt, dev,
+                                              pdt)),
                 "norm2": {"scale": stacked_const(n, (d,), 1.0, pdt, dev)},
-                "ffn": init_stacked_ffn(cfg, n, generator, wdt, dev),
+                "ffn": (init_stacked_moe(cfg, n, generator, wdt, dev, pdt)
+                        if f == "moe" else
+                        init_stacked_ffn(cfg, n, generator, wdt, dev)),
             }
         return {"embed": init_embedding(cfg, generator, wdt, dev),
                 "final_norm": {"scale": torch.ones(d, dtype=pdt, device=dev)},
@@ -214,46 +276,52 @@ class LM:
     def forward(self, params: PyTree, batch: Dict,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch["tokens"] (B,S) -> (logits (B,S,V) in the activation dtype,
-        aux). ``aux`` is the load-balancing loss of MoE layers: 0 for the
-        dense family. ``remat`` recomputes each layer in the backward
-        (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``
-        around its scan body."""
+        aux). ``aux`` is the MoE load-balance loss summed over sub-layers
+        and layers (0 without MoE sub-layers). ``remat`` recomputes each
+        layer in the backward (``torch.utils.checkpoint``), the reference's
+        ``jax.checkpoint`` around its scan body."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None]
+        auxs = []
         for lp in unbind_layers(params["layers"], _n_scan(cfg)):
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
+                x, a = torch.utils.checkpoint.checkpoint(
                     _layer_fwd, lp, x, cfg, positions, use_reentrant=False)
             else:
-                x = _layer_fwd(lp, x, cfg, positions)
+                x, a = _layer_fwd(lp, x, cfg, positions)
+            auxs.append(a)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return lm_head(params["embed"], x), aux
+        return lm_head(params["embed"], x), torch.stack(auxs).sum()
 
     def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
                    device="cuda") -> PyTree:
-        """Zero caches ``{"sub0": {"k","v": (L,B,cap,KV,hd)}}``, the layout
-        ``prefill`` emits; ``cap`` becomes ``min(cap, window)`` (a ring
-        buffer) when ``cfg.sliding_window`` > 0."""
+        """Zero caches in the layout ``prefill`` emits: attention
+        sub-layers ``{"k","v": (L,B,cap,KV,hd)}`` (``cap`` becomes
+        ``min(cap, window)``, a ring buffer, when ``cfg.sliding_window`` >
+        0), Mamba sub-layers ``{"h": (L,B,d_inner,N) fp32, "conv":
+        (L,B,d_conv-1,d_inner)}`` in ``dtype``."""
         cfg = self.cfg
         n = _n_scan(cfg)
         dev = resolve_device(device)
-        cache = {}
-        for i in range(len(_sub_kinds(cfg))):
-            one = attn.init_kv_cache(cfg, batch * n, cap, dtype, dev)
-            cache[f"sub{i}"] = {k: v.unflatten(0, (n, batch))
-                                for k, v in one.items()}
-        return cache
+        cache = init_states(cfg, n, batch, dtype, dev)
+        for i, (m, _f) in enumerate(_sub_kinds(cfg)):
+            if m == "attn":
+                one = attn.init_kv_cache(cfg, batch * n, cap, dtype, dev)
+                cache[f"sub{i}"] = {k: v.unflatten(0, (n, batch))
+                                    for k, v in one.items()}
+        return {f"sub{i}": cache[f"sub{i}"]
+                for i in range(len(_sub_kinds(cfg)))}
 
     def prefill(self, params: PyTree, tokens: torch.Tensor, cap: int,
                 cache_dtype=torch.float32) -> Tuple[torch.Tensor, PyTree]:
-        """tokens (B,S) -> (logits (B,1,V) of the last position, cache) with
-        cache ``{"sub0": {"k","v": (L,B,cap,KV,hd)}}`` in ``cache_dtype``.
-        ``cap`` may be below S only with a sliding window: the ring buffer
-        then keeps the trailing window."""
+        """tokens (B,S) -> (logits (B,1,V) of the last position, cache):
+        attention K/V in ``cache_dtype``, Mamba states as the prefill
+        leaves them (``h`` fp32, ``conv`` in the activation dtype, as the
+        reference emits them). ``cap`` may be below S only with a sliding
+        window: the ring buffer then keeps the trailing window."""
         cfg = self.cfg
         kinds = _sub_kinds(cfg)
         n = _n_scan(cfg)
@@ -265,12 +333,16 @@ class LM:
         x = embed_tokens(params["embed"], tokens, cfg.activation_dtype)
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
         cache = self.init_cache(b, cap, cache_dtype, dev)
+        for sub in cache.values():
+            if "conv" in sub:
+                sub["conv"] = sub["conv"].to(cfg.activation_dtype)
         for li in range(n):
             lp = layer_params(params["layers"], li)
-            for i, _k in enumerate(kinds):
+            for i, (m, f) in enumerate(kinds):
                 name = f"sub{i}"
-                x = _sublayer_prefill(lp[name], x, cfg, positions,
-                                      {k: v[li] for k, v in cache[name].items()})
+                x, _ = _sublayer_prefill(
+                    lp[name], x, cfg, m, f, positions,
+                    {k: v[li] for k, v in cache[name].items()})
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         return lm_head(params["embed"], x[:, -1:]), cache
 
@@ -278,16 +350,19 @@ class LM:
                pos) -> Tuple[torch.Tensor, PyTree]:
         """tokens (B,1) -> (logits (B,1,V), cache). ``pos``: the tokens'
         absolute position, an int shared by the rows or a (B,) int tensor
-        of per-row positions (ragged decode; see ``attention_decode``).
-        The cache is updated in place and returned."""
+        of per-row positions (ragged decode; see ``attention_decode``;
+        Mamba sub-layers do not read it). The cache is updated in place and
+        returned (a Mamba ``conv`` buffer first takes the dtype the
+        reference's decode leaves it in: ``promote_states``)."""
         cfg = self.cfg
         kinds = _sub_kinds(cfg)
+        promote_states(cache, cfg)
         x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
         for li in range(_n_scan(cfg)):
             lp = layer_params(params["layers"], li)
-            for i, _k in enumerate(kinds):
+            for i, (m, f) in enumerate(kinds):
                 name = f"sub{i}"
-                x = _sublayer_decode(lp[name], x, cfg,
+                x = _sublayer_decode(lp[name], x, cfg, m, f,
                                      {k: v[li] for k, v in cache[name].items()},
                                      pos)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)

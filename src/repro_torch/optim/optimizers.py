@@ -10,6 +10,9 @@ updates the parameter and moment tensors IN PLACE under ``torch.no_grad()``
 double that) and returns the same tree objects with a new ``OptState``.
 The math is the reference's: fp32 inside, cast back to the parameter's
 (and the moment buffer's) dtype; AdamW's bias corrections use t = step + 1.
+The update is elementwise, so a large leaf (an expert stack of 1.6 G
+values) is updated in flat slices of ``_SLICE`` values: its fp32
+temporaries stay bounded, and the numbers are those of one pass.
 """
 from __future__ import annotations
 
@@ -33,7 +36,29 @@ def _zeros(params: PyTree, dtype) -> PyTree:
                                                requires_grad=False), params)
 
 
+# values of a leaf updated at once (bounds the fp32 temporaries of one leaf)
+_SLICE = 1 << 26
+
+
 def _leaf_triples(params, grads, state_trees, trainable):
+    """(param, grad, *state, mask) tuples over matching trees, each leaf cut
+    into matching flat slices of ``_SLICE`` values (a small leaf is one
+    slice). A leaf that is not contiguous, or whose mask has another shape,
+    goes whole."""
+    for *ts, mask in _whole_leaves(params, grads, state_trees, trainable):
+        if not all(x.is_contiguous() for x in ts) \
+                or (torch.is_tensor(mask) and mask.shape != ts[0].shape):
+            yield (*ts, mask)
+            continue
+        flat = [x.view(-1) for x in ts]
+        if torch.is_tensor(mask):
+            mask = mask.reshape(-1)
+        for i in range(0, flat[0].numel(), _SLICE):
+            yield (*(x[i:i + _SLICE] for x in flat),
+                   mask[i:i + _SLICE] if torch.is_tensor(mask) else mask)
+
+
+def _whole_leaves(params, grads, state_trees, trainable):
     """Flat (param, grad, *state, mask) tuples over matching trees."""
     if (trainable is not None and isinstance(params, list)
             and not isinstance(trainable, list)):
@@ -72,13 +97,23 @@ def sgdm_init(params: PyTree, dtype=torch.float32) -> OptState:
 def sgdm_update(params: PyTree, grads: PyTree, state: OptState, lr,
                 weight_decay=0.0, momentum: float = 0.9,
                 trainable: Optional[PyTree] = None) -> Tuple[PyTree, OptState]:
+    """A state without a buffer (``OptState(step, None, None)``) runs plain
+    SGD, momentum 0, and keeps no per-parameter state: the reference's
+    momentum-0 buffer only ever holds the last gradient, which a model
+    that fills the card with its weights and gradients has no room for.
+    It exists for one run, ``chip_smoke.py``'s families phase: grok-1 at
+    full width (1 layer), 2 peers trained on one 80 GB card."""
     lr, wd = float(lr), float(weight_decay)
-    for p, g, m, mask in _leaf_triples(params, grads, (state.m,), trainable):
+    if state.m is None and momentum:
+        raise ValueError(f"momentum {momentum} needs a momentum buffer")
+    bufs = () if state.m is None else (state.m,)
+    for p, g, *m, mask in _leaf_triples(params, grads, bufs, trainable):
         p32 = p.float()
         g32 = g.float() + wd * p32
-        m_new = momentum * m.float() + g32
+        m_new = momentum * m[0].float() + g32 if m else g32
         _write(p, p32 - lr * m_new, mask)
-        m.copy_(m_new)
+        if m:
+            m[0].copy_(m_new)
     return params, OptState(state.step + 1, state.m, None)
 
 

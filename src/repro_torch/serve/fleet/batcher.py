@@ -262,8 +262,9 @@ class FleetEngine:
     def decode_logits(self, active: np.ndarray,
                       tokens: np.ndarray) -> torch.Tensor:
         """Run the batched decode step over the pool for the slots flagged
-        ``active`` with input ``tokens`` (S,1): appends their K/V rows and
-        returns logits (S, V). Slot lengths are not advanced."""
+        ``active`` with input ``tokens`` (S,1): appends their K/V rows,
+        advances the recurrent states and returns logits (S, V). Slot
+        lengths are not advanced."""
         wslot, woff = self.pool.write_maps(active)
         dev = self.device
         return self._decode(self.params, self.pool.kv,
@@ -271,7 +272,8 @@ class FleetEngine:
                     torch.as_tensor(self.pool.lengths, device=dev),
                     torch.as_tensor(wslot, device=dev),
                     torch.as_tensor(woff, device=dev),
-                    torch.as_tensor(tokens, dtype=torch.long, device=dev))
+                    torch.as_tensor(tokens, dtype=torch.long, device=dev),
+                    self.pool.states)
 
     def _decode_tick(self) -> int:
         """One batched decode step over every live slot. Returns the total

@@ -1,5 +1,6 @@
 """Slot-paged KV-cache pool: block allocate / free / defrag over one shared
-buffer per attention sub-layer.
+buffer per attention sub-layer, plus dense per-slot states for the
+recurrent sub-layers.
 
 Per stacked layer, K and V pools of shape ``(L, num_blocks, block_size, KV,
 hd)`` are shared by every decode slot, with one host-side block table
@@ -14,6 +15,14 @@ one fp32 scale per row in ``k_scale`` / ``v_scale`` ``(L, NB, BS)`` beside
 ``k`` / ``v`` in the same per-sublayer dict, so allocation, defrag and the
 scatter move them with their blocks. Prefill rows are quantized at insert
 time (``quantize_rows``), decode appends inside ``paged_scatter_quant_kv``.
+
+Recurrent (Mamba) sub-layers are O(1) per slot and live in dense ``(L,
+max_slots, ...)`` state buffers, ``states`` (``{"sub{i}": {"h", "conv"}}``):
+``insert_prefill`` writes a request's prefill state into its slot's row, so
+a freed and re-admitted slot starts from its own prefill, never from the
+previous request's state. They stay in fp32 when the KV pool is quantized
+(nothing to win, and recurrent dynamics are precision-sensitive). Defrag
+moves blocks, not slots, so it leaves them alone.
 
 Speculative decoding keeps an undo log: ``snapshot_rows`` copies the rows a
 verify is about to overwrite (K/V and, quantized, their scales), and
@@ -33,7 +42,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.paged_cache import is_quantized_dtype, quantize_rows
-from repro_torch.models.transformer import _n_scan, _sub_kinds
+from repro_torch.models.transformer import _n_scan, _sub_kinds, init_states
 
 
 class PagedCachePool:
@@ -67,6 +76,10 @@ class PagedCachePool:
             return d
         self.kv: Dict[str, Dict[str, torch.Tensor]] = {
             f"sub{i}": pools() for i in self.kv_subs}
+        # ...and dense per-slot recurrent states for the rest
+        state_dtype = torch.float32 if self.quantized else cache_dtype
+        self.states: Dict[str, Dict[str, torch.Tensor]] = init_states(
+            cfg, self.n_scan, max_slots, state_dtype, self.device)
         # host-side allocator state (numpy: the scheduler is host-driven)
         self.table = np.zeros((max_slots, max_blocks_per_slot), np.int32)
         self.lengths = np.zeros((max_slots,), np.int32)
@@ -110,9 +123,10 @@ class PagedCachePool:
 
     # ---- data movement -----------------------------------------------------
     def insert_prefill(self, slot: int, cache, length: int) -> None:
-        """Copy a per-request prefill cache (leaves ``(L, 1, length, KV,
-        hd)`` from ``LM.prefill`` with ``cap == length``) into the slot's
-        allocated blocks."""
+        """Copy a per-request prefill cache (attention leaves ``(L, 1,
+        length, KV, hd)`` from ``LM.prefill`` with ``cap == length``) into
+        the slot's allocated blocks, and its recurrent states into the
+        slot's state rows (cast to the pool's state dtype)."""
         bs = self.block_size
         nb = self.blocks_needed(length)
         ids = torch.as_tensor(self.slot_blocks[slot][:nb], dtype=torch.long,
@@ -127,6 +141,9 @@ class PagedCachePool:
                     src, scales = quantize_rows(src, self.cache_dtype)
                     self.kv[f"sub{i}"][f"{name}_scale"][:, ids] = scales
                 self.kv[f"sub{i}"][name][:, ids] = src.to(self.cache_dtype)
+        for sub, full in _strip_attn(cache, self.kv_subs).items():
+            for name, dst in self.states[sub].items():
+                dst[:, slot] = full[name][:, 0].to(dst.dtype)
         self.lengths[slot] = length
 
     def write_maps(self, active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -226,6 +243,14 @@ class PagedCachePool:
             self.table[s, :n] = self.slot_blocks[s]
         self.free = list(range(used, self.num_blocks))
         return moved
+
+
+def _strip_attn(cache, kv_subs: List[int]) -> Dict:
+    """Drop the attention sub-layers' entries from a per-request prefill
+    cache, leaving the recurrent-state subtree that matches
+    ``PagedCachePool.states``."""
+    drop = {f"sub{i}" for i in kv_subs}
+    return {k: v for k, v in cache.items() if k not in drop}
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,11 @@ Inactive slots go through the step too, with length 0 and an all-zero table
 row (the null block); they appear in no write-map entry, never touch the
 pool, and their attention output is exactly 0.
 
+Recurrent (Mamba) sub-layers of a hybrid model run the model's own decode
+on their dense per-slot state rows (``PagedCachePool.states``), position-
+free; MoE FFNs route at capacity factor 0 (no drops), as the reference's
+``model_exec.py:106-116, 150-154`` do.
+
 Two attention paths, pinned against each other:
 
 * ``fused_attention=False`` — the oracle: ``paged_gather`` a dense
@@ -45,8 +50,9 @@ from repro_torch.kernels.paged_cache import (paged_gather, paged_scatter_kv,
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
                                        lm_head)
-from repro_torch.models.ffn import ffn_forward
-from repro_torch.models.transformer import _n_scan, _sub_kinds, layer_params
+from repro_torch.models.transformer import (_n_scan, _sub_kinds, ffn_block,
+                                            layer_params, mixer_decode,
+                                            promote_states)
 
 
 def _paged_attention_decode(p: Dict, x: torch.Tensor,
@@ -92,30 +98,44 @@ def _paged_attention_decode(p: Dict, x: torch.Tensor,
     return attn._out_proj(p, attn._gqa_combine(w, v))
 
 
-def _run_layers(params, kv, tokens: torch.Tensor, cfg, attend) -> torch.Tensor:
-    """Embed ``tokens`` (S, T), run every layer's attention sub-layers
-    (``attend(p_mix, h, kv_l)`` gives the attention output of the normed
-    input ``h`` against the layer's pools ``kv_l``) with their FFNs, and
-    return the head's logits (S, T, V)."""
+def _run_layers(params, kv, tokens: torch.Tensor, cfg, attend,
+                states=None) -> torch.Tensor:
+    """Embed ``tokens`` (S, T), run every layer's sub-layers and return the
+    head's logits (S, T, V). An attention sub-layer's mixer is
+    ``attend(p_mix, h, kv_l)`` (the attention output of the normed input
+    ``h`` against the layer's pools ``kv_l``); a recurrent one runs the
+    model's Mamba decode on the layer's rows of ``states`` (position-free,
+    updated in place). Every MoE FFN routes with no drops (capacity factor
+    0), as the reference's serving paths do."""
     kinds = _sub_kinds(cfg)
+    if states:
+        promote_states(states, cfg)
     x = embed_tokens(params["embed"], tokens, cfg.activation_dtype)
     for li in range(_n_scan(cfg)):
         lp = layer_params(params["layers"], li)
-        for i in range(len(kinds)):
+        for i, (m, f) in enumerate(kinds):
             name = f"sub{i}"
             p = lp[name]
             h = apply_norm(p["norm1"], x, cfg.norm_eps)
-            x = x + attend(p["mix"], h, {n: t[li] for n, t in kv[name].items()})
+            if m == "attn":
+                x = x + attend(p["mix"], h,
+                               {n: t[li] for n, t in kv[name].items()})
+            else:
+                x = x + mixer_decode(p["mix"], h, cfg, m,
+                                     {n: t[li] for n, t in
+                                      states[name].items()}, 0)
             h2 = apply_norm(p["norm2"], x, cfg.norm_eps)
-            x = x + ffn_forward(p["ffn"], h2, cfg)
+            x = x + ffn_block(p["ffn"], h2, cfg, f, 0.0)[0]
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(params["embed"], x)
 
 
 def build_decode_step(model, fused_attention: Optional[bool] = None):
     """Batched decode: (params, kv, table, lengths, write_slot, write_off,
-    tokens (S,1) long) -> logits (S, V). ``kv`` is ``PagedCachePool.kv``
-    and is updated in place.
+    tokens (S,1) long, states=None) -> logits (S, V). ``kv`` is
+    ``PagedCachePool.kv`` and ``states`` its ``states`` (the recurrent
+    sub-layers' per-slot rows, every slot's advanced, as the reference's
+    step does); both are updated in place.
 
     ``fused_attention`` None/True (the default) runs the paged-attention
     kernel; False runs the gather + dense-softmax oracle.
@@ -124,11 +144,12 @@ def build_decode_step(model, fused_attention: Optional[bool] = None):
     _n_scan(cfg)           # called for effect: validates the layout early
     fused = True if fused_attention is None else bool(fused_attention)
 
-    def step(params, kv, table, lengths, write_slot, write_off, tokens):
+    def step(params, kv, table, lengths, write_slot, write_off, tokens,
+             states=None):
         def attend(p, h, kv_l):
             return _paged_attention_decode(p, h, kv_l, table, lengths,
                                            write_slot, write_off, cfg, fused)
-        return _run_layers(params, kv, tokens, cfg, attend)[:, -1]
+        return _run_layers(params, kv, tokens, cfg, attend, states)[:, -1]
 
     return step
 
@@ -212,7 +233,8 @@ def build_verify_step(model, k: int, fused_attention: Optional[bool] = None):
     ``lengths[s]+j+1`` given the prompt and draft tokens ``<= j``: its
     argmax is the token plain decode would emit there. Attention-only
     models only: recurrent sub-layer state has no rollback for a rejected
-    draft, so those architectures raise here, as the reference's do.
+    draft, so those architectures raise here, as the reference's do. MoE
+    FFNs route each slot's k tokens as one group with no drops.
     """
     cfg = model.cfg
     period = cfg.attn_layer_period or 1

@@ -228,7 +228,7 @@ class SpecEngine(FleetEngine):
             logits = self._draft_decode(
                 dparams, self.draft_pool.kv, dtable,
                 t(self.draft_pool.lengths + j), t(d_wslots[j]),
-                t(d_woffs[j]), t(tok))
+                t(d_woffs[j]), t(tok), self.draft_pool.states)
             drafts[:, j] = torch.argmax(logits, dim=-1).cpu().numpy()
             tok = drafts[:, j:j + 1]
 
