@@ -91,7 +91,7 @@ exits non-zero:
                 comm_bytes is the wire's bytes times its deliveries; wall,
                 ms per step, peak memory, the aggregate's gaps and codist
                 steps/s per card.
- 10. async    — ``AsyncScheduler`` at full width and 12 of 24 layers (the
+ 10. async    — ``AsyncScheduler`` at full width and 6 of 24 layers (the
                 depth cut keeps the script in its time budget): 2 peers
                 and an elastic join, kl, 5 steps under a straggler, a
                 preemption and a failure recovered from a snapshot,
@@ -110,10 +110,11 @@ exits non-zero:
                 within 1e-4 relative.
  12. spec     — peer-speculative decoding (k = 4, ring pairing) at
                 qwen2-7b's full width with the fleet phase's FleetConfig
-                and bursty workload: identical peers and a noised copy of
-                peer 0 over bf16 pools at full depth, identical peers over
-                int8 and fp8 pools and through the gather path at
-                SPEC_CUT_LAYERS of 28 (the time budget), each run plain and
+                and bursty workload: identical peers over bf16 pools at
+                full depth; a noised copy of peer 0 over bf16 pools and
+                identical peers over int8 and fp8 pools and through the
+                gather path at SPEC_CUT_LAYERS (7) of 28 (the time
+                budget), each run plain and
                 speculative (everything completes, nothing lost or
                 duplicated, rows 1-4 launched exactly as the ticks and
                 rounds imply; accept rate, tokens equal to the plain run's
@@ -151,7 +152,15 @@ exits non-zero:
                 per-request, a 48-token window over 64-token prompts (the
                 ring wraps) within 5e-4 of the windowed teacher forcing, and
                 the card's tokens equal the CPU's at the reduced config;
-                last ``--single`` through the CLI on the card.
+                ``--single`` through the CLI on the card; then
+                transformer-big at full width and depth (6 + 6 layers,
+                source tokens, seeded bf16 weights and cache) through
+                ``Engine.generate`` at batch 4: prefill ms, ms a decode
+                step and its busy share, two calls equal, no kernel
+                launched; the reduced config in fp32, card tokens equal
+                the CPU's over frames and over source tokens; last
+                ``--single --arch transformer-big`` (the reduced config,
+                seeded frames) through the CLI.
  15. obs      — the observability layer: (a) qwen2-7b at full width and
                 depth, seeded bf16 weights, 2 peers, the fleet phase's
                 FleetConfig and bursty workload under a straggler and a
@@ -164,7 +173,7 @@ exits non-zero:
                 and the host time inside the hooks a tick; (b) the same at
                 the reduced config in fp32, card against CPU: trace and
                 alert log byte-equal; (c) ``codist-async`` at
-                qwen1.5-0.5b's full width and 12 layers, kl, under the
+                qwen1.5-0.5b's full width and 6 layers, kl, under the
                 async faults (no recovery) with every obs output; (d) a
                 2-cell sweep (all-reduce, codist; 3 steps at full width)
                 through the sweep CLI with ``--trace --metrics --alerts``.
@@ -205,6 +214,27 @@ exits non-zero:
                 aux loss, ms a step, busy share, peak memory; last the
                 reduced configs in fp32, card against CPU: 3 codist steps
                 within 1e-5 relative and equal FleetReports.
+ 18. rwkv     — rwkv6-1.6b, attention-free (no paged pool, so rows 1-4
+                launch 0 times on its path), at full width and depth (24
+                layers, seeded bf16 weights; the leaves read in fp32 kept
+                fp32): a 2-peer fleet sharing one weight set (16 slots, 16
+                bursty requests, prompts <= 128, three of them on the
+                64-token WKV chunk), the same requests through
+                ``Engine.generate`` at batch 4 (tokens compared as in the
+                families phase), 5 timed ticks of 16 live slots with their
+                device profile, Engine.generate's prefill and decode step
+                at batch 4 with its busy share, peak memory; then training
+                at full width
+                and RWKV_TRAIN_LAYERS (4) of 24 layers with each layer
+                recomputed in the backward: 2 peers x 8 x 512 tokens, fp32
+                masters, bf16, AdamW, 3 mse codist steps (rows 12, 13) and
+                1 all-reduce step (rows 6, 7), launches exact, ms a step,
+                busy share, peak memory; rows 6, 7, 12 and 13 held against
+                their plain versions and timed at T 4096 / V 65536 bf16
+                beside F.cross_entropy and its backward; last the reduced
+                config in fp32, card against CPU: 3 codist steps within
+                1e-5 relative, equal FleetReports, Engine.generate tokens
+                equal (uniform at the chunk, and ragged).
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -251,7 +281,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
-          "fleet_codist", "single", "obs", "paper", "families")
+          "fleet_codist", "single", "obs", "paper", "families", "rwkv")
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them
@@ -317,13 +347,15 @@ PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs",
          "paged_scatter_quant": ("fleet", "spec", "families"),
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
-                                       "async", "obs", "paper", "families"),
+                                       "async", "obs", "paper", "families",
+                                       "rwkv"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
-                                      "async", "obs", "paper", "families"),
+                                      "async", "obs", "paper", "families",
+                                      "rwkv"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
-                                    "paper", "families"),
+                                    "paper", "families", "rwkv"),
          "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs",
-                                   "paper", "families"),
+                                   "paper", "families", "rwkv"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
          "fused_distill_kl_parts": ("train_peers", "async", "obs", "paper"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
@@ -2605,8 +2637,10 @@ def phase_parity(dev: torch.device):
 # ----------------------------------------------------------------------------
 
 SPEC_K = 4
-# the depth of the spec phase's int8, fp8 and gather-path runs (of 28)
-SPEC_CUT_LAYERS = 14
+# the depth of the spec phase's noised, int8, fp8 and gather-path runs (of
+# 28): cut from 14, with the noised run moved from full depth, to make room
+# for the rwkv phase in the script's time budget
+SPEC_CUT_LAYERS = 7
 # a noised peer: each weight plus this share of its leaf's std (bf16 runs:
 # partial accepts; the fp32 check: enough to reject drafts at 4 layers)
 SPEC_NOISE = 0.02
@@ -2758,26 +2792,28 @@ def phase_spec(dev: torch.device):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     p0 = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
-    pn = noised_copy(p0, SPEC_NOISE, 99, dev)
     sync(dev)
-    log(f"spec: qwen2-7b {cfg.num_layers} layers, a peer and its noised copy "
-        f"in {time.perf_counter() - t0:.1f} s, "
+    log(f"spec: qwen2-7b {cfg.num_layers} layers in "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     fc = FleetConfig(max_slots=16, block_size=16, num_blocks=1025,
                      max_blocks_per_slot=34, fused_attention=True)
     wl = generate_workload("bursty", 24, cfg.padded_vocab, seed=0,
                            max_prompt=512, max_new=32)
-    # the int8, fp8 and gather-path runs at SPEC_CUT_LAYERS of 28 (views of
-    # peer 0's first layers): the script's time budget
+    # the noised, int8, fp8 and gather-path runs at SPEC_CUT_LAYERS of 28
+    # (views of peer 0's first layers, and a noised copy of those): the
+    # script's time budget
     cut = SPEC_CUT_LAYERS
     model_cut = build_model(replace(cfg, num_layers=cut))
     p_cut = {**p0, "layers": {sub: {g: {n: t[:cut] for n, t in d.items()}
                                     for g, d in sd.items()}
                               for sub, sd in p0["layers"].items()}}
+    pn = noised_copy(p_cut, SPEC_NOISE, 99, dev)
     out = {}
     gather = replace(fc, fused_attention=False)
     runs = [("bf16 identical", model, [p0, p0], torch.bfloat16, fc),
-            ("bf16 noised", model, [p0, pn], torch.bfloat16, fc),
+            (f"bf16 noised ({cut} layers)", model_cut, [p_cut, pn],
+             torch.bfloat16, fc),
             (f"int8 identical ({cut} layers)", model_cut, [p_cut, p_cut],
              torch.int8, fc),
             (f"fp8 identical ({cut} layers)", model_cut, [p_cut, p_cut],
@@ -3532,7 +3568,10 @@ SWEEP_MODES = ["allreduce", "codist", "codist-ckpt", "codist-pipelined",
 # at 2.5 s
 ASYNC_FAULTS = "straggler=1*3@0.5,preempt=1@2+3,fail=0@4"
 ASYNC_JOIN = 2.5
-ASYNC_LAYERS = 12
+# the async and obs phases' depth (of 24): cut from 12 to make room for
+# the rwkv phase in the script's time budget (most of the async phase is
+# its 6 snapshots of a peer's state, which scale with the depth)
+ASYNC_LAYERS = 6
 ASYNC_KW = dict(staleness_bound=1, checkpoint_every=2, recover_after=2.0,
                 join_burn_in=2)
 
@@ -3743,7 +3782,7 @@ def phase_sweep(dev: torch.device):
 # ----------------------------------------------------------------------------
 
 def phase_async(dev: torch.device):
-    """The async runtime at qwen1.5-0.5b's full width and 12 of its 24
+    """The async runtime at qwen1.5-0.5b's full width and 6 of its 24
     layers (``ASYNC_LAYERS``), through
     ``AsyncScheduler`` (batch 8 x seq 512 a peer): 2 peers and an elastic
     join, kl distillation, 5 steps under ``ASYNC_FAULTS`` with snapshots
@@ -3767,10 +3806,10 @@ def phase_async(dev: torch.device):
     from repro_torch.runtime import AsyncScheduler, parse_faults
     from repro_torch.runtime.peer import PeerRuntime
     from repro_torch.train import History
-    # full width at 12 of its 24 layers: the depth cut keeps the whole
-    # script near its time budget since the spec and fleet_codist phases
-    # came in (a snapshot of the peer state, fp32 params + AdamW m and v, is
-    # host I/O of 3.7 GB instead of 5.6)
+    # full width at ASYNC_LAYERS (6) of its 24 layers: the depth cut keeps
+    # the whole script within its time budget since the spec, fleet_codist
+    # and rwkv phases came in (a snapshot of the peer state, fp32 params +
+    # AdamW m and v, is host I/O of ~2.8 GB instead of 5.6 at full depth)
     cfg = replace(get_config("qwen1.5-0.5b"), num_layers=ASYNC_LAYERS)
     model = build_model(cfg)
     # 5 steps: each snapshot of a peer state took ~13 s of host I/O at full
@@ -4282,6 +4321,138 @@ def phase_single(dev: torch.device):
     require(len(lines) == 3 and lines[0].startswith("arch=qwen2-7b batch=4")
             and lines[2].startswith("first sequence: ["),
             f"single: --single printed {lines}")
+    single_encdec(dev)
+
+
+def single_encdec(dev: torch.device) -> None:
+    """transformer-big at full width and depth (6 + 6 layers, d 1024, V
+    32768; the full config reads source tokens) through Engine.generate,
+    seeded bf16 weights and cache, batch 4, 64 source and 64 target prompt
+    tokens, 16 new: prefill ms, ms a decode step (wall) and the busy share
+    (torch.profiler), two calls equal, no kernel launched; the reduced
+    config card against CPU (``encdec_parity``); then ``--single
+    --arch transformer-big`` (the reduced config, seeded frames) through
+    the CLI on the card."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    cfg = get_config("transformer-big")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    params = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
+    b = 4
+    batch = {name: torch.randint(0, cfg.padded_vocab, (b, SINGLE_PROMPT),
+                                 generator=gen, device=dev)
+             for name in ("tokens", "src_tokens")}
+    sync(dev)
+    log(f"single transformer-big: {cfg.encoder_layers} + {cfg.num_layers} "
+        f"layers (d {cfg.d_model}, V {cfg.padded_vocab}, source tokens) in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    eng = Engine(model, params, cache_dtype=torch.bfloat16, device=dev)
+    reset_launch_counts()
+    eng.generate(batch, 2)                                     # warm-up
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch,
+                                      SINGLE_PROMPT + SINGLE_NEW + 5,
+                                      torch.bfloat16)
+        sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pos = [SINGLE_PROMPT]
+
+        def step():
+            nonlocal logits, cache
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = model.decode(params, cache, tok, pos[0])
+            pos[0] += 1
+
+        t0 = time.perf_counter()
+        for _ in range(SINGLE_NEW - 1):
+            step()
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / (SINGLE_NEW - 1)
+        busy = profile_device(step, step_ms, 5, "decode step")
+    sync(dev)
+    t0 = time.perf_counter()
+    r1 = eng.generate(batch, SINGLE_NEW)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    r2 = eng.generate(batch, SINGLE_NEW)
+    new = r1.tokens[:, SINGLE_PROMPT:]
+    require(torch.equal(r1.tokens, r2.tokens),
+            "single transformer-big: two generate calls differ")
+    require(tuple(r1.tokens.shape) == (b, SINGLE_PROMPT + SINGLE_NEW)
+            and bool(((new >= 0) & (new < cfg.padded_vocab)).all()),
+            f"single transformer-big: tokens of shape "
+            f"{tuple(r1.tokens.shape)} or out of range")
+    launched = {k: n for k, n in launch_counts.items() if n}
+    require(not launched, f"single transformer-big launched {launched}")
+    log(f"single transformer-big batch {b}: prefill of {SINGLE_PROMPT} + "
+        f"{SINGLE_PROMPT} tokens {prefill_ms:.2f} ms wall, decode "
+        f"{step_ms:.2f} ms wall a step, busy "
+        + (f"{busy:.2f} ms ({busy / step_ms:.1%})" if busy else
+           "not measured")
+        + f"; Engine.generate {b} x {SINGLE_NEW} tokens in {wall * 1e3:.1f} "
+        f"ms wall ({b * SINGLE_NEW / wall:.1f} tokens/s); two calls equal; "
+        "no kernel launched")
+    del eng, params, cache
+    torch.cuda.empty_cache()
+    encdec_parity(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_main(["--single", "--arch", "transformer-big"])
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  cli: {line}")
+    require(len(lines) == 3
+            and lines[0].startswith("arch=transformer-big batch=4")
+            and lines[2].startswith("first sequence: ["),
+            f"single: --single --arch transformer-big printed {lines}")
+
+
+def encdec_parity(dev: torch.device) -> None:
+    """The reduced transformer-big in fp32 (TF32 off since the device
+    phase), the card against the CPU from the same weights and inputs:
+    Engine.generate's tokens equal over encoder ``frames`` and over
+    ``src_tokens`` (``num_audio_frames=0``)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_map
+    for source, over in (("frames", {}), ("src_tokens",
+                                          {"num_audio_frames": 0})):
+        model = build_model(replace(get_reduced("transformer-big"), **over))
+        cfg = model.cfg
+        gen = torch.Generator()
+        gen.manual_seed(33)
+        params = model.init(gen, device="cpu", weight_dtype=torch.float32)
+        batch = {"tokens": torch.randint(0, cfg.padded_vocab, (4, 12),
+                                         generator=gen)}
+        if source == "frames":
+            batch["frames"] = 0.1 * torch.randn(
+                (4, cfg.num_audio_frames, cfg.d_model), generator=gen)
+        else:
+            batch["src_tokens"] = torch.randint(0, cfg.padded_vocab, (4, 10),
+                                                generator=gen)
+        outs = []
+        for d in ("cpu", dev):
+            e = Engine(model, tree_map(lambda x: x.to(d), params),
+                       cache_dtype=torch.float32, device=d)
+            outs.append(e.generate({k: v.to(d) for k, v in batch.items()},
+                                   8).tokens.cpu())
+        require(torch.equal(outs[0], outs[1]),
+                f"single reduced transformer-big over {source}: card tokens "
+                "!= CPU tokens")
+    log("single reduced transformer-big fp32: Engine.generate tokens equal "
+        "card vs CPU, over frames and over src_tokens")
 
 
 # ----------------------------------------------------------------------------
@@ -4907,10 +5078,12 @@ def _flat_outputs(out) -> list:
     return [out]
 
 
-def paper_loss_times(dev: torch.device) -> dict:
+def paper_loss_times(dev: torch.device, shapes=None,
+                     what: str = "paper") -> dict:
     """Rows 6, 7, 12 and 13 (and 9, 11 at the MLP's shape) against their
-    plain versions at ``PAPER_LOSS_SHAPES``, with kernel, plain and library
-    times and the bound; returns {kernel: {shape: record}}."""
+    plain versions at ``shapes`` (default ``PAPER_LOSS_SHAPES``), with
+    kernel, plain and library times and the bound; returns {kernel: {shape:
+    record}}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (fused_ce_distill_grad,
@@ -4933,7 +5106,7 @@ def paper_loss_times(dev: torch.device) -> dict:
         return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
     rows = {}
-    for si, (label, t, v, dtype) in enumerate(PAPER_LOSS_SHAPES):
+    for si, (label, t, v, dtype) in enumerate(shapes or PAPER_LOSS_SHAPES):
         x, tg, lb, g = loss_inputs(t, v, dtype, dev, 300 + si)
         gd = g[2].contiguous()
         es, tv = x.element_size(), t * v
@@ -5003,7 +5176,7 @@ def paper_loss_times(dev: torch.device) -> dict:
             rows.setdefault(name, {})[key] = r
             lib_txt = ("—" if r["library_ms"] is None
                        else f"{r['library_ms']:.4f} ms")
-            log(f"  paper shape {key}: {name} kernel {r['ms']:.4f} ms  plain "
+            log(f"  {what} shape {key}: {name} kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {lib_txt}  bound "
                 f"{b_ms:.3e} ms ({b_by}); max|kernel-plain| {err:.2e}")
         del xr, lib_y
@@ -5390,9 +5563,10 @@ def family_train(dev: torch.device, launches: dict) -> None:
     log(f"families train: {time.perf_counter() - t0:.1f} s")
 
 
-def family_parity(dev: torch.device) -> None:
-    """The reduced configs of the three families in fp32 (TF32 off), the
-    card against the CPU from the same weights and inputs: 3 codist steps
+def family_parity(dev: torch.device, archs=tuple(FAMILY_LAYERS),
+                  what: str = "families parity") -> None:
+    """The reduced configs of ``archs`` (the three families) in fp32 (TF32
+    off), the card against the CPU from the same weights and inputs: 3 codist steps
     (History losses and aux within 1e-5 relative, loss-kernel launches
     exact), and a bursty fleet of 2 peers over fp32 pools (every
     FleetReport field, and so the stream digest, equal)."""
@@ -5411,7 +5585,7 @@ def family_parity(dev: torch.device) -> None:
     want = expected_launches(2, "mse", steps, combined=True, task_ce=False,
                              standalone=0)
     worst = 0.0
-    for arch in FAMILY_LAYERS:
+    for arch in archs:
         cfg = get_reduced(arch)
         model = build_model(cfg)
         gen = torch.Generator()
@@ -5435,17 +5609,17 @@ def family_parity(dev: torch.device) -> None:
                 lambda k: {a: v.to(d) for a, v in batches[k].items()},
                 log_every=1, state=CodistState(params, opt_init(params), 0),
                 device=d)
-            recs[where] = finite_records(hist, f"families parity {arch}")
+            recs[where] = finite_records(hist, f"{what} {arch}")
             if where == "card":
                 got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
-                require(got == want, f"families parity {arch}: launches "
+                require(got == want, f"{what} {arch}: launches "
                         f"{got} != {want}")
         for a, c in zip(recs["cpu"], recs["card"]):
             for m in ("loss", "task_loss", "distill_loss", "aux_loss",
                       "comm_bytes"):
                 rel = abs(c[m] - a[m]) / max(abs(a[m]), 1e-12)
                 worst = max(worst, rel)
-                require(rel <= 1e-5, f"families parity {arch} step "
+                require(rel <= 1e-5, f"{what} {arch} step "
                         f"{a['step']} {m}: card {c[m]} vs cpu {a[m]}")
         wl = generate_workload("bursty", 8, cfg.padded_vocab, seed=3,
                                max_prompt=40, max_new=8)
@@ -5460,15 +5634,15 @@ def family_parity(dev: torch.device) -> None:
                                       device=d).run(wl).to_dict()
         bad = {k: (reps["cpu"][k], reps["card"][k]) for k in reps["cpu"]
                if reps["cpu"][k] != reps["card"][k]}
-        log(f"families parity {arch} (fp32): card vs CPU loss by step "
+        log(f"{what} {arch} (fp32): card vs CPU loss by step "
             + "; ".join(f"{a['loss']:.7f}/{c['loss']:.7f}"
                         for a, c in zip(recs["cpu"], recs["card"]))
             + f"; aux {recs['card'][-1]['aux_loss']:.7f}; FleetReport "
             f"{len(reps['cpu']) - len(bad)}/{len(reps['cpu'])} fields equal "
             f"({reps['card']['stream_digest'][:16]})")
-        require(not bad, f"families parity {arch}: FleetReport fields differ "
+        require(not bad, f"{what} {arch}: FleetReport fields differ "
                 f"card vs CPU: {bad}")
-    log(f"families parity: worst relative difference {worst:.2e} (tol 1e-5)")
+    log(f"{what}: worst relative difference {worst:.2e} (tol 1e-5)")
 
 
 def phase_families(dev: torch.device, smi_line: str) -> dict:
@@ -5489,6 +5663,295 @@ def phase_families(dev: torch.device, smi_line: str) -> dict:
             + f", Engine tokens equal {r['equal']:.1%}, peak "
             f"{r['peak']:.2f} GiB ({smi_line})")
     return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 18: rwkv6-1.6b (attention-free: no paged pool, no rows 1-4)
+# ----------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+# the bursty workload's prompts (4..22 tokens at seed 5) with three set to
+# a multiple of the WKV chunk (64), so their prefills take the chunked form
+# and the others the sequential scan, as the reference branches
+RWKV_ON_CHUNK = {0: 128, 5: 64, 10: 64}
+# training: full width, RWKV_TRAIN_LAYERS of 24 layers with each layer
+# recomputed in the backward (TrainConfig.remat): the chunked form's
+# pairwise decay is (B, 64, 64, H, hd) fp32, 268 MB a chunk at 8 x 512
+# tokens, and a layer saves ~6 GB of them for its backward
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_B, RWKV_TRAIN_T = 4, 8, 512
+RWKV_LOSS_SHAPES = [("T4096 V65536 bf16", RWKV_TRAIN_B * RWKV_TRAIN_T, 65536,
+                     torch.bfloat16)]
+
+
+def rwkv_workload(cfg, n: int, max_prompt: int, max_new: int, seed: int):
+    """The seeded bursty workload with the prompts of ``RWKV_ON_CHUNK``'s
+    requests lengthened to their lengths (seeded tokens appended)."""
+    from repro_torch.serve.fleet import generate_workload
+    wl = generate_workload("bursty", n, cfg.padded_vocab, seed=seed,
+                           max_prompt=max_prompt, max_new=max_new)
+    rng = np.random.default_rng(seed)
+    for rid, length in RWKV_ON_CHUNK.items():
+        r = wl.requests[rid]
+        extra = rng.integers(0, cfg.padded_vocab, length - r.prompt_len)
+        wl.requests[rid] = replace(r, prompt=r.prompt + tuple(
+            int(x) for x in extra))
+    return wl
+
+
+def rwkv_ticks(model, peer, fc, wl, dev: torch.device):
+    """One engine with 16 live slots (the workload's first 16 prompts
+    prefilled): 5 decode ticks timed (wall) with rows 1-4 counted (none
+    may launch), then 5 more under torch.profiler. Returns (ms a tick,
+    busy ms a tick or None, the first tick's max|logits|)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.fleet import FleetEngine, Request
+    eng = FleetEngine(model, peer, replace(fc, max_prefills_per_step=S),
+                      cache_dtype=torch.bfloat16, device=dev)
+    for r in wl.requests[:S]:
+        eng.enqueue(Request(r.rid, 0.0, r.prompt, 32))
+    eng._intake()
+    eng._admit()
+    require(len(eng.slots) == S, f"rwkv: only {len(eng.slots)} slots admitted")
+    active = np.ones((S,), bool)
+    tokens = np.zeros((S, 1), np.int32)
+    for s, sl in eng.slots.items():
+        tokens[s, 0] = sl.next_token
+    first = eng.decode_logits(active, tokens).float()
+    require(bool(torch.isfinite(first).all()), "rwkv: non-finite tick logits")
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eng.decode_logits(active, tokens)
+    sync(dev)
+    tick_ms = (time.perf_counter() - t0) / 5 * 1e3
+    counts = {k: launch_counts[k] for k in ROWS_1_TO_4}
+    require(not any(counts.values()), f"rwkv ticks launched {counts}")
+    ctx = [int(x) for x in eng.pool.lengths]
+    log(f"rwkv decode tick (16 live slots, contexts {min(ctx)}..{max(ctx)}): "
+        f"{tick_ms:.2f} ms wall a tick over 5 = {S / tick_ms * 1e3:.1f} "
+        "tokens/s; rows 1-4 launched 0 times")
+    busy = profile_device(lambda: eng.decode_logits(active, tokens), tick_ms,
+                          5, "tick")
+    return tick_ms, busy, float(first.abs().max())
+
+
+def rwkv_serve(dev: torch.device, summary: dict) -> None:
+    """rwkv6-1.6b at full width and depth, one seeded bf16 weight set shared
+    by 2 fleet peers: the bursty fleet over bf16 state rows (no block pool,
+    rows 1-4 launched 0 times), the same requests through Engine.generate
+    at batch 4 (tokens compared, each request's first divergence with the
+    fleet's top-2 margin there), 5 timed ticks of 16 live slots with their
+    device profile, Engine.generate's own times at batch 4 (prefill of 64,
+    the chunked form; ms a decode step and its busy share), peak
+    memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(RWKV_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2700)
+    params = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
+    sync(dev)
+    n_params = sum(t.numel() for _p, t in _leaves(params))
+    log(f"rwkv serve: {RWKV_ARCH} {cfg.num_layers} layers at full width (d "
+        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} WKV heads of "
+        f"{cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, V {cfg.padded_vocab}), "
+        f"{n_params / 1e9:.3f} B params (bf16, the fp32-read leaves fp32), "
+        f"initialised in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    fc = family_fleet_config()
+    wl = rwkv_workload(cfg, FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW, 5)
+    lens = [r.prompt_len for r in wl.requests]
+    on = [n for n in lens if n % 64 == 0]
+    log(f"rwkv serve: prompt lengths {lens} ({len(on)} on the 64-token "
+        "chunk: chunked prefill; the rest the sequential scan)")
+    require(on and len(on) < len(lens), "rwkv: no prompt on or off the chunk")
+    margins = {}
+    router, rep, _c, walls, wall = serve_run(
+        model, [params, params], fc, wl, torch.bfloat16, dev,
+        "rwkv bf16", margins=margins)
+    pool = router.engines[0].pool
+    require(pool.kv == {} and set(pool.states) == {"sub0"},
+            f"rwkv: pool kv {list(pool.kv)}, states {list(pool.states)}")
+    fleet = {r.request.rid: r.tokens for r in router._primaries}
+    del router
+    t1 = time.perf_counter()
+    single = engine_streams(model, params, wl, dev)
+    sync(dev)
+    engine_s = time.perf_counter() - t1
+    log(f"rwkv Engine.generate at batch {FAMILY_BATCH} (bf16 cache):")
+    timings = single_timings(
+        model, params, Engine(model, params, cache_dtype=torch.bfloat16,
+                              device=dev), FAMILY_BATCH, dev)
+    tick_ms, busy, scale = rwkv_ticks(model, params, fc, wl, dev)
+    tol = 0.05 * scale
+    share, gaps = compare_streams(fleet, single,
+                                  f"rwkv: Engine.generate (batch "
+                                  f"{FAMILY_BATCH}, bf16) against the fleet",
+                                  margins)
+    # the engine's batches of 4 and the fleet's 16-slot ticks round apart in
+    # bf16 (other GEMM shapes); a fault leaves most tokens and first
+    # divergences at wide margins
+    med = float(np.median(gaps)) if gaps else 0.0
+    log(f"rwkv: Engine.generate vs fleet {share:.1%} equal (>= 75%), median "
+        f"first-divergence margin {med:.4f} (<= {tol:.4f})")
+    require(share >= 0.75, f"rwkv: only {share:.1%} of Engine.generate's "
+            "tokens equal the fleet's")
+    require(med <= tol, f"rwkv: median first divergence at a top-2 margin "
+            f"{med:.4f} > {tol:.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary.update(fleet_tick_ms=float(np.mean(walls)), fleet_s=wall,
+                   tokens=rep.generated_tokens, tick_ms=tick_ms, busy=busy,
+                   equal=share, engine_s=engine_s, peak=peak,
+                   engine=timings)
+    log(f"rwkv serve: fleet {np.mean(walls):.2f} ms wall a tick "
+        f"({rep.generated_tokens} tokens in {wall:.2f} s, prefills "
+        f"included), 16 live slots {tick_ms:.2f} ms wall a tick, device busy "
+        + (f"{busy:.2f} ms ({busy / tick_ms:.1%})" if busy else
+           "not measured")
+        + f"; Engine.generate {engine_s:.2f} s for {len(wl.requests)} "
+        f"requests, at batch {FAMILY_BATCH} {timings['step_ms']:.2f} ms wall "
+        f"a decode step; peak {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def rwkv_train(dev: torch.device, launches: dict) -> dict:
+    """rwkv6 at full width, RWKV_TRAIN_LAYERS of 24 layers, each layer
+    recomputed in the backward: 2 peers of seeded fp32 masters, bf16
+    activations, AdamW, 8 x 512 tokens a peer, 3 codist steps (mse, rows 12
+    and 13 at V 65536 bf16) and 1 all-reduce step of peer 0 (rows 6, 7):
+    launches exact, History finite, ms a step, busy share, peak memory;
+    then rows 6, 7, 12 and 13 held against their plain versions and timed
+    at this path's shape beside F.cross_entropy and its backward. Returns
+    the kernels' records at that shape."""
+    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import stack_batches, train_allreduce
+    from repro_torch.train.state import (CodistState, TrainState,
+                                         trainable_params)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = replace(get_config(RWKV_ARCH), num_layers=RWKV_TRAIN_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2800)
+    params = trainable_params([model.init(gen, device=dev) for _ in range(2)])
+    tc = TrainConfig(lr=1e-3, lr_schedule="constant", warmup_steps=0,
+                     total_steps=FAMILY_STEPS, optimizer="adamw", remat=True)
+    opt_init, _ = make_optimizer(tc.optimizer)
+    state = CodistState(params, opt_init(params), 0)
+    sync(dev)
+    log(f"rwkv train: {RWKV_TRAIN_LAYERS} of 24 layers at full width, 2 peers "
+        f"of fp32 masters (bf16 activations, AdamW, remat) initialised in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
+                    effective_vocab=256)
+    batches = [stack_batches([make_lm_batch(task, RWKV_TRAIN_B, RWKV_TRAIN_T,
+                                            k, p, seed=0, device=dev)
+                              for p in range(2)])
+               for k in range(FAMILY_STEPS)]
+    state, _recs, got = paper_train(
+        f"rwkv codist (2 peers x {RWKV_TRAIN_B} x {RWKV_TRAIN_T} tokens, "
+        f"{RWKV_TRAIN_LAYERS} layers, bf16, AdamW, mse)", model,
+        CodistConfig(n_models=2), tc, batches, dev,
+        expected_launches(2, "mse", FAMILY_STEPS, combined=True,
+                          task_ce=False, standalone=0), state=state)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    one = {k: v[0] for k, v in batches[0].items()}
+    p0 = state.params[0]
+    del state, batches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ta = time.perf_counter()
+    _s, hist = train_allreduce(
+        model, replace(tc, total_steps=1), iter([one]), log_every=1,
+        state=TrainState(p0, opt_init(p0), 0), device=dev)
+    sync(dev)
+    got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
+    rec = finite_records(hist, "rwkv all-reduce")[0]
+    want = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    want["fused_cross_entropy_parts"] = want["fused_cross_entropy_grad"] = 1
+    log(f"rwkv train: all-reduce step of peer 0: loss {rec['loss']:.4f}, "
+        f"{(time.perf_counter() - ta) * 1e3:.1f} ms wall (its first step), "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    require(got == want, f"rwkv all-reduce launches {got} != {want}")
+    for k, v in got.items():
+        launches[k] += v
+    del _s, hist, p0, one
+    torch.cuda.empty_cache()
+    rows = paper_loss_times(dev, RWKV_LOSS_SHAPES, "rwkv")
+    log(f"rwkv train: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def rwkv_parity(dev: torch.device) -> None:
+    """The reduced rwkv6 in fp32 (TF32 off), the card against the CPU from
+    the same weights and inputs: 3 codist steps (History losses within 1e-5
+    relative, loss-kernel launches exact), a bursty fleet of 2 peers over
+    fp32 state rows (every FleetReport field equal), and Engine.generate's
+    tokens, uniform and ragged, equal."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_map
+    family_parity(dev, (RWKV_ARCH,), "rwkv parity")
+    model = build_model(get_reduced(RWKV_ARCH))
+    gen = torch.Generator()
+    gen.manual_seed(32)
+    params = model.init(gen, device="cpu")
+    lens = [70, 64, 9, 33]
+    toks = torch.randint(0, model.cfg.padded_vocab, (4, 70), generator=gen)
+    outs = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        e = Engine(model, tree_map(lambda x: x.to(d), params),
+                   cache_dtype=torch.float32, device=d)
+        outs[where] = (e.generate({"tokens": toks[:, :64].to(d)}, 8)
+                       .tokens.cpu(),
+                       e.generate({"tokens": toks.to(d)}, 8,
+                                  prompt_lens=lens).tokens.cpu())
+    for name, a, b in zip(("uniform (64: chunked)", "ragged"), outs["cpu"],
+                          outs["card"]):
+        require(torch.equal(a, b), f"rwkv parity Engine.generate {name}: card "
+                "tokens != CPU tokens")
+    log(f"rwkv parity: Engine.generate tokens equal card vs CPU, uniform at "
+        f"64 (the chunked prefill) and ragged {lens}")
+
+
+def phase_rwkv(dev: torch.device, smi_line: str):
+    """rwkv6-1.6b on the card (module docstring, phase 18); returns the
+    path's launches of rows 6, 7, 12 and 13 (rows 1-4: none) and the loss
+    kernels' records at its training shape."""
+    launches: dict = {}
+    summary: dict = {}
+    rwkv_serve(dev, summary)
+    rows = rwkv_train(dev, launches)
+    rwkv_parity(dev)
+    eng = summary["engine"]
+    log(f"rwkv summary (24 layers): fleet tick {summary['fleet_tick_ms']:.2f} "
+        f"ms wall, 16 live slots {summary['tick_ms']:.2f} ms, busy "
+        + (f"{summary['busy'] / summary['tick_ms']:.1%}" if summary["busy"]
+           else "not measured")
+        + f"; Engine.generate batch {FAMILY_BATCH} decode step "
+        f"{eng['step_ms']:.2f} ms, busy "
+        + (f"{eng['busy_ms'] / eng['step_ms']:.1%}" if eng["busy_ms"]
+           else "not measured")
+        + f"; Engine tokens equal {summary['equal']:.1%}, peak "
+        f"{summary['peak']:.2f} GiB ({smi_line})")
+    return launches, rows
 
 
 # ----------------------------------------------------------------------------
@@ -5704,6 +6167,13 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         launches["families"] = phase_families(dev, smi_line)
         torch.cuda.empty_cache()
         log(f"phase families: {time.perf_counter() - t0:.1f} s")
+    if "rwkv" in phases:
+        t0 = time.perf_counter()
+        launches["rwkv"], rwkv_rows = phase_rwkv(dev, smi_line)
+        for name, recs in rwkv_rows.items():
+            kernel_rows.setdefault(name, {})["rwkv_shapes"] = recs
+        torch.cuda.empty_cache()
+        log(f"phase rwkv: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})
@@ -5722,7 +6192,7 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
             "library_ms": row.get("library_ms"),
             **{k: v for k, v in row.items()
                if k.startswith(("verify_", "canary_", "by_shape",
-                                "paper_"))}})
+                                "paper_", "rwkv_"))}})
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

@@ -9,7 +9,12 @@ the reference's trees too: expert stacks ``(L, E, d, f)`` beside the
 ``router`` ``(L, d, E)``, arctic's dense ``residual`` FFN, the Mamba leaves
 (``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``,
 ``A_log``, ``D``, ``out_proj``) and jamba's per-sub-layer keys ``sub0`` ..
-``sub7`` of one layer step. The two trees have the same keys, shapes and
+``sub7`` of one layer step; so does rwkv6: its time mix (``w_r``, ``w_k``,
+``w_v``, ``w_g``, ``w_o``, ``decay_base``, ``decay_lora_a`` / ``_b``,
+``bonus`` (L, H, hd), ``mix_base`` (L, 5, d), ``mix_lora_a`` (L, d, 5, r),
+``mix_lora_b`` (L, 5, r, d), ``ln_x_scale`` / ``_bias``), its channel mix
+(``w_k``, ``w_v``, ``w_r``, ``mix_k``, ``mix_r``) and the top-level
+``embed_norm``, stacked on the layer axis. The two trees have the same keys, shapes and
 layouts, leaf for leaf, so the bridge is a leaf-wise conversion between
 numpy arrays and tensors.
 
@@ -26,8 +31,9 @@ einsum (``attention.py:46-52``, ``ffn.py:35-39``, ``common.py:133,145``), so
 casting once at load (``serving_params``) gives the same numbers without
 re-reading the fp32 tree every decode step. The leaves the reference reads
 in fp32 are the exception and keep their dtype: norm scales (``rms_norm``),
-the MoE ``router`` (``moe.py:108-109``) and Mamba's ``dt_bias``, ``A_log``
-and ``D`` (``mamba.py:49-66, 131``).
+the MoE ``router`` (``moe.py:108-109``), Mamba's ``dt_bias``, ``A_log``
+and ``D`` (``mamba.py:49-66, 131``) and RWKV's ``decay_base``, ``bonus``,
+``ln_x_scale`` and ``ln_x_bias`` (``rwkv.py:190, 213, 218-219``).
 """
 from __future__ import annotations
 
@@ -78,7 +84,8 @@ def params_to_numpy(params: PyTree) -> PyTree:
 
 
 # leaves the reference reads in fp32 whatever the activation dtype
-_FP32_READ = ("router", "dt_bias", "A_log", "D")
+_FP32_READ = ("router", "dt_bias", "A_log", "D", "decay_base", "bonus",
+              "ln_x_scale", "ln_x_bias")
 
 
 def serving_params(params: PyTree, dtype: torch.dtype) -> PyTree:

@@ -2,9 +2,9 @@
 
 The fields, ``padded_vocab``, ``resolved_head_dim`` and ``reduced()`` are
 those of the reference's ``configs/base.py``; ``activation_dtype`` is a
-``torch.dtype`` here. ``MoEConfig`` and ``SSMConfig`` are the reference's
-(grok-1, arctic and jamba run in the port); the RWKV sub-config stays
-opaque, as the port runs no RWKV arch yet. The conv nets' config
+``torch.dtype`` here. ``MoEConfig``, ``SSMConfig`` and ``RWKVConfig`` are
+the reference's (grok-1, arctic, jamba and rwkv6 run in the port). The
+conv nets' config
 is ``models.conv.ConvConfig``, as in the reference. ``CodistConfig`` and
 ``TrainConfig`` are the reference's field for field, with its defaults.
 """
@@ -55,6 +55,15 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 (Finch) parameters."""
+    head_dim: int = 64
+    # low-rank sizes for the data-dependent decay / token-shift mixers
+    decay_lora: int = 64
+    mix_lora: int = 32
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | hybrid | ssm | vlm | audio | conv
@@ -77,7 +86,7 @@ class ModelConfig:
     attn_layer_period: int = 0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    rwkv: Optional[Any] = None
+    rwkv: Optional[RWKVConfig] = None
     encoder_layers: int = 0
     num_audio_frames: int = 1500
     num_patches: int = 0

@@ -30,18 +30,33 @@ def dense_init_(out: torch.Tensor, in_dim: int, gen: torch.Generator,
     return out
 
 
+def stacked_draw(n: int, shape, draw, generator: torch.Generator,
+                 dtype: torch.dtype, device,
+                 batch_dims: int = 0) -> torch.Tensor:
+    """n slices of ``shape`` stacked on a leading axis, each filled by
+    ``draw(tmp, generator)`` on an fp32 buffer and cast on store, so a bf16
+    init never holds an fp32 copy of the whole stack. ``batch_dims``
+    leading dims of ``shape`` are drawn slice by slice too (an expert stack
+    ``(E, d, f)``: one matrix at a time)."""
+    t = torch.empty((n, *shape), dtype=dtype, device=device)
+    inner = tuple(shape[batch_dims:])
+    for sl in t.reshape(-1, *inner):
+        tmp = torch.empty(inner, dtype=torch.float32, device=device)
+        sl.copy_(draw(tmp, generator))
+    return t
+
+
 def stacked_dense(n: int, shape, in_dim: int, generator: torch.Generator,
                   dtype: torch.dtype, device, scale: float = 1.0,
                   batch_dims: int = 0) -> torch.Tensor:
-    """n fan-in inits of ``shape`` stacked on a leading axis; each slice is
-    drawn in fp32 and cast on store, so a bf16 init never holds an fp32
-    copy of the whole stack. ``batch_dims`` leading dims of ``shape`` are
-    drawn slice by slice too (an expert stack ``(E, d, f)``: one matrix at
-    a time)."""
-    t = torch.empty((n, *shape), dtype=dtype, device=device)
-    for sl in t.reshape(-1, *shape[batch_dims:]):
-        dense_init_(sl, in_dim, generator, scale)
-    return t
+    """n fan-in inits of ``shape`` (``dense_init_``'s distribution) through
+    ``stacked_draw``."""
+    std = scale / math.sqrt(in_dim)
+
+    def draw(tmp, g):
+        return torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
+                                           generator=g).mul_(std)
+    return stacked_draw(n, shape, draw, generator, dtype, device, batch_dims)
 
 
 def stacked_const(n: int, shape, value: float, dtype: torch.dtype,

@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense, MoE and hybrid (attention + Mamba)
-families.
+"""Decoder-only LM: the dense, MoE, hybrid (attention + Mamba) and
+attention-free (RWKV6) families.
 
 Per-layer parameters are stacked on a leading ``L`` axis as in the
 reference's scanned tree (``params["layers"]["sub0"][...]``); the forward is
@@ -7,8 +7,10 @@ a Python loop over that axis, reading per-layer views (no copies). A
 hybrid (jamba) model steps over blocks of ``attn_layer_period``
 sub-layers ``sub0 .. sub{p-1}``, so the stacked tree stays homogeneous:
 attention at ``i = p - 1``, Mamba elsewhere, and an MoE FFN wherever
-``cfg.is_moe_layer(i)``. RWKV, encoder-decoder and VLM configs raise,
-naming the ROADMAP item that ports them.
+``cfg.is_moe_layer(i)``. An ``ssm``-family model (rwkv6) has one
+sub-layer a step, the RWKV time mix and channel mix, and an ``embed_norm``
+after the embedding. Encoder-decoder configs are ``EncDecLM``'s; VLM
+configs raise, naming the ROADMAP item that ports them.
 
 API:
     init(generator, device, weight_dtype) -> params
@@ -20,8 +22,9 @@ API:
 ``aux`` is the MoE load-balance loss summed over the sub-layers of a step
 and over the steps, as the reference's scan sums it; training routes with
 the GShard capacity factor 1.25, prefill and decode with 0 (no drops).
-A cache holds per sub-layer either attention K/V ``{"k", "v"}`` or a Mamba
-state ``{"h", "conv"}``, each stacked on the leading ``L`` axis.
+A cache holds per sub-layer attention K/V ``{"k", "v"}``, a Mamba state
+``{"h", "conv"}`` or an RWKV state ``{"s", "shift_tm", "shift_cm"}``, each
+stacked on the leading ``L`` axis.
 
 Weights may be fp32 masters: every op casts its weight to the activation
 dtype inside (as the reference does), so the gradient flows back through
@@ -39,6 +42,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
+from repro_torch.models import rwkv as rk
 from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        embed_tokens, embedding_shapes, lm_head,
                                        stacked_const, stacked_dense)
@@ -51,29 +55,21 @@ PyTree = Any
 # sub-layer templates
 # ----------------------------------------------------------------------------
 
-_MIXERS = ("attn", "ssm")
-_FFNS = ("dense", "moe")
-
-
 def _sub_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """(mixer, ffn) kind per sub-layer within one layer step: mixers
-    ``attn`` and ``ssm`` (Mamba) with FFNs ``dense`` and ``moe``. RWKV,
-    encoder-decoder and VLM configs raise, naming the ROADMAP item that
-    ports them."""
-    if cfg.family == "ssm":
-        kinds = [("rwkv", "rwkv")]
-    else:
-        period = cfg.attn_layer_period or 1
-        kinds = [(cfg.layer_kind(i), "moe" if cfg.is_moe_layer(i) else "dense")
-                 for i in range(period)]
-    bad = [k for k in kinds if k[0] not in _MIXERS or k[1] not in _FFNS]
-    if bad or cfg.is_encdec or cfg.num_patches:
+    ``attn`` and ``ssm`` (Mamba) with FFNs ``dense`` and ``moe``, or the
+    ``ssm`` family's one ``("rwkv", "rwkv")``. Encoder-decoder and VLM
+    configs raise, naming the ROADMAP item that ports them."""
+    if cfg.is_encdec or cfg.num_patches:
         raise NotImplementedError(
-            f"{cfg.name}: sub-layers {bad or kinds} (family {cfg.family!r}) "
-            "are not in the port's decoder LM, which carries attention and "
-            "Mamba mixers with dense and MoE FFNs; RWKV, VLM patches and "
-            "enc-dec serving come with ROADMAP Queue 1 item 11 (11d-ii)")
-    return kinds
+            f"{cfg.name} (family {cfg.family!r}) is not a decoder-only LM: "
+            "enc-dec configs build EncDecLM, and VLM patches come with "
+            "ROADMAP Queue 1 item 11 (11d-ii-b)")
+    if cfg.family == "ssm":
+        return [("rwkv", "rwkv")]
+    period = cfg.attn_layer_period or 1
+    return [(cfg.layer_kind(i), "moe" if cfg.is_moe_layer(i) else "dense")
+            for i in range(period)]
 
 
 def _n_scan(cfg: ModelConfig) -> int:
@@ -103,8 +99,8 @@ def unbind_layers(layers: PyTree, n: int) -> List[PyTree]:
 
 def ffn_block(p: Dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
               capacity_factor: float = 1.25):
-    """The sub-layer's FFN on the normed input -> (out, aux); a dense FFN's
-    aux is None."""
+    """The sub-layer's dense or MoE FFN on the normed input -> (out, aux);
+    a dense FFN's aux is None."""
     if kind == "moe":
         return moe_forward(p, h, cfg, capacity_factor)
     return ffn_forward(p, h, cfg), None
@@ -116,14 +112,20 @@ def _sublayer_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """One sub-layer over the full sequence -> (x, aux or None). With a
     ``cache`` (this layer's views of the stacked buffers) attention writes
     its roped K/V there and Mamba its decode state, and the MoE FFN routes
-    with no drops (the reference's prefill); the training forward passes
-    none and routes at the capacity factor 1.25."""
+    with no drops (the reference's prefill), and RWKV writes its WKV state
+    and both token-shift carries (cast to the cache's dtype); the training
+    forward passes none and routes at the capacity factor 1.25."""
     h = apply_norm(p["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
         h, kv = attn.attention_forward(p["mix"], h, cfg, positions,
                                        return_cache=cache is not None)
         if cache is not None:
             attn.prefill_into_cache(cache, kv)
+    elif mixer == "rwkv":
+        h, (last, s) = rk.time_mix_forward(p["mix"], h, cfg)
+        if cache is not None:
+            cache["s"].copy_(s)
+            cache["shift_tm"].copy_(last)
     elif cache is not None:
         h, state = mb.mamba_prefill(p["mix"], h, cfg)
         for k, v in state.items():
@@ -131,8 +133,14 @@ def _sublayer_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         h = mb.mamba_forward(p["mix"], h, cfg)
     x = x + h
-    h2, aux = ffn_block(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps),
-                        cfg, ffn, 0.0 if cache is not None else 1.25)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_eps)
+    if ffn == "rwkv":
+        h2, last = rk.channel_mix_forward(p["ffn"], h2, cfg)
+        if cache is not None:
+            cache["shift_cm"].copy_(last)
+        return x + h2, None
+    h2, aux = ffn_block(p["ffn"], h2, cfg, ffn,
+                        0.0 if cache is not None else 1.25)
     return x + h2, aux
 
 
@@ -140,25 +148,45 @@ def mixer_decode(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                  cache: Dict[str, torch.Tensor], pos) -> torch.Tensor:
     """One token through a sub-layer's mixer (normed input ``h``),
     updating ``cache`` (this layer's views of the stacked buffers) in
-    place: attention writes its K/V row, Mamba its new state (the
-    position is not read)."""
+    place: attention writes its K/V row, Mamba its new state, RWKV its WKV
+    state and time-mix shift (read in the activation dtype, stored in the
+    cache's); the recurrent mixers do not read the position."""
     if mixer == "attn":
         return attn.attention_decode(p, h, cache, pos, cfg)[0]
+    if mixer == "rwkv":
+        out, (last, s) = rk.time_mix_forward(
+            p, h, cfg, shift_prev=cache["shift_tm"].to(h.dtype),
+            s0=cache["s"])
+        cache["s"].copy_(s)
+        cache["shift_tm"].copy_(last)
+        return out
     out, state = mb.mamba_decode(p, h, cache, cfg)
     for k, v in state.items():
         cache[k].copy_(v)
     return out
 
 
+def ffn_decode(p: Dict, h: torch.Tensor, cfg: ModelConfig, ffn: str,
+               cache: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """One token through a sub-layer's FFN (normed input ``h``): the MoE
+    FFN routes with no drops; the rwkv channel mix continues from, and
+    updates, ``cache["shift_cm"]``."""
+    if ffn == "rwkv":
+        out, last = rk.channel_mix_forward(
+            p, h, cfg, shift_prev=cache["shift_cm"].to(h.dtype))
+        cache["shift_cm"].copy_(last)
+        return out
+    return ffn_block(p, h, cfg, ffn, 0.0)[0]
+
+
 def _sublayer_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, mixer: str,
                      ffn: str, cache: Dict[str, torch.Tensor],
                      pos) -> torch.Tensor:
-    """One token through one sub-layer; the MoE FFN routes with no drops."""
+    """One token through one sub-layer."""
     x = x + mixer_decode(p["mix"], apply_norm(p["norm1"], x, cfg.norm_eps),
                          cfg, mixer, cache, pos)
-    h2, _ = ffn_block(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps), cfg,
-                      ffn, 0.0)
-    return x + h2
+    return x + ffn_decode(p["ffn"], apply_norm(p["norm2"], x, cfg.norm_eps),
+                          cfg, ffn, cache)
 
 
 def _layer_fwd(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -185,15 +213,28 @@ def promote_states(cache: PyTree, cfg: ModelConfig) -> None:
 
 def init_states(cfg: ModelConfig, n: int, batch: int, dtype,
                 device) -> PyTree:
-    """Zero Mamba states ``{"sub{i}": {"h", "conv"}}`` (leaves ``(n, batch,
-    ...)``) of the non-attention sub-layers; ``conv`` in ``dtype``."""
+    """Zero recurrent states of the non-attention sub-layers (leaves ``(n,
+    batch, ...)``): Mamba ``{"sub{i}": {"h", "conv"}}`` with ``conv`` in
+    ``dtype``, RWKV ``{"s", "shift_tm", "shift_cm"}`` with the shifts in
+    ``dtype``; ``h`` and ``s`` are fp32."""
     out = {}
     for i, (m, _f) in enumerate(_sub_kinds(cfg)):
         if m != "attn":
-            one = mb.init_mamba_state(cfg, n * batch, dtype, device)
+            init = rk.init_rwkv_state if m == "rwkv" else mb.init_mamba_state
+            one = init(cfg, n * batch, dtype, device)
             out[f"sub{i}"] = {k: v.unflatten(0, (n, batch))
                               for k, v in one.items()}
     return out
+
+
+def embed(params: PyTree, tokens: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings in the activation dtype, through the
+    ``embed_norm`` an ``ssm``-family tree carries."""
+    x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
+    if "embed_norm" in params:
+        x = apply_norm(params["embed_norm"], x, cfg.norm_eps)
+    return x
 
 
 # ----------------------------------------------------------------------------
@@ -246,7 +287,8 @@ class LM:
         embeddings, as the reference draws them. Matrices, embeddings and
         biases are stored in ``weight_dtype`` (default ``cfg.param_dtype``);
         norm scales and the leaves the reference reads in fp32 (the MoE
-        router, Mamba's ``dt_bias``, ``A_log`` and ``D``) stay in
+        router, Mamba's ``dt_bias``, ``A_log`` and ``D``, RWKV's
+        ``decay_base``, ``bonus``, ``ln_x_scale`` and ``ln_x_bias``) stay in
         ``cfg.param_dtype``. Each stacked slice (an expert's matrix for an
         expert stack) is drawn in fp32 and cast on store, so a bf16
         full-size init never holds the fp32 tree."""
@@ -258,20 +300,32 @@ class LM:
         d = cfg.d_model
         layers: Dict = {}
         for i, (m, f) in enumerate(_sub_kinds(cfg)):
+            if m == "attn":
+                mix = init_stacked_attention(cfg, n, generator, wdt, dev)
+            elif m == "rwkv":
+                mix = rk.init_time_mix(cfg, n, generator, wdt, dev, pdt)
+            else:
+                mix = mb.init_stacked_mamba(cfg, n, generator, wdt, dev, pdt)
+            if f == "moe":
+                ffn = init_stacked_moe(cfg, n, generator, wdt, dev, pdt)
+            elif f == "rwkv":
+                ffn = rk.init_channel_mix(cfg, n, generator, wdt, dev)
+            else:
+                ffn = init_stacked_ffn(cfg, n, generator, wdt, dev)
             layers[f"sub{i}"] = {
                 "norm1": {"scale": stacked_const(n, (d,), 1.0, pdt, dev)},
-                "mix": (init_stacked_attention(cfg, n, generator, wdt, dev)
-                        if m == "attn" else
-                        mb.init_stacked_mamba(cfg, n, generator, wdt, dev,
-                                              pdt)),
+                "mix": mix,
                 "norm2": {"scale": stacked_const(n, (d,), 1.0, pdt, dev)},
-                "ffn": (init_stacked_moe(cfg, n, generator, wdt, dev, pdt)
-                        if f == "moe" else
-                        init_stacked_ffn(cfg, n, generator, wdt, dev)),
+                "ffn": ffn,
             }
-        return {"embed": init_embedding(cfg, generator, wdt, dev),
-                "final_norm": {"scale": torch.ones(d, dtype=pdt, device=dev)},
-                "layers": layers}
+        params = {"embed": init_embedding(cfg, generator, wdt, dev),
+                  "final_norm": {"scale": torch.ones(d, dtype=pdt,
+                                                     device=dev)},
+                  "layers": layers}
+        if cfg.family == "ssm":
+            params["embed_norm"] = {"scale": torch.ones(d, dtype=pdt,
+                                                        device=dev)}
+        return params
 
     def forward(self, params: PyTree, batch: Dict,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -282,7 +336,7 @@ class LM:
         ``jax.checkpoint`` around its scan body."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
+        x = embed(params, tokens, cfg)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None]
         auxs = []
@@ -302,7 +356,9 @@ class LM:
         sub-layers ``{"k","v": (L,B,cap,KV,hd)}`` (``cap`` becomes
         ``min(cap, window)``, a ring buffer, when ``cfg.sliding_window`` >
         0), Mamba sub-layers ``{"h": (L,B,d_inner,N) fp32, "conv":
-        (L,B,d_conv-1,d_inner)}`` in ``dtype``."""
+        (L,B,d_conv-1,d_inner)}`` in ``dtype``, RWKV sub-layers ``{"s":
+        (L,B,H,hd,hd) fp32, "shift_tm", "shift_cm": (L,B,1,d)}`` in
+        ``dtype``."""
         cfg = self.cfg
         n = _n_scan(cfg)
         dev = resolve_device(device)
@@ -320,7 +376,8 @@ class LM:
         """tokens (B,S) -> (logits (B,1,V) of the last position, cache):
         attention K/V in ``cache_dtype``, Mamba states as the prefill
         leaves them (``h`` fp32, ``conv`` in the activation dtype, as the
-        reference emits them). ``cap`` may be below S only with a sliding
+        reference emits them), RWKV's ``s`` in fp32 and its shifts in
+        ``cache_dtype``. ``cap`` may be below S only with a sliding
         window: the ring buffer then keeps the trailing window."""
         cfg = self.cfg
         kinds = _sub_kinds(cfg)
@@ -330,7 +387,7 @@ class LM:
             raise ValueError(f"cache capacity {cap} smaller than prefill "
                              f"length {s}")
         dev = tokens.device
-        x = embed_tokens(params["embed"], tokens, cfg.activation_dtype)
+        x = embed(params, tokens, cfg)
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
         cache = self.init_cache(b, cap, cache_dtype, dev)
         for sub in cache.values():
@@ -351,13 +408,13 @@ class LM:
         """tokens (B,1) -> (logits (B,1,V), cache). ``pos``: the tokens'
         absolute position, an int shared by the rows or a (B,) int tensor
         of per-row positions (ragged decode; see ``attention_decode``;
-        Mamba sub-layers do not read it). The cache is updated in place and
-        returned (a Mamba ``conv`` buffer first takes the dtype the
+        recurrent sub-layers do not read it). The cache is updated in place
+        and returned (a Mamba ``conv`` buffer first takes the dtype the
         reference's decode leaves it in: ``promote_states``)."""
         cfg = self.cfg
         kinds = _sub_kinds(cfg)
         promote_states(cache, cfg)
-        x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
+        x = embed(params, tokens, cfg)
         for li in range(_n_scan(cfg)):
             lp = layer_params(params["layers"], li)
             for i, (m, f) in enumerate(kinds):

@@ -16,13 +16,17 @@ one fp32 scale per row in ``k_scale`` / ``v_scale`` ``(L, NB, BS)`` beside
 scatter move them with their blocks. Prefill rows are quantized at insert
 time (``quantize_rows``), decode appends inside ``paged_scatter_quant_kv``.
 
-Recurrent (Mamba) sub-layers are O(1) per slot and live in dense ``(L,
-max_slots, ...)`` state buffers, ``states`` (``{"sub{i}": {"h", "conv"}}``):
+Recurrent sub-layers are O(1) per slot and live in dense ``(L,
+max_slots, ...)`` state buffers, ``states`` (Mamba ``{"sub{i}": {"h",
+"conv"}}``, RWKV ``{"sub0": {"s", "shift_tm", "shift_cm"}}``):
 ``insert_prefill`` writes a request's prefill state into its slot's row, so
 a freed and re-admitted slot starts from its own prefill, never from the
 previous request's state. They stay in fp32 when the KV pool is quantized
 (nothing to win, and recurrent dynamics are precision-sensitive). Defrag
-moves blocks, not slots, so it leaves them alone.
+moves blocks, not slots, so it leaves them alone. A model with no attention
+sub-layer (rwkv6) has no block pools at all (``kv`` is empty): the slot
+table, the lengths and the allocator still run, so admission and the
+report's accounting are the reference's.
 
 Speculative decoding keeps an undo log: ``snapshot_rows`` copies the rows a
 verify is about to overwrite (K/V and, quantized, their scales), and

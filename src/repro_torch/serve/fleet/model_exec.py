@@ -14,10 +14,12 @@ Inactive slots go through the step too, with length 0 and an all-zero table
 row (the null block); they appear in no write-map entry, never touch the
 pool, and their attention output is exactly 0.
 
-Recurrent (Mamba) sub-layers of a hybrid model run the model's own decode
-on their dense per-slot state rows (``PagedCachePool.states``), position-
-free; MoE FFNs route at capacity factor 0 (no drops), as the reference's
-``model_exec.py:106-116, 150-154`` do.
+Recurrent sub-layers (Mamba in a hybrid model; RWKV's time and channel
+mixes, whose model has no attention sub-layer, so no pool and no kernel of
+rows 1-4) run the model's own decode on their dense per-slot state rows
+(``PagedCachePool.states``), position-free; MoE FFNs route at capacity
+factor 0 (no drops), as the reference's ``model_exec.py:106-116, 150-154``
+do. An ``ssm``-family tree's ``embed_norm`` follows the embedding.
 
 Two attention paths, pinned against each other:
 
@@ -48,11 +50,10 @@ from repro_torch.kernels.paged_attention import paged_attention_decode
 from repro_torch.kernels.paged_cache import (paged_gather, paged_scatter_kv,
                                              paged_scatter_quant_kv)
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_norm, apply_rope, embed_tokens,
-                                       lm_head)
-from repro_torch.models.transformer import (_n_scan, _sub_kinds, ffn_block,
-                                            layer_params, mixer_decode,
-                                            promote_states)
+from repro_torch.models.common import apply_norm, apply_rope, lm_head
+from repro_torch.models.transformer import (_n_scan, _sub_kinds, embed,
+                                            ffn_decode, layer_params,
+                                            mixer_decode, promote_states)
 
 
 def _paged_attention_decode(p: Dict, x: torch.Tensor,
@@ -104,28 +105,29 @@ def _run_layers(params, kv, tokens: torch.Tensor, cfg, attend,
     head's logits (S, T, V). An attention sub-layer's mixer is
     ``attend(p_mix, h, kv_l)`` (the attention output of the normed input
     ``h`` against the layer's pools ``kv_l``); a recurrent one runs the
-    model's Mamba decode on the layer's rows of ``states`` (position-free,
-    updated in place). Every MoE FFN routes with no drops (capacity factor
-    0), as the reference's serving paths do."""
+    model's Mamba or RWKV decode on the layer's rows of ``states``
+    (position-free, updated in place; the rwkv channel mix its shift
+    carry too). Every MoE FFN routes with no drops (capacity factor 0), as
+    the reference's serving paths do."""
     kinds = _sub_kinds(cfg)
     if states:
         promote_states(states, cfg)
-    x = embed_tokens(params["embed"], tokens, cfg.activation_dtype)
+    x = embed(params, tokens, cfg)
     for li in range(_n_scan(cfg)):
         lp = layer_params(params["layers"], li)
         for i, (m, f) in enumerate(kinds):
             name = f"sub{i}"
             p = lp[name]
             h = apply_norm(p["norm1"], x, cfg.norm_eps)
+            st = None
             if m == "attn":
                 x = x + attend(p["mix"], h,
                                {n: t[li] for n, t in kv[name].items()})
             else:
-                x = x + mixer_decode(p["mix"], h, cfg, m,
-                                     {n: t[li] for n, t in
-                                      states[name].items()}, 0)
+                st = {n: t[li] for n, t in states[name].items()}
+                x = x + mixer_decode(p["mix"], h, cfg, m, st, 0)
             h2 = apply_norm(p["norm2"], x, cfg.norm_eps)
-            x = x + ffn_block(p["ffn"], h2, cfg, f, 0.0)[0]
+            x = x + ffn_decode(p["ffn"], h2, cfg, f, st)
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(params["embed"], x)
 

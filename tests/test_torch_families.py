@@ -33,7 +33,8 @@ weights carried across by the bridge and inputs made with numpy.
   an update in flat slices, bit-equal to the momentum-0 update.
 * A checkpoint round trip of a jamba tree, both directions; the serving
   cast keeps the fp32-read leaves.
-* rwkv6, internvl2 and whisper-tiny still refuse, naming item 11.
+* internvl2 and whisper-tiny still refuse, naming item 11; rwkv6's reduced
+  config (ported since) equals the reference's field by field.
 """
 from dataclasses import replace
 
@@ -762,5 +763,18 @@ def test_configs_equal_the_reference():
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "internvl2-76b",
                                   "whisper-tiny"])
 def test_other_families_still_refuse(arch):
+    if arch == "rwkv6-1.6b":
+        # ported (tests/test_torch_rwkv.py): the reduced config is the
+        # reference's, field by field
+        import dataclasses
+        mine, ref = get_reduced(arch), jax_get_reduced(arch)
+        names = [f.name for f in dataclasses.fields(ref)]
+        assert names == [f.name for f in dataclasses.fields(mine)]
+        for name in names:
+            a, b = getattr(mine, name), getattr(ref, name)
+            if dataclasses.is_dataclass(b):
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, name
+        return
     with pytest.raises(NotImplementedError, match="item 11"):
         get_reduced(arch)

@@ -228,7 +228,7 @@ def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     import trace_check
     assert trace_check.main([*obs.values(), *dumped]) == 0
     for argv in (["--rules", "r.json"], ["--flight-recorder", "d"],
-                 ["--arch", "rwkv6-1.6b"],
+                 ["--arch", "whisper-tiny"],
                  ["--single", "--cache-dtype", "int8"]):
         with pytest.raises(SystemExit) as e:
             main(["--device", "cpu", *argv])

@@ -10,11 +10,24 @@ and a few others pass or fail by which test file ran before them in the same
 process: the reference caches its compiled decode step by model, so a step
 traced on the scatters' jnp oracles by another file is reused.
 
+The reference's fleet tests also race on the installed JAX: they pass
+``jnp.asarray(pool.lengths)`` to a jitted step and then bump
+``pool.lengths`` in place. On the CPU ``jnp.asarray`` wraps an aligned
+numpy array without copying it and the step is dispatched asynchronously,
+so the step may read the bumped lengths (test_spec.py's verify-vs-decode
+case then fails in some runs and passes in others, whatever ran before
+it). Dispatching CPU computations synchronously removes the race.
+
 pytest imports every test module before it runs any test, so importing this
-one gives the name back for the whole session and the reference's tests run
-its own Pallas kernels in interpret mode. Nothing of the JAX package changes.
+one gives the name back and makes CPU dispatch synchronous for the whole
+session, and the reference's tests run its own Pallas kernels in interpret
+mode. Nothing of the JAX package changes.
 
 * ``pl.load`` is the Pallas load primitive;
+* CPU dispatch is synchronous (the import raises if a backend was made
+  before it, so the whole file fails to collect), and a jitted call reads
+  a wrapped numpy array as it was at the call, though the array is changed
+  right after;
 * a Pallas kernel that loads a row through it, in interpret mode, reads what
   ``ref[idx]`` reads, at the first, a middle and the last row;
 * the reference's ``paged_scatter`` equals ``paged_scatter_ref`` bit for bit
@@ -27,6 +40,7 @@ import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax._src import xla_bridge as _xla_bridge
 from jax._src.pallas import primitives as _pallas_primitives
 
 # Deliberately left set for the whole session (only markers may be added
@@ -37,11 +51,32 @@ from jax._src.pallas import primitives as _pallas_primitives
 if not hasattr(pl, "load"):
     pl.load = _pallas_primitives.load
 
+# Read once, when the process's CPU client is made, and that client serves
+# every test file the process runs: so no narrower scope exists, and a
+# client made before this import would leave the race in place unseen.
+if _xla_bridge._backends:
+    raise RuntimeError(
+        "a JAX backend was made before tests/test_torch_reference_compat.py "
+        "was imported, so CPU dispatch cannot be made synchronous and the "
+        "reference's fleet tests race (see the module docstring)")
+jax.config.update("jax_cpu_enable_async_dispatch", False)
+
 from repro.kernels import paged_cache as jax_paged_cache  # noqa: E402
 
 
 def test_pallas_exports_load():
     assert pl.load is _pallas_primitives.load
+
+
+def test_cpu_dispatch_is_synchronous():
+    assert _xla_bridge._CPU_ENABLE_ASYNC_DISPATCH.value is False
+    f = jax.jit(lambda m, n: (m @ m).sum() * 0 + n.sum())
+    m = jnp.ones((256, 256))
+    for _ in range(50):
+        n = np.zeros(64, np.int32)
+        out = f(m, jnp.asarray(n))
+        n += 1                     # what the reference's pool does
+        assert int(out) == 0
 
 
 @pytest.mark.parametrize("row", [0, 2, 4])
