@@ -72,8 +72,9 @@ exits non-zero:
                 steps and 2 kl codist steps, launch counts checked per run;
                 ms per step, device-busy share and top kernels from
                 torch.profiler, peak memory.
-  8. train_peers — the same model and batch through ``train_codist`` with
-                the other exchanges: (a) 3 peers, mse, 6 steps and an
+  8. train_peers — the same model and batch at PEERS_LAYERS (12) of 24
+                layers (cut from 24 for the time budget) through
+                ``train_codist`` with the other exchanges: (a) 3 peers, mse, 6 steps and an
                 eval, then 2 kl steps (task loss must fall); (b) 2 peers,
                 a subsample wire of 64 tokens, 2 mse and 2 kl steps; (c)
                 the checkpoint exchange, 2 peers, period 2, 3 steps; (d)
@@ -81,8 +82,10 @@ exits non-zero:
                 0); (e) a top-k wire of 64, 2 peers, 2 steps. Launch counts
                 per distilling step checked against codist_loss's loop;
                 ms per step, device-busy share, peak memory.
-  9. sweep    — the paper-grid harness at qwen1.5-0.5b's full width: a
-                YAML spec (model_overrides restoring get_config, batch 8 x
+  9. sweep    — the paper-grid harness at qwen1.5-0.5b's full width and
+                SWEEP_LAYERS (12) of 24 layers (the depth cut keeps the
+                script in its time budget): a YAML spec
+                (model_overrides restoring get_config at that depth, batch 8 x
                 seq 512 a peer, 10 steps, the five modes under a constant
                 and a burn-in alpha: 9 cells) through
                 ``repro_torch.launch.sweep.main``, then ``--resume`` (all
@@ -111,7 +114,8 @@ exits non-zero:
  12. spec     — peer-speculative decoding (k = 4, ring pairing) at
                 qwen2-7b's full width with the fleet phase's FleetConfig
                 and bursty workload: identical peers over bf16 pools at
-                full depth; a noised copy of peer 0 over bf16 pools and
+                SPEC_LAYERS (14) of 28 (cut from 28 for the time budget);
+                a noised copy of peer 0 over bf16 pools and
                 identical peers over int8 and fp8 pools and through the
                 gather path at SPEC_CUT_LAYERS (7) of 28 (the time
                 budget), each run plain and
@@ -123,13 +127,14 @@ exits non-zero:
                 divergence from the plain stream with the plain tick's
                 top-2 logit margin there, against the verify's max
                 |dlogits| at that pool dtype); a verify against k plain
-                ticks on 16 live slots over bf16 pools at 28 layers and
+                ticks on 16 live slots over bf16 pools at 14 layers and
                 int8 and fp8 pools at the cut depth (printed); then in fp32
                 (TF32 off) at 4 layers: speculative streams equal plain
                 ones token for token, verify argmax equal to plain decode
                 at every position, and restore_rows leaving the pools bit
                 for bit as they were (fp32, gather path, int8, fp8).
- 13. fleet_codist — qwen1.5-0.5b at full width and depth: the async
+ 13. fleet_codist — qwen1.5-0.5b at full width and PEERS_LAYERS (12)
+                of 24 layers (cut from 24 for the time budget): the async
                 runtime writes snapshots (peer 1 failing at step 2); 3
                 serving peers refresh from them (keep-last, a stale one
                 dropped, the bytes billed); the ensemble policy with its
@@ -154,15 +159,19 @@ exits non-zero:
                 the card's tokens equal the CPU's at the reduced config;
                 ``--single`` through the CLI on the card; then
                 transformer-big at full width and depth (6 + 6 layers,
-                source tokens, seeded bf16 weights and cache) through
+                source tokens), whisper-tiny at full width and depth (4 +
+                4 layers over 1500 frames) and internvl2-76b at full width
+                and 8 of 80 layers (256 patch embeddings before the
+                prompt), seeded bf16 weights and cache, through
                 ``Engine.generate`` at batch 4: prefill ms, ms a decode
                 step and its busy share, two calls equal, no kernel
-                launched; the reduced config in fp32, card tokens equal
-                the CPU's over frames and over source tokens; last
-                ``--single --arch transformer-big`` (the reduced config,
-                seeded frames) through the CLI.
+                launched, peak memory; the reduced configs in fp32, card
+                tokens equal the CPU's over frames, source tokens and
+                patches; last ``--single --arch`` each (the reduced
+                config, seeded frames or patches) through the CLI.
  15. obs      — the observability layer: (a) qwen2-7b at full width and
-                depth, seeded bf16 weights, 2 peers, the fleet phase's
+                OBS_LAYERS (14) of 28 layers (cut from 28 for the time
+                budget), seeded bf16 weights, 2 peers, the fleet phase's
                 FleetConfig and bursty workload under a straggler and a
                 preemption, defended with hedging, obs off and on in turns
                 (a warm-up, then off, on, on, off, off, on; on = a tracer,
@@ -208,10 +217,12 @@ exits non-zero:
                 (row 3; a slot whose experts flip must flip at a router
                 margin under 1e-2) and 5 timed ticks with their device
                 profile, and for grok-1 the fleet over int8 pools (rows 1q,
-                4); then grok-1 trained at full width, 1 of 64 layers: 2
+                4); then grok-1 (1 of 64 layers) and internvl2 (1 of 80,
+                after 256 seeded patch embeddings) trained at full width: 2
                 peers x 512 tokens, bf16 weights, plain SGD, 3 codist steps
-                (rows 12, 13 at V 131072) and 1 all-reduce step (rows 6, 7),
-                aux loss, ms a step, busy share, peak memory; last the
+                (rows 12, 13 at V 131072 and 128256) and 1 all-reduce step
+                (rows 6, 7), aux loss, ms a step, busy share, peak memory;
+                last the
                 reduced configs in fp32, card against CPU: 3 codist steps
                 within 1e-5 relative and equal FleetReports.
  18. rwkv     — rwkv6-1.6b, attention-free (no paged pool, so rows 1-4
@@ -235,6 +246,21 @@ exits non-zero:
                 config in fp32, card against CPU: 3 codist steps within
                 1e-5 relative, equal FleetReports, Engine.generate tokens
                 equal (uniform at the chunk, and ragged).
+ 19. shardmap — ``--mode codist-shardmap``: 2 pods spawned on the one card
+                (one process a model, a gloo group through a FileStore, the
+                wire gathered through host memory) train through the
+                training CLI's ``run_training`` and ``ShardMapCompressed``
+                at qwen1.5-0.5b's full width and depth (fp32 masters, bf16,
+                AdamW, 2 x 512 tokens a pod, 3 steps) over the none wire
+                (rows 12 and 13 a pod a step) and the top-64 wire (rows 6,
+                7); launches exact, the pods' Histories equal; wall and pod
+                0's device ms a step, the exchange's share of a step, each
+                pod's peak memory and the wire's bytes; then at 4 of 24
+                layers in fp32 (TF32 off, SGD-momentum at lr 0.05 from step
+                0) the losses within 1e-5 relative of ``--mode codist``
+                (PredictionExchange) and the metered wire bytes equal to
+                ``comm_bytes``; last the CLI itself on the card (reduced
+                config).
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -247,9 +273,12 @@ The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
 groups) over fp32, bf16, int8 and fp8 pools, timed beside SDPA and its
 bound, and rows 2 and 4 at its rows of 2,560 values (the quantizing
 scatter's two-pass path), bit-exact, timed. It holds rows 1 and 1q the same
-way (untimed) at the families' heads, hd 128 over 8 KV heads: grok-1's 48
-(G 6), arctic's 56 (G 7) and jamba's 32 (G 4), and rows 2 and 4 at their
-rows of 1,024 values, bit-exact, timed. It also holds row 1 at the verify's shape (16 slots x k = 4
+way at the families' heads, hd 128 over 8 KV heads: grok-1's 48 (G 6),
+arctic's 56 (G 7) and jamba's 32 (G 4), and rows 2 and 4 at their rows of
+1,024 values, bit-exact, timed; row 1 is also held and timed in bf16 at
+those heads at the families tick's shape (16 slots, 10 blocks, the
+contexts of the first 16 bursty prompts) beside SDPA on the gathered copy
+and its bound. It also holds row 1 at the verify's shape (16 slots x k = 4
 pseudo-slots, the plain tick's split plan): against the plain version at the
 same plan, and each pseudo-slot bit for bit against the 16-slot decode; and
 row 8 at the canary's shape, one (1, 152064) fp32 pair. Rows 8 (mse, kl) and
@@ -281,7 +310,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
-          "fleet_codist", "single", "obs", "paper", "families", "rwkv")
+          "fleet_codist", "single", "obs", "paper", "families", "rwkv",
+          "shardmap")
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them
@@ -348,14 +378,14 @@ PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs",
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
                                        "async", "obs", "paper", "families",
-                                       "rwkv"),
+                                       "rwkv", "shardmap"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
                                       "async", "obs", "paper", "families",
-                                      "rwkv"),
+                                      "rwkv", "shardmap"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
-                                    "paper", "families", "rwkv"),
+                                    "paper", "families", "rwkv", "shardmap"),
          "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs",
-                                   "paper", "families", "rwkv"),
+                                   "paper", "families", "rwkv", "shardmap"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
          "fused_distill_kl_parts": ("train_peers", "async", "obs", "paper"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
@@ -676,6 +706,21 @@ DECODE_CHECKS = [("qwen1.5-0.5b", 4, 8, 16, [0, 5, 40, 127], 16, 16, 64),
                  ("arctic", S, MB, NB, LENGTHS, 56, 8, 128),
                  ("jamba", S, MB, NB, LENGTHS, 32, 8, 128)]
 TIMED_CHECKS = ("qwen1.5-4b",)
+# row 1 alone at the families' heads (hd 128 over 8 KV heads) and at their
+# tick's shape: 16 slots of family_fleet_config's 10 blocks, contexts the
+# prompt lengths of the first 16 requests of that arch's bursty workload
+FAMILY_HEADS = [("grok-1-314b", 48, 8), ("arctic-480b", 56, 8),
+                ("jamba-v0.1-52b", 32, 8)]
+
+
+def family_tick_lengths(arch: str) -> list:
+    """The contexts of the families phase's 16-slot tick for ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.fleet import generate_workload
+    wl = generate_workload("bursty", FAMILY_REQUESTS,
+                           get_config(arch).padded_vocab, seed=5,
+                           max_prompt=FAMILY_PROMPT, max_new=FAMILY_NEW)
+    return [len(r.prompt) for r in wl.requests[:S]]
 
 
 def decode_inputs(slots, mb, nb, lengths, dev: torch.device, seed: int,
@@ -931,6 +976,25 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
                         table, lengths, (), flush,
                         sdpa_on_gather(qd, kd, vd, table, lengths))
         del q, k, v, qd, kd, vd
+    heads = {}
+    mb = family_fleet_config().max_blocks_per_slot
+    for arch, h, kvh in FAMILY_HEADS:
+        lens = family_tick_lengths(arch)
+        q, k, v, table, lengths = decode_inputs(S, mb, NB, lens, dev, 620, h,
+                                                kvh, HD)
+        qd, kd, vd = (x.to(torch.bfloat16) for x in (q, k, v))
+        err = check_decode(f"{arch} tick bf16",
+                           paged_attention_decode(qd, kd, vd, table, lengths),
+                           paged_attention_decode_plain(qd, kd, vd, table,
+                                                        lengths),
+                           lengths, False, faults)
+        heads[arch] = dict(time_decode(
+            f"paged_attention_decode {arch} tick bf16 (S={S}, H={h}, "
+            f"KVh={kvh}, hd={HD}, MB={mb}, contexts {min(lens)}..{max(lens)})",
+            qd, kd, vd, table, lengths, (), flush,
+            sdpa_on_gather(qd, kd, vd, table, lengths)), max_abs_err=err)
+        del q, k, v, qd, kd, vd
+    results["paged_attention_decode"]["heads"] = heads
     require(not faults, "; ".join(faults))
     return results
 
@@ -2641,6 +2705,9 @@ SPEC_K = 4
 # 28): cut from 14, with the noised run moved from full depth, to make room
 # for the rwkv phase in the script's time budget
 SPEC_CUT_LAYERS = 7
+# the identical bf16 runs and their verify: 14 of 28 layers (cut from 28
+# for the shardmap phase)
+SPEC_LAYERS = 14
 # a noised peer: each weight plus this share of its leaf's std (bf16 runs:
 # partial accepts; the fp32 check: enough to reject drafts at 4 layers)
 SPEC_NOISE = 0.02
@@ -2777,8 +2844,8 @@ def verify_check(model, peer, fc, wl, cache_dtype, dev, label: str,
 
 
 def phase_spec(dev: torch.device):
-    """Peer-speculative decoding at qwen2-7b's full width and depth, the
-    fleet phase's FleetConfig and bursty workload, k = 4, ring pairing:
+    """Peer-speculative decoding at qwen2-7b's full width and SPEC_LAYERS
+    (14) of 28 layers, the fleet phase's FleetConfig and bursty workload, k = 4, ring pairing:
     identical peers (the same tensors twice) and a noised copy of peer 0,
     over bf16 pools (fused, and the gather path once) and int8 / fp8 pools,
     each run plain and speculative; then the exactness check in fp32 at a
@@ -2786,7 +2853,7 @@ def phase_spec(dev: torch.device):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve.fleet import FleetConfig, generate_workload
-    cfg = get_config("qwen2-7b")
+    cfg = replace(get_config("qwen2-7b"), num_layers=SPEC_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -2906,7 +2973,8 @@ FLEET_FAULTS = "straggler=2*4@0.3,preempt=0@6+120,fail=1@10"
 
 
 def phase_fleet_codist(dev: torch.device):
-    """qwen1.5-0.5b at full width and depth: the async runtime (2 peers,
+    """qwen1.5-0.5b at full width and PEERS_LAYERS (12) of 24 layers: the
+    async runtime (2 peers,
     4 steps of 2 x 128 tokens, sgdm, snapshots every 2 steps, peer 1 failing
     at step 2) writes snapshots; 3 serving peers refresh from them
     (keep-last, a stale one dropped, the bytes billed); the ensemble policy
@@ -2932,7 +3000,7 @@ def phase_fleet_codist(dev: torch.device):
     from repro_torch.serve.fleet import (ChaosConfig, FleetConfig,
                                          FleetDefense, FleetRouter,
                                          generate_workload)
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = replace(get_config("qwen1.5-0.5b"), num_layers=PEERS_LAYERS)
     model = build_model(cfg)
     task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
                     effective_vocab=256)
@@ -3424,9 +3492,15 @@ def expected_launches(n: int, mode: str, steps: int, *, combined: bool,
     return out
 
 
+# the train_peers and fleet_codist phases' depth (of 24): cut from 24 to
+# make room for the shardmap phase in the script's time budget
+PEERS_LAYERS = 12
+
+
 def phase_train_peers(dev: torch.device):
-    """qwen1.5-0.5b at full width and depth, batch 8 x seq 512 per peer,
-    AdamW, through ``train_codist`` with the exchanges and wires beyond
+    """qwen1.5-0.5b at full width and PEERS_LAYERS (12) of 24 layers, batch
+    8 x seq 512 per peer, AdamW, through ``train_codist`` with the
+    exchanges and wires beyond
     PR-12's two-peer prediction exchange. Each run's launches are counted
     from 0 and checked per distilling step; returns the summed launches."""
     from repro_torch.configs import CodistConfig, TrainConfig, get_config
@@ -3435,7 +3509,7 @@ def phase_train_peers(dev: torch.device):
     from repro_torch.models import build_model
     from repro_torch.train import (build_train_step, resolve_strategy,
                                    stack_batches, train_codist)
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = replace(get_config("qwen1.5-0.5b"), num_layers=PEERS_LAYERS)
     model = build_model(cfg)
     b, s = TRAIN_T // 512, 512
     task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
@@ -3554,8 +3628,11 @@ def phase_train_peers(dev: torch.device):
 # ----------------------------------------------------------------------------
 
 # model_overrides that turn the runner's get_reduced("qwen1.5-0.5b") back
-# into the full config (the phase requires the two equal)
-FULL_OVERRIDES = {"num_layers": 24, "d_model": 1024, "num_heads": 16,
+# into the full config cut to SWEEP_LAYERS of its 24 layers (the phase
+# requires the two equal); the cut from 24 makes room for the shardmap
+# phase in the script's time budget
+SWEEP_LAYERS = 12
+FULL_OVERRIDES = {"num_layers": SWEEP_LAYERS, "d_model": 1024, "num_heads": 16,
                   "num_kv_heads": 16, "d_ff": 2816, "vocab_size": 151936,
                   "head_dim": 0, "dtype": "bfloat16",
                   "max_position": 1048576}
@@ -3631,9 +3708,10 @@ def phase_sweep(dev: torch.device):
     from repro_torch.launch import sweep as sweep_cli
     from repro_torch.train import History
     arch = "qwen1.5-0.5b"
-    full = get_config(arch)
+    full = replace(get_config(arch), num_layers=SWEEP_LAYERS)
     require(replace(get_reduced(arch), **FULL_OVERRIDES) == full,
-            "the sweep's model_overrides do not restore get_config")
+            "the sweep's model_overrides do not restore get_config at "
+            f"{SWEEP_LAYERS} layers")
     doc = {"name": "chip_sweep", "arch": arch, "seq_len": 512,
            "steps": SWEEP_STEPS, "optimizer": "adamw", "distill_loss": "mse",
            "seeds": [0], "batch_sizes": [TRAIN_T // 512],
@@ -3716,7 +3794,8 @@ def phase_sweep(dev: torch.device):
         wire_bytes = TRAIN_T * full.padded_vocab * 4
         step_ms = {}
         log(f"sweep: {len(cells)} cells in {wall:.1f} s; per cell (qwen1.5-0.5b "
-            f"full width, batch 8 x seq 512 a peer, {SWEEP_STEPS} steps):")
+            f"full width, {SWEEP_LAYERS} of 24 layers, batch 8 x seq 512 a "
+            f"peer, {SWEEP_STEPS} steps):")
         for cell in cells:
             st = stats[cell.cell_id]
             recs = finite_records(History.load(
@@ -4321,52 +4400,77 @@ def phase_single(dev: torch.device):
     require(len(lines) == 3 and lines[0].startswith("arch=qwen2-7b batch=4")
             and lines[2].startswith("first sequence: ["),
             f"single: --single printed {lines}")
-    single_encdec(dev)
+    single_other_archs(dev)
 
 
-def single_encdec(dev: torch.device) -> None:
-    """transformer-big at full width and depth (6 + 6 layers, d 1024, V
-    32768; the full config reads source tokens) through Engine.generate,
-    seeded bf16 weights and cache, batch 4, 64 source and 64 target prompt
-    tokens, 16 new: prefill ms, ms a decode step (wall) and the busy share
-    (torch.profiler), two calls equal, no kernel launched; the reduced
-    config card against CPU (``encdec_parity``); then ``--single
-    --arch transformer-big`` (the reduced config, seeded frames) through
-    the CLI on the card."""
-    import contextlib
-    import io
+# the archs beside qwen2-7b that --single serves, at full width: the depth
+# each is cut to (None: full depth). internvl2-76b takes 8 of 80 layers
+# (~0.86 B parameters a layer and two 128256 x 8192 vocab matrices: ~18 GB
+# of bf16 weights), with its 256 patch embeddings before the prompt
+SINGLE_ARCHS = {"transformer-big": None, "whisper-tiny": None,
+                "internvl2-76b": 8}
+
+
+def single_batch(cfg, b: int, prompt: int, gen, dev) -> dict:
+    """``Engine.generate``'s batch for ``cfg``: b seeded prompts and the
+    stub frontend's input, 0.1-scaled normal patch embeddings (VLM) or
+    encoder frames, or source tokens (an enc-dec model without frames)."""
+    batch = {"tokens": torch.randint(0, cfg.padded_vocab, (b, prompt),
+                                     generator=gen, device=dev)}
+    if cfg.num_patches:
+        batch["patches"] = 0.1 * torch.randn(
+            (b, cfg.num_patches, cfg.d_model), generator=gen, device=dev)
+    if cfg.is_encdec and cfg.num_audio_frames:
+        batch["frames"] = 0.1 * torch.randn(
+            (b, cfg.num_audio_frames, cfg.d_model), generator=gen, device=dev)
+    elif cfg.is_encdec:
+        batch["src_tokens"] = torch.randint(0, cfg.padded_vocab, (b, prompt),
+                                            generator=gen, device=dev)
+    return batch
+
+
+def single_arch(arch: str, layers, dev: torch.device) -> dict:
+    """``arch`` at full width (``layers`` of its depth, None: all) through
+    Engine.generate: seeded bf16 weights and cache, batch 4, prompts of
+    SINGLE_PROMPT tokens after the patch prefix or beside the encoder's
+    input (``single_batch``), 16 new: prefill ms, ms a decode step (wall)
+    and the busy share (torch.profiler), two calls equal, tokens in range,
+    no kernel launched (dense attention is torch.matmul)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import build_model
     from repro_torch.serve import Engine
-    cfg = get_config("transformer-big")
+    full = get_config(arch)
+    cfg = full if layers is None else replace(full, num_layers=layers)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(2027)
     params = model.init(gen, device=dev, weight_dtype=torch.bfloat16)
     b = 4
-    batch = {name: torch.randint(0, cfg.padded_vocab, (b, SINGLE_PROMPT),
-                                 generator=gen, device=dev)
-             for name in ("tokens", "src_tokens")}
+    batch = single_batch(cfg, b, SINGLE_PROMPT, gen, dev)
+    prefix = cfg.num_patches if "patches" in batch else 0
     sync(dev)
-    log(f"single transformer-big: {cfg.encoder_layers} + {cfg.num_layers} "
-        f"layers (d {cfg.d_model}, V {cfg.padded_vocab}, source tokens) in "
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    log(f"single {arch}: {cfg.num_layers} of {full.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec else "")
+        + f" (d {cfg.d_model}, V {cfg.padded_vocab}) in "
         f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
+        f"{inputs}")
     eng = Engine(model, params, cache_dtype=torch.bfloat16, device=dev)
     reset_launch_counts()
     eng.generate(batch, 2)                                     # warm-up
     with torch.no_grad():
         sync(dev)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, batch,
-                                      SINGLE_PROMPT + SINGLE_NEW + 5,
-                                      torch.bfloat16)
+        logits, cache = model.prefill(
+            params, batch, prefix + SINGLE_PROMPT + SINGLE_NEW + 5,
+            torch.bfloat16)
         sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        pos = [SINGLE_PROMPT]
+        pos = [prefix + SINGLE_PROMPT]
 
         def step():
             nonlocal logits, cache
@@ -4388,60 +4492,74 @@ def single_encdec(dev: torch.device) -> None:
     r2 = eng.generate(batch, SINGLE_NEW)
     new = r1.tokens[:, SINGLE_PROMPT:]
     require(torch.equal(r1.tokens, r2.tokens),
-            "single transformer-big: two generate calls differ")
+            f"single {arch}: two generate calls differ")
     require(tuple(r1.tokens.shape) == (b, SINGLE_PROMPT + SINGLE_NEW)
             and bool(((new >= 0) & (new < cfg.padded_vocab)).all()),
-            f"single transformer-big: tokens of shape "
-            f"{tuple(r1.tokens.shape)} or out of range")
+            f"single {arch}: tokens of shape {tuple(r1.tokens.shape)} or "
+            "out of range")
     launched = {k: n for k, n in launch_counts.items() if n}
-    require(not launched, f"single transformer-big launched {launched}")
-    log(f"single transformer-big batch {b}: prefill of {SINGLE_PROMPT} + "
-        f"{SINGLE_PROMPT} tokens {prefill_ms:.2f} ms wall, decode "
-        f"{step_ms:.2f} ms wall a step, busy "
+    require(not launched, f"single {arch} launched {launched}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"single {arch} batch {b}: prefill of {prefix} + {SINGLE_PROMPT} "
+        f"tokens {prefill_ms:.2f} ms wall, decode {step_ms:.2f} ms wall a "
+        "step, busy "
         + (f"{busy:.2f} ms ({busy / step_ms:.1%})" if busy else
            "not measured")
         + f"; Engine.generate {b} x {SINGLE_NEW} tokens in {wall * 1e3:.1f} "
         f"ms wall ({b * SINGLE_NEW / wall:.1f} tokens/s); two calls equal; "
-        "no kernel launched")
+        f"no kernel launched; peak {peak:.2f} GiB")
     del eng, params, cache
     torch.cuda.empty_cache()
-    encdec_parity(dev)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        serve_main(["--single", "--arch", "transformer-big"])
-    lines = buf.getvalue().strip().splitlines()
-    for line in lines:
-        log(f"  cli: {line}")
-    require(len(lines) == 3
-            and lines[0].startswith("arch=transformer-big batch=4")
-            and lines[2].startswith("first sequence: ["),
-            f"single: --single --arch transformer-big printed {lines}")
+    return {"prefill_ms": prefill_ms, "step_ms": step_ms, "busy_ms": busy,
+            "peak_gib": peak}
 
 
-def encdec_parity(dev: torch.device) -> None:
-    """The reduced transformer-big in fp32 (TF32 off since the device
-    phase), the card against the CPU from the same weights and inputs:
-    Engine.generate's tokens equal over encoder ``frames`` and over
-    ``src_tokens`` (``num_audio_frames=0``)."""
+def single_other_archs(dev: torch.device) -> None:
+    """The archs of SINGLE_ARCHS through Engine.generate (``single_arch``;
+    transformer-big's full config reads source tokens, whisper-tiny reads
+    1500 frames, internvl2 256 patches), the reduced configs card against
+    CPU (``single_parity``), then ``--single --arch`` each (the reduced
+    config, seeded frames or patches) through the CLI on the card."""
+    import contextlib
+    import io
+    from repro_torch.launch.serve import main as serve_main
+    for arch, layers in SINGLE_ARCHS.items():
+        single_arch(arch, layers, dev)
+    single_parity(dev)
+    for arch in SINGLE_ARCHS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_main(["--single", "--arch", arch])
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"  cli: {line}")
+        require(len(lines) == 3
+                and lines[0].startswith(f"arch={arch} batch=4")
+                and lines[2].startswith("first sequence: ["),
+                f"single: --single --arch {arch} printed {lines}")
+
+
+# the reduced configs held card against CPU: (arch, config overrides)
+PARITY_SOURCES = [("transformer-big", {}),            # frames
+                  ("transformer-big", {"num_audio_frames": 0}),
+                  ("whisper-tiny", {}), ("internvl2-76b", {})]
+
+
+def single_parity(dev: torch.device) -> None:
+    """The reduced configs of PARITY_SOURCES in fp32 (TF32 off since the
+    device phase), the card against the CPU from the same weights and
+    inputs: Engine.generate's tokens equal over encoder ``frames``, over
+    ``src_tokens`` and after a ``patches`` prefix."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import build_model
     from repro_torch.serve import Engine
     from repro_torch.tree import tree_map
-    for source, over in (("frames", {}), ("src_tokens",
-                                          {"num_audio_frames": 0})):
-        model = build_model(replace(get_reduced("transformer-big"), **over))
-        cfg = model.cfg
+    for arch, over in PARITY_SOURCES:
+        model = build_model(replace(get_reduced(arch), **over))
         gen = torch.Generator()
         gen.manual_seed(33)
         params = model.init(gen, device="cpu", weight_dtype=torch.float32)
-        batch = {"tokens": torch.randint(0, cfg.padded_vocab, (4, 12),
-                                         generator=gen)}
-        if source == "frames":
-            batch["frames"] = 0.1 * torch.randn(
-                (4, cfg.num_audio_frames, cfg.d_model), generator=gen)
-        else:
-            batch["src_tokens"] = torch.randint(0, cfg.padded_vocab, (4, 10),
-                                                generator=gen)
+        batch = single_batch(model.cfg, 4, 12, gen, "cpu")
         outs = []
         for d in ("cpu", dev):
             e = Engine(model, tree_map(lambda x: x.to(d), params),
@@ -4449,10 +4567,10 @@ def encdec_parity(dev: torch.device) -> None:
             outs.append(e.generate({k: v.to(d) for k, v in batch.items()},
                                    8).tokens.cpu())
         require(torch.equal(outs[0], outs[1]),
-                f"single reduced transformer-big over {source}: card tokens "
+                f"single reduced {arch} over {sorted(batch)}: card tokens "
                 "!= CPU tokens")
-    log("single reduced transformer-big fp32: Engine.generate tokens equal "
-        "card vs CPU, over frames and over src_tokens")
+        log(f"single reduced {arch} fp32 over {sorted(batch)}: "
+            "Engine.generate tokens equal card vs CPU")
 
 
 # ----------------------------------------------------------------------------
@@ -4468,6 +4586,8 @@ OBS_ASYNC_STEPS = 5
 OBS_SWEEP_STEPS = 3
 # obs off and on in turns, after a warm-up run
 OBS_ORDER = ("off", "on", "on", "off", "off", "on")
+# (a)'s depth: 14 of 28 layers (cut from 28 for the shardmap phase)
+OBS_LAYERS = 14
 
 
 def trace_checked(paths) -> None:
@@ -4580,8 +4700,8 @@ def spread(xs) -> str:
 
 def phase_obs(dev: torch.device, smi_line: str):
     """The observability layer on the card. (a) qwen2-7b at full width and
-    depth, seeded bf16 weights, 2 peers, the fleet phase's FleetConfig and
-    bursty workload under ``OBS_FAULTS``, defended with hedging: after a
+    OBS_LAYERS (14) of 28 layers, seeded bf16 weights, 2 peers, the fleet
+    phase's FleetConfig and bursty workload under ``OBS_FAULTS``, defended with hedging: after a
     warm-up run, obs-off and obs-on runs in turns (``OBS_ORDER``), each
     on-run with a tracer, a registry, the default rules and a flight
     recorder; the files pass trace_check, the on-runs write byte-identical
@@ -4616,8 +4736,8 @@ def phase_obs(dev: torch.device, smi_line: str):
         for k, v in counts.items():
             launches[k] += v
 
-    # ---- (a) the chaos fleet at full width and depth ----
-    cfg = get_config("qwen2-7b")
+    # ---- (a) the chaos fleet at full width, OBS_LAYERS of 28 ----
+    cfg = replace(get_config("qwen2-7b"), num_layers=OBS_LAYERS)
     model = build_model(cfg)
     peers = []
     for i in range(2):
@@ -4807,7 +4927,8 @@ def phase_obs(dev: torch.device, smi_line: str):
                            (".trace.json", ".metrics.json", ".alerts.jsonl")))
         require(len(files) == 7, f"obs sweep files {files}")
         trace_checked(files)
-    log(f"  obs sweep (2 cells, qwen1.5-0.5b full width, {OBS_SWEEP_STEPS} "
+    log(f"  obs sweep (2 cells, qwen1.5-0.5b full width, {SWEEP_LAYERS} "
+        f"layers, {OBS_SWEEP_STEPS} "
         f"steps): {wall:.1f} s wall, "
         + next(line for line in out.getvalue().splitlines()
                if line.startswith("sweep alerts:"))
@@ -5342,7 +5463,10 @@ FAMILY_LAYERS = {"grok-1-314b": 4, "arctic-480b": 2, "jamba-v0.1-52b": 8}
 # must be a multiple of it (the reference's mamba_scan asserts)
 FAMILY_PROMPT, FAMILY_NEW, FAMILY_REQUESTS = 128, 16, 16
 FAMILY_BATCH = 4          # Engine.generate's batch
-FAMILY_TRAIN_T = 512      # grok-1 training tokens a peer (1 x 512)
+FAMILY_TRAIN_T = 512      # training tokens a peer (1 x 512)
+# trained at 1 layer: grok-1, and internvl2 (~3.0 B parameters a peer with
+# its two vocab matrices) with its patch prefix
+TRAIN_FAMILIES = ("grok-1-314b", "internvl2-76b")
 FAMILY_STEPS = 3
 
 
@@ -5484,12 +5608,15 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-def family_train(dev: torch.device, launches: dict) -> None:
-    """grok-1 at full width, 1 of 64 layers: 2 peers of seeded bf16
-    weights, plain SGD (no buffer; the update in slices of each leaf),
-    1 x FAMILY_TRAIN_T tokens a peer, FAMILY_STEPS codist steps (mse, rows
-    12 and 13 at V 131072), then 1 all-reduce step of peer 0 (rows 6, 7):
-    launches exact, aux_loss, ms a step, busy share and peak memory."""
+def family_train(dev: torch.device, launches: dict,
+                 arch: str = "grok-1-314b") -> None:
+    """``arch`` at full width, 1 of its layers (grok-1: 1 of 64; internvl2:
+    1 of 80, its 256 seeded patch embeddings before the text): 2 peers of
+    seeded bf16 weights, plain SGD (no buffer; the update in slices of each
+    leaf), 1 x FAMILY_TRAIN_T tokens a peer, FAMILY_STEPS codist steps
+    (mse, rows 12 and 13 at V 131072 / 128256), then 1 all-reduce step of
+    peer 0 (rows 6, 7): launches exact, aux_loss (> 0 with MoE layers, 0
+    without), ms a step, busy share and peak memory."""
     from repro_torch.configs import CodistConfig, TrainConfig, get_config
     from repro_torch.data import MarkovLM, make_lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -5500,7 +5627,8 @@ def family_train(dev: torch.device, launches: dict) -> None:
                                          trainable_params)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg = replace(get_config("grok-1-314b"), num_layers=1)
+    full = get_config(arch)
+    cfg = replace(full, num_layers=1)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2600)
@@ -5515,24 +5643,31 @@ def family_train(dev: torch.device, launches: dict) -> None:
                      weight_decay=0.0)
     state = CodistState(params, OptState(0, None, None), 0)
     sync(dev)
-    log(f"families train: grok-1 1 of 64 layers at full width, 2 peers of "
-        f"bf16 weights (plain SGD, no buffer) initialised in "
+    log(f"families train: {arch} 1 of {full.num_layers} layers at full "
+        "width, 2 peers of bf16 weights (plain SGD, no buffer) initialised in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     task = MarkovLM(vocab=min(cfg.vocab_size, 512), seed=0,
                     effective_vocab=256)
-    batches = [stack_batches([make_lm_batch(task, 1, FAMILY_TRAIN_T, k, None,
-                                            seed=0, device=dev)] * 2)
-               for k in range(FAMILY_STEPS)]
+    batches = []
+    for k in range(FAMILY_STEPS):
+        one = make_lm_batch(task, 1, FAMILY_TRAIN_T, k, None, seed=0,
+                            device=dev)
+        if cfg.num_patches:
+            one["patches"] = 0.1 * torch.randn(
+                (1, cfg.num_patches, cfg.d_model), generator=gen, device=dev)
+        batches.append(stack_batches([one] * 2))
     state, recs, got = paper_train(
-        f"families grok-1 codist (2 peers x 1 x {FAMILY_TRAIN_T} tokens, "
-        "bf16, SGD, mse)", model, CodistConfig(n_models=2), tc, batches, dev,
-        expected_launches(2, "mse", FAMILY_STEPS, combined=True,
-                          task_ce=False, standalone=0), state=state)
-    log(f"families train: aux_loss by step "
+        f"families {arch} codist (2 peers x 1 x {FAMILY_TRAIN_T} tokens"
+        + (f" after {cfg.num_patches} patches" if cfg.num_patches else "")
+        + ", bf16, SGD, mse)", model, CodistConfig(n_models=2), tc, batches,
+        dev, expected_launches(2, "mse", FAMILY_STEPS, combined=True,
+                               task_ce=False, standalone=0), state=state)
+    log(f"families train: {arch} aux_loss by step "
         f"{[round(r['aux_loss'], 6) for r in recs]}")
-    require(all(r["aux_loss"] > 0 for r in recs),
-            "families train: the MoE aux loss is not in the metrics")
+    moe = cfg.moe is not None
+    require(all((r["aux_loss"] > 0) == moe for r in recs),
+            f"families train {arch}: aux loss {recs} with MoE layers {moe}")
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     one = {k: v[0] for k, v in batches[0].items()}
@@ -5547,20 +5682,22 @@ def family_train(dev: torch.device, launches: dict) -> None:
         state=TrainState(p0, OptState(0, None, None), 0), device=dev)
     sync(dev)
     got = {k: launch_counts[k] for k in ALL_LOSS_KERNELS}
-    rec = finite_records(hist, "families grok-1 all-reduce")[0]
+    rec = finite_records(hist, f"families {arch} all-reduce")[0]
     want = dict.fromkeys(ALL_LOSS_KERNELS, 0)
     want["fused_cross_entropy_parts"] = want["fused_cross_entropy_grad"] = 1
-    log(f"families train: all-reduce step of peer 0: loss {rec['loss']:.4f}"
+    log(f"families train: {arch} all-reduce step of peer 0: loss "
+        f"{rec['loss']:.4f}"
         f", aux {rec['aux_loss']:.6f}, "
         f"{(time.perf_counter() - ta) * 1e3:.1f} ms wall, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{ {k: v for k, v in got.items() if v} }")
-    require(got == want, f"families all-reduce launches {got} != {want}")
+    require(got == want, f"families {arch} all-reduce launches {got} != "
+            f"{want}")
     for k, v in got.items():
         launches[k] += v
     del _s, hist, p0, one
     torch.cuda.empty_cache()
-    log(f"families train: {time.perf_counter() - t0:.1f} s")
+    log(f"families train {arch}: {time.perf_counter() - t0:.1f} s")
 
 
 def family_parity(dev: torch.device, archs=tuple(FAMILY_LAYERS),
@@ -5652,7 +5789,8 @@ def phase_families(dev: torch.device, smi_line: str) -> dict:
     summary: dict = {}
     for arch in FAMILY_LAYERS:
         family_serve(arch, dev, launches, summary)
-    family_train(dev, launches)
+    for arch in TRAIN_FAMILIES:
+        family_train(dev, launches, arch)
     family_parity(dev)
     for arch, r in summary.items():
         log(f"families summary {arch} ({r['layers']} layers, {r['attn']} "
@@ -5955,6 +6093,212 @@ def phase_rwkv(dev: torch.device, smi_line: str):
 
 
 # ----------------------------------------------------------------------------
+# phase 19: --mode codist-shardmap (one process per model, a gloo pod group)
+# ----------------------------------------------------------------------------
+
+# the training CLI's flags for every shardmap run: qwen1.5-0.5b, 2 pods on
+# the one card, 2 x 512 tokens a pod, AdamW, 3 steps, no eval
+SHARDMAP_ARGV = ["--arch", "qwen1.5-0.5b", "--mode", "codist-shardmap",
+                 "--codist-n", "2", "--steps", "3", "--batch", "2", "--seq",
+                 "512", "--log-every", "1", "--eval-every", "0",
+                 "--optimizer", "adamw"]
+# (label, more flags, config overrides over the full config, held against
+# PredictionExchange): full width and depth (fp32 masters, bf16) over the
+# none and top-64 wires, then 4 of 24 layers in fp32 (TF32 off) with plain
+# SGD-momentum at a constant lr from step 0, so that a fault in the scale
+# of a pod's gradient moves steps 1 and 2 (AdamW would hide it)
+SHARDMAP_JOBS = [
+    ("none", ["--compression", "none"], {}, False),
+    ("topk 64", ["--compression", "topk", "--topk", "64"], {}, False),
+    ("fp32 4 layers none", ["--compression", "none", "--optimizer", "sgdm",
+                            "--lr", "0.05", "--warmup", "0",
+                            "--lr-schedule", "constant"],
+     {"num_layers": 4, "dtype": "float32"}, True)]
+
+
+def shardmap_smoke_pod(pods, jobs) -> list:
+    """One pod of the shardmap phase, spawned by ``spawn_pods``: TF32 off;
+    each job trains this pod's model (the full config with the job's
+    overrides) through the training CLI's ``run_training`` and a
+    ``ShardMapCompressed`` that marks the clock and the exchange's meter
+    as each step starts, with the launch counts set to 0 just before and
+    read just after, pod 0 under torch.profiler (its kernels' device
+    time). Returns per job the History records, the run's seconds, per
+    step (from one step's start to the next's, or the end) the wall
+    seconds ``step_s`` and the exchange's seconds ``wire_s``, the wire
+    bytes that arrived, the peak device memory, ``launches`` and
+    ``device_ms`` (pod 0; None elsewhere or when the profiler saw no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import (build_parser, codist_config,
+                                          run_training)
+    from repro_torch.models import build_model
+    from repro_torch.train import ShardMapCompressed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    marks: list = []
+
+    class MarkedShardMap(ShardMapCompressed):
+        def prepare(self, state, batch_all, k):
+            marks.append((time.perf_counter(), pods.wire_s))
+            return super().prepare(state, batch_all, k)
+
+    def run(args, model, strategy):
+        # the last mark is taken before the profiler stops
+        res = run_training(args, model, pods.device, strategy)
+        marks.append((time.perf_counter(), pods.wire_s))
+        return res
+
+    out = []
+    for _label, argv, over, _held in jobs:
+        t0 = time.perf_counter()
+        args = build_parser().parse_args(argv)
+        model = build_model(replace(get_config(args.arch), **over))
+        strategy = MarkedShardMap(codist_config(args), pods)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        marks.clear()
+        bytes0 = pods.wire_bytes
+        reset_launch_counts()
+        device_ms = None
+        if pods.rank == 0:
+            # the kernels alone (no CPU ops): a short event list to sum
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, hist, dt = run(args, model, strategy)
+            us = sum(getattr(e, "self_device_time_total", 0.0)
+                     for e in prof.key_averages()
+                     if getattr(e, "device_type", None)
+                     == torch.autograd.DeviceType.CUDA)
+            device_ms = us / 1e3 if us > 0 else None
+        else:
+            state, hist, dt = run(args, model, strategy)
+        out.append({
+            "records": hist.records, "seconds": dt,
+            "step_s": [b[0] - a[0] for a, b in zip(marks, marks[1:])],
+            "wire_s": [b[1] - a[1] for a, b in zip(marks, marks[1:])],
+            "wire_bytes": pods.wire_bytes - bytes0,
+            "peak_bytes": torch.cuda.max_memory_allocated(pods.device),
+            "launches": dict(launch_counts), "device_ms": device_ms,
+            "job_s": time.perf_counter() - t0})
+        del state, model, strategy
+    return out
+
+
+def phase_shardmap(dev: torch.device) -> dict:
+    """``--mode codist-shardmap`` on the card (module docstring, phase
+    19): the jobs of SHARDMAP_JOBS in 2 spawned pods, launches exact (over
+    the none wire rows 12 and 13 a pod a step, the task CE combined with
+    the distillation term as in PredictionExchange; over the top-k wire
+    rows 6 and 7), finite losses, per job the wall and pod 0's device ms a
+    step, the exchange's share of a step, each pod's peak memory and the
+    wire's bytes; the fp32 job's losses within 1e-5 relative of
+    PredictionExchange on the card (``--mode codist``, same flags and
+    weights), its loss moving by more than 100 times that tolerance over
+    the 3 steps, and its metered wire bytes equal to ``comm_bytes``; then
+    the CLI itself (reduced config). Returns the full-width jobs'
+    launches."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_pods
+    from repro_torch.launch.train import (build_parser, main as train_main,
+                                          run_training)
+    from repro_torch.models import build_model
+    from repro_torch.train import History
+    steps = 3
+    jobs = [(label, SHARDMAP_ARGV + flags, over, held)
+            for label, flags, over, held in SHARDMAP_JOBS]
+    t0 = time.perf_counter()
+    results = spawn_pods(shardmap_smoke_pod, 2, (jobs,), device=str(dev),
+                         timeout_s=600.0)
+    log(f"shardmap: {len(jobs)} jobs in 2 pods on the one card "
+        f"({torch.cuda.get_device_name(0)}), "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    launches: dict = {}
+    for j, (label, argv, over, held) in enumerate(jobs):
+        pods = [r[j] for r in results]
+        topk = "topk" in label
+        want = expected_launches(2, "mse", steps, combined=not topk,
+                                 task_ce=topk, standalone=0)
+        got = {k: sum(p["launches"][k] for p in pods)
+               for k in ALL_LOSS_KERNELS}
+        require(got == want, f"shardmap {label}: launches {got} != {want}")
+        recs = [finite_records(History(p["records"]),
+                               f"shardmap {label} pod {r}")
+                for r, p in enumerate(pods)]
+        require(all(len(x) == steps for x in recs)
+                and recs[0] == recs[1],
+                f"shardmap {label}: the pods' Histories differ or are short")
+        comm = recs[0][-1]["comm_bytes"]
+        dev_ms = pods[0]["device_ms"]
+        # steps 1.. (step 0 holds each pod's wait for the other's init)
+        wall = [float(np.mean(p["step_s"][1:])) * 1e3 for p in pods]
+        wire = [float(np.mean(p["wire_s"][1:])) * 1e3 for p in pods]
+        log(f"shardmap {label}: loss by step "
+            f"{[round(r['loss'], 5) for r in recs[0]]}, distill "
+            f"{[round(r['distill_loss'], 6) for r in recs[0]]}; wall a step "
+            f"(steps 1-{steps - 1}) "
+            + ", ".join(f"pod {r} {w:.1f} ms" for r, w in enumerate(wall))
+            + " (pod 0 under torch.profiler); pod 0 device "
+            + (f"{dev_ms / steps:.1f} ms a step (all {steps} steps)"
+               if dev_ms else "not measured")
+            + "; the exchange (host-staged gather) "
+            + ", ".join(f"{x:.1f} ms a step ({x / w:.1%})"
+                        for x, w in zip(wire, wall))
+            + "; peak "
+            + ", ".join(f"{p['peak_bytes'] / 2**30:.2f}" for p in pods)
+            + f" GiB; wire {pods[0]['wire_bytes']} bytes received a pod in "
+            f"{steps} steps, comm_bytes {comm:.0f}; launches "
+            f"{ {k: v for k, v in got.items() if v} }; pod 0 "
+            f"{pods[0]['seconds']:.1f} s in the run (init included), "
+            f"{pods[0]['job_s']:.1f} s in the job")
+        if not held:
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            continue
+        # the fp32 job: PredictionExchange on the card, same flags
+        for p in pods:
+            require(p["wire_bytes"] == comm,
+                    f"shardmap {label}: metered wire {p['wire_bytes']} bytes"
+                    f" != comm_bytes {comm}")
+        args = build_parser().parse_args(argv + ["--mode", "codist"])
+        _st, hist, _dt = run_training(
+            args, build_model(replace(get_config(args.arch), **over)), dev)
+        ref = finite_records(hist, f"shardmap {label} PredictionExchange")
+        worst = 0.0
+        for a, b in zip(ref, recs[0]):
+            for m in ("loss", "task_loss", "distill_loss", "comm_bytes"):
+                rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
+                worst = max(worst, rel)
+                require(rel <= 1e-5, f"shardmap {label} step {a['step']} {m}:"
+                        f" {b[m]} vs PredictionExchange {a[m]}")
+        moved = abs(ref[-1]["loss"] - ref[0]["loss"]) / abs(ref[0]["loss"])
+        require(moved > 1e-3, f"shardmap {label}: the loss moved by only "
+                f"{moved:.2e} relative over {steps} steps, too little for "
+                "the 1e-5 comparison to see a fault in a gradient's scale")
+        log(f"shardmap {label}: losses within {worst:.2e} relative of "
+            f"PredictionExchange (tol 1e-5), the loss moved {moved:.2e} "
+            "relative over the steps; metered wire bytes == "
+            f"comm_bytes ({comm:.0f})")
+        del _st
+        torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_main(["--mode", "codist-shardmap", "--steps", "3", "--batch",
+                    "2", "--seq", "16", "--log-every", "1", "--device",
+                    dev.type])
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  cli: {line}")
+    require(len(lines) == 4 and lines[-1].startswith("done: 3 steps")
+            and "distill_loss=" in lines[0],
+            f"shardmap: the CLI printed {lines}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # on request: rows 1, 1q, 2 and 4 against the parent commit
 # ----------------------------------------------------------------------------
 
@@ -6174,6 +6518,11 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
             kernel_rows.setdefault(name, {})["rwkv_shapes"] = recs
         torch.cuda.empty_cache()
         log(f"phase rwkv: {time.perf_counter() - t0:.1f} s")
+    if "shardmap" in phases:
+        t0 = time.perf_counter()
+        launches["shardmap"] = phase_shardmap(dev)
+        torch.cuda.empty_cache()
+        log(f"phase shardmap: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})
@@ -6192,7 +6541,7 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
             "library_ms": row.get("library_ms"),
             **{k: v for k, v in row.items()
                if k.startswith(("verify_", "canary_", "by_shape",
-                                "paper_", "rwkv_"))}})
+                                "paper_", "rwkv_", "heads"))}})
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

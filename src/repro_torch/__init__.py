@@ -26,10 +26,15 @@ own models (``models/conv.py`` resnet50 / wrn28x10 with GroupNorm,
 ``build_model`` and ``train/loop.py``. Slice 14 adds the MoE and hybrid
 families (``models/moe.py``, ``models/mamba.py``: grok-1, arctic, jamba)
 to training, ``Engine.generate`` and the paged fleet, whose pool keeps
-dense per-slot recurrent states beside the paged KV. The kernels are
-written by hand in CUDA C++ for Hopper (``csrc/``); the models are the
-dense, MoE and hybrid LMs, the enc-dec transformer, the conv nets and the
-MLP.
+dense per-slot recurrent states beside the paged KV. Slice 15 adds the
+attention-free rwkv6 (``models/rwkv.py``). Slice 16 adds the VLM patch
+prefix (internvl2) and whisper-tiny to ``Engine.generate`` and ``--single``,
+and the pod exchange: ``--mode codist-shardmap`` runs one process per
+model in a ``torch.distributed`` group (``launch/mesh.py``) whose only
+collective is the gather of the compressed prediction wire
+(``ShardMapCompressed``). The kernels are written by hand in CUDA C++ for
+Hopper (``csrc/``); the models are the dense, MoE, hybrid, attention-free
+and VLM LMs, the enc-dec transformer, the conv nets and the MLP.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 asking for CUDA without a card raises (nothing falls back to the CPU). On a

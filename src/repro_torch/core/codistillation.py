@@ -28,9 +28,19 @@ reference's is jnp only. The unfused paths are the reference's own jnp
 losses, as plain torch.
 
 The wires are ``none``, ``bf16``, ``topk`` (an exact top-k whose ties go
-to the lowest index, as ``jax.lax.top_k``) and ``subsample``. Not in the
-port yet: the pod-mesh paths of the reference, which need
-``torch.distributed`` (ROADMAP Queue 1 item 11).
+to the lowest index, as ``jax.lax.top_k``) and ``subsample``.
+
+The pod-local paths (the reference's shard_map over a ``"pod"`` mesh axis)
+run one process per model, joined in a ``PodGroup``
+(``repro_torch.launch.mesh``): each pod compresses its own logits and the
+ONLY collective is the all-gather of that wire (``gather_wire``, the top-k
+indices sent as int32). ``codist_loss`` with a ``pods`` group is the
+function ``ShardMapCompressed`` calls: under the reference's gate (a top-k
+wire, live predictions, n > 1) it takes ``podlocal_codist_terms``, one
+pod's task CE and mean distillation against the other pods' wires, and
+otherwise distills this pod's logits against the gathered wires
+(``_compress_stacked``'s pod-local branch) through the peer terms of the
+single-process loss, the combined kernel included.
 """
 from __future__ import annotations
 
@@ -188,6 +198,56 @@ def compress_targets(cfg: CodistConfig, target_logits: torch.Tensor) -> Dict:
     return {"vals": target_logits}
 
 
+def gather_wire(wire: Dict, pods) -> List[Dict]:
+    """Every pod's wire, in pod order, through ``pods.all_gather`` (the one
+    collective of the exchange, metered there): each leaf in a sorted key
+    order, int64 top-k indices sent as int32 (a vocab fits) and widened on
+    receipt."""
+    out: List[Dict] = [{} for _ in range(pods.size)]
+    for key in sorted(wire):
+        x = wire[key].detach()
+        sent = x.to(torch.int32) if x.dtype == torch.int64 else x
+        for r, got in enumerate(pods.all_gather(sent, meter=True)):
+            out[r][key] = got.to(x.dtype)
+    return out
+
+
+def _compress_stacked(cfg: CodistConfig, targets: Sequence[torch.Tensor],
+                      pods=None) -> List[Dict]:
+    """The wires of the peers' ``targets``. Pod-local with ``pods``:
+    ``targets`` holds this pod's logits alone, compressed here, and the
+    other pods' wires arrive through ``gather_wire``."""
+    if pods is not None:
+        return gather_wire(compress_targets(cfg, targets[0].detach()), pods)
+    return [compress_targets(cfg, t.detach()) for t in targets]
+
+
+def pod_rows(pods, row: torch.Tensor) -> torch.Tensor:
+    """(n, *row.shape): every pod's ``row`` in pod order, this pod's entry
+    the given tensor (its gradient kept), the others' gathered values."""
+    rows = pods.all_gather(row.detach())
+    rows[pods.rank] = row
+    return torch.stack(rows)
+
+
+def podlocal_codist_terms(cfg: CodistConfig, pods, logits: torch.Tensor,
+                          labels: torch.Tensor, label_smoothing=0.0,
+                          mask: Optional[torch.Tensor] = None,
+                          fused: Optional[bool] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(task, distill) of this pod's model: its task CE, the wire of its
+    detached logits gathered from every pod (the only cross-pod
+    communication), and the mean distillation term against the other n - 1
+    pods' wires. The reference's ``_podlocal_codist_terms`` per pod."""
+    task = cross_entropy(logits, labels, label_smoothing, mask, fused=fused)
+    wires = _compress_stacked(cfg, [logits], pods)
+    terms = [distill_vs_compressed(cfg, logits, w, mask, fused=fused)
+             for j, w in enumerate(wires) if j != pods.rank]
+    dist = (sum(terms) / (pods.size - 1) if terms
+            else torch.zeros((), dtype=torch.float32, device=task.device))
+    return task, dist
+
+
 def distill_vs_compressed(cfg: CodistConfig, logits: torch.Tensor, wire: Dict,
                           mask: Optional[torch.Tensor] = None,
                           fused: Optional[bool] = None) -> torch.Tensor:
@@ -222,6 +282,34 @@ def distill_vs_compressed(cfg: CodistConfig, logits: torch.Tensor, wire: Dict,
 # Algorithm 1: the combined codistillation loss over the peers' logits
 # ----------------------------------------------------------------------------
 
+def _peer_terms(cfg: CodistConfig, logits: torch.Tensor,
+                labels: torch.Tensor, wires: List[Dict], label_smoothing,
+                mask: Optional[torch.Tensor], use_fused: bool):
+    """(task, mean distillation over ``wires``) of one peer. Hot path: the
+    task CE fused with the first distillation term (one sweep of the
+    student logits, the combined kernel); further terms from the
+    standalone distillation kernels."""
+    combined = (use_fused and wires and cfg.distill_loss in ("mse", "kl")
+                and set(wires[0]) == {"vals"}
+                and wires[0]["vals"].shape == logits.shape)
+    if combined:
+        from repro_torch.kernels.ops import fused_ce_distill
+        task, d0 = fused_ce_distill(logits, wires[0]["vals"], labels,
+                                    mode=cfg.distill_loss,
+                                    label_smoothing=label_smoothing, mask=mask)
+        terms = [d0] + [distill_vs_compressed(cfg, logits, w, mask,
+                                              fused=use_fused)
+                        for w in wires[1:]]
+    else:
+        task = cross_entropy(logits, labels, label_smoothing, mask,
+                             fused=use_fused)
+        terms = [distill_vs_compressed(cfg, logits, w, mask, fused=use_fused)
+                 for w in wires]
+    dist = (sum(terms) / len(terms) if terms
+            else torch.zeros((), dtype=torch.float32, device=task.device))
+    return task, dist
+
+
 def codist_loss(cfg: CodistConfig,
                 logits_all: Sequence[torch.Tensor],   # n x (..., V)
                 labels_all: torch.Tensor,             # (n, ...)
@@ -230,6 +318,7 @@ def codist_loss(cfg: CodistConfig,
                 peer_logits_all: Optional[Sequence[torch.Tensor]] = None,
                 peer_pairwise=None,
                 fused: Optional[bool] = None,
+                pods=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean over peers of (task + alpha * mean_peers D(own, sg(peer))).
 
@@ -242,52 +331,50 @@ def codist_loss(cfg: CodistConfig,
     logits (prediction mode with coordinated sampling). With ``fused`` on
     and a full-width first peer wire, each peer's task CE and first
     distillation term come from the combined kernel; further terms from
-    the standalone distillation kernels. The single-device path of the
-    reference; its pod-mesh branch is not in the port."""
-    n = len(logits_all)
+    the standalone distillation kernels.
+
+    With a ``pods`` group (one process per model, ``launch/mesh.py``) the
+    sequences hold this pod's entry alone and the per-model metrics are
+    gathered from every pod, this pod's row keeping its gradient: a top-k
+    wire of live predictions (n > 1) takes ``podlocal_codist_terms``, as
+    the reference pins its shard_map schedule; any other wire distills
+    this pod's logits against the gathered wires."""
     targets = peer_logits_all if peer_logits_all is not None else logits_all
-    use_fused = n > 0 and _fused_enabled(fused, logits_all[0])
-    if peer_pairwise is None:
-        wires_all = [compress_targets(cfg, t.detach()) for t in targets]
-
-    task_losses: List[torch.Tensor] = []
-    distill_losses: List[torch.Tensor] = []
-    for i in range(n):
-        m_i = None if mask_all is None else mask_all[i]
-        if peer_pairwise is not None:
-            wires_i = [compress_targets(cfg, peer_pairwise[i][j].detach())
-                       for j in range(n) if j != i]
+    use_fused = len(logits_all) > 0 and _fused_enabled(fused, logits_all[0])
+    if pods is not None:
+        m0 = None if mask_all is None else mask_all[0]
+        if (cfg.compression == "topk" and peer_logits_all is None
+                and peer_pairwise is None and pods.size > 1):
+            task_i, dist_i = podlocal_codist_terms(
+                cfg, pods, logits_all[0], labels_all[0], label_smoothing, m0,
+                fused=use_fused)
         else:
-            wires_i = [wires_all[j] for j in range(n) if j != i]
-        # hot path: the task CE fused with the first distillation term (one
-        # sweep of the student logits); further terms from the standalone
-        # distillation kernels
-        combined = (use_fused and wires_i
-                    and cfg.distill_loss in ("mse", "kl")
-                    and set(wires_i[0]) == {"vals"}
-                    and wires_i[0]["vals"].shape == logits_all[i].shape)
-        if combined:
-            from repro_torch.kernels.ops import fused_ce_distill
-            task_i, d0 = fused_ce_distill(
-                logits_all[i], wires_i[0]["vals"], labels_all[i],
-                mode=cfg.distill_loss, label_smoothing=label_smoothing,
-                mask=m_i)
-            wire_d = [d0] + [distill_vs_compressed(cfg, logits_all[i], w,
-                                                   m_i, fused=use_fused)
-                             for w in wires_i[1:]]
-        else:
-            task_i = cross_entropy(logits_all[i], labels_all[i],
-                                   label_smoothing, m_i, fused=use_fused)
-            wire_d = [distill_vs_compressed(cfg, logits_all[i], w, m_i,
-                                            fused=use_fused)
-                      for w in wires_i]
-        task_losses.append(task_i)
-        distill_losses.append(
-            sum(wire_d) / (n - 1) if wire_d
-            else torch.zeros((), dtype=torch.float32, device=task_i.device))
-
-    task = torch.stack(task_losses)
-    dist = torch.stack(distill_losses)
+            wires = _compress_stacked(cfg, targets, pods)
+            task_i, dist_i = _peer_terms(
+                cfg, logits_all[0], labels_all[0],
+                [w for j, w in enumerate(wires) if j != pods.rank],
+                label_smoothing, m0, use_fused)
+        rows = pod_rows(pods, torch.stack([task_i, dist_i]))
+        task, dist = rows[:, 0], rows[:, 1]
+    else:
+        n = len(logits_all)
+        if peer_pairwise is None:
+            wires_all = _compress_stacked(cfg, targets)
+        task_losses: List[torch.Tensor] = []
+        distill_losses: List[torch.Tensor] = []
+        for i in range(n):
+            if peer_pairwise is not None:
+                wires_i = [compress_targets(cfg, peer_pairwise[i][j].detach())
+                           for j in range(n) if j != i]
+            else:
+                wires_i = [wires_all[j] for j in range(n) if j != i]
+            task_i, dist_i = _peer_terms(
+                cfg, logits_all[i], labels_all[i], wires_i, label_smoothing,
+                None if mask_all is None else mask_all[i], use_fused)
+            task_losses.append(task_i)
+            distill_losses.append(dist_i)
+        task = torch.stack(task_losses)
+        dist = torch.stack(distill_losses)
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=task.device)
     total = (task + alpha * dist).mean()
     metrics = {

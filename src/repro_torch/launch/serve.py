@@ -19,9 +19,10 @@ peers' prefill logits; ``--snapshot-dir`` refreshes peer weights from
 ``--hedge``, ``--recover-after-ms`` and ``--degraded-admission``. The
 legacy single-engine path, ``--single``, runs one ``Engine.generate`` batch
 of ``--batch`` random prompts of ``--prompt-len`` tokens and ``--max-new``
-new ones (no fleet); it also serves the enc-dec arch (transformer-big, whose
-reduced config reads seeded encoder frames), which the fleet refuses, as
-the reference's launcher does. ``--trace``, ``--metrics`` and ``--alerts``
+new ones (no fleet); it also serves the enc-dec archs (transformer-big and
+whisper-tiny, whose reduced configs read seeded encoder frames) and the VLM
+internvl2 (seeded patch embeddings before the prompt), which the fleet
+refuses, as the reference's launcher does. ``--trace``, ``--metrics`` and ``--alerts``
 write the reference's observability files on the fleet's simulated clock,
 ``--rules`` a rules file and ``--flight-recorder`` a postmortem directory
 (both need ``--alerts``); with ``--single`` these flags exit with status 2,
@@ -132,18 +133,16 @@ def main(argv=None) -> None:
         if args.flight_recorder and not args.alerts:
             ap.error("--flight-recorder requires --alerts (bundles dump on "
                      "fired alerts and injected faults)")
-    try:
-        cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    except NotImplementedError as e:
-        print(f"--arch {args.arch}: {e}", file=sys.stderr)
-        sys.exit(2)
-    if not hasattr(cfg, "is_encdec") or (cfg.is_encdec and not args.single):
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if not hasattr(cfg, "is_encdec") or (
+            (cfg.is_encdec or cfg.num_patches) and not args.single):
         # a classifier is not served (the reference's launcher dies on
         # one); the fleet's workload drives text prompts only, so enc-dec
-        # archs take --single, as the reference's launcher sends them
+        # and VLM archs take --single, as the reference's launcher sends
+        # them
         print(f"--arch {args.arch}: this CLI serves decoder LMs in fleet "
-              "mode (an enc-dec arch through --single), and a classifier "
-              "is not served", file=sys.stderr)
+              "mode (an enc-dec or VLM arch through --single), and a "
+              "classifier is not served", file=sys.stderr)
         sys.exit(2)
     device = resolve_device(args.device)
     model = build_model(cfg)
@@ -304,6 +303,10 @@ def _single(args, cfg, model, cache_dtype, device) -> None:
     batch = {"tokens": torch.randint(0, cfg.padded_vocab,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=device)}
+    if cfg.num_patches:
+        batch["patches"] = 0.1 * torch.randn(
+            (args.batch, cfg.num_patches, cfg.d_model), generator=gen,
+            device=device)
     if cfg.is_encdec:
         batch["frames"] = 0.1 * torch.randn(
             (args.batch, cfg.num_audio_frames, cfg.d_model), generator=gen,

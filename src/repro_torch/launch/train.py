@@ -12,6 +12,9 @@ onto the engine's exchange strategies:
     codist            PredictionExchange   Algorithm 1 logits exchange
     codist-ckpt       CheckpointExchange   Anil et al.'s stale replicas
     codist-pipelined  PipelinedPredictions previous-step targets
+    codist-shardmap   ShardMapCompressed   explicit compressed pod exchange:
+                                           --codist-n processes (gloo), one
+                                           model each, gathering the wire
     codist-async      AsyncPrediction      virtual cluster on independent
                                            step clocks (repro_torch.runtime)
                                            with seeded fault injection:
@@ -27,8 +30,10 @@ logits, and the async-runtime flags are read only by ``codist-async``.
 ``--reduced`` is a ``store_true`` flag that defaults to on, so the CLI
 trains the reduced config; ``chip_smoke.py`` drives the full-size config
 through ``train_codist``, ``train_allreduce`` and ``AsyncScheduler``.
-``--mode codist-shardmap`` exits with status 2 and names the work that
-brings it. ``--trace``, ``--metrics`` and ``--alerts`` write the
+``--mode codist-shardmap`` spawns ``--codist-n`` processes joined by a gloo
+group through a ``FileStore`` (``launch/mesh.py``), every one on the same
+``--device``, and prints pod 0's History; a group that cannot be made
+fails the run. ``--trace``, ``--metrics`` and ``--alerts`` write the
 reference's observability files (``codist-async`` on the virtual cluster
 clock, the other modes on the step clock); ``--rules`` and
 ``--flight-recorder`` need ``--alerts``. ``--out DIR`` writes ``DIR/history.json`` (the reference's record
@@ -56,18 +61,18 @@ from repro_torch.checkpoint import (params_to_numpy, peer_params_to_numpy,
 from repro_torch.configs import (CodistConfig, TrainConfig, get_config,
                                  get_reduced, list_archs)
 from repro_torch.data import MarkovLM, make_lm_batch
+from repro_torch.launch.mesh import spawn_pods
 from repro_torch.models import build_model
 from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchtower,
                              default_rules, for_sim_seconds, for_steps,
                              load_rules)
 from repro_torch.runtime import AsyncScheduler, parse_faults
-from repro_torch.train import stack_batches, train_allreduce, train_codist
+from repro_torch.train import (History, ShardMapCompressed, stack_batches,
+                               train_allreduce, train_codist)
+from repro_torch.tree import tree_map
 
 MODES = ["codist", "codist-ckpt", "codist-pipelined", "codist-shardmap",
          "codist-async", "allreduce"]
-
-_SHARDMAP = ("the shard_map compressed exchange needs torch.distributed "
-             "(ROADMAP Queue 1 item 11e)")
 
 
 def _obs(args):
@@ -185,35 +190,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    if args.mode == "codist-shardmap":
-        print(f"--mode {args.mode}: not in the port yet — {_SHARDMAP}",
-              file=sys.stderr)
-        sys.exit(2)
-    if args.rules and not args.alerts:
-        ap.error("--rules requires --alerts")
-    if args.flight_recorder and not args.alerts:
-        ap.error("--flight-recorder requires --alerts")
-    try:
-        cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    except NotImplementedError as e:
-        print(f"--arch {args.arch}: {e}", file=sys.stderr)
-        sys.exit(2)
-    if not hasattr(cfg, "is_encdec") or cfg.is_encdec:
-        # the reference's launcher cannot reach these archs either (its
-        # Markov-LM data is token streams)
-        print(f"--arch {args.arch}: this CLI trains decoder LMs; the paper's "
-              "conv and enc-dec models run through build_model with "
-              "train_codist / train_allreduce", file=sys.stderr)
-        sys.exit(2)
-    device = resolve_device(args.device)
-    model = build_model(cfg)
+def model_config(args):
+    """The ``--arch`` config: the reduced one (``--reduced`` is always on,
+    as in the reference's CLI)."""
+    return get_reduced(args.arch) if args.reduced else get_config(args.arch)
+
+
+def _markov_task(args, cfg) -> MarkovLM:
     vocab = min(cfg.vocab_size, 512)
-    task = MarkovLM(vocab=vocab, seed=args.seed,
+    return MarkovLM(vocab=vocab, seed=args.seed,
                     effective_vocab=min(vocab, 256))
-    tc = TrainConfig(
+
+
+def _train_config(args) -> TrainConfig:
+    return TrainConfig(
         lr=args.lr, lr_schedule=args.lr_schedule, warmup_steps=args.warmup,
         total_steps=args.steps, weight_decay=args.weight_decay,
         weight_decay_schedule=(5e-4, 1e-5, 0.0) if args.wd_schedule else (),
@@ -221,8 +211,30 @@ def main(argv=None) -> None:
         fused_losses={"auto": None, "on": True, "off": False}[
             args.fused_losses])
 
-    def lm_batch(step, seed):
-        return make_lm_batch(task, args.batch, args.seq, step, None,
+
+def codist_config(args) -> CodistConfig:
+    """The codistillation config the flags ask for."""
+    return CodistConfig(
+        n_models=args.codist_n,
+        mode="checkpoints" if args.mode == "codist-ckpt" else "predictions",
+        pipelined=args.mode == "codist-pipelined",
+        period=args.period, alpha0=args.alpha,
+        alpha_growth=args.alpha_growth, distill_loss=args.distill_loss,
+        compression=args.compression, topk=args.topk,
+        steps_per_epoch=max(1, args.steps // 10))
+
+
+def run_training(args, model, device, strategy=None,
+                 obs=(None, None, None)):
+    """The synchronous modes (all but ``codist-async``) on ``device``:
+    ``(state, History, seconds)``. ``strategy`` overrides the one the
+    codist config resolves to (a pod's ``ShardMapCompressed``)."""
+    task = _markov_task(args, model.cfg)
+    tc = _train_config(args)
+    tracer, metrics, watch = obs
+
+    def lm_batch(step, seed, group=None):
+        return make_lm_batch(task, args.batch, args.seq, step, group,
                              seed=seed, device=device)
 
     def eval_batches(step):
@@ -231,13 +243,6 @@ def main(argv=None) -> None:
         return stack_batches([lm_batch(10_000 + step, args.seed + 1)
                               for _ in range(args.codist_n)])
 
-    obs = _obs(args)
-    if args.mode == "codist-async":
-        _train_async(args, model, task, tc, device, obs)
-        _save_obs(args, *obs)
-        return
-
-    tracer, metrics, watch, _ = obs
     t0 = time.time()
     if args.mode == "allreduce":
         def it():
@@ -252,34 +257,88 @@ def main(argv=None) -> None:
                                       tracer=tracer, metrics=metrics,
                                       watch=watch)
     else:
-        codist = CodistConfig(
-            n_models=args.codist_n,
-            mode="checkpoints" if args.mode == "codist-ckpt" else "predictions",
-            pipelined=args.mode == "codist-pipelined",
-            period=args.period, alpha0=args.alpha,
-            alpha_growth=args.alpha_growth, distill_loss=args.distill_loss,
-            compression=args.compression, topk=args.topk,
-            steps_per_epoch=max(1, args.steps // 10))
+        codist = codist_config(args)
         # coordinated sampling (every peer draws the same batch) except in
         # checkpoint mode, where each peer draws its own
         coordinated = codist.mode == "predictions"
 
         def batches(step):
-            return stack_batches([
-                make_lm_batch(task, args.batch, args.seq, step,
-                              None if coordinated else g, seed=args.seed,
-                              device=device)
-                for g in range(args.codist_n)])
+            return stack_batches([lm_batch(step, args.seed,
+                                           None if coordinated else g)
+                                  for g in range(args.codist_n)])
 
         state, hist = train_codist(model, codist, tc, batches,
                                    eval_batches=eval_batches,
                                    eval_every=args.eval_every,
                                    log_every=args.log_every, device=device,
-                                   tracer=tracer, metrics=metrics,
-                                   watch=watch)
+                                   strategy=strategy, tracer=tracer,
+                                   metrics=metrics, watch=watch)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    dt = time.time() - t0
+    return state, hist, time.time() - t0
+
+
+def shardmap_pod(pods, argv) -> dict:
+    """One pod of ``--mode codist-shardmap``, run by ``spawn_pods`` in its
+    own process: this pod's model trained through ``ShardMapCompressed``
+    on ``pods``, which must compute on the ``--device`` of ``argv``; pod 0
+    writes the observability files the flags ask for. Returns its History
+    records, wall seconds (the init included) and, with ``--out``, its
+    parameters on the CPU."""
+    args = build_parser().parse_args(argv)
+    want = resolve_device(args.device)
+    if (want.type, want.index or 0) != (pods.device.type,
+                                        pods.device.index or 0):
+        raise ValueError(f"--device {args.device} but the pod group "
+                         f"computes on {pods.device}")
+    model = build_model(model_config(args))
+    obs = _obs(args) if pods.rank == 0 else (None,) * 4
+    strategy = ShardMapCompressed(codist_config(args), pods)
+    state, hist, dt = run_training(args, model, pods.device, strategy,
+                                   obs[:3])
+    if pods.rank == 0:
+        _save_obs(args, *obs)
+    return {"records": hist.records, "seconds": dt,
+            "params": (tree_map(lambda p: p.detach().cpu(), state.params)
+                       if args.out else None)}
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
+    if args.rules and not args.alerts:
+        ap.error("--rules requires --alerts")
+    if args.flight_recorder and not args.alerts:
+        ap.error("--flight-recorder requires --alerts")
+    cfg = model_config(args)
+    if not hasattr(cfg, "is_encdec") or cfg.is_encdec:
+        # the reference's launcher cannot reach these archs either: its
+        # Markov-LM batches are token streams, with no images for a conv
+        # net and no encoder frames for an enc-dec arch (whisper-tiny dies
+        # there on the missing frames)
+        print(f"--arch {args.arch}: this CLI trains decoder LMs on token "
+              "batches, which carry no encoder frames or images; the "
+              "paper's conv and enc-dec models run through build_model "
+              "with train_codist / train_allreduce", file=sys.stderr)
+        sys.exit(2)
+    device = resolve_device(args.device)
+    if args.mode == "codist-shardmap":
+        # one process per model, joined by a gloo group; rank 0's History
+        results = spawn_pods(shardmap_pod, args.codist_n, (argv,),
+                             device=device)
+        hist, dt = History(results[0]["records"]), results[0]["seconds"]
+        state = None
+    elif args.mode == "codist-async":
+        obs = _obs(args)
+        _train_async(args, build_model(cfg), _markov_task(args, cfg),
+                     _train_config(args), device, obs)
+        _save_obs(args, *obs)
+        return
+    else:
+        obs = _obs(args)
+        state, hist, dt = run_training(args, build_model(cfg), device,
+                                       obs=obs[:3])
 
     for rec in hist.records:
         msg = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -294,11 +353,16 @@ def main(argv=None) -> None:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "history.json"), "w") as f:
             json.dump(hist.records, f, indent=1)
-        params = (params_to_numpy(state.params) if args.mode == "allreduce"
-                  else peer_params_to_numpy(state.params))
+        if state is None:
+            params = peer_params_to_numpy([r["params"] for r in results])
+        elif args.mode == "allreduce":
+            params = params_to_numpy(state.params)
+        else:
+            params = peer_params_to_numpy(state.params)
         save_pytree(os.path.join(args.out, "final"), params)
         print(f"wrote {args.out}/history.json and final checkpoint")
-    _save_obs(args, *obs)
+    if args.mode != "codist-shardmap":
+        _save_obs(args, *obs)
 
 
 def _train_async(args, model, task, tc: TrainConfig, device, obs) -> None:
@@ -307,11 +371,7 @@ def _train_async(args, model, task, tc: TrainConfig, device, obs) -> None:
     faults = parse_faults(args.faults, args.codist_n, seed=args.seed)
     if args.elastic > 0:
         faults = replace(faults, joins=((faults.n_peers, args.elastic),))
-    codist = CodistConfig(
-        n_models=args.codist_n, mode="predictions", period=args.period,
-        alpha0=args.alpha, alpha_growth=args.alpha_growth,
-        distill_loss=args.distill_loss, compression=args.compression,
-        topk=args.topk, steps_per_epoch=max(1, args.steps // 10))
+    codist = codist_config(args)
 
     def batches(step):
         return make_lm_batch(task, args.batch, args.seq, step, None,

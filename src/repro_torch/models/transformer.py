@@ -9,13 +9,16 @@ sub-layers ``sub0 .. sub{p-1}``, so the stacked tree stays homogeneous:
 attention at ``i = p - 1``, Mamba elsewhere, and an MoE FFN wherever
 ``cfg.is_moe_layer(i)``. An ``ssm``-family model (rwkv6) has one
 sub-layer a step, the RWKV time mix and channel mix, and an ``embed_norm``
-after the embedding. Encoder-decoder configs are ``EncDecLM``'s; VLM
-configs raise, naming the ROADMAP item that ports them.
+after the embedding. A VLM config (``num_patches``) reads a batch's
+``patches`` (B, P, d_model), precomputed patch embeddings of the stub
+frontend, as a prefix before the token embeddings; the logits cover only
+the text tokens. Encoder-decoder configs are ``EncDecLM``'s.
 
 API:
     init(generator, device, weight_dtype) -> params
     forward(params, batch, remat) -> (logits, aux)       (training)
-    prefill(params, tokens, cap, cache_dtype) -> (last-token logits, cache)
+    prefill(params, tokens or batch, cap, cache_dtype)
+        -> (last-token logits, cache)
     init_cache(batch, cap, dtype, device) -> cache
     decode(params, cache, tokens, pos) -> (logits, cache)   (one token)
 
@@ -58,13 +61,11 @@ PyTree = Any
 def _sub_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """(mixer, ffn) kind per sub-layer within one layer step: mixers
     ``attn`` and ``ssm`` (Mamba) with FFNs ``dense`` and ``moe``, or the
-    ``ssm`` family's one ``("rwkv", "rwkv")``. Encoder-decoder and VLM
-    configs raise, naming the ROADMAP item that ports them."""
-    if cfg.is_encdec or cfg.num_patches:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not a decoder-only LM: "
-            "enc-dec configs build EncDecLM, and VLM patches come with "
-            "ROADMAP Queue 1 item 11 (11d-ii-b)")
+    ``ssm`` family's one ``("rwkv", "rwkv")``. An encoder-decoder config
+    raises: it builds ``EncDecLM``."""
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} (family {cfg.family!r}) is an "
+                         "encoder-decoder config: build_model gives EncDecLM")
     if cfg.family == "ssm":
         return [("rwkv", "rwkv")]
     period = cfg.attn_layer_period or 1
@@ -227,11 +228,14 @@ def init_states(cfg: ModelConfig, n: int, batch: int, dtype,
     return out
 
 
-def embed(params: PyTree, tokens: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
-    """The token embeddings in the activation dtype, through the
-    ``embed_norm`` an ``ssm``-family tree carries."""
+def embed(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
+          patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings in the activation dtype, after the ``patches``
+    prefix (B, P, d_model) cast to that dtype where one is given, through
+    the ``embed_norm`` an ``ssm``-family tree carries."""
     x = embed_tokens(params["embed"], tokens.long(), cfg.activation_dtype)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     if "embed_norm" in params:
         x = apply_norm(params["embed_norm"], x, cfg.norm_eps)
     return x
@@ -327,18 +331,24 @@ class LM:
                                                         device=dev)}
         return params
 
+    def _patches(self, batch: Dict) -> Optional[torch.Tensor]:
+        """The batch's patch prefix, read only by a VLM config (any other
+        ignores a ``patches`` input, as the reference's)."""
+        return batch.get("patches") if self.cfg.num_patches else None
+
     def forward(self, params: PyTree, batch: Dict,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch["tokens"] (B,S) -> (logits (B,S,V) in the activation dtype,
-        aux). ``aux`` is the MoE load-balance loss summed over sub-layers
-        and layers (0 without MoE sub-layers). ``remat`` recomputes each
-        layer in the backward (``torch.utils.checkpoint``), the reference's
-        ``jax.checkpoint`` around its scan body."""
+        """batch["tokens"] (B,S) and, for a VLM config, batch["patches"]
+        (B,P,d) -> (logits (B,S,V) over the text tokens in the activation
+        dtype, aux). ``aux`` is the MoE load-balance loss summed over
+        sub-layers and layers (0 without MoE sub-layers). ``remat``
+        recomputes each layer in the backward (``torch.utils.checkpoint``),
+        the reference's ``jax.checkpoint`` around its scan body."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed(params, tokens, cfg)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)[None]
+        patches = self._patches(batch)
+        x = embed(params, batch["tokens"], cfg, patches)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None]
         auxs = []
         for lp in unbind_layers(params["layers"], _n_scan(cfg)):
             if remat:
@@ -348,6 +358,8 @@ class LM:
                 x, a = _layer_fwd(lp, x, cfg, positions)
             auxs.append(a)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        if patches is not None:
+            x = x[:, patches.shape[1]:]
         return lm_head(params["embed"], x), torch.stack(auxs).sum()
 
     def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
@@ -371,23 +383,26 @@ class LM:
         return {f"sub{i}": cache[f"sub{i}"]
                 for i in range(len(_sub_kinds(cfg)))}
 
-    def prefill(self, params: PyTree, tokens: torch.Tensor, cap: int,
+    def prefill(self, params: PyTree, tokens, cap: int,
                 cache_dtype=torch.float32) -> Tuple[torch.Tensor, PyTree]:
-        """tokens (B,S) -> (logits (B,1,V) of the last position, cache):
-        attention K/V in ``cache_dtype``, Mamba states as the prefill
-        leaves them (``h`` fp32, ``conv`` in the activation dtype, as the
-        reference emits them), RWKV's ``s`` in fp32 and its shifts in
-        ``cache_dtype``. ``cap`` may be below S only with a sliding
+        """tokens (B,S), or a batch dict with ``tokens`` and, for a VLM
+        config, ``patches`` (B,P,d) -> (logits (B,1,V) of the last text
+        position, cache): attention K/V in ``cache_dtype``, Mamba states as
+        the prefill leaves them (``h`` fp32, ``conv`` in the activation
+        dtype, as the reference emits them), RWKV's ``s`` in fp32 and its
+        shifts in ``cache_dtype``. The cache holds the patch prefix in its
+        first P positions; ``cap`` may be below P + S only with a sliding
         window: the ring buffer then keeps the trailing window."""
         cfg = self.cfg
         kinds = _sub_kinds(cfg)
         n = _n_scan(cfg)
-        b, s = tokens.shape
+        batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+        x = embed(params, batch["tokens"], cfg, self._patches(batch))
+        b, s = x.shape[:2]
         if cfg.sliding_window <= 0 and cap < s:
             raise ValueError(f"cache capacity {cap} smaller than prefill "
                              f"length {s}")
-        dev = tokens.device
-        x = embed(params, tokens, cfg)
+        dev = x.device
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
         cache = self.init_cache(b, cap, cache_dtype, dev)
         for sub in cache.values():

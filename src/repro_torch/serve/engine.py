@@ -9,11 +9,12 @@ so ragged generation is token-identical to per-request generation at
 temperature 0, the invariant the continuous-batching fleet
 (``repro_torch.serve.fleet``) is built on.
 
-The model is a decoder LM (``LM``: token prompts) or the encoder-decoder
-``EncDecLM``, whose batch also holds the encoder's input, ``frames`` or
-``src_tokens``, and whose prefill reads the batch dict. VLM patches are
-refused (ROADMAP item 11d-ii-b), and ragged batches take token-only LM
-inputs, as the reference asserts.
+The model is a decoder LM (``LM``: token prompts, and for a VLM config
+precomputed ``patches`` whose prefix takes the first cache positions) or
+the encoder-decoder ``EncDecLM``, whose batch also holds the encoder's
+input, ``frames`` or ``src_tokens``; the whole batch dict goes to the
+model's prefill. Ragged batches take token-only LM inputs, as the
+reference asserts.
 
 The reference jits its prefill and decode; the port runs them eagerly
 (``prefill``, ``decode``), the cache updated in place. At a
@@ -98,34 +99,31 @@ class Engine:
                  temperature: float = 0.0, seed: int = 0,
                  prompt_lens: Optional[List[int]] = None) -> GenerationResult:
         """batch: ``{"tokens": (B, prompt_len)}`` prompts on the engine's
-        device, and for an enc-dec model its ``frames`` (B, T, d) or
-        ``src_tokens`` (B, T). ``prompt_lens``: per-row true lengths of a
-        RIGHT-PADDED mixed-length batch — row r's prompt is
-        ``tokens[r, :prompt_lens[r]]`` and the pad columns are never read
-        (grouped exact-length prefill, per-row decode positions), so the
-        tokens equal per-request generation at temperature 0."""
-        encdec = getattr(self.model.cfg, "is_encdec", False)
-        extra = sorted(set(batch) & {"patches", "frames", "src_tokens"}
-                       - ({"frames", "src_tokens"} if encdec else set()))
-        if extra:
-            raise NotImplementedError(
-                f"batch inputs {extra}: the port serves token-only LMs and "
-                "the enc-dec model's frames or source tokens; VLM patches "
-                "come with ROADMAP Queue 1 item 11 (11d-ii-b)")
+        device; for a VLM config its ``patches`` (B, num_patches, d), and
+        for an enc-dec model its ``frames`` (B, T, d) or ``src_tokens``
+        (B, T). ``prompt_lens``: per-row true lengths of a RIGHT-PADDED
+        mixed-length batch — row r's prompt is ``tokens[r, :prompt_lens[r]]``
+        and the pad columns are never read (grouped exact-length prefill,
+        per-row decode positions), so the tokens equal per-request
+        generation at temperature 0."""
         if prompt_lens is not None:
             return self._generate_ragged(batch, max_new_tokens, temperature,
                                          seed, prompt_lens)
         prompt = batch["tokens"]
         _b, prompt_len = prompt.shape
+        # VLM: the patch prefix takes the cache positions before the prompt
+        prefix = getattr(self.model.cfg, "num_patches", 0) or 0
+        if "patches" not in batch:
+            prefix = 0
         logits, cache = self.model.prefill(
-            self.params, batch if encdec else prompt,
-            prompt_len + max_new_tokens, self.cache_dtype)
+            self.params, batch, prefix + prompt_len + max_new_tokens,
+            self.cache_dtype)
         gen = self._generator(seed)
         tok = self._select(logits[:, -1], temperature, gen).to(prompt.dtype)
         out = [prompt, tok]
         for i in range(1, max_new_tokens):
             logits, cache = self.model.decode(self.params, cache, tok,
-                                              prompt_len + i - 1)
+                                              prefix + prompt_len + i - 1)
             tok = self._select(logits[:, -1], temperature, gen).to(prompt.dtype)
             out.append(tok)
         return GenerationResult(torch.cat(out, dim=1), prompt_len)
@@ -133,7 +131,8 @@ class Engine:
     def _generate_ragged(self, batch: Dict, max_new_tokens: int,
                          temperature: float, seed: int,
                          prompt_lens: List[int]) -> GenerationResult:
-        if getattr(self.model.cfg, "is_encdec", False):
+        if (getattr(self.model.cfg, "is_encdec", False)
+                or set(batch) & {"patches", "frames", "src_tokens"}):
             raise ValueError("ragged batching supports token-only LM inputs")
         if self.model.cfg.sliding_window > 0:
             raise ValueError("ragged batching needs a full-length cache "

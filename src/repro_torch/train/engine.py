@@ -23,11 +23,11 @@ Strategies: ``AllReduce`` (the gradient-sync baseline: one model),
 ``PredictionExchange`` (Algorithm 1 with coordinated sampling, "on" and
 "off" variants), ``CheckpointExchange`` (Anil et al.'s stale replicas,
 refreshed on the host every ``period`` steps), ``PipelinedPredictions``
-(the previous step's logits, with a replay forward on the previous batch)
-and ``AsyncPrediction`` (one peer of the async runtime, ``repro_torch.
-runtime``, its targets from the mailbox). ``ShardMapCompressed`` needs
-``torch.distributed`` (ROADMAP Queue 1 item 11): it raises, naming its
-item.
+(the previous step's logits, with a replay forward on the previous batch),
+``AsyncPrediction`` (one peer of the async runtime, ``repro_torch.
+runtime``, its targets from the mailbox) and ``ShardMapCompressed`` (one
+process per model in a ``torch.distributed`` pod group, exchanging only
+the compressed wire).
 """
 from __future__ import annotations
 
@@ -614,24 +614,112 @@ class AsyncPrediction(ExchangeStrategy):
 
 
 class ShardMapCompressed(PredictionExchange):
-    """Prediction exchange with an explicitly scheduled compressed wire
-    over a "pod" mesh axis. It needs ``torch.distributed`` (ROADMAP Queue 1
-    item 11); constructing it raises."""
+    """Prediction exchange with an explicitly scheduled compressed wire,
+    one process per model.
+
+    The reference shard_maps over a ``"pod"`` mesh axis; the port runs
+    each model in its own process of a ``PodGroup`` (``launch/mesh.py``),
+    which holds only its own peer's parameters and optimizer state (a
+    ``TrainState``). Each pod computes its model's forward, task CE and
+    compressed wire locally, and the all-gather of the wire is the ONLY
+    cross-pod collective (``cd.codist_loss`` with the pod group); the wire
+    is detached before it is sent, so the backward stays pod-local. The
+    step's loss is the mean over models of task + alpha * dist + aux, in
+    which only this pod's row carries a gradient, so every pod's gradient
+    is the one ``PredictionExchange`` gives that peer; the metrics average
+    the rows gathered from every pod, with the per-model task and
+    distillation losses. Off steps run the task-only loss on this pod's
+    model.
+    Every pod is handed the whole (n, ...) batch and takes its own slice.
+    ``comm_bytes`` is ``PredictionExchange``'s accounting; the bytes that
+    actually crossed are ``pods.wire_bytes``."""
 
     name = "shardmap"
+    stacked = False
 
     def __init__(self, codist: CodistConfig, mesh=None):
-        raise NotImplementedError(
-            "the shard_map compressed exchange needs torch.distributed, "
-            "which comes with ROADMAP Queue 1 item 11")
+        super().__init__(codist)
+        from repro_torch.launch.mesh import PodGroup
+        if not isinstance(mesh, PodGroup):
+            raise ValueError("ShardMapCompressed needs a pod group, one "
+                             "process per model (repro_torch.launch.mesh."
+                             f"init_pod_group); got {type(mesh).__name__}")
+        if mesh.size != codist.n_models:
+            raise ValueError(f"a pod group of {mesh.size} for "
+                             f"{codist.n_models} models")
+        self.pods = mesh
+
+    def init_state(self, model, tc, generator, opt_init, example_batch=None,
+                   device="cuda"):
+        """This pod's peer, drawn as ``init_codist_state`` draws peer
+        ``rank``: the inits of the pods before it are drawn and dropped."""
+        for _ in range(self.pods.rank):
+            model.init(generator, device=device)
+        return init_train_state(model, generator, opt_init, device=device)
+
+    def prepare(self, state, batch_all, k):
+        # (n, [k,] B, ...) -> this pod's ([k,] B, ...)
+        return tree_map(lambda v: v[self.pods.rank], batch_all)
+
+    def make_eval(self, model, tc):
+        """The codist eval of ``make_codist_eval_step``, gathered."""
+        fused = tc.fused_losses if tc is not None else None
+
+        @torch.no_grad()
+        def eval_step(params, batch_all: Dict) -> Dict:
+            b = _peer_batch(batch_all, self.pods.rank)
+            logits, _ = _task_forward(model, params, b, False)
+            rows = cd.pod_rows(self.pods, torch.stack([
+                cd.cross_entropy(logits, b["labels"], fused=fused),
+                cd.accuracy(logits, b["labels"])]))
+            return {"eval_loss": rows[:, 0].mean(),
+                    "eval_loss_per_model": rows[:, 0],
+                    "eval_accuracy": rows[:, 1].mean(),
+                    "eval_accuracy_per_model": rows[:, 1]}
+        return eval_step
+
+    def loss(self, model, tc, sch, state, params, batch, variant):
+        logits, aux = _task_forward(model, params, batch, tc.remat)
+        labels, mask = batch["labels"], batch.get("mask")
+        ls = sch.ls(state.step)
+        acc = cd.accuracy(logits.detach(), labels)
+        if variant == "on":
+            # (n,) task and distillation losses, this pod's entry with its
+            # gradient, the others' gathered
+            _, m = cd.codist_loss(
+                self.codist, [logits], labels[None], sch.alpha(state.step),
+                ls, None if mask is None else mask[None],
+                fused=tc.fused_losses, pods=self.pods)
+            task, dist, alpha = (m["task_loss_per_model"],
+                                 m["distill_loss_per_model"], m["alpha"])
+            rows = cd.pod_rows(self.pods, torch.stack([aux, acc]))
+        else:
+            rows = cd.pod_rows(self.pods, torch.stack([
+                cd.cross_entropy(logits, labels, ls, mask,
+                                 fused=tc.fused_losses), aux, acc]))
+            task, rows = rows[:, 0], rows[:, 1:]
+            dist = torch.zeros_like(task)
+            alpha = torch.zeros((), dtype=torch.float32, device=task.device)
+        total = (task + alpha * dist + rows[:, 0]).mean()
+        metrics = {"loss": total, "task_loss": task.mean(),
+                   "distill_loss": dist.mean(),
+                   "aux_loss": rows[:, 0].mean(),
+                   "task_loss_per_model": task,
+                   "distill_loss_per_model": dist,
+                   "alpha": alpha, "accuracy": rows[:, 1].mean()}
+        return total, metrics, None
+
+    def post_update(self, state, params, opt, batch_all, aux, k):
+        return TrainState(params, opt, state.step + 1)
 
 
 def resolve_strategy(codist: Optional[CodistConfig],
                      mesh=None) -> ExchangeStrategy:
     """CodistConfig -> strategy, as the reference dispatches: None ->
-    AllReduce; a mesh -> ShardMapCompressed (which raises: Queue 1 item
-    11); ``pipelined`` -> PipelinedPredictions; ``mode="checkpoints"`` ->
-    CheckpointExchange; else PredictionExchange."""
+    AllReduce; a ``mesh`` (this process's ``PodGroup``) ->
+    ShardMapCompressed; ``pipelined`` -> PipelinedPredictions;
+    ``mode="checkpoints"`` -> CheckpointExchange; else
+    PredictionExchange."""
     if codist is None:
         return AllReduce()
     if mesh is not None:

@@ -137,12 +137,20 @@ def test_generate_ragged_matches_reference_and_per_request(engines):
 
 
 def test_generate_refuses_what_the_reference_asserts(engines):
-    _jeng, eng, cfg = engines
-    tt = torch.from_numpy(_tokens(cfg.padded_vocab, 2, 8)).long()
+    jeng, eng, cfg = engines
+    toks = _tokens(cfg.padded_vocab, 2, 8)
+    tt = torch.from_numpy(toks).long()
     with pytest.raises(ValueError, match="prompt_lens"):
         eng.generate({"tokens": tt}, 2, prompt_lens=[9, 3])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.generate({"tokens": tt, "patches": torch.zeros(2, 4, 8)}, 2)
+    # a config without num_patches ignores a patches input, as the
+    # reference's does: the tokens equal the reference's on that batch
+    patches = np.random.default_rng(4).standard_normal(
+        (2, 4, cfg.d_model)).astype(np.float32)
+    ref = jeng.generate({"tokens": jnp.asarray(toks),
+                         "patches": jnp.asarray(patches)}, 3)
+    got = eng.generate({"tokens": tt, "patches": torch.from_numpy(patches)},
+                       3)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
     _jm, _jp, wm, wp = _pair("qwen2-7b", sliding_window=6)
     with pytest.raises(ValueError, match="full-length cache"):
         Engine(wm, wp, device="cpu").generate({"tokens": tt}, 2,

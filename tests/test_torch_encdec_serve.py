@@ -9,7 +9,7 @@ carried across by the bridge and inputs made with numpy.
   generates 6 tokens, equal to the reference's ``Engine.generate`` on the
   CLI's seeded weights and frames.
 * What stays refused: the fleet CLI on transformer-big (exit 2), a ragged
-  enc-dec batch, VLM patches.
+  enc-dec batch; a patches input is ignored, as the reference ignores it.
 """
 from dataclasses import replace
 
@@ -110,6 +110,11 @@ def test_what_stays_refused(capsys):
     with pytest.raises(ValueError, match="token-only"):
         eng.generate({"tokens": toks, "frames": frames}, 2,
                      prompt_lens=[4, 2])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.generate({"tokens": toks, "frames": frames,
-                      "patches": torch.zeros((2, 4, cfg.d_model))}, 2)
+    # a patches input is ignored by a config without num_patches, as the
+    # reference's enc-dec model ignores it
+    with_patches = eng.generate({"tokens": toks, "frames": frames,
+                                 "patches": torch.ones((2, 4, cfg.d_model))},
+                                2)
+    assert torch.equal(with_patches.tokens,
+                       eng.generate({"tokens": toks, "frames": frames},
+                                    2).tokens)

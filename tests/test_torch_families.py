@@ -33,8 +33,9 @@ weights carried across by the bridge and inputs made with numpy.
   an update in flat slices, bit-equal to the momentum-0 update.
 * A checkpoint round trip of a jamba tree, both directions; the serving
   cast keeps the fp32-read leaves.
-* internvl2 and whisper-tiny still refuse, naming item 11; rwkv6's reduced
-  config (ported since) equals the reference's field by field.
+* internvl2, whisper-tiny and rwkv6 (ported since): full and reduced
+  configs equal the reference's field by field, and build its model
+  class.
 """
 from dataclasses import replace
 
@@ -48,6 +49,7 @@ from repro.checkpoint import load_pytree as jax_load_pytree
 from repro.checkpoint import save_pytree as jax_save_pytree
 from repro.configs import CodistConfig as JCodistConfig
 from repro.configs import TrainConfig as JTrainConfig
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.configs.base import MoEConfig as JMoEConfig
 from repro.configs.base import ModelConfig as JModelConfig
@@ -763,11 +765,13 @@ def test_configs_equal_the_reference():
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "internvl2-76b",
                                   "whisper-tiny"])
 def test_other_families_still_refuse(arch):
-    if arch == "rwkv6-1.6b":
-        # ported (tests/test_torch_rwkv.py): the reduced config is the
-        # reference's, field by field
-        import dataclasses
-        mine, ref = get_reduced(arch), jax_get_reduced(arch)
+    """Every family is ported now (rwkv6: tests/test_torch_rwkv.py; the VLM
+    and audio archs: tests/test_torch_vlm_serve.py): the full and reduced
+    configs are the reference's, field by field, and build the reference's
+    model class."""
+    import dataclasses
+    for mine, ref in ((get_config(arch), jax_get_config(arch)),
+                      (get_reduced(arch), jax_get_reduced(arch))):
         names = [f.name for f in dataclasses.fields(ref)]
         assert names == [f.name for f in dataclasses.fields(mine)]
         for name in names:
@@ -775,6 +779,5 @@ def test_other_families_still_refuse(arch):
             if dataclasses.is_dataclass(b):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, name
-        return
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_reduced(arch)
+        assert (type(build_model(mine)).__name__
+                == type(jax_build_model(ref)).__name__)

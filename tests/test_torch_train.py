@@ -17,11 +17,10 @@ weights, optimizer states and batches (numpy, handed to both sides).
 * The port's ``History.save`` is read by the reference's ``History.load``.
 * The CLI trains on the CPU; with ``--trace``, ``--metrics``,
   ``--alerts`` and ``--flight-recorder`` it writes files that
-  ``tools/trace_check.py`` passes. It exits 2 on the shard_map mode and,
-  as the reference, on ``--rules`` or ``--flight-recorder`` without
-  ``--alerts``.
+  ``tools/trace_check.py`` passes. As the reference, it exits 2 on
+  ``--rules`` or ``--flight-recorder`` without ``--alerts``.
 * Entry points default to the card; the checkpoint and pipelined
-  strategies resolve, the shard_map one raises.
+  strategies resolve, and the shard_map one on a pod group.
 """
 import json
 import os
@@ -299,8 +298,7 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     assert trace_check.main(list(obs.values())) == 0
     with open(obs["metrics"]) as f:
         assert json.load(f)["counters"]["train/comm_events"] == 2
-    for argv in (["--mode", "codist-shardmap"], ["--rules", "r.json"],
-                 ["--flight-recorder", "d"]):
+    for argv in (["--rules", "r.json"], ["--flight-recorder", "d"]):
         with pytest.raises(SystemExit) as e:
             main(["--device", "cpu", *argv])
         assert e.value.code == 2, argv
@@ -308,8 +306,8 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
 
 def test_cuda_default_and_later_strategies_raise():
     """Entry points default to the card and raise without one; the
-    checkpoint and pipelined strategies resolve; the shard_map strategy (a
-    mesh) raises, naming its ROADMAP item."""
+    checkpoint, pipelined and shard_map strategies resolve, the last only
+    on a pod group (``launch/mesh.py``): without one it raises."""
     from repro_torch.data import MarkovLM, make_lm_batch
     from repro_torch.train import (CheckpointExchange, PipelinedPredictions,
                                    ShardMapCompressed, resolve_strategy,
@@ -320,9 +318,13 @@ def test_cuda_default_and_later_strategies_raise():
                       CheckpointExchange)
     assert isinstance(resolve_strategy(CodistConfig(pipelined=True)),
                       PipelinedPredictions)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    from repro_torch.launch.mesh import PodGroup
+    assert isinstance(resolve_strategy(CodistConfig(),
+                                       mesh=PodGroup(0, 2, torch.device("cpu"))),
+                      ShardMapCompressed)
+    with pytest.raises(ValueError, match="pod group"):
         resolve_strategy(CodistConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="pod group"):
         ShardMapCompressed(CodistConfig())
     if torch.cuda.is_available():
         return
