@@ -52,7 +52,11 @@ exits non-zero:
                 (launch counts of the quantizing scatter and decode checked,
                 a fused-vs-gather tick over each). One scatter launch a
                 layer writes both pools; each tick's wall time and device
-                busy share are printed.
+                busy share are printed, and beside the bf16 tick's device
+                time the cost model's FLOPs, bytes and bound
+                (``launch/cost.py``, the H100 SXM's published peaks) and
+                FlopCounterMode's count of one tick's GEMMs, held to the
+                model's within 1%.
   5. parity   — reduced qwen2-7b in fp32: the port on the card and on the
                 CPU (plain versions) with the same weights and workload;
                 teacher-forced logits within 1e-4, equal ``FleetReport``s;
@@ -71,7 +75,9 @@ exits non-zero:
                 peer (task loss must fall), a codist eval, 2 all-reduce
                 steps and 2 kl codist steps, launch counts checked per run;
                 ms per step, device-busy share and top kernels from
-                torch.profiler, peak memory.
+                torch.profiler, peak memory; the codist step's bound from
+                the cost model beside its device time, and FlopCounterMode's
+                count of one step's GEMMs held to the model's within 1%.
   8. train_peers — the same model and batch at PEERS_LAYERS (12) of 24
                 layers (cut from 24 for the time budget) through
                 ``train_codist`` with the other exchanges: (a) 3 peers, mse, 6 steps and an
@@ -331,6 +337,17 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
 QUANT = (torch.int8, torch.float8_e4m3fn)
+
+
+def loss_bound(kernel: str, t: int, v: int, es: int, mode: str = "mse",
+               target_grad: bool = False):
+    """(bound_ms, bound_by) of one launch of a loss row at T tokens of V
+    logits of ``es`` bytes, by ``repro_torch.launch.cost``'s byte and
+    operation rule (the one the cost model counts a step with)."""
+    from repro_torch.launch import cost
+    return cost.kernel_bound_ms(*cost.loss_kernel_io(
+        kernel, t, v, es, target_grad, mode))
+
 
 SOURCES = {
     "paged_scatter": ("src/repro_torch/csrc/paged_cache.cu",
@@ -832,12 +849,12 @@ def time_decode(what: str, q, kp, vp, table, lengths, scales, flush, lib,
                                                      decode_split_plan)
     bps = None if plan_slots is None else decode_split_plan(
         plan_slots, table.shape[1], _num_sms(torch.cuda.current_device()))[0]
+    from repro_torch.launch.cost import kernel_bound_ms, paged_decode_io
     rows = int((lengths.long() + 1).sum())
-    row_b = kp.shape[2] * kp.shape[3] * kp.element_size() + (4 if scales else 0)
-    nbytes = (2 * (byte_rows or rows) * row_b + 2 * q.numel() * q.element_size()
-              + table.numel() * 4 + lengths.numel() * 4)
-    tb = nbytes / HBM_BPS * 1e3
-    tf = 4 * q.shape[1] * q.shape[2] * rows / PEAK_FLOPS[kp.dtype] * 1e3
+    b_ms, b_by = kernel_bound_ms(*paged_decode_io(
+        lengths.tolist(), q.shape[1], kp.shape[2], kp.shape[3],
+        kp.element_size(), q.element_size(), table.shape[1], bool(scales),
+        byte_rows), PEAK_FLOPS[kp.dtype])
 
     sc = scales or (None, None)
 
@@ -850,7 +867,7 @@ def time_decode(what: str, q, kp, vp, table, lengths, scales, flush, lib,
              q, kp, vp, table, lengths, *sc, bps), flush,
              iters=plain_iters, warmup=min(3, plain_iters)),
          "library_ms": None if lib is None else time_ms(lib, flush),
-         "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+         "bound_ms": b_ms, "bound_by": b_by}
     lib_txt = ("— (no single call)" if lib is None
                else f"{r['library_ms']:.4f} ms (SDPA on the gathered copy)")
     # the floor of time_ms's flushed L2: one amax over each pool's live
@@ -877,6 +894,7 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
                                      paged_attention_decode_plain,
                                      paged_gather, paged_gather_plain,
                                      paged_scatter_kv, paged_scatter_kv_plain)
+    from repro_torch.launch.cost import kernel_bound_ms, paged_gather_io
     inp = kernel_inputs()
     t = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
     lengths, table = t["lengths"], t["table"]
@@ -917,16 +935,15 @@ def phase_kernels(dev: torch.device, flush: torch.Tensor):
         flat_table = table.reshape(-1).long()
         block_b = BS * KVH * HD * es
         live_blocks = int(n_live.sum())
-        bytes_gather = (live_blocks * block_b + S * MB * block_b
-                        + table.numel() * 4 + S * 4)
+        bytes_gather = paged_gather_io(live_blocks, S, MB, block_b)
         gather = (lambda: paged_gather(kk, table, n_live),
                   lambda: paged_gather_plain(kk, table, n_live),
                   lambda: kk.index_select(0, flat_table))
         r = results["paged_gather"] = {
             "ms": time_ms(gather[0], flush), "plain_ms": time_ms(gather[1], flush),
             "library_ms": time_ms(gather[2], flush),
-            "bound_ms": bytes_gather / HBM_BPS * 1e3, "bound_by": "bytes",
-            "max_abs_err": 0.0}
+            "bound_ms": kernel_bound_ms(bytes_gather, 0)[0],
+            "bound_by": "bytes", "max_abs_err": 0.0}
         log(f"  paged_gather bf16: kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
             f"bound {r['bound_ms']:.5f} ms (bytes)")
@@ -1298,6 +1315,7 @@ def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
                                      paged_scatter_quant,
                                      paged_scatter_quant_kv,
                                      paged_scatter_quant_kv_plain)
+    from repro_torch.launch.cost import kernel_bound_ms, paged_scatter_io
     results, faults = {}, []
     floor_buf = torch.zeros(1, device=dev)
     for si, (label, nb) in enumerate(SCATTER_NBS):
@@ -1381,8 +1399,8 @@ def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
                  "two_ms": time_ms(lambda: (one(), one()), flush),
                  "plain_ms": time_ms(plain, flush, iters=10),
                  "library_ms": None if lib is None else time_ms(lib, flush),
-                 "bound_ms": nbytes / HBM_BPS * 1e3, "bound_by": "bytes",
-                 "max_abs_err": 0.0, "floor_ms": floor}
+                 "bound_ms": kernel_bound_ms(nbytes, 0)[0],
+                 "bound_by": "bytes", "max_abs_err": 0.0, "floor_ms": floor}
             # host time, three times each in turns; the medians are kept
             hk, ho = [], []
             for _ in range(3):
@@ -1410,7 +1428,7 @@ def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
             lambda: paged_scatter_kv_plain(kb, vb, kn, vn, ws, wo),
             lambda: (kb.index_put_((blk, off), kr),
                      vb.index_put_((blk, off), vr)),
-            4 * writers * row_b + 2 * nb * 4)
+            paged_scatter_io(writers, row_b, nb))
         r4 = {}
         for qdt, (kq, ks, vq, vs) in qpools.items():
             qrow_b = KVH * HD * qdt.itemsize + 4       # payload + scale
@@ -1420,7 +1438,7 @@ def phase_scatter_kernels(dev: torch.device, flush: torch.Tensor):
                 lambda: paged_scatter_quant(kq, ks, kn, ws, wo),
                 lambda: paged_scatter_quant_kv_plain(kq, ks, vq, vs, kn, vn,
                                                      ws, wo),
-                None, 2 * writers * (row_b + qrow_b) + 2 * nb * 4)
+                None, paged_scatter_io(writers, row_b, nb, qrow_b))
         log("\n".join(lines))
         if label == "main":
             results["paged_scatter"] = r2
@@ -1453,6 +1471,7 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults,
     from repro_torch.kernels import (paged_scatter_kv, paged_scatter_kv_plain,
                                      paged_scatter_quant_kv,
                                      paged_scatter_quant_kv_plain)
+    from repro_torch.launch.cost import kernel_bound_ms, paged_scatter_io
     k, v, k_new, v_new, ws, wo = scatter_inputs(NB, dev, seed, kvh, hd)
     writers = int((ws >= 0).sum())
     label = f"rows of {kvh * hd} (NB={NB})"
@@ -1494,7 +1513,7 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults,
     r2 = (time_ms(lambda: paged_scatter_kv(kb, vb, kn, vn, ws, wo), flush),
           time_ms(lambda: paged_scatter_kv_plain(kb, vb, kn, vn, ws, wo),
                   flush, iters=10),
-          (4 * writers * row_b + 2 * NB * 4) / HBM_BPS * 1e3)
+          kernel_bound_ms(paged_scatter_io(writers, row_b, NB), 0)[0])
     log(f"  paged_scatter {label} bf16: K+V kernel {r2[0]:.4f} ms  plain "
         f"{r2[1]:.4f} ms  bound {r2[2]:.7f} ms (bytes)")
     for qdt, (kq, ks, vq, vs) in qpools.items():
@@ -1503,7 +1522,8 @@ def scatter_long_rows(dev: torch.device, flush: torch.Tensor, faults,
                                                      ws, wo), flush),
               time_ms(lambda: paged_scatter_quant_kv_plain(
                   kq, ks, vq, vs, kn, vn, ws, wo), flush, iters=10),
-              (2 * writers * (row_b + qrow_b) + 2 * NB * 4) / HBM_BPS * 1e3)
+              kernel_bound_ms(paged_scatter_io(writers, row_b, NB, qrow_b),
+                              0)[0])
         log(f"  paged_scatter_quant {label} {str(qdt)[6:]} (bf16 rows): K+V "
             f"kernel {r4[0]:.4f} ms  plain {r4[1]:.4f} ms  bound "
             f"{r4[2]:.7f} ms (bytes)")
@@ -1633,17 +1653,14 @@ def phase_ops_kernels(dev: torch.device, flush: torch.Tensor):
             continue
         lb64 = lb.clamp(0, v - 1).long()
         es = x.element_size()
-        tb = (t * v * es + 2 * t * 4) / HBM_BPS * 1e3
-        tf = LOSS_OPS["ce"][0] * t * v / PEAK_FLOPS[torch.float32] * 1e3
+        b_ms, b_by = loss_bound("fused_cross_entropy", t, v, es)
         results["fused_cross_entropy"] = {
             "ms": time_ms(lambda: fused_cross_entropy(x, lb), flush, iters=20),
             "plain_ms": time_ms(lambda: fused_cross_entropy_plain(x, lb),
                                 flush, iters=5, warmup=1),
             "library_ms": time_ms(lambda: F.cross_entropy(
                 x, lb64, reduction="none"), flush, iters=20),
-            "bound_ms": max(tb, tf),
-            "bound_by": "bytes" if tb >= tf else "operations",
-            "max_abs_err": err}
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
         r = results["fused_cross_entropy"]
         log(f"  fused_cross_entropy bf16: kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms "
@@ -1735,13 +1752,6 @@ def check_loss_output(name: str, label: str, k: torch.Tensor, p: torch.Tensor,
     return err
 
 
-# fp32 operations per logits element, for the operations bound: CE forward
-# (max, sub, exp, add, add), CE backward (sub, exp, mul, sub, sub, add),
-# and per distillation mode what it adds to each (mse: sub, mul, add;
-# kl: max, sub, exp, add, sub, mul-add / exp, sub, mul, sub, mul)
-LOSS_OPS = {"ce": (5, 6), "mse": (8, 10), "kl": (11, 12)}
-
-
 def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
     """The four loss kernels against their plain versions at LOSS_SHAPES,
     forward outputs and residuals and backward gradients (dt written and
@@ -1802,35 +1812,29 @@ def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
 
         # ---- times at the main-path shape ----
         es = x.element_size()
-        tv = t * v
         lb64 = lb.long()
         xr = x.detach().clone().requires_grad_(True)
         lib_y = F.cross_entropy(xr, lb64, reduction="none")
         (o_mse, r_mse) = fused_ce_distill_parts_plain(x, tg, lb, "mse")
 
-        def bound(n_bytes, n_ops):
-            tb = n_bytes / HBM_BPS * 1e3
-            tf = n_ops / PEAK_FLOPS[torch.float32] * 1e3
-            return max(tb, tf), ("bytes" if tb >= tf else "operations")
+        def bound(kname, mode="mse", target_grad=False):
+            return loss_bound(kname, t, v, es, mode, target_grad)
 
-        # bytes: each (T, V) operand read once, each output written once,
-        # plus the (T,) labels, residuals, cotangents and outputs (4 B each)
         specs = {
             "fused_cross_entropy_parts": (
                 lambda: fused_cross_entropy_parts(x, lb),
                 lambda: fused_cross_entropy_parts_plain(x, lb),
                 lambda: F.cross_entropy(x, lb64, reduction="none"),
-                bound(tv * es + 4 * t * 4, LOSS_OPS["ce"][0] * tv)),
+                bound("fused_cross_entropy_parts")),
             "fused_cross_entropy_grad": (
                 lambda: fused_cross_entropy_grad(x, lb, logz, g[0], g[1]),
                 lambda: fused_cross_entropy_grad_plain(x, lb, logz, g[0], g[1]),
                 lambda: torch.autograd.grad(lib_y, xr, g[0], retain_graph=True),
-                bound(2 * tv * es + 4 * t * 4, LOSS_OPS["ce"][1] * tv)),
+                bound("fused_cross_entropy_grad")),
             "fused_ce_distill_parts": (
                 lambda: fused_ce_distill_parts(x, tg, lb, "mse"),
                 lambda: fused_ce_distill_parts_plain(x, tg, lb, "mse"),
-                None,
-                bound(2 * tv * es + 5 * t * 4, LOSS_OPS["mse"][0] * tv)),
+                None, bound("fused_ce_distill_parts")),
             "fused_ce_distill_grad": (
                 lambda: fused_ce_distill_grad(x, tg, lb, r_mse, g[0], g[1],
                                               g[2], "mse",
@@ -1838,8 +1842,7 @@ def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
                 lambda: fused_ce_distill_grad_plain(x, tg, lb, r_mse, g[0],
                                                     g[1], g[2], "mse",
                                                     need_target_grad=False),
-                None,
-                bound(3 * tv * es + 5 * t * 4, LOSS_OPS["mse"][1] * tv)),
+                None, bound("fused_ce_distill_grad")),
         }
         for kname, (kern, plain, lib, (b_ms, b_by)) in specs.items():
             results[kname] = {
@@ -1859,16 +1862,16 @@ def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
         extra = {
             "fused_ce_distill_parts kl": (
                 lambda: fused_ce_distill_parts(x, tg, lb, "kl"),
-                bound(2 * tv * es + 7 * t * 4, LOSS_OPS["kl"][0] * tv)),
+                bound("fused_ce_distill_parts", "kl")),
             "fused_ce_distill_grad kl": (
                 lambda: fused_ce_distill_grad(x, tg, lb, r_kl, g[0], g[1],
                                               g[2], "kl",
                                               need_target_grad=False),
-                bound(3 * tv * es + 7 * t * 4, LOSS_OPS["kl"][1] * tv)),
+                bound("fused_ce_distill_grad", "kl")),
             "fused_ce_distill_grad mse with dt": (
                 lambda: fused_ce_distill_grad(x, tg, lb, r_mse, g[0], g[1],
                                               g[2], "mse"),
-                bound(4 * tv * es + 5 * t * 4, LOSS_OPS["mse"][1] * tv)),
+                bound("fused_ce_distill_grad", target_grad=True)),
         }
         for kname, (kern, (b_ms, b_by)) in extra.items():
             log(f"  {kname} bf16: kernel {time_ms(kern, flush, iters=20):.4f}"
@@ -1876,13 +1879,6 @@ def phase_loss_kernels(dev: torch.device, flush: torch.Tensor):
         del xr, lib_y
     torch.cuda.empty_cache()
     return results
-
-
-# fp32 operations per logits element of the distillation kernels: mse
-# forward (sub, mul, add) and backward (sub, mul, mul); kl forward (the
-# student's max, sub, exp, add and the target's max, sub, exp, add, sub,
-# mul, add) and backward (sub, exp, sub, exp, sub, mul, sub, sub, mul, mul)
-DISTILL_OPS = {"mse": (3, 3), "kl": (11, 10)}
 
 
 def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
@@ -1951,18 +1947,12 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
 
         # ---- times at the main-path, subsample and canary shapes ----
         es = x.element_size()
-        tv = t * v
 
-        def bound(n_bytes, n_ops):
-            tb = n_bytes / HBM_BPS * 1e3
-            tf = n_ops / PEAK_FLOPS[torch.float32] * 1e3
-            return max(tb, tf), ("bytes" if tb >= tf else "operations")
+        def bound(kname, mode="mse", target_grad=False):
+            return loss_bound(kname, t, v, es, mode, target_grad)
 
-        # bytes: each (T, V) operand read once, each output written once,
-        # plus the (T,) outputs, residuals and cotangents (4 B each)
-        mse_ops, kl_ops = DISTILL_OPS["mse"], DISTILL_OPS["kl"]
         if label == "canary":
-            b_ms, b_by = bound(2 * tv * es + t * 4, mse_ops[0] * tv)
+            b_ms, b_by = bound("fused_distill_loss")
             r = {"ms": time_ms(lambda: fused_distill_loss(x, tg, "mse"),
                                flush),
                  "plain_ms": time_ms(lambda: fused_distill_loss_plain(
@@ -1983,24 +1973,24 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
                 lambda: fused_distill_loss(x, tg, "mse"),
                 lambda: fused_distill_loss_plain(x, tg, "mse"),
                 lambda: F.mse_loss(x, tg),
-                bound(2 * tv * es + t * 4, mse_ops[0] * tv)),
+                bound("fused_distill_loss")),
             "fused_distill_kl_parts": (
                 lambda: fused_distill_kl_parts(x, tg),
                 lambda: fused_distill_kl_parts_plain(x, tg),
-                None, bound(2 * tv * es + 4 * t * 4, kl_ops[0] * tv)),
+                None, bound("fused_distill_kl_parts")),
             "fused_distill_mse_grad": (
                 lambda: fused_distill_mse_grad(x, tg, gd,
                                                need_target_grad=False),
                 lambda: fused_distill_mse_grad_plain(x, tg, gd,
                                                      need_target_grad=False),
                 lambda: torch.autograd.grad(lib_mse, xr, retain_graph=True),
-                bound(3 * tv * es + t * 4, mse_ops[1] * tv)),
+                bound("fused_distill_mse_grad")),
             "fused_distill_kl_grad": (
                 lambda: fused_distill_kl_grad(x, tg, *res, gd,
                                               need_target_grad=False),
                 lambda: fused_distill_kl_grad_plain(x, tg, *res, gd,
                                                     need_target_grad=False),
-                None, bound(3 * tv * es + 4 * t * 4, kl_ops[1] * tv)),
+                None, bound("fused_distill_kl_grad")),
         }
         for kname, (kern, plain, lib, (b_ms, b_by)) in specs.items():
             r = {"ms": time_ms(kern, flush, iters=20),
@@ -2019,13 +2009,13 @@ def phase_distill_kernels(dev: torch.device, flush: torch.Tensor):
         extra = {
             "fused_distill_loss kl": (
                 lambda: fused_distill_loss(x, tg, "kl"),
-                bound(2 * tv * es + t * 4, kl_ops[0] * tv)),
+                bound("fused_distill_loss", "kl")),
             "fused_distill_mse_grad with dB": (
                 lambda: fused_distill_mse_grad(x, tg, gd),
-                bound(4 * tv * es + t * 4, mse_ops[1] * tv)),
+                bound("fused_distill_mse_grad", target_grad=True)),
             "fused_distill_kl_grad with dB": (
                 lambda: fused_distill_kl_grad(x, tg, *res, gd),
-                bound(4 * tv * es + 4 * t * 4, kl_ops[1] * tv)),
+                bound("fused_distill_kl_grad", target_grad=True)),
         }
         for kname, (kern, (b_ms, b_by)) in extra.items():
             log(f"  {kname} {label} (T={t}) bf16: kernel "
@@ -2097,34 +2087,30 @@ def phase_distill_splits(dev: torch.device, flush: torch.Tensor, mutant):
     v = TRAIN_V
     for si, (label, t, dtype) in enumerate(SPLIT_SHAPES):
         x, tg, _lb, _g = loss_inputs(t, v, dtype, dev, 300 + si)
-        es, tv = x.element_size(), t * v
+        es = x.element_size()
         fp32 = dtype == torch.float32
         plan = distill_fwd_split_plan(t, v, es, sms)
-        kl_ops = DISTILL_OPS["kl"][0] * tv
-        # (row, mode): wrapper, the C entry at a plan, plain, library, bound
+        # (row, mode): wrapper, the C entry at a plan, plain, library
         specs = {
             ("fused_distill_loss", "mse"): (
                 lambda: fused_distill_loss(x, tg, "mse"),
                 lambda pl: launch_fwd("distill_mse", x, tg, None, v,
                                       plan=pl)[:1],
                 lambda: fused_distill_loss_plain(x, tg, "mse"),
-                lambda: F.mse_loss(x, tg),
-                (2 * tv * es + t * 4, DISTILL_OPS["mse"][0] * tv)),
+                lambda: F.mse_loss(x, tg)),
             ("fused_distill_loss", "kl"): (
                 lambda: fused_distill_loss(x, tg, "kl"),
                 lambda pl: launch_fwd("distill_kl", x, tg, None, v,
                                       plan=pl)[:1],
-                lambda: fused_distill_loss_plain(x, tg, "kl"),
-                None, (2 * tv * es + t * 4, kl_ops)),
+                lambda: fused_distill_loss_plain(x, tg, "kl"), None),
             ("fused_distill_kl_parts", "kl"): (
                 lambda: fused_distill_kl_parts(x, tg),
                 lambda pl: launch_fwd("distill_kl", x, tg, None, v,
                                       residuals=True, plan=pl),
-                lambda: fused_distill_kl_parts_plain(x, tg),
-                None, (2 * tv * es + 4 * t * 4, kl_ops)),
+                lambda: fused_distill_kl_parts_plain(x, tg), None),
         }
         slow = t == TRAIN_T
-        for (name, mode), (kern, forced, plain, lib, (nb, nops)) in specs.items():
+        for (name, mode), (kern, forced, plain, lib) in specs.items():
             what = f"{name} {mode} {label} (T={t}, {str(dtype)[6:]})"
             want, got = as_rows(plain()), as_rows(kern())
             require(bits_equal(got, as_rows(kern())),
@@ -2139,7 +2125,7 @@ def phase_distill_splits(dev: torch.device, flush: torch.Tensor, mutant):
                     check_loss_output(name, f"{label} splits {k}", a, b,
                                       False, fp32, errs)
                 per_split[k] = time_ms(lambda: forced(pl), flush)
-            tb, tf = nb / HBM_BPS * 1e3, nops / PEAK_FLOPS[torch.float32] * 1e3
+            b_ms, b_by = loss_bound(name, t, v, es, mode)
             r = {"shape": label, "T": t, "V": v, "dtype": str(dtype)[6:],
                  "mode": mode, "splits": plan[1], "vecs_per_split": plan[0],
                  "ms": time_ms(kern, flush),
@@ -2148,9 +2134,7 @@ def phase_distill_splits(dev: torch.device, flush: torch.Tensor, mutant):
                  "plain_ms": time_ms(plain, flush, iters=3 if slow else 10,
                                      warmup=1),
                  "library_ms": None if lib is None else time_ms(lib, flush),
-                 "bound_ms": max(tb, tf),
-                 "bound_by": "bytes" if tb >= tf else "operations",
-                 "max_abs_err": err}
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
             out[name].append(r)
             lib_txt = ("" if r["library_ms"] is None
                        else f"  F.mse_loss {r['library_ms']:.4f} ms")
@@ -2450,11 +2434,13 @@ def tick_check(model, peer, fc, wl, cache_dtype, dev: torch.device):
     return eng, active, tokens, oracle_counts, tick_ms, 0.05 * scale
 
 
-def phase_fleet(dev: torch.device, cfg):
+def phase_fleet(dev: torch.device, cfg, smi_line: str):
     """qwen2-7b at full width, 2 peers, the seeded bursty workload over
     bf16 pools, then over int8 and fp8 pools; launch counts checked
     against the decode ticks of each run; a fused-vs-gather tick over each
     pool type, with its device profile."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.cost import step_cost
     from repro_torch.models import build_model
     from repro_torch.serve.fleet import FleetConfig, generate_workload
     model = build_model(cfg)
@@ -2487,7 +2473,16 @@ def phase_fleet(dev: torch.device, cfg):
             f"gather tick launches {g_counts}")
     out["paged_gather"] = g_counts["paged_gather"]
     if dev.type == "cuda":
-        profile_ticks(eng, active, tokens, tick_ms)
+        busy = profile_ticks(eng, active, tokens, tick_ms)
+        lengths = [int(x) for x in eng.pool.lengths]
+        cost_check("fleet tick (qwen2-7b, 16 slots, bf16)", step_cost(
+            replace(cfg, param_dtype="bfloat16"),
+            InputShape("tick", fc.max_blocks_per_slot * fc.block_size, S,
+                       "decode"), "decode",
+            variant={"paged": {"lengths": lengths,
+                               "num_blocks": fc.num_blocks,
+                               "max_blocks": fc.max_blocks_per_slot}}),
+            busy, lambda: eng.decode_logits(active, tokens), smi_line)
     del eng, router
     torch.cuda.empty_cache()
 
@@ -2522,12 +2517,42 @@ def phase_fleet(dev: torch.device, cfg):
     return out
 
 
-def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3) -> None:
+def profile_ticks(eng, active, tokens, tick_ms: float, n: int = 3):
     """Device time of ``n`` decode ticks by kernel (torch.profiler) against
     their wall time: the device's busy share of a tick, and the decode
-    attention's own device time in it."""
-    profile_device(lambda: eng.decode_logits(active, tokens), tick_ms, n,
-                   "tick", detail=("decode_", "scatter"))
+    attention's own device time in it. Returns the device ms a tick."""
+    return profile_device(lambda: eng.decode_logits(active, tokens), tick_ms,
+                          n, "tick", detail=("decode_", "scatter"))
+
+
+def cost_check(what: str, cost, device_ms, fn, smi_line: str) -> None:
+    """The cost model's per-step counts and bound (``launch/cost.py``: the
+    larger of its FLOPs over 989 TFLOP/s bf16 or 67 fp32 and its bytes over
+    3.35 TB/s, the H100 SXM's published peaks at 700 W) beside the
+    measured device ms of that step, with the card's nvidia-smi line; then
+    ``FlopCounterMode`` over one call of ``fn`` on the card, which sees the
+    step's GEMMs (and no ctypes kernel launch): its count must equal the
+    model's GEMM FLOPs within 1%."""
+    from torch.utils.flop_counter import FlopCounterMode
+    bound_ms = cost.bound_s * 1e3
+    share = (f"{bound_ms / device_ms:.1%} of the {device_ms:.4f} ms device"
+             if device_ms else "device time not measured")
+    log(f"cost {what}: {cost.flops:.6e} FLOPs ({cost.gemm_flops:.6e} GEMM, "
+        f"{cost.kernel_flops:.6e} kernels, {cost.other_flops:.6e} "
+        f"elementwise), {cost.bytes:.6e} bytes; compute "
+        f"{cost.compute_s * 1e3:.4f} ms, memory {cost.memory_s * 1e3:.4f} "
+        f"ms: bound {bound_ms:.4f} ms ({cost.bound_by}; computed from the "
+        f"H100 SXM's published peaks at 700 W), {share}; card: {smi_line}")
+    with FlopCounterMode(display=False) as fcm:
+        fn()
+    sync(torch.device("cuda"))
+    counted = fcm.get_total_flops()
+    log(f"cost {what}: FlopCounterMode counted {counted:.6e} GEMM FLOPs "
+        f"over one call on the card, the model {cost.gemm_flops:.6e} "
+        f"(ratio {cost.gemm_flops / max(counted, 1):.5f})")
+    require(counted > 0 and abs(cost.gemm_flops - counted) <= 0.01 * counted,
+            f"{what}: the cost model's GEMM FLOPs {cost.gemm_flops:.6e} != "
+            f"FlopCounterMode's {counted:.6e}")
 
 
 def kernel_times(fn, n: int):
@@ -3290,7 +3315,7 @@ def finite_records(hist, name: str):
     return recs
 
 
-def phase_train(dev: torch.device):
+def phase_train(dev: torch.device, smi_line: str):
     """qwen1.5-0.5b at full width and depth, fp32 master weights, bf16
     activations, through the training entry points ``train_codist`` and
     ``train_allreduce`` (weights from a seeded generator on the card): 2
@@ -3301,10 +3326,12 @@ def phase_train(dev: torch.device):
     import contextlib
     import io
 
-    from repro_torch.configs import CodistConfig, TrainConfig, get_config
+    from repro_torch.configs import (CodistConfig, InputShape, TrainConfig,
+                                     get_config)
     from repro_torch.data import MarkovLM, make_lm_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.cost import step_cost
     from repro_torch.models import build_model
     from repro_torch.train import (PredictionExchange, build_train_step,
                                    stack_batches, train_allreduce,
@@ -3386,8 +3413,15 @@ def phase_train(dev: torch.device):
     # the device's busy share: 2 more steps of the same step function
     bundle = build_train_step(model, tc, cd, PredictionExchange(cd))
     fixed = codist_batches(1, first=10)[0]
-    profile_device(lambda: bundle.apply(state, fixed, 10), step_ms, 2,
-                   "step")
+    busy = profile_device(lambda: bundle.apply(state, fixed, 10), step_ms, 2,
+                          "step")
+    # its bound: 2 peers x 8 x 512 tokens, fp32 masters, AdamW's fp32
+    # moments, no remat (the TrainConfig's)
+    cost_check("codist step (qwen1.5-0.5b, 2 peers x 8 x 512)", step_cost(
+        cfg, InputShape("codist", s, 2 * b, "train"), "codist", 2,
+        remat=tc.remat, variant={"optimizer": "adamw",
+                                 "opt_dtype": tc.opt_dtype}),
+        busy, lambda: bundle.apply(state, fixed, 11), smi_line)
     del state, hist, bundle
     torch.cuda.empty_cache()
 
@@ -5221,41 +5255,38 @@ def paper_loss_times(dev: torch.device, shapes=None,
                                      fused_distill_kl_parts_plain)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
 
-    def bound(n_bytes, n_ops):
-        tb = n_bytes / HBM_BPS * 1e3
-        tf = n_ops / PEAK_FLOPS[torch.float32] * 1e3
-        return max(tb, tf), ("bytes" if tb >= tf else "operations")
-
     rows = {}
     for si, (label, t, v, dtype) in enumerate(shapes or PAPER_LOSS_SHAPES):
         x, tg, lb, g = loss_inputs(t, v, dtype, dev, 300 + si)
         gd = g[2].contiguous()
-        es, tv = x.element_size(), t * v
+        es = x.element_size()
         lb64 = lb.long()
         xr = x.detach().clone().requires_grad_(True)
         lib_y = F.cross_entropy(xr, lb64, reduction="none")
         logz = fused_cross_entropy_parts_plain(x, lb)[2]
+
+        def bound(kname, mode="mse"):
+            return loss_bound(kname, t, v, es, mode)
+
         # name, mode, kernel, plain, library call, bound, is a gradient
         specs = [
             ("fused_cross_entropy_parts", "",
              lambda: fused_cross_entropy_parts(x, lb),
              lambda: fused_cross_entropy_parts_plain(x, lb),
              lambda: F.cross_entropy(x, lb64, reduction="none"),
-             bound(tv * es + 4 * t * 4, LOSS_OPS["ce"][0] * tv), False),
+             bound("fused_cross_entropy_parts"), False),
             ("fused_cross_entropy_grad", "",
              lambda: fused_cross_entropy_grad(x, lb, logz, g[0], g[1]),
              lambda: fused_cross_entropy_grad_plain(x, lb, logz, g[0], g[1]),
              lambda: torch.autograd.grad(lib_y, xr, g[0], retain_graph=True),
-             bound(2 * tv * es + 4 * t * 4, LOSS_OPS["ce"][1] * tv), True)]
+             bound("fused_cross_entropy_grad"), True)]
         for mode in (("mse", "kl") if t == 256 else ("mse",)):
             res = fused_ce_distill_parts_plain(x, tg, lb, mode)[1]
-            extra = 5 if mode == "mse" else 7
             specs += [
                 ("fused_ce_distill_parts", mode,
                  lambda m=mode: fused_ce_distill_parts(x, tg, lb, m),
                  lambda m=mode: fused_ce_distill_parts_plain(x, tg, lb, m),
-                 None, bound(2 * tv * es + extra * t * 4,
-                             LOSS_OPS[mode][0] * tv), False),
+                 None, bound("fused_ce_distill_parts", mode), False),
                 ("fused_ce_distill_grad", mode,
                  lambda m=mode, r=res: fused_ce_distill_grad(
                      x, tg, lb, r, g[0], g[1], g[2], m,
@@ -5263,23 +5294,20 @@ def paper_loss_times(dev: torch.device, shapes=None,
                  lambda m=mode, r=res: fused_ce_distill_grad_plain(
                      x, tg, lb, r, g[0], g[1], g[2], m,
                      need_target_grad=False),
-                 None, bound(3 * tv * es + extra * t * 4,
-                             LOSS_OPS[mode][1] * tv), True)]
+                 None, bound("fused_ce_distill_grad", mode), True)]
         if t == 256:
             kres = fused_distill_kl_parts_plain(x, tg)[1:]
             specs += [
                 ("fused_distill_kl_parts", "kl",
                  lambda: fused_distill_kl_parts(x, tg),
                  lambda: fused_distill_kl_parts_plain(x, tg), None,
-                 bound(2 * tv * es + 4 * t * 4, DISTILL_OPS["kl"][0] * tv),
-                 False),
+                 bound("fused_distill_kl_parts"), False),
                 ("fused_distill_kl_grad", "kl",
                  lambda: fused_distill_kl_grad(x, tg, *kres, gd,
                                                need_target_grad=False),
                  lambda: fused_distill_kl_grad_plain(x, tg, *kres, gd,
                                                      need_target_grad=False),
-                 None, bound(3 * tv * es + 4 * t * 4,
-                             DISTILL_OPS["kl"][1] * tv), True)]
+                 None, bound("fused_distill_kl_grad"), True)]
         errs = {}
         for name, mode, kern, plain, lib, (b_ms, b_by), grad in specs:
             outs_k = [o for o in _flat_outputs(kern()) if o is not None]
@@ -6446,7 +6474,8 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
     launches = {}          # path -> {kernel: launches on that path's run}
     if "fleet" in phases:
         t0 = time.perf_counter()
-        launches["fleet"] = phase_fleet(dev, get_config("qwen2-7b"))
+        launches["fleet"] = phase_fleet(dev, get_config("qwen2-7b"),
+                                        smi_line)
         torch.cuda.empty_cache()
         log(f"phase fleet: {time.perf_counter() - t0:.1f} s")
     if "parity" in phases:
@@ -6459,7 +6488,7 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         log(f"phase ops: {time.perf_counter() - t0:.1f} s")
     if "train" in phases:
         t0 = time.perf_counter()
-        launches["train"] = phase_train(dev)
+        launches["train"] = phase_train(dev, smi_line)
         log(f"phase train: {time.perf_counter() - t0:.1f} s")
     if "train_peers" in phases:
         t0 = time.perf_counter()

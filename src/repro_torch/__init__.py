@@ -44,10 +44,14 @@ the CPU tests hold against the JAX reference.
 import torch
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda", meta: bool = False) -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
-    there is no card."""
+    there is no card. ``meta=True`` also admits ``"meta"``: shape stand-ins
+    that allocate nothing (``LM.init`` / ``init_cache`` for
+    ``launch/specs.py``); nothing computes there."""
     dev = torch.device(device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "

@@ -11,7 +11,9 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import (CodistConfig, ModelConfig,  # noqa: F401
+from repro_torch.configs.base import (INPUT_SHAPES,  # noqa: F401
+                                      CodistConfig, InputShape, ModelConfig,
+                                      MoEConfig, RWKVConfig, SSMConfig,
                                       TrainConfig, reduced)
 
 _PORTED = {
@@ -30,6 +32,14 @@ _PORTED = {
     "resnet50": "repro_torch.configs.resnet50",
     "wrn28x10": "repro_torch.configs.wrn28_10",
 }
+
+
+# the ten assigned architectures (the dry run's coverage), in the
+# reference's order
+ASSIGNED_ARCHS: List[str] = [
+    "deepseek-67b", "qwen2-7b", "internvl2-76b", "qwen1.5-0.5b", "arctic-480b",
+    "jamba-v0.1-52b", "grok-1-314b", "qwen1.5-4b", "whisper-tiny", "rwkv6-1.6b",
+]
 
 
 def list_archs() -> List[str]:

@@ -6,7 +6,9 @@ those of the reference's ``configs/base.py``; ``activation_dtype`` is a
 the reference's (grok-1, arctic, jamba and rwkv6 run in the port). The
 conv nets' config
 is ``models.conv.ConvConfig``, as in the reference. ``CodistConfig`` and
-``TrainConfig`` are the reference's field for field, with its defaults.
+``TrainConfig`` are the reference's field for field, with its defaults;
+``param_count``, ``attention_free``, ``InputShape`` and ``INPUT_SHAPES``
+are its arithmetic and its four dry-run shapes.
 """
 from __future__ import annotations
 
@@ -112,6 +114,10 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def layer_kind(self, i: int) -> str:
         """'attn' or 'ssm' for decoder layer i."""
         if self.family == "ssm":
@@ -125,6 +131,69 @@ class ModelConfig:
         if self.moe is None:
             return False
         return (i % self.moe.layer_period) == (self.moe.layer_period - 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), used by the comm
+        model and the roofline; the reference's arithmetic, its cross-
+        attention bookkeeping included (one more attention per encoder
+        layer)."""
+        d, v = self.d_model, self.padded_vocab
+        hd = self.resolved_head_dim
+        n = v * d                                   # token embedding
+        if not self.tie_embeddings:
+            n += v * d                              # lm head
+
+        def attn_params() -> int:
+            p = (d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd)
+                 + (self.num_heads * hd) * d)
+            if self.qkv_bias:
+                p += (self.num_heads + 2 * self.num_kv_heads) * hd
+            return p
+
+        def dense_ffn(dff: int) -> int:
+            mult = 3 if self.act in ("silu", "geglu") else 2
+            return mult * d * dff
+
+        def moe_ffn() -> int:
+            m = self.moe
+            p = m.num_experts * dense_ffn(self.d_ff) + d * m.num_experts
+            if m.dense_residual:
+                p += dense_ffn(self.d_ff)
+            return p
+
+        def ssm_params() -> int:
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            dt_rank = s.dt_rank or -(-d // 16)
+            return (d * 2 * d_in                     # in_proj
+                    + d_in * s.d_conv                # depthwise conv
+                    + d_in * (dt_rank + 2 * s.d_state)   # x_proj
+                    + dt_rank * d_in + d_in          # dt_proj
+                    + d_in * s.d_state + d_in        # A_log, D
+                    + d_in * d)                      # out_proj
+
+        def rwkv_params() -> int:
+            r = self.rwkv or RWKVConfig()
+            return (4 * d * d + d * d                # r, k, v, o + gate
+                    + r.decay_lora * d * 2 + d       # decay lora + base
+                    + 5 * (d * r.mix_lora + r.mix_lora * d)  # shift mixers
+                    + 2 * d * self.d_ff              # channel mix (k, v)
+                    + d * d)                         # channel mix receptance
+
+        for i in range(self.num_layers):
+            if self.family == "ssm":
+                n += rwkv_params() if self.rwkv is not None else ssm_params()
+            elif self.layer_kind(i) == "ssm":
+                n += ssm_params()
+            else:
+                n += attn_params()
+            if self.family != "ssm" or self.rwkv is None:
+                n += moe_ffn() if self.is_moe_layer(i) else dense_ffn(self.d_ff)
+            n += 2 * d                               # norms
+        for _ in range(self.encoder_layers):
+            n += attn_params() + dense_ffn(self.d_ff) + 2 * d
+            n += attn_params()   # decoder cross-attention (bookkeeping)
+        return n
 
 
 @dataclass(frozen=True)
@@ -151,6 +220,22 @@ class CodistConfig:
     subsample: int = 0  # tokens per sequence used for the distill term
     # beyond-paper: use previous step's peer logits (removes the sync point)
     pipelined: bool = False
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -106,6 +106,17 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def runs_plain(dev: torch.device) -> bool:
+    """Whether a wrapper given tensors on ``dev`` runs its plain version
+    (the CPU) rather than launch its kernel (CUDA). Any other device
+    (``meta`` included) raises: a kernel runs on the card, a plain version
+    on the CPU, and nothing else computes."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, not "
+                         f"{dev.type!r}")
+    return dev.type == "cpu"
+
+
 def nvcc_path() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.access(path, os.X_OK):

@@ -98,7 +98,7 @@ def fused_ce_distill_parts(logits: torch.Tensor, target_logits: torch.Tensor,
     ``(nll, smooth, dist), residuals`` as fp32 (T,) tensors."""
     _check_mode(mode)
     dev, _t, _v, v_real = check_inputs(logits, labels, target_logits, v_real)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_ce_distill_parts_plain(logits, target_logits, labels,
                                             mode, v_real)
     out = launch_fwd(mode, logits, target_logits, labels, v_real)
@@ -123,7 +123,7 @@ def fused_ce_distill_grad(logits: torch.Tensor, target_logits: torch.Tensor,
     for x in (*residuals, g_nll, g_smooth, g_dist):
         _require(tuple(x.shape) == (t,),
                  f"per-token operand shape {tuple(x.shape)} != ({t},)")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_ce_distill_grad_plain(
             logits, target_logits, labels, residuals, g_nll, g_smooth, g_dist,
             mode, v_real, need_target_grad)

@@ -202,7 +202,7 @@ def fused_distill_loss(logits: torch.Tensor, target_logits: torch.Tensor,
     _require(mode in DISTILL_MODES, f"mode {mode!r} not in {DISTILL_MODES}")
     dev, _t, v = check_pair(logits, target_logits)
     v_total = _resolve_v_real(v_total, v)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_distill_loss_plain(logits, target_logits, mode, v_total)
     out = launch_fwd("distill_" + mode, logits, target_logits, None, v_total)
     _build.count_launch("fused_distill_loss")
@@ -213,7 +213,7 @@ def fused_distill_kl_parts(logits: torch.Tensor, target_logits: torch.Tensor):
     """kl forward with its residuals: ``(D, logZ_s, logZ_t, E)``, each (T,)
     fp32. Row 9 of the kernel table."""
     dev, _t, v = check_pair(logits, target_logits)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_distill_kl_parts_plain(logits, target_logits)
     out = launch_fwd("distill_kl", logits, target_logits, None, v,
                      residuals=True)
@@ -229,7 +229,7 @@ def fused_distill_mse_grad(logits: torch.Tensor, target_logits: torch.Tensor,
     Row 10 of the kernel table."""
     dev, _t, v = check_pair(logits, target_logits, g)
     v_total = _resolve_v_real(v_total, v)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_distill_mse_grad_plain(logits, target_logits, g, v_total,
                                             need_target_grad)
     out = launch_bwd("distill_mse", logits, target_logits, None, (), (g,),
@@ -247,7 +247,7 @@ def fused_distill_kl_grad(logits: torch.Tensor, target_logits: torch.Tensor,
     the residuals of ``fused_distill_kl_parts``. Row 11 of the kernel
     table."""
     dev, _t, v = check_pair(logits, target_logits, logzs, logzt, e, g)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_distill_kl_grad_plain(logits, target_logits, logzs,
                                            logzt, e, g, need_target_grad)
     out = launch_bwd("distill_kl", logits, target_logits, None,

@@ -80,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              f"q, k, v must share one of fp32/bf16, got {q.dtype}, "
              f"{k.dtype}, {v.dtype}")
     _require(window >= 0, f"window {window} < 0")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return flash_attention_plain(q, k, v, causal, window)
     _require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
     _require(t > 0, "no keys (T = 0)")

@@ -247,7 +247,7 @@ def fused_cross_entropy(logits: torch.Tensor,
     """Per-token NLL, fp32 (T,). logits (T, V) fp32/bf16 contiguous; labels
     (T,) int32. Forward only: the entry of ``ops.cross_entropy_tokens``."""
     dev, _t, v, _ = check_inputs(logits, labels)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_cross_entropy_plain(logits, labels)
     out = launch_fwd("nll", logits, None, labels, v)
     _build.count_launch("fused_cross_entropy")
@@ -260,7 +260,7 @@ def fused_cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
     contiguous; labels (T,) int32; ``v_real`` (default V) bounds the
     smoothing mean."""
     dev, _t, _v, v_real = check_inputs(logits, labels, v_real=v_real)
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_cross_entropy_parts_plain(logits, labels, v_real)
     out = launch_fwd("ce", logits, None, labels, v_real)
     _build.count_launch("fused_cross_entropy_parts")
@@ -277,7 +277,7 @@ def fused_cross_entropy_grad(logits: torch.Tensor, labels: torch.Tensor,
     _same_device(logits, logz, g_nll, g_smooth)
     for name, x in (("logz", logz), ("g_nll", g_nll), ("g_smooth", g_smooth)):
         _require(tuple(x.shape) == (t,), f"{name} shape {tuple(x.shape)} != ({t},)")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return fused_cross_entropy_grad_plain(logits, labels, logz, g_nll,
                                               g_smooth, v_real)
     dx, _ = launch_bwd("ce", logits, None, labels, (logz,), (g_nll, g_smooth),

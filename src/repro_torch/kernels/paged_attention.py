@@ -240,7 +240,7 @@ def paged_attention_decode(q: torch.Tensor, k_pool: torch.Tensor,
     _require(plan_slots is None
              or (type(plan_slots) is int and plan_slots >= 1),
              f"plan_slots must be a positive int, got {plan_slots!r}")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return paged_attention_decode_plain(q, k_pool, v_pool, table, lengths,
                                             k_scale, v_scale)
     g = h // kvh

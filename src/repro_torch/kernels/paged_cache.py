@@ -184,7 +184,7 @@ def _scatter(k_pool, k_new, v_pool, v_new, write_slot, write_off) -> None:
         _check_pair(k_new, v_new, "new rows")
     if k_new.dtype != k_pool.dtype:
         raise ValueError(f"new dtype {k_new.dtype} != pool dtype {k_pool.dtype}")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         paged_scatter_plain(k_pool, k_new, write_slot, write_off)
         if two:
             paged_scatter_plain(v_pool, v_new, write_slot, write_off)
@@ -270,7 +270,7 @@ def _scatter_quant(k_pool, k_scales, k_new, v_pool, v_scales, v_new,
                          f"{tuple(k_scales.shape)} {k_scales.dtype}")
     if k_new.dtype not in _ROW_CODES:
         raise ValueError(f"new dtype {k_new.dtype} unsupported (fp32/bf16)")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         paged_scatter_quant_plain(k_pool, k_scales, k_new, write_slot,
                                   write_off)
         if two:
@@ -343,7 +343,7 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor,
     s, mb = table.shape
     _check_index(table, (s, mb), "table")
     _check_index(n_live, (s,), "n_live")
-    if dev.type == "cpu":
+    if _build.runs_plain(dev):
         return paged_gather_plain(pool, table, n_live)
     nb, bs, kvh, hd = pool.shape
     out = torch.empty((s, mb * bs, kvh, hd), dtype=pool.dtype, device=dev)

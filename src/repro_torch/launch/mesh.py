@@ -22,8 +22,22 @@ each received wire back to the device. On the CPU the copies are no-ops.
 one's group and calls ``fn(pods, *args)`` there; it returns the n results
 and raises with a pod's traceback if any pod fails, the others killed.
 Nothing falls back to one process: a group that cannot be made is an
-error. The reference's TPU meshes (the production and dry-run meshes)
-are not here.
+error.
+
+The production and dry-run meshes are here too, device-free: ``Mesh`` is a
+frozen record of axis names and sizes whose device ids run row-major over
+the axes, as ``jax.make_mesh`` lays out a slice. The sharding rules
+(``launch/sharding.py``) and the cost model (``launch/cost.py``) read them;
+nothing is placed on a device (the rules' execution on a
+``torch.distributed`` ``DeviceMesh`` is a later step). The reference's
+``set_mesh`` (an ambient mesh for ``jit``) has no counterpart: the port
+passes the mesh to every function that reads it.
+
+  single-pod:  (16, 16)      ("data", "model")         256 devices
+  multi-pod:   (2, 16, 16)   ("pod", "data", "model")  512 devices
+
+The ``"pod"`` axis is the codistillation axis: one model a pod, so the only
+traffic across pods is the prediction exchange.
 """
 from __future__ import annotations
 
@@ -35,8 +49,9 @@ import time
 import traceback
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -91,22 +106,7 @@ def init_pod_group(n: int, rank: int, store_path: str, backend: str = "gloo",
     store = dist.FileStore(store_path, n)
     dist.init_process_group(backend, store=store, rank=rank, world_size=n,
                             timeout=timedelta(seconds=timeout_s))
-    return make_codist_mesh(n, dev)
-
-
-def make_codist_mesh(n_models: int, device="cuda") -> PodGroup:
-    """This process's pod of the initialised default process group, which
-    must hold one process per model (the reference's ``("pod",)`` axis of
-    size n_models)."""
-    if not dist.is_initialized():
-        raise RuntimeError("make_codist_mesh needs an initialised process "
-                           "group (init_pod_group)")
-    size = dist.get_world_size()
-    if size != n_models:
-        raise ValueError(f"the process group has {size} processes; the "
-                         f"codistillation group needs one per model "
-                         f"({n_models})")
-    return PodGroup(dist.get_rank(), size, resolve_device(device))
+    return PodGroup(dist.get_rank(), n, dev)
 
 
 def _pod_main(fn, rank: int, n: int, store_path: str, device: str,
@@ -176,3 +176,81 @@ def spawn_pods(fn: Callable, n: int, args: Sequence = (), device="cuda",
                 p.join()
             results.close()
     return [out[r] for r in range(n)]
+
+
+# ----------------------------------------------------------------------------
+# device-free meshes (the reference's production and dry-run meshes)
+# ----------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Mesh:
+    """Axis names and sizes; device ``i`` sits at the row-major position
+    ``i`` of the axes (``devices`` holds the ids in that layout)."""
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"{self.axis_sizes} vs {self.axis_names}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, in axis order (``jax``'s ``mesh.shape``)."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes, dtype=np.int64))
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The device ids, shaped by the axes (row-major)."""
+        return np.arange(self.size).reshape(self.axis_sizes)
+
+    def groups(self, axes) -> List[List[int]]:
+        """The device groups of a collective over ``axes`` (a name or a
+        tuple of names): the devices whose coordinates differ only along
+        those axes, each group in row-major order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in idx]
+        ids = self.devices.transpose(rest + idx)
+        return ids.reshape(-1, int(np.prod([self.axis_sizes[i] for i in idx],
+                                           dtype=np.int64))).tolist()
+
+
+def abstract_mesh(axis_sizes, axis_names) -> Mesh:
+    """A device-free mesh for the sharding rules (the reference's
+    ``AbstractMesh``)."""
+    return Mesh(tuple(int(a) for a in axis_sizes), tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    if multi_pod:
+        return Mesh((2, 16, 16), ("pod", "data", "model"))
+    return Mesh((16, 16), ("data", "model"))
+
+
+def make_codist_mesh(n_models: int = 2, data: int = 8,
+                     model: int = 16) -> Mesh:
+    """One pod's devices split into n_models groups (the paper's "8 GPUs a
+    model on one server" analogue)."""
+    return Mesh((n_models, data, model), ("pod", "data", "model"))
+
+
+def make_host_mesh(shape=(2, 2, 2), axes=("pod", "data", "model")) -> Mesh:
+    """A tiny mesh for CI-scale rules and collectives (8 devices)."""
+    return Mesh(tuple(shape), tuple(axes))
+
+
+def mesh_chips(mesh: Mesh) -> int:
+    return mesh.size
+
+
+def pod_index_of_device(mesh: Mesh, device_id: int) -> int:
+    """Which pod a flat device id belongs to (0 without a pod axis or for
+    an id outside the mesh)."""
+    if "pod" not in mesh.axis_names or not 0 <= device_id < mesh.size:
+        return 0
+    coord = np.unravel_index(device_id, mesh.axis_sizes)
+    return int(coord[mesh.axis_names.index("pod")])

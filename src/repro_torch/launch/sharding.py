@@ -1,0 +1,383 @@
+"""Sharding rules: param-name-driven partition specs with a divisibility
+fallback (the reference's ``launch/sharding.py``, rule for rule).
+
+Strategy (Megatron + FSDP):
+  * TP  ("model" axis): attention heads, the FFN hidden dim, the vocab;
+  * FSDP ("data" axis): the d_model dim of every large matrix;
+  * the scan-over-layers leading axis: never sharded;
+  * codistillation: the stacked model axis -> "pod".
+
+A rule that does not divide evenly falls back to replication for that dim
+(e.g. 8 KV heads over a 16-way model axis), which is always correct.
+
+A spec is a ``PartitionSpec``: a tuple with one entry per dim, each an axis
+name, a tuple of names or None (``()`` replicates a scalar); it equals the
+plain tuple of its entries. The rules read a tree's leaves by their path
+strings, which are the reference's ``_path_str`` leaf for leaf: the port's
+trees keep the reference's keys (``checkpoint/bridge.py``), and a state's
+NamedTuple fields join the path by name (``params/…``, ``opt/m/…``,
+``opt/v/…``). The leaves are anything with a ``shape`` (``torch.device
+("meta")`` stand-ins from ``launch/specs.py``). The rules only describe
+placements: nothing here places a tensor on a device.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+PyTree = Any
+
+
+class PartitionSpec(tuple):
+    """One entry per dim: an axis name, a tuple of names, or None; a tuple
+    of one name is that name, an empty one None (as ``jax``'s)."""
+
+    def __new__(cls, *parts):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else (e[0] if len(e) == 1 else e)
+            return e
+        return super().__new__(cls, tuple(norm(e) for e in parts))
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+# name -> spec template applied to the LAST len(template) dims of the leaf.
+# Symbols: 'fsdp' -> data axis, 'tp' -> model axis, None -> replicated.
+# Entries may be (pattern, template) or (pattern, template, slide);
+# slide=False disables the greedy divisibility fallback (attention head
+# dims: sharding head_dim when the head count is indivisible makes the
+# partitioner re-gather whole tensors; replication + sequence-parallel
+# scores is cheaper).
+_RULES = [
+    # embeddings / head
+    (r"embed/tokens$", ("tp", "fsdp")),            # (V, d)
+    (r"embed/head$", ("fsdp", "tp")),              # (d, V)
+    # attention
+    (r"(self_attn|cross_attn|attn|mix)/wq$", ("fsdp", "tp", None), False),
+    (r"(self_attn|cross_attn|attn|mix)/wk$", ("fsdp", "tp", None), False),
+    (r"(self_attn|cross_attn|attn|mix)/wv$", ("fsdp", "tp", None), False),
+    (r"(self_attn|cross_attn|attn|mix)/wo$", ("tp", "fsdp")),
+    (r"/b[qkv]$", ("tp", None), False),
+    # dense ffn (also arctic's residual branch)
+    (r"(ffn|residual)/w_gate$", ("fsdp", "tp")),
+    (r"(ffn|residual)/w_up$", ("fsdp", "tp")),
+    (r"(ffn|residual)/w_down$", ("tp", "fsdp")),
+    # moe
+    (r"ffn/router$", ("fsdp", None)),              # (d, E)
+    (r"ffn/w_gate$", (None, "fsdp", "tp")),        # (E, d, f), after dense
+    (r"ffn/w_up$", (None, "fsdp", "tp")),
+    (r"ffn/w_down$", (None, "tp", "fsdp")),
+    # mamba
+    (r"mix/in_proj$", ("fsdp", "tp")),
+    (r"mix/conv_w$", (None, "tp")),
+    (r"mix/conv_b$", ("tp",)),
+    (r"mix/x_proj$", ("tp", None)),
+    (r"mix/dt_proj$", (None, "tp")),
+    (r"mix/dt_bias$", ("tp",)),
+    (r"mix/A_log$", ("tp", None)),
+    (r"mix/D$", ("tp",)),
+    (r"mix/out_proj$", ("tp", "fsdp")),
+    # rwkv time-mix / channel-mix
+    (r"mix/w_[rkvg]$", ("fsdp", "tp")),
+    (r"mix/w_o$", ("tp", "fsdp")),
+    (r"mix/decay_lora_a$", ("fsdp", None)),
+    (r"mix/decay_lora_b$", (None, "tp")),
+    (r"mix/decay_base$", ("tp",)),
+    (r"mix/bonus$", ("tp", None)),
+    (r"mix/ln_x_(scale|bias)$", ("tp",)),
+    (r"ffn/w_k$", ("fsdp", "tp")),
+    (r"ffn/w_v$", ("tp", "fsdp")),
+    (r"ffn/w_r$", ("fsdp", "tp")),
+    # conv nets: replicate (pure DP: they are small)
+]
+
+_SCAN_SUBTREES = ("layers", "enc_layers", "dec_layers")
+
+
+# ----------------------------------------------------------------------------
+# trees with paths
+# ----------------------------------------------------------------------------
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, PartitionSpec) or torch.is_tensor(x) \
+        or not isinstance(x, (dict, list, tuple))
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree, path: Tuple[str, ...] = ()
+                       ) -> PyTree:
+    """``fn(path, leaf)`` over a tree of dicts (keys), NamedTuples (field
+    names) and lists / tuples (indices), rebuilt with the same structure;
+    None is an empty subtree, a ``PartitionSpec`` a leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
+                                               path + (f,))
+                            for f in tree._fields))
+    if _is_leaf(tree):
+        return fn(path, tree)
+    return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                      for i, v in enumerate(tree))
+
+
+def tree_flatten_with_path(tree: PyTree):
+    """[(path string, leaf)] in the tree's order."""
+    out = []
+    tree_map_with_path(lambda p, x: out.append((path_str(p), x)), tree)
+    return out
+
+
+def path_str(path) -> str:
+    return "/".join(path)
+
+
+# ----------------------------------------------------------------------------
+# the rules
+# ----------------------------------------------------------------------------
+
+def param_spec(path_s: str, shape: Tuple[int, ...], mesh,
+               stacked: bool = False, scanned: bool = False,
+               fsdp_axis: Optional[str] = "data",
+               tp_axis: Optional[str] = "model",
+               moe_expert_axis: Optional[str] = None,
+               two_d_ffn: bool = False) -> PartitionSpec:
+    """The spec of one parameter leaf.
+
+    moe_expert_axis: shard the EXPERT axis of stacked MoE weights over this
+    mesh axis (expert parallelism: token routing becomes an all-to-all)
+    instead of FSDP-sharding inside each expert.
+    two_d_ffn: the decode-serving scheme: FFN / lm-head / embedding weights
+    get 2D weight-stationary sharding over ("data", "model") (no per-step
+    re-gather) while attention keeps FSDP + TP."""
+    sizes = mesh.shape
+    symbols = {"fsdp": fsdp_axis, "tp": tp_axis, "exp": moe_expert_axis}
+    if two_d_ffn and re.search(
+            r"(embed/tokens|embed/head|ffn/w_(gate|up|down|k|v|r))$", path_s):
+        symbols = {"fsdp": None, "tp": ("data", "model"),
+                   "exp": moe_expert_axis}
+
+    template: Tuple = ()
+    slide = True
+    is_expert = (re.search(r"ffn/w_(gate|up|down)$", path_s)
+                 and len(shape) >= 3 + int(stacked) + int(scanned))
+    if moe_expert_axis and is_expert:
+        # (…, E, d, f) / (…, E, f, d): expert axis + tp on the wide dim
+        template = (("exp", None, "tp") if path_s.endswith(("w_gate", "w_up"))
+                    else ("exp", "tp", None))
+        slide = False
+    else:
+        for rule in _RULES:
+            if re.search(rule[0], path_s):
+                template = rule[1]
+                slide = rule[2] if len(rule) > 2 else True
+                break
+
+    ndim = len(shape)
+    spec: list = [None] * ndim
+    lead = 0
+    if stacked:
+        if "pod" in sizes and shape[0] == sizes["pod"]:
+            spec[0] = "pod"
+        lead += 1
+    if scanned:
+        lead += 1  # the scan axis is never sharded
+
+    def axis_ways(axis) -> int:
+        if isinstance(axis, tuple):
+            if not all(a in sizes for a in axis):
+                return 0
+            n = 1
+            for a in axis:
+                n *= sizes[a]
+            return n
+        return sizes.get(axis, 0)
+
+    # the template on the trailing dims, with the greedy fallback: if the
+    # intended dim is not divisible (28 heads over a 16-way model axis),
+    # slide right to the next free divisible dim (head_dim 128)
+    t = list(template)[-max(0, ndim - lead):] if template else []
+    off = ndim - len(t)
+    for i, sym in enumerate(t):
+        if sym is None:
+            continue
+        axis = symbols.get(sym)
+        ways = axis_ways(axis) if axis else 0
+        if not ways:
+            continue
+        hi = ndim if slide else min(off + i + 1, ndim)
+        for dim in range(max(off + i, lead), hi):
+            if spec[dim] is None and shape[dim] % ways == 0 \
+                    and shape[dim] >= ways:
+                spec[dim] = axis
+                break
+    return P(*spec)
+
+
+def _scanned(ps: str) -> bool:
+    return any(f"{s}/" in ps for s in _SCAN_SUBTREES)
+
+
+def params_shardings(params_shapes: PyTree, mesh, stacked: bool = False,
+                     fsdp_axis: Optional[str] = "data",
+                     tp_axis: Optional[str] = "model") -> PyTree:
+    """The spec tree of a (possibly stacked) parameter tree."""
+    def one(path, leaf):
+        ps = path_str(path)
+        return param_spec(ps, tuple(leaf.shape), mesh, stacked, _scanned(ps),
+                          fsdp_axis, tp_axis)
+    return tree_map_with_path(one, params_shapes)
+
+
+def optstate_shardings(opt_shapes: PyTree, param_shardings: PyTree,
+                       mesh) -> PyTree:
+    """Optimizer moments mirror the param specs; scalars replicate."""
+    flat_p = dict(tree_flatten_with_path(param_shardings))
+
+    def one(path, leaf):
+        ps = path_str(path)
+        # OptState fields are ('step', 'm', 'v'); strip the field prefix
+        for field in ("m/", "v/"):
+            if ps.startswith(field) and ps[len(field):] in flat_p:
+                return flat_p[ps[len(field):]]
+        m = re.match(r"^\d+/(m|v)/(.*)$", ps)
+        if m and m.group(2) in flat_p:
+            return flat_p[m.group(2)]
+        return replicated(mesh)
+
+    return tree_map_with_path(one, opt_shapes)
+
+
+def batch_shardings(batch_shapes: PyTree, mesh, stacked: bool = False,
+                    microbatched: bool = False,
+                    shard_seq_when_b1: bool = False) -> PyTree:
+    """Batch arrays: the batch dim shards over (pod +) data, pod only when
+    not stacked (the baseline's data parallelism spans pods; codist batches
+    stack over pod). The microbatch axis is never sharded. With
+    ``shard_seq_when_b1`` and an indivisible batch the sequence axis shards
+    instead."""
+    sizes = mesh.shape
+    has_pod = "pod" in sizes
+
+    def one(_path, leaf):
+        shape = tuple(leaf.shape)
+        spec: list = [None] * len(shape)
+        i = 0
+        if stacked:
+            if has_pod and shape[0] == sizes["pod"]:
+                spec[0] = "pod"
+            i = 1
+        if microbatched:
+            i += 1
+        if len(shape) > i:
+            batch_axes = []
+            b = shape[i]
+            if not stacked and has_pod \
+                    and b % (sizes["pod"] * sizes["data"]) == 0:
+                batch_axes = ["pod", "data"]
+            elif b % sizes["data"] == 0:
+                batch_axes = ["data"]
+            if batch_axes:
+                spec[i] = (tuple(batch_axes) if len(batch_axes) > 1
+                           else batch_axes[0])
+            elif shard_seq_when_b1 and len(shape) > i + 1 and \
+                    shape[i + 1] % sizes["data"] == 0:
+                spec[i + 1] = "data"
+        return P(*spec)
+
+    return tree_map_with_path(one, batch_shapes)
+
+
+def cache_shardings(cache_shapes: PyTree, mesh, batch: int,
+                    prefer_time: bool = False) -> PyTree:
+    """KV caches and recurrent states, (L, B, T, kv, hd)-style leaves: B
+    shards over "data" when divisible; for B == 1, or with ``prefer_time``,
+    the time axis shards over "data" (context parallelism) and head-like
+    axes take "model" when divisible."""
+    sizes = mesh.shape
+
+    def one(_path, leaf):
+        shape = tuple(leaf.shape)
+        spec: list = [None] * len(shape)
+        used = set()
+        # axis 0 is the layer axis: never sharded; axis 1 is the batch
+        if not prefer_time and len(shape) >= 2 \
+                and shape[1] % sizes["data"] == 0 and shape[1] > 1:
+            spec[1] = "data"
+            used.add("data")
+        # remaining axes: time over "data" (if free), heads over "model"
+        for dim in range(2, len(shape)):
+            if "data" not in used and shape[dim] % sizes["data"] == 0 \
+                    and shape[dim] >= sizes["data"] and dim == 2:
+                spec[dim] = "data"
+                used.add("data")
+            elif "model" not in used and shape[dim] % sizes["model"] == 0 \
+                    and shape[dim] >= sizes["model"]:
+                spec[dim] = "model"
+                used.add("model")
+        return P(*spec)
+
+    return tree_map_with_path(one, cache_shapes)
+
+
+def replicated(mesh) -> PartitionSpec:
+    return P()
+
+
+def state_shardings(state_shapes: PyTree, mesh, stacked: bool = False,
+                    fsdp_axis: Optional[str] = "data",
+                    tp_axis: Optional[str] = "model",
+                    moe_expert_axis: Optional[str] = None,
+                    two_d_ffn: bool = False) -> PyTree:
+    """Specs of a whole train / codist state tree (or a bare parameter
+    tree). Optimizer moments and stale replicas mirror the param rules
+    because their paths end with the same leaf names; scalars replicate."""
+    def one(path, leaf):
+        if len(getattr(leaf, "shape", ())) == 0:
+            return replicated(mesh)
+        ps = path_str(path)
+        return param_spec(ps, tuple(leaf.shape), mesh, stacked, _scanned(ps),
+                          fsdp_axis, tp_axis, moe_expert_axis, two_d_ffn)
+
+    return tree_map_with_path(one, state_shapes)
+
+
+# ----------------------------------------------------------------------------
+# what a spec leaves on one device
+# ----------------------------------------------------------------------------
+
+def axes_of(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None -> ())."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec shards over, in dim order."""
+    return tuple(a for e in spec for a in axes_of(e))
+
+
+def local_shape(shape: Tuple[int, ...], spec, mesh) -> Tuple[int, ...]:
+    """The per-device shard of a ``shape`` placed by ``spec`` (a spec
+    shorter than the shape leaves the trailing dims whole)."""
+    sizes = mesh.shape
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        ways = 1
+        for a in axes_of(entry):
+            ways *= sizes[a]
+        if out[dim] % ways:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
+                             f"over {entry} ({ways} ways)")
+        out[dim] //= ways
+    return tuple(out)

@@ -23,6 +23,8 @@ def dense_init_(out: torch.Tensor, in_dim: int, gen: torch.Generator,
     """Fill ``out`` (``(in_dim, *out_shape)``) with a truncated-normal
     (+-2 sigma) fan-in init of std ``scale / sqrt(in_dim)``, drawn in fp32
     and stored in ``out``'s dtype."""
+    if out.is_meta:
+        return out
     std = scale / math.sqrt(in_dim)
     tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -39,6 +41,8 @@ def stacked_draw(n: int, shape, draw, generator: torch.Generator,
     leading dims of ``shape`` are drawn slice by slice too (an expert stack
     ``(E, d, f)``: one matrix at a time)."""
     t = torch.empty((n, *shape), dtype=dtype, device=device)
+    if t.is_meta:              # shape stand-ins: nothing to draw
+        return t
     inner = tuple(shape[batch_dims:])
     for sl in t.reshape(-1, *inner):
         tmp = torch.empty(inner, dtype=torch.float32, device=device)
@@ -65,6 +69,8 @@ def stacked_const(n: int, shape, value: float, dtype: torch.dtype,
 
 
 def embed_init_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    if out.is_meta:
+        return out
     tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     tmp.normal_(0.0, 1.0, generator=gen)
     out.copy_(tmp.mul_(0.02))

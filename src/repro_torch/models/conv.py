@@ -143,9 +143,10 @@ class ConvNet:
     def init(self, generator: torch.Generator, device="cuda") -> PyTree:
         """fp32 parameters from ``generator`` (on ``device``): He-normal
         convolutions, GroupNorm scale 1 and bias 0, a truncated-normal
-        fan-in head, as the reference draws them."""
+        fan-in head, as the reference draws them (empty stand-ins on
+        ``device="meta"``)."""
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = resolve_device(device, meta=True)
         stem_out = (cfg.widths[0] if not cfg.bottleneck
                     else max(16, cfg.widths[0] // 4))
         params: Dict = {

@@ -67,9 +67,9 @@ class EncDecLM:
         """Random parameters from ``generator`` (on ``device``), drawn as
         ``LM.init`` draws them: matrices, embeddings and biases in
         ``weight_dtype`` (default ``cfg.param_dtype``), norm scales in
-        ``cfg.param_dtype``."""
+        ``cfg.param_dtype``; empty stand-ins on ``device="meta"``."""
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = resolve_device(device, meta=True)
         pdt = torch_dtype(cfg.param_dtype)
         wdt = weight_dtype or pdt
         d = cfg.d_model
@@ -144,10 +144,11 @@ class EncDecLM:
     def init_cache(self, batch: int, cap: int, dtype=torch.bfloat16,
                    device="cuda") -> PyTree:
         """Zero caches: the self cache ``cap`` long, the cross cache
-        ``num_audio_frames`` long (``cap`` for a token-source model)."""
+        ``num_audio_frames`` long (``cap`` for a token-source model);
+        empty stand-ins on ``device="meta"``."""
         cfg = self.cfg
         n = cfg.num_layers
-        dev = resolve_device(device)
+        dev = resolve_device(device, meta=True)
         mem_len = cfg.num_audio_frames or cap
         one = attn.init_kv_cache(cfg, batch * n, cap, dtype, dev)
         shape = (n, batch, mem_len, cfg.num_kv_heads, cfg.resolved_head_dim)

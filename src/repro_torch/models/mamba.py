@@ -51,7 +51,7 @@ def init_stacked_mamba(cfg: ModelConfig, n: int, generator: torch.Generator,
     d = cfg.d_model
     d_inner, dt_rank, d_state, d_conv = _dims(cfg)
     conv_w = torch.empty((n, d_conv, d_inner), dtype=dtype, device=device)
-    for sl in conv_w:
+    for sl in ([] if conv_w.is_meta else conv_w):
         tmp = torch.empty(sl.shape, dtype=torch.float32, device=device)
         sl.copy_(tmp.normal_(0.0, 1.0, generator=generator).mul_(0.1))
     a_log = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,

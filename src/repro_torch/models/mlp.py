@@ -35,8 +35,9 @@ class MLP:
     cfg: MLPConfig
 
     def init(self, generator: torch.Generator, device="cuda") -> PyTree:
-        """Truncated-normal fan-in weights and zero biases, fp32."""
-        dev = resolve_device(device)
+        """Truncated-normal fan-in weights and zero biases, fp32 (empty
+        stand-ins on ``device="meta"``)."""
+        dev = resolve_device(device, meta=True)
         dims = (self.cfg.in_dim, *self.cfg.hidden, self.cfg.num_classes)
         params: Dict[str, torch.Tensor] = {}
         for i, (a, b) in enumerate(zip(dims, dims[1:])):

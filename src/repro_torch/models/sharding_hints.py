@@ -1,0 +1,90 @@
+"""Activation placements behind the reference's sharding hints.
+
+The reference steers XLA's partitioner with ``with_sharding_constraint`` at
+a few named places of its model code (``hint(x, kind)``) while a launcher's
+``activation_sharding`` context is active. PyTorch has no partitioner, so
+the port's counterpart is a pure function: ``hint_spec(kind, shape,
+batch_axes, tp_axis, tp_size)`` returns the spec ``hint`` would apply to an
+activation of that shape, or None where ``hint`` leaves it alone. The cost
+model (``launch/cost.py``) reads it for the bytes of the activations a
+device holds (``btd_carry``, ``scores``, ``btv``) and for the split of the
+attention core (``scores``) and of the loss rows (``btv``) over tp; its
+collectives come from the weights' placements.
+
+Kinds: ``btd`` (batch, seq, d_model), ``btd_carry`` (the residual stream
+between layers: d_model over tp when divisible), ``btv`` (batch, seq,
+vocab over tp), ``wire`` (the stacked codist exchange payload: its model
+axis over "pod"), ``scores`` (attention scores (B, H, S, T): heads over tp
+when divisible, else the query axis, else untouched: 56 heads on tp 16
+fall back to the query axis).
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from typing import Optional, Sequence, Tuple
+
+from repro_torch.launch.sharding import P, PartitionSpec
+
+_state = threading.local()
+
+
+@contextmanager
+def activation_sharding(batch_axes: Optional[Tuple[str, ...]],
+                        tp_axis: Optional[str], tp_size: int = 0):
+    """The placements ``current_hint_spec`` reads inside the block (the
+    reference's context of the same name, which its launchers set before
+    tracing)."""
+    _state.ctx = (batch_axes, tp_axis, tp_size)
+    try:
+        yield
+    finally:
+        _state.ctx = None
+
+
+def hint_spec(kind: str, shape: Sequence[int],
+              batch_axes: Optional[Tuple[str, ...]], tp_axis: Optional[str],
+              tp_size: int = 0) -> Optional[PartitionSpec]:
+    """The spec the reference's ``hint(x, kind)`` applies to an ``x`` of
+    ``shape`` under ``activation_sharding(batch_axes, tp_axis, tp_size)``,
+    or None where it returns ``x`` untouched (an unknown kind, the scores
+    with neither heads nor queries divisible, a wire of rank < 2). A spec
+    shorter than the shape is padded with None on the left (stacked codist
+    models: the leading axis is placed by the params and the batch)."""
+    ndim = len(shape)
+    tp_size = tp_size or 1
+    b = batch_axes if batch_axes else None
+    if kind == "btd":
+        spec = [b, None, None]
+    elif kind == "btd_carry":
+        d = shape[-1]
+        spec = [b, None, tp_axis if (d % tp_size == 0 and d >= tp_size)
+                else None]
+    elif kind == "btv":
+        spec = [b, None, tp_axis]
+    elif kind == "wire":
+        spec = ["pod", b, *([None] * (ndim - 2))]
+        return P(*spec) if len(spec) == ndim else None
+    elif kind == "scores":
+        h, s = shape[-3], shape[-2]
+        if h % tp_size == 0 and h >= tp_size:
+            spec = [b, tp_axis, None, None]
+        elif s % tp_size == 0 and s >= tp_size:
+            spec = [b, None, tp_axis, None]
+        else:
+            return None
+    else:
+        return None
+    if len(spec) != ndim:
+        spec = [None] * (ndim - len(spec)) + spec
+    return P(*spec)
+
+
+def current_hint_spec(kind: str, shape: Sequence[int]
+                      ) -> Optional[PartitionSpec]:
+    """``hint_spec`` under the active context (None outside one, where the
+    reference's ``hint`` is a no-op)."""
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None or (ctx[0] is None and ctx[1] is None):
+        return None
+    return hint_spec(kind, shape, *ctx)

@@ -295,9 +295,11 @@ class LM:
         ``decay_base``, ``bonus``, ``ln_x_scale`` and ``ln_x_bias``) stay in
         ``cfg.param_dtype``. Each stacked slice (an expert's matrix for an
         expert stack) is drawn in fp32 and cast on store, so a bf16
-        full-size init never holds the fp32 tree."""
+        full-size init never holds the fp32 tree. On ``device="meta"``
+        (``generator`` may be None) every leaf is an empty stand-in of its
+        shape and dtype: nothing is drawn or allocated."""
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = resolve_device(device, meta=True)
         pdt = torch_dtype(cfg.param_dtype)
         wdt = weight_dtype or pdt
         n = _n_scan(cfg)
@@ -370,10 +372,10 @@ class LM:
         0), Mamba sub-layers ``{"h": (L,B,d_inner,N) fp32, "conv":
         (L,B,d_conv-1,d_inner)}`` in ``dtype``, RWKV sub-layers ``{"s":
         (L,B,H,hd,hd) fp32, "shift_tm", "shift_cm": (L,B,1,d)}`` in
-        ``dtype``."""
+        ``dtype``. ``device="meta"`` gives empty stand-ins."""
         cfg = self.cfg
         n = _n_scan(cfg)
-        dev = resolve_device(device)
+        dev = resolve_device(device, meta=True)
         cache = init_states(cfg, n, batch, dtype, dev)
         for i, (m, _f) in enumerate(_sub_kinds(cfg)):
             if m == "attn":

@@ -157,6 +157,13 @@ def test_port_imports_no_jax_and_no_reference():
     # obs layer (pure Python, imported nowhere from the reference)
     obs = {p.name for p in files if p.parent.name == "obs"}
     assert obs >= {p.name for p in (ROOT / "src" / "repro" / "obs").glob("*.py")}
+    # and the launch layer's mesh, specs, rules, roofline, cost model and
+    # dry run, with the activation hints
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+             if p.name != "chip_smoke.py"}
+    assert names >= {"launch/mesh.py", "launch/specs.py", "launch/sharding.py",
+                     "launch/roofline.py", "launch/cost.py",
+                     "launch/dryrun.py", "models/sharding_hints.py"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
