@@ -267,12 +267,33 @@ exits non-zero:
                 (PredictionExchange) and the metered wire bytes equal to
                 ``comm_bytes``; last the CLI itself on the card (reduced
                 config).
+ 20. mesh     — the codist step over DTensors on a 1-rank NCCL mesh (1, 1,
+                1) (``spawn_pods(..., mesh=)``): qwen1.5-0.5b at full width
+                and 4 of 24 layers, fp32 (TF32 off), both peers placed on
+                the pod's (data, model) devices by the sharding rules,
+                ``PredictionExchange`` 3 steps against the plain step on the
+                same card from the same weights and Markov batches: losses
+                and every leaf within 1e-6 relative, rows 12 and 13 launched
+                once a peer a step, every launch through the loss kernels'
+                DTensor entry.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
 ``parent`` runs ``rows`` in four processes — a copy of the parent commit
 in ``build/parent``, this tree twice, the parent —
 requiring bit-equal outputs and printing the times side by side.
+``mesh4`` needs a host with 4 cards (``python3 chip_smoke.py --phases
+device,build,mesh4``; fewer fail the phase) and spawns 4 ranks,
+one card each, NCCL: qwen1.5-0.5b at 4 layers in fp32 on (2, 2, 1) (pod x
+FSDP) and (2, 1, 2) (pod x TP) over the none and top-64 wires,
+``ShardMapCompressed`` 3 steps held to the single-card
+``PredictionExchange`` (losses 1e-4 relative, each rank's shard of every
+leaf 1e-4 absolute, the loss moving by more than 100 times that), launches
+exact, the pod gathers' bytes equal to ``comm_bytes``; then deepseek-67b at
+full width and 4 of 95 layers (bf16 over fp32 masters, AdamW, 2 peers of 4
+x 512 tokens on (2, 1, 2)), which one card cannot hold: finite moving
+losses, wall and device ms a step, the NCCL gather's share of a step and
+its bytes, each rank's peak memory.
 
 The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
 (H = KVh = 20, hd 128, the fleet's slots and lengths: the kernel's head
@@ -317,11 +338,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
           "train_peers", "sweep", "async", "train_parity", "spec",
           "fleet_codist", "single", "obs", "paper", "families", "rwkv",
-          "shardmap")
+          "shardmap", "mesh")
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
-# of the parent commit in PARENT and on this tree, and compares them
-ON_REQUEST = ("rows", "parent")
+# of the parent commit in PARENT and on this tree, and compares them;
+# "mesh4" needs a host with 4 cards
+ON_REQUEST = ("rows", "parent", "mesh4")
 PARENT = os.path.join(ROOT, "build", "parent")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
@@ -395,14 +417,16 @@ PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs",
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
                                        "async", "obs", "paper", "families",
-                                       "rwkv", "shardmap"),
+                                       "rwkv", "shardmap", "mesh4"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
                                       "async", "obs", "paper", "families",
-                                      "rwkv", "shardmap"),
+                                      "rwkv", "shardmap", "mesh4"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
-                                    "paper", "families", "rwkv", "shardmap"),
+                                    "paper", "families", "rwkv", "shardmap",
+                                    "mesh", "mesh4"),
          "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs",
-                                   "paper", "families", "rwkv", "shardmap"),
+                                   "paper", "families", "rwkv", "shardmap",
+                                   "mesh", "mesh4"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
          "fused_distill_kl_parts": ("train_peers", "async", "obs", "paper"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
@@ -6327,6 +6351,409 @@ def phase_shardmap(dev: torch.device) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 20 (mesh) and on request (mesh4): the codist step on a (pod, data,
+# model) mesh, every rank on its own card over NCCL
+# ----------------------------------------------------------------------------
+
+# qwen1.5-0.5b at full width cut to MESH_LAYERS of 24, fp32 (TF32 off), 2
+# peers of MESH_B x MESH_S Markov tokens, SGD-momentum at a constant lr
+MESH_ARCH, MESH_LAYERS = "qwen1.5-0.5b", 4
+MESH_B, MESH_S, MESH_STEPS, MESH_LR = 2, 512, 3, 0.1
+MESH_TOPK = 64
+# mesh4's parity meshes (pod x FSDP, pod x TP) and its tolerance (the
+# reference test's own bounds)
+MESH4_PARITY = ((2, 2, 1), (2, 1, 2))
+MESH4_TOL = 1e-4
+# mesh4's configuration that needs the cards: deepseek-67b at full width and
+# BIG_LAYERS of 95, bf16 over fp32 masters, AdamW, 2 peers on (2, 1, 2)
+BIG_ARCH, BIG_LAYERS, BIG_B, BIG_S, BIG_MESH = "deepseek-67b", 4, 4, 512, \
+    (2, 1, 2)
+
+
+def mesh_data(cfg, b: int, s: int, steps: int, seed: int = 7) -> list:
+    """``steps`` host batches (2, b, s) of a Markov chain over 256 of the
+    vocab (a task the peers learn within the steps)."""
+    from repro_torch.data import MarkovLM, make_lm_batch
+    from repro_torch.train import stack_batches
+    task = MarkovLM(vocab=cfg.vocab_size, seed=1, effective_vocab=256)
+    return [stack_batches([make_lm_batch(task, b, s, k, g, seed=seed,
+                                         device="cpu") for g in range(2)])
+            for k in range(steps)]
+
+
+def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
+             profile_rank0: bool = False) -> dict:
+    """One mesh run through ``train_codist`` (the peers drawn from
+    ``tc.seed`` on this rank's card, placed by the strategy or by
+    ``place``), with the launch counts and the DTensor entry's calls set to
+    0 just before and read just after; per step (from one step's start to
+    the next's) the wall and the pod gather's seconds; rank 0's steps 1..
+    under torch.profiler where asked (``device_ms``: their kernels' device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import local_rows_calls
+    from repro_torch.models import build_model
+    from repro_torch.train import train_codist
+    dev = pods.device
+    model = build_model(cfg)
+    marks: list = []
+
+    prof = (profile(activities=[ProfilerActivity.CUDA])
+            if profile_rank0 and dist_rank() == 0 else None)
+
+    def data(k):
+        if k == 1 and prof is not None:
+            sync(dev)          # steps 1.. (after the init and step 0)
+            prof.__enter__()
+        marks.append((time.perf_counter(), pods.wire_s))
+        return batches[k]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bytes0 = pods.wire_bytes
+    reset_launch_counts()
+    for k in local_rows_calls:
+        local_rows_calls[k] = 0
+    t0 = time.perf_counter()
+    state, hist = train_codist(model, codist, tc, data, log_every=1,
+                               strategy=strategy, device=dev)
+    sync(dev)
+    marks.append((time.perf_counter(), pods.wire_s))
+    device_ms = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA)
+        device_ms = us / 1e3 if us > 0 else None
+    return {"label": label, "state": state,
+            "records": finite_records(hist, f"{label} rank {dist_rank()}"),
+            "seconds": time.perf_counter() - t0,
+            "step_s": [b[0] - a[0] for a, b in zip(marks, marks[1:])],
+            "wire_s": [b[1] - a[1] for a, b in zip(marks, marks[1:])],
+            "wire_bytes": pods.wire_bytes - bytes0,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": dict(launch_counts), "entry": dict(local_rows_calls),
+            "device_ms": device_ms}
+
+
+def dist_rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def shard_errors(placed, plain, sub_mesh) -> tuple:
+    """(worst absolute, worst relative to the leaf's largest value, the
+    leaf of the worst relative) error of this rank's local shards of the
+    ``placed`` leaves against the same shards of the ``plain`` single-card
+    leaves."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.sharding import tree_flatten_with_path
+    worst_abs = worst_rel = 0.0
+    where = None
+    for (path, a), (_p, b) in zip(tree_flatten_with_path(placed),
+                                  tree_flatten_with_path(plain)):
+        want = distribute_tensor(b.detach(), sub_mesh, a.placements,
+                                 src_data_rank=None).to_local()
+        err = float((a.to_local().detach().float() - want.float())
+                    .abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        worst_abs = max(worst_abs, err)
+        if rel >= worst_rel:
+            worst_rel, where = rel, path
+    return worst_abs, worst_rel, where
+
+
+def mesh_tc(**kw):
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(**{**dict(lr=MESH_LR, lr_schedule="constant",
+                                 warmup_steps=0, total_steps=MESH_STEPS,
+                                 optimizer="sgdm"), **kw})
+
+
+def mesh_smoke_rank(pods) -> dict:
+    """The mesh phase's one rank (a (1, 1, 1) mesh, NCCL on card 0):
+    qwen1.5-0.5b at MESH_LAYERS in fp32 (TF32 off), both peers DTensors on
+    the pod's (data, model) devices (the pod axis is not 2, so the peer
+    axis stays unplaced), ``PredictionExchange`` over them against the
+    plain step from the same weights and batches."""
+    from repro_torch.configs import CodistConfig, get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.train import PredictionExchange
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
+                  dtype="float32")
+    codist = CodistConfig(n_models=2)
+    batches = mesh_data(cfg, MESH_B, MESH_S, MESH_STEPS)
+    mesh = logical_mesh(pods.mesh)
+
+    class Placed(PredictionExchange):
+        """PredictionExchange whose drawn state and batches are placed on
+        this pod's devices."""
+
+        def ensure_state(self, state, model, tc, example_batch=None):
+            return sh.distribute_state(state, mesh, pods.sub_mesh, 2)
+
+        def init_state(self, model, tc, generator, opt_init,
+                       example_batch=None, device="cuda"):
+            return self.ensure_state(super().init_state(
+                model, tc, generator, opt_init, example_batch, device),
+                model, tc)
+
+        def prepare(self, state, batch_all, k):
+            return sh.distribute_batch(batch_all, mesh, pods.sub_mesh)
+
+    plain = mesh_job(pods, "mesh plain", cfg, codist, mesh_tc(), batches,
+                     PredictionExchange(codist))
+    placed = mesh_job(pods, "mesh", cfg, codist, mesh_tc(), batches,
+                      Placed(codist))
+    err = shard_errors(placed["state"].params, plain["state"].params,
+                       pods.sub_mesh)
+    for run in (plain, placed):
+        del run["state"]
+    return {"plain": plain, "placed": placed, "leaf_err": err}
+
+
+def phase_mesh(dev: torch.device) -> dict:
+    """The codist step over DTensors on one card (module docstring, phase
+    20): a 1-rank NCCL mesh (1, 1, 1), both peers placed on it,
+    ``PredictionExchange`` 3 steps against the plain step on the same card
+    from the same weights and batches: losses and every leaf within 1e-6
+    relative; rows 12 and 13 launched once a peer a step, every launch
+    through the loss kernels' DTensor entry. Returns the placed run's
+    launches."""
+    from repro_torch.launch.mesh import make_codist_mesh, spawn_pods
+    t0 = time.perf_counter()
+    (out,) = spawn_pods(mesh_smoke_rank, 1, (), device=str(dev),
+                        timeout_s=600.0, mesh=make_codist_mesh(1, 1, 1))
+    plain, placed = out["plain"], out["placed"]
+    want = expected_launches(2, "mse", MESH_STEPS, combined=True,
+                             task_ce=False, standalone=0)
+    got = {k: placed["launches"][k] for k in ALL_LOSS_KERNELS}
+    require(got == want, f"mesh: launches {got} != {want}")
+    require(placed["entry"]["_CEDistillTokens"]
+            == want["fused_ce_distill_parts"]
+            and sum(placed["entry"].values())
+            == placed["entry"]["_CEDistillTokens"],
+            f"mesh: DTensor entry calls {placed['entry']} for launches {got}")
+    worst = 0.0
+    for a, b in zip(plain["records"], placed["records"]):
+        for m in ("loss", "task_loss", "distill_loss", "task_loss_per_model_0",
+                  "task_loss_per_model_1"):
+            rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
+            worst = max(worst, rel)
+            require(rel <= 1e-6, f"mesh step {a['step']} {m}: {b[m]} vs "
+                    f"the plain step's {a[m]}")
+    require(out["leaf_err"][1] <= 1e-6, f"mesh: a leaf differs from the "
+            f"plain step's by {out['leaf_err']} (absolute, relative, leaf)")
+    moved = abs(plain["records"][-1]["loss"] - plain["records"][0]["loss"])
+    wall = [x * 1e3 for x in placed["step_s"][1:]]
+    log(f"mesh: {MESH_ARCH} {MESH_LAYERS} of 24 layers fp32, 2 peers of "
+        f"{MESH_B} x {MESH_S} on a (1, 1, 1) NCCL mesh: losses "
+        f"{[round(r['loss'], 6) for r in placed['records']]} (moved "
+        f"{moved:.4f}), within {worst:.2e} relative of the plain step, "
+        f"leaves within {out['leaf_err'][0]:.2e} absolute "
+        f"({out['leaf_err'][1]:.2e} relative, at {out['leaf_err'][2]}); "
+        "launches "
+        f"{ {k: v for k, v in got.items() if v} }, all through the DTensor "
+        f"entry ({placed['entry']}); wall a step (steps 1-2) "
+        + ", ".join(f"{w:.1f}" for w in wall) + " ms placed, "
+        + ", ".join(f"{x * 1e3:.1f}" for x in plain["step_s"][1:])
+        + f" ms plain; peak {placed['peak_bytes'] / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    return got
+
+
+def big_peer_bytes(cfg) -> tuple:
+    """(parameters of one peer, bytes of its fp32 master, gradient and two
+    AdamW moments: 16 a parameter)."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    n = sum(x.numel() for x in tree_leaves(build_model(cfg).init(
+        None, device="meta")))
+    return n, 16 * n
+
+
+def mesh4_rank(pods) -> dict:
+    """One of mesh4's 4 ranks (cuda:rank, NCCL). First the parity jobs:
+    on each mesh of MESH4_PARITY and over the none and top-64 wires,
+    qwen1.5-0.5b at MESH_LAYERS in fp32 (TF32 off) trains 3 steps of
+    ``ShardMapCompressed`` (this rank's pod's peer placed by the rules)
+    and, on this rank's card, the single-card ``PredictionExchange`` from
+    the same weights and batches, whose final leaves this rank's shards
+    are held to. Then deepseek-67b at BIG_LAYERS, bf16 over fp32 masters,
+    AdamW, 2 peers on BIG_MESH, the none wire, rank 0 under
+    torch.profiler."""
+    from repro_torch.configs import CodistConfig, get_config
+    from repro_torch.launch.mesh import (device_mesh, make_codist_mesh,
+                                         mesh_pod_group)
+    from repro_torch.train import PredictionExchange, ShardMapCompressed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    groups = {MESH4_PARITY[0]: pods}
+    for shape in MESH4_PARITY[1:] + (BIG_MESH,):
+        if shape not in groups:
+            m = make_codist_mesh(*shape)
+            groups[shape] = mesh_pod_group(
+                m, device_mesh(m, pods.device.type), pods.device)
+    cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
+                  dtype="float32")
+    batches = mesh_data(cfg, MESH_B, MESH_S, MESH_STEPS)
+    out = {"parity": []}
+    for wire in ("none", "topk"):
+        codist = CodistConfig(n_models=2, compression=wire, topk=MESH_TOPK)
+        plain = mesh_job(pods, f"mesh4 plain {wire}", cfg, codist, mesh_tc(),
+                         batches, PredictionExchange(codist))
+        for shape in MESH4_PARITY:
+            g = groups[shape]
+            run = mesh_job(g, f"mesh4 {shape} {wire}", cfg, codist,
+                           mesh_tc(), batches, ShardMapCompressed(codist, g))
+            run["leaf_err"] = shard_errors(run["state"].params,
+                                           plain["state"].params[g.rank],
+                                           g.sub_mesh)
+            del run["state"]
+            run.update(shape=shape, wire=wire, pod=g.rank)
+            out["parity"].append(run)
+        del plain["state"]
+        out["parity"].append({**plain, "shape": None, "wire": wire})
+    big = replace(get_config(BIG_ARCH), num_layers=BIG_LAYERS)
+    g = groups[BIG_MESH]
+    codist = CodistConfig(n_models=2)
+    run = mesh_job(g, "mesh4 deepseek", big, codist,
+                   mesh_tc(optimizer="adamw", lr=1e-4, lr_schedule="constant"),
+                   mesh_data(big, BIG_B, BIG_S, MESH_STEPS),
+                   ShardMapCompressed(codist, g), profile_rank0=True)
+    del run["state"]
+    run.update(pod=g.rank)
+    out["big"] = run
+    return out
+
+
+def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
+    """On request, on a host with 4 cards: one spawn of 4 ranks,
+    one card each, NCCL (``mesh4_rank``). Parity: each rank's losses
+    within MESH4_TOL relative of the single-card PredictionExchange, its
+    shards of every leaf within MESH4_TOL absolute, the loss moving by more
+    than 100 times that over the 3 steps; launches exact (rows 12 and 13
+    over the none wire, 6 and 7 over top-64, one a rank a step, each
+    through the DTensor entry); the pod gathers' bytes (each shard once a
+    pod) equal to ``comm_bytes``. deepseek-67b: finite, moving losses,
+    wall and device ms a step on rank 0, the pod gather's share of a
+    step and its bytes against the comm model at the wire's 16 bits (and
+    the History's ``comm_bytes``, which prices fp32 logits), each rank's
+    peak memory beside the bytes of the two peers' training state.
+    Returns the placed runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm_model as cm
+    from repro_torch.launch.mesh import make_codist_mesh, spawn_pods
+    have = torch.cuda.device_count()
+    require(have >= 4, f"mesh4 needs 4 cards, one a rank; this host has "
+            f"{have}")
+    t0 = time.perf_counter()
+    ranks = spawn_pods(mesh4_rank, 4, (), device=str(dev), timeout_s=1500.0,
+                       mesh=make_codist_mesh(*MESH4_PARITY[0]))
+    log(f"mesh4: 4 ranks on 4 cards ({torch.cuda.get_device_name(0)}), "
+        f"{time.perf_counter() - t0:.1f} s with the spawn")
+    cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
+                  dtype="float32")
+    launches = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    for j, job in enumerate(ranks[0]["parity"]):
+        if job["shape"] is None:
+            continue
+        runs = [r["parity"][j] for r in ranks]
+        plain = next(r for r in ranks[0]["parity"]
+                     if r["shape"] is None and r["wire"] == job["wire"])
+        label, topk = job["label"], job["wire"] == "topk"
+        want = expected_launches(1, "mse", MESH_STEPS, combined=not topk,
+                                 task_ce=topk, standalone=0)
+        entry = "_CEParts" if topk else "_CEDistillTokens"
+        for r, run in enumerate(runs):
+            got = {k: run["launches"][k] for k in ALL_LOSS_KERNELS}
+            require(got == want, f"{label} rank {r}: launches {got} != {want}")
+            require(run["entry"][entry] == MESH_STEPS
+                    and sum(run["entry"].values()) == MESH_STEPS,
+                    f"{label} rank {r}: DTensor entry calls {run['entry']}")
+            for k, v in got.items():
+                launches[k] += v
+        worst = 0.0
+        for r, run in enumerate(runs):
+            for a, b in zip(plain["records"], run["records"]):
+                for m in ("loss", "task_loss", "distill_loss"):
+                    rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
+                    worst = max(worst, rel)
+                    require(rel <= MESH4_TOL, f"{label} rank {r} step "
+                            f"{a['step']} {m}: {b[m]} vs the single card's "
+                            f"{a[m]}")
+            require(run["leaf_err"][0] <= MESH4_TOL, f"{label} rank {r}: a "
+                    f"leaf differs by {run['leaf_err'][0]:.3e} absolute")
+        first, last = plain["records"][0]["loss"], plain["records"][-1]["loss"]
+        moved = abs(last - first) / abs(first)
+        require(moved > 100 * MESH4_TOL, f"{label}: the loss moved by only "
+                f"{moved:.2e} relative over {MESH_STEPS} steps")
+        comm = runs[0]["records"][-1]["comm_bytes"]
+        for pod in (0, 1):
+            got_b = sum(run["wire_bytes"] for run in runs if run["pod"] == pod)
+            require(got_b == comm, f"{label} pod {pod}: the gather metered "
+                    f"{got_b} bytes, comm_bytes {comm}")
+        wall = [float(np.mean(run["step_s"][1:])) * 1e3 for run in runs]
+        wire = [float(np.mean(run["wire_s"][1:])) * 1e3 for run in runs]
+        log(f"{label}: losses {[round(x['loss'], 6) for x in runs[0]['records']]}"
+            f" within {worst:.2e} relative of the single card (tol "
+            f"{MESH4_TOL:g}), leaves within "
+            f"{max(run['leaf_err'][0] for run in runs):.2e} absolute, the "
+            f"loss moved {moved:.2e} relative; gather bytes a pod == "
+            f"comm_bytes ({comm:.0f}); wall a step (steps 1-2) "
+            + ", ".join(f"{w:.1f}" for w in wall) + " ms, the gather "
+            + ", ".join(f"{x:.2f}" for x in wire) + " ms; peak "
+            + ", ".join(f"{run['peak_bytes'] / 2**30:.2f}" for run in runs)
+            + " GiB")
+    big_cfg = replace(get_config(BIG_ARCH), num_layers=BIG_LAYERS)
+    runs = [r["big"] for r in ranks]
+    recs = runs[0]["records"]
+    require(all(len(run["records"]) == MESH_STEPS for run in runs),
+            "mesh4 deepseek: short Histories")
+    require(recs[-1]["loss"] != recs[0]["loss"],
+            f"mesh4 deepseek: the loss did not move ({recs[0]['loss']})")
+    want = expected_launches(1, "mse", MESH_STEPS, combined=True,
+                             task_ce=False, standalone=0)
+    for r, run in enumerate(runs):
+        got = {k: run["launches"][k] for k in ALL_LOSS_KERNELS}
+        require(got == want, f"mesh4 deepseek rank {r}: launches {got}")
+        for k, v in got.items():
+            launches[k] += v
+    bits = cm.prediction_bits_lm(big_cfg, BIG_S, 16, "none")
+    want_b = MESH_STEPS * bits * BIG_B / 8
+    comm = recs[-1]["comm_bytes"]
+    for pod in (0, 1):
+        got_b = sum(run["wire_bytes"] for run in runs if run["pod"] == pod)
+        require(got_b == want_b, f"mesh4 deepseek pod {pod}: the gather "
+                f"metered {got_b} bytes, the bf16 wire is {want_b:.0f}")
+    n_par, state_b = big_peer_bytes(big_cfg)
+    wall = float(np.mean(runs[0]["step_s"][1:])) * 1e3
+    wire = float(np.mean(runs[0]["wire_s"][1:])) * 1e3
+    dev_ms = runs[0]["device_ms"]
+    log(f"mesh4 deepseek: {BIG_ARCH} {BIG_LAYERS} of 95 layers, full width, "
+        f"bf16 over fp32 masters, AdamW, 2 peers of {BIG_B} x {BIG_S} on "
+        f"{BIG_MESH}: losses {[round(x['loss'], 5) for x in recs]}; rank 0 "
+        f"wall a step (steps 1-2, under torch.profiler) {wall:.1f} ms, device "
+        + (f"{dev_ms / (MESH_STEPS - 1):.1f} ms a step (steps 1-2)"
+           if dev_ms else "not measured")
+        + f"; the pod gather (NCCL) {wire:.2f} ms a step ({wire / wall:.1%}),"
+        f" {runs[0]['wire_bytes'] // MESH_STEPS} bytes a step on rank 0, "
+        f"{want_b:.0f} bytes a pod in {MESH_STEPS} steps (bf16 wire; "
+        f"comm_bytes {comm:.0f} at fp32); a peer {n_par / 1e9:.3f} B "
+        f"parameters, {state_b / 1e9:.1f} GB of master, gradient and AdamW "
+        f"moments at 16 B a parameter, {2 * state_b / 1e9:.1f} GB for both "
+        "(one 80 GB card cannot hold them); peak a rank "
+        + ", ".join(f"{run['peak_bytes'] / 1e9:.1f}" for run in runs)
+        + f" GB; {smi_line}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # on request: rows 1, 1q, 2 and 4 against the parent commit
 # ----------------------------------------------------------------------------
 
@@ -6552,6 +6979,14 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         launches["shardmap"] = phase_shardmap(dev)
         torch.cuda.empty_cache()
         log(f"phase shardmap: {time.perf_counter() - t0:.1f} s")
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        launches["mesh"] = phase_mesh(dev)
+        log(f"phase mesh: {time.perf_counter() - t0:.1f} s")
+    if "mesh4" in phases:
+        t0 = time.perf_counter()
+        launches["mesh4"] = phase_mesh4(dev, smi_line)
+        log(f"phase mesh4: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})

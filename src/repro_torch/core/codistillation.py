@@ -49,22 +49,28 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import CodistConfig
-from repro_torch.kernels.ops import fused_losses_default
+from repro_torch.kernels.ops import (fused_losses_default, is_dtensor,
+                                     local_device, whole)
+from repro_torch.models.sharding_hints import hint
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
 def _fused_enabled(fused: Optional[bool], x: torch.Tensor) -> bool:
+    """The flag, or by default whether ``x``'s values (a DTensor's local
+    shard's) are on the card."""
     if fused is None:
-        return fused_losses_default(x.device)
+        return fused_losses_default(local_device(x))
     return bool(fused)
 
 
 def _masked(per_tok: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The masked mean (a whole value on every rank of a DTensor's mesh)."""
     if mask is not None:
         mask = mask.float()
-        return (per_tok * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return per_tok.mean()
+        return whole((per_tok * mask).sum()
+                     / torch.clamp(whole(mask.sum()), min=1.0))
+    return whole(per_tok.mean())
 
 
 # ----------------------------------------------------------------------------
@@ -92,10 +98,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return _masked((1.0 - ls) * nll + ls * smooth, mask)
 
 
+def _vocab_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a DTensor ``x`` with its last dim gathered on every rank."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last else p
+                 for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Argmax over the full (padded) vocab width, as the reference's."""
-    correct = (logits.argmax(dim=-1) == labels).float()
+    """Argmax over the full (padded) vocab width, as the reference's (on a
+    DTensor, over V gathered whole on each rank)."""
+    correct = (_vocab_whole(logits).argmax(dim=-1) == labels).float()
     return _masked(correct, mask)
 
 
@@ -170,12 +189,14 @@ def _hierarchical_topk(x: torch.Tensor, k: int, segments: int = 16):
     if v % segments or v // segments < k:
         return _top_k(x, k)
     seg = v // segments
-    lv, li = _top_k(x.reshape(*lead, segments, seg), k)   # (..., segments, k)
+    xs = hint(x.reshape(*lead, segments, seg), "wire")
+    lv, li = _top_k(xs, k)                                 # (..., segments, k)
+    lv, li = hint(lv, "wire"), hint(li, "wire")
     li = li + (torch.arange(segments, device=x.device) * seg)[:, None]
     lv = lv.reshape(*lead, segments * k)
     li = li.reshape(*lead, segments * k)
-    gv, gi = _top_k(lv, k)
-    return gv, li.gather(-1, gi)
+    gv, gi = _top_k(hint(lv, "wire"), k)
+    return hint(gv, "wire"), hint(li.gather(-1, gi), "wire")
 
 
 def _subsample_stride(cfg: CodistConfig, full_seq: int) -> int:
@@ -225,6 +246,7 @@ def _compress_stacked(cfg: CodistConfig, targets: Sequence[torch.Tensor],
 def pod_rows(pods, row: torch.Tensor) -> torch.Tensor:
     """(n, *row.shape): every pod's ``row`` in pod order, this pod's entry
     the given tensor (its gradient kept), the others' gathered values."""
+    row = whole(row)
     rows = pods.all_gather(row.detach())
     rows[pods.rank] = row
     return torch.stack(rows)

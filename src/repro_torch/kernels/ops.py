@@ -27,11 +27,20 @@ exists outside the kernels in either direction. The kernels take any T and
 V, so nothing is padded; ``v_real`` is the logits' own width (the
 reference's ``_flatten_pad`` passes ``v = logits.shape[-1]``, which counts
 the config's vocab-padding columns as real).
+
+The three differentiable entries also take DTensor logits (a peer's on
+its pod's ("data", "model") mesh, ``launch/sharding.py``): every (T, V)
+and (T,) operand is redistributed to rows over "data" with V whole (an
+all-gather over "model"), and the same autograd function runs on each
+rank's local rows through ``local_map`` with those placements in and out,
+the kernel on the card and the plain version on the CPU. The masked means
+are then DTensor sums over the whole batch, as on one device. Nothing
+else passes a DTensor to a kernel wrapper, which raises on one.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,6 +60,68 @@ def fused_losses_default(device) -> bool:
     """Default for the ``fused_losses`` flag: on for CUDA (the kernels), off
     on the CPU, as the reference's is on for the TPU only."""
     return torch.device(device).type == "cuda"
+
+
+def is_dtensor(x) -> bool:
+    if type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_device(x: torch.Tensor) -> torch.device:
+    """The device ``x``'s values live on (a DTensor's local shard's)."""
+    return x.to_local().device if is_dtensor(x) else x.device
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with a ``Partial`` placement (a sum or mean over sharded
+    rows) reduced to its whole value on every rank; anything else as
+    given. A scalar loss term is whole before it meets another, whose
+    partial kind may differ (a masked sum against a mean)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def _row_placements(mesh, t: int) -> tuple:
+    """Rows over "data" where they divide over it, every other mesh dim
+    (and an indivisible row count) replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if name == "data" and t % mesh.size(i) == 0
+                 else Replicate()
+                 for i, name in enumerate(mesh.mesh_dim_names))
+
+
+# calls of the DTensor entry by the function it ran on local rows (a
+# wrapper's launches there are counted in ``_build.launch_counts`` as
+# anywhere else)
+local_rows_calls: Dict[str, int] = {"_CEParts": 0, "_DistillTokens": 0,
+                                    "_CEDistillTokens": 0,
+                                    "fused_distill_loss": 0}
+
+
+def _on_local_rows(name: str, fn, rows, n_out: int):
+    """``fn`` (``name``'s autograd function over (T, V) / (T,) operands,
+    its other arguments bound) on each rank's local rows of the DTensor
+    ``rows``: each redistributed to ``_row_placements`` (V whole), ``fn``'s
+    n_out per-token outputs DTensors of the same rows."""
+    from torch.distributed.tensor.experimental import local_map
+    local_rows_calls[name] += 1
+    mesh = rows[0].device_mesh
+    for x in rows:
+        if not is_dtensor(x) or x.device_mesh != mesh:
+            raise TypeError("DTensor logits take DTensor targets and labels "
+                            "on the same mesh")
+    pl = _row_placements(mesh, rows[0].shape[0])
+    rows = [x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+            for x in rows]
+    return local_map(fn, out_placements=(pl,) * n_out,
+                     in_placements=(pl,) * len(rows), device_mesh=mesh)(*rows)
 
 
 def _zeros_if_none(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
@@ -141,9 +212,9 @@ def _masked_mean(per_tok: torch.Tensor, mask) -> torch.Tensor:
     (unbroadcast) mask in the denominator, as the reference's losses."""
     if mask is not None:
         m_flat, m_raw = mask
-        return ((per_tok * m_flat).sum()
-                / torch.clamp(m_raw.float().sum(), min=1.0))
-    return per_tok.mean()
+        return whole((per_tok * m_flat).sum()
+                     / torch.clamp(whole(m_raw.float().sum()), min=1.0))
+    return whole(per_tok.mean())
 
 
 def _flat_mask(mask: Optional[torch.Tensor], lead: Tuple[int, ...], t: int):
@@ -230,7 +301,12 @@ def fused_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
     logits (..., V) float; labels (...) int; mask (...) broadcastable."""
     lg, t, v = _flatten(logits)
-    nll, smooth = _CEParts.apply(lg, _flat_labels(labels, t), v)
+    lb = _flat_labels(labels, t)
+    if is_dtensor(lg):
+        nll, smooth = _on_local_rows(
+            "_CEParts", lambda a, b: _CEParts.apply(a, b, v), (lg, lb), 2)
+    else:
+        nll, smooth = _CEParts.apply(lg, lb, v)
     per_tok = _smoothed(nll, smooth, label_smoothing)
     return _masked_mean(per_tok, _flat_mask(mask, logits.shape[:-1], t))
 
@@ -251,9 +327,17 @@ def fused_distill_mean(logits: torch.Tensor, target_logits: torch.Tensor,
     a, t, v = _flatten(logits.to(wide))
     b, _, _ = _flatten(target_logits.to(wide))
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        per_tok = _DistillTokens.apply(a, b, mode, v)
+        name = "_DistillTokens"
+
+        def fn(x, y):
+            return _DistillTokens.apply(x, y, mode, v)
     else:
-        per_tok = fused_distill_loss(a, b, mode, v)
+        name = "fused_distill_loss"
+
+        def fn(x, y):
+            return fused_distill_loss(x, y, mode, v)
+    per_tok = (_on_local_rows(name, fn, (a, b), 1) if is_dtensor(a)
+               else fn(a, b))
     return _masked_mean(per_tok, _flat_mask(mask, logits.shape[:-1], t))
 
 
@@ -275,8 +359,14 @@ def fused_ce_distill(logits: torch.Tensor, target_logits: torch.Tensor,
     wide = torch.promote_types(logits.dtype, target_logits.dtype)
     lg, t, v = _flatten(logits.to(wide))
     tg, _, _ = _flatten(target_logits.to(wide))
-    nll, smooth, dist = _CEDistillTokens.apply(lg, tg, _flat_labels(labels, t),
-                                               mode, v)
+    lb = _flat_labels(labels, t)
+    if is_dtensor(lg):
+        nll, smooth, dist = _on_local_rows(
+            "_CEDistillTokens",
+            lambda a, b, c: _CEDistillTokens.apply(a, b, c, mode, v),
+            (lg, tg, lb), 3)
+    else:
+        nll, smooth, dist = _CEDistillTokens.apply(lg, tg, lb, mode, v)
     m = _flat_mask(mask, logits.shape[:-1], t)
     return (_masked_mean(_smoothed(nll, smooth, label_smoothing), m),
             _masked_mean(dist, m))

@@ -79,6 +79,11 @@ def quantize_rows(x: torch.Tensor, dtype):
 
 
 def _same_device(*ts: torch.Tensor) -> torch.device:
+    """The one device of every operand, which must be a plain tensor on the
+    CPU or the card: a DTensor raises (a kernel reads ``data_ptr()`` of
+    the one local tensor, and nothing here gathers a DTensor; its local
+    shards reach the loss kernels through ``ops``'s local-rows entry)."""
+    refuse_dtensor(*ts)
     dev = ts[0].device
     for t in ts[1:]:
         if t.device != dev:
@@ -86,6 +91,18 @@ def _same_device(*ts: torch.Tensor) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def refuse_dtensor(*ts) -> None:
+    """Raise ``TypeError`` if any operand is a DTensor."""
+    for t in ts:
+        if type(t) is torch.Tensor:
+            continue
+        from torch.distributed.tensor import DTensor
+        if isinstance(t, DTensor):
+            raise TypeError("a kernel wrapper takes plain tensors, not a "
+                            "DTensor: pass its local shard (the loss "
+                            "kernels' DTensor entry is in kernels/ops.py)")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -118,6 +135,7 @@ def _check_scatter(pools, new: torch.Tensor, write_slot: torch.Tensor,
     """Checks the tensors a scatter takes: ``pools`` (the pool (NB, BS,
     KVh, hd) first) and ``new`` (S, KVh, hd) contiguous, every tensor on
     one device, the maps (NB,) int32. Returns (device, NB, BS, KVh, hd)."""
+    refuse_dtensor(*pools, new, write_slot, write_off)
     pool = pools[0]
     dev = pool.device
     if dev.type not in ("cpu", "cuda"):

@@ -9,11 +9,12 @@ group: its rank (the pod index), the group's size, the device it computes
 on and the process group it gathers over.
 
 The group is made from a ``FileStore`` (a file in a temporary directory),
-so parallel test workers never race for a TCP port, and uses gloo. Gloo's
-CUDA support covers broadcast and all_reduce only, and NCCL refuses two
-ranks on one GPU, so ``PodGroup.all_gather`` stages through host memory:
-a device-to-host copy of the wire, gloo's CPU all_gather, and a copy of
-each received wire back to the device. On the CPU the copies are no-ops.
+so parallel test workers never race for a TCP port. Without a mesh it uses
+gloo, and every pod may share the one card: gloo's CUDA support covers
+broadcast and all_reduce only, and NCCL refuses two ranks on one GPU, so
+``PodGroup.all_gather`` stages through host memory there (a device-to-host
+copy of the wire, gloo's CPU all_gather, a copy of each received wire back
+to the device; on the CPU the copies are no-ops).
 
     pods = init_pod_group(n, rank, store_path, device="cuda")
     wires = pods.all_gather(wire)           # n tensors, in pod order
@@ -24,12 +25,22 @@ and raises with a pod's traceback if any pod fails, the others killed.
 Nothing falls back to one process: a group that cannot be made is an
 error.
 
+With a ``mesh`` (``spawn_pods(fn, mesh_chips(mesh), mesh=mesh)``) every
+process is one device of the (pod, data, model) mesh, in its row-major
+order: rank r computes on ``cuda:r`` (NCCL; a rank without its own card
+fails) or on the CPU (gloo). ``device_mesh`` makes the ``torch.distributed``
+``DeviceMesh`` of the same axes, and the rank's ``PodGroup`` is its pod
+(``pod_index_of_device``) with the mesh's "pod" group, the ranks that hold
+the same shard of every pod's peer: its ``all_gather`` of a DTensor sends
+the local shard and re-wraps each received one with the placements it
+left with, card to card under NCCL.
+
 The production and dry-run meshes are here too, device-free: ``Mesh`` is a
 frozen record of axis names and sizes whose device ids run row-major over
 the axes, as ``jax.make_mesh`` lays out a slice. The sharding rules
 (``launch/sharding.py``) and the cost model (``launch/cost.py``) read them;
-nothing is placed on a device (the rules' execution on a
-``torch.distributed`` ``DeviceMesh`` is a later step). The reference's
+``device_mesh`` turns one into a ``torch.distributed`` ``DeviceMesh``, on
+which ``launch/sharding.py`` places a peer's state. The reference's
 ``set_mesh`` (an ambient mesh for ``jit``) has no counterpart: the port
 passes the mesh to every function that reads it.
 
@@ -68,33 +79,74 @@ class PodGroup:
     other pods' tensors that arrived through a metered ``all_gather`` (the
     prediction wire, not the metrics rows), ``wire_s`` the host seconds
     those gathers took from a synchronised device to the received tensors
-    on it (the copies and the wait for the slowest pod included)."""
+    on it (the copies and the wait for the slowest pod included).
+
+    On a mesh, ``mesh`` is the rank's ``DeviceMesh`` (axes "pod", "data",
+    "model") and ``sub_mesh`` its pod's ("data", "model") part, on which
+    the peer's state lives. A gathered DTensor's local shard is metered
+    once a pod: by the rank whose coordinates are 0 along every mesh dim
+    that replicates it, so that the pod's ranks sum to the bytes of the
+    other pods' whole tensors (every replica receives them)."""
     rank: int
     size: int
     device: torch.device
     group: Any = None
     wire_bytes: int = 0
     wire_s: float = 0.0
+    mesh: Any = None
+
+    @property
+    def sub_mesh(self):
+        return None if self.mesh is None else self.mesh["data", "model"]
+
+    def _gather(self, local: torch.Tensor) -> List[torch.Tensor]:
+        """Every pod's ``local`` on this pod's device: NCCL gathers the
+        device tensors, gloo stages them through host memory."""
+        if dist.get_backend(self.group) == "nccl":
+            local = local.contiguous()
+            out = [torch.empty_like(local) for _ in range(self.size)]
+            dist.all_gather(out, local, group=self.group)
+            return out
+        host = local.to("cpu").contiguous()
+        out = [torch.empty_like(host) for _ in range(self.size)]
+        dist.all_gather(out, host, group=self.group)
+        return [o.to(self.device) for o in out]
 
     def all_gather(self, t: torch.Tensor,
                    meter: bool = False) -> List[torch.Tensor]:
         """Every pod's ``t`` (one shape and dtype on every pod), in pod
         order, on this pod's device; this pod's own entry is ``t``
-        itself. Staged through host memory (module docstring)."""
+        itself. A DTensor's local shard is what is sent, and each received
+        shard comes back as a DTensor with ``t``'s mesh and placements."""
         if meter and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        host = t.detach().to("cpu").contiguous()
-        out = [torch.empty_like(host) for _ in range(self.size)]
-        dist.all_gather(out, host, group=self.group)
-        got = [t if r == self.rank else o.to(self.device)
-               for r, o in enumerate(out)]
+        from torch.distributed.tensor import DTensor
+        placed = isinstance(t, DTensor)
+        local = t.detach().to_local() if placed else t.detach()
+        out = self._gather(local)
+        if placed:
+            out = [DTensor.from_local(o, t.device_mesh, t.placements,
+                                      run_check=False, shape=t.shape,
+                                      stride=t.stride()) for o in out]
+        got = [t if r == self.rank else o for r, o in enumerate(out)]
         if meter:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.wire_s += time.perf_counter() - t0
-            self.wire_bytes += (self.size - 1) * host.numel() * host.element_size()
+            if not placed or _metering_replica(t):
+                self.wire_bytes += ((self.size - 1) * local.numel()
+                                    * local.element_size())
         return got
+
+
+def _metering_replica(t) -> bool:
+    """Whether this rank holds the metered copy of a DTensor's local shard:
+    its coordinate is 0 along every mesh dim that does not shard ``t``."""
+    from torch.distributed.tensor import Shard
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, t.placements)
+               if not isinstance(p, Shard))
 
 
 def init_pod_group(n: int, rank: int, store_path: str, backend: str = "gloo",
@@ -109,15 +161,73 @@ def init_pod_group(n: int, rank: int, store_path: str, backend: str = "gloo",
     return PodGroup(dist.get_rank(), n, dev)
 
 
+def device_mesh(mesh: "Mesh", device_type: str):
+    """The ``torch.distributed`` ``DeviceMesh`` of ``mesh`` (its axis names
+    and sizes, ranks in its row-major order ``Mesh.devices``) over the
+    default process group, whose size must be ``mesh_chips(mesh)``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size()
+    if world != mesh_chips(mesh):
+        raise ValueError(f"a mesh of {mesh_chips(mesh)} devices "
+                         f"{mesh.shape} over {world} ranks")
+    dm = init_device_mesh(device_type, mesh.axis_sizes,
+                          mesh_dim_names=mesh.axis_names)
+    if dm.mesh.tolist() != mesh.devices.tolist():
+        raise RuntimeError(f"device mesh ranks {dm.mesh.tolist()} are not "
+                           f"the row-major {mesh.devices.tolist()}")
+    return dm
+
+
+def mesh_pod_group(mesh: "Mesh", dm, device) -> PodGroup:
+    """This rank's ``PodGroup`` on the device mesh ``dm`` of ``mesh``: its
+    pod, the pod axis's size and group."""
+    rank = dist.get_rank()
+    return PodGroup(pod_index_of_device(mesh, rank), mesh.shape["pod"],
+                    torch.device(device), dm.get_group("pod"), mesh=dm)
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """The device of mesh rank ``rank``: ``cuda:rank``, which must exist
+    (no rank falls back to another card or to the CPU), or the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if rank >= torch.cuda.device_count():
+        raise RuntimeError(f"mesh rank {rank} needs its own card, and this "
+                           f"host has {torch.cuda.device_count()}")
+    return torch.device("cuda", rank)
+
+
+def init_mesh_group(mesh: "Mesh", rank: int, store_path: str, device="cuda",
+                    timeout_s: float = 300.0) -> PodGroup:
+    """Join the ``mesh_chips(mesh)``-process group as ``rank`` (NCCL on the
+    rank's own card, gloo on the CPU) and return its ``PodGroup`` on the
+    mesh."""
+    dev = rank_device(device, rank)
+    n = mesh_chips(mesh)
+    store = dist.FileStore(store_path, n)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=store, rank=rank, world_size=n,
+                                timeout=timedelta(seconds=timeout_s),
+                                device_id=dev)
+    else:
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=n,
+                                timeout=timedelta(seconds=timeout_s))
+    return mesh_pod_group(mesh, device_mesh(mesh, dev.type), dev)
+
+
 def _pod_main(fn, rank: int, n: int, store_path: str, device: str,
-              threads: int, args: Sequence, results) -> None:
-    """One spawned pod: make its group, run ``fn``, report to the parent.
-    On the CPU the pods share the cores: each takes its share of the
-    parent's intra-op threads."""
+              threads: int, args: Sequence, results, mesh=None) -> None:
+    """One spawned pod (or mesh rank): make its group, run ``fn``, report
+    to the parent. On the CPU the processes share the cores: each takes its
+    share of the parent's intra-op threads."""
     if torch.device(device).type == "cpu":
         torch.set_num_threads(max(1, threads // n))
     try:
-        pods = init_pod_group(n, rank, store_path, device=device)
+        pods = (init_pod_group(n, rank, store_path, device=device)
+                if mesh is None else
+                init_mesh_group(mesh, rank, store_path, device=device))
         try:
             results.put((rank, True, fn(pods, *args)))
         finally:
@@ -128,12 +238,18 @@ def _pod_main(fn, rank: int, n: int, store_path: str, device: str,
 
 
 def spawn_pods(fn: Callable, n: int, args: Sequence = (), device="cuda",
-               timeout_s: float = 1800.0) -> list:
+               timeout_s: float = 1800.0, *, mesh: "Mesh" = None) -> list:
     """Run ``fn(pods, *args)`` in n spawned processes, one pod each, and
     return their results in pod order, every pod on ``device`` (the card
     unless the caller asks for the CPU). ``fn`` and ``args`` are pickled
     (``fn`` by its import path). A pod that raises, or dies, or a run past
-    ``timeout_s`` raises here with what is known, every pod stopped."""
+    ``timeout_s`` raises here with what is known, every pod stopped.
+
+    With a ``mesh`` the n = ``mesh_chips(mesh)`` processes are its ranks
+    (``init_mesh_group``: rank r on ``cuda:r``), the results in rank
+    order."""
+    if mesh is not None and n != mesh_chips(mesh):
+        raise ValueError(f"{n} processes for a mesh of {mesh_chips(mesh)}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     out: dict = {}
@@ -142,7 +258,7 @@ def spawn_pods(fn: Callable, n: int, args: Sequence = (), device="cuda",
         procs = [ctx.Process(target=_pod_main,
                              args=(fn, r, n, store, str(device),
                                    torch.get_num_threads(), tuple(args),
-                                   results))
+                                   results, mesh))
                  for r in range(n)]
         for p in procs:
             p.start()
@@ -217,6 +333,11 @@ class Mesh:
         ids = self.devices.transpose(rest + idx)
         return ids.reshape(-1, int(np.prod([self.axis_sizes[i] for i in idx],
                                            dtype=np.int64))).tolist()
+
+
+def logical_mesh(dm) -> Mesh:
+    """The ``Mesh`` (axis names and sizes) of a ``DeviceMesh``."""
+    return abstract_mesh(dm.mesh.shape, dm.mesh_dim_names)
 
 
 def abstract_mesh(axis_sizes, axis_names) -> Mesh:

@@ -17,13 +17,20 @@ strings, which are the reference's ``_path_str`` leaf for leaf: the port's
 trees keep the reference's keys (``checkpoint/bridge.py``), and a state's
 NamedTuple fields join the path by name (``params/…``, ``opt/m/…``,
 ``opt/v/…``). The leaves are anything with a ``shape`` (``torch.device
-("meta")`` stand-ins from ``launch/specs.py``). The rules only describe
-placements: nothing here places a tensor on a device.
+("meta")`` stand-ins from ``launch/specs.py``).
+
+The rules are executed on a ``torch.distributed`` ``DeviceMesh``
+(``launch/mesh.py``'s ``device_mesh``): ``placements`` turns a spec into
+one DTensor placement per mesh dim, and ``distribute_state`` /
+``distribute_batch`` place a peer's state and batch on its pod's
+("data", "model") sub-mesh. The reference's stacked peer axis is not a
+dim of a port's tree (a list of peers, or one peer a pod): its spec entry
+("pod" or None) says which pod holds the peer and is never a placement.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -381,3 +388,118 @@ def local_shape(shape: Tuple[int, ...], spec, mesh) -> Tuple[int, ...]:
                              f"over {entry} ({ways} ways)")
         out[dim] //= ways
     return tuple(out)
+
+
+# ----------------------------------------------------------------------------
+# specs executed: DTensor placements on a DeviceMesh
+# ----------------------------------------------------------------------------
+
+def placements(spec, device_mesh) -> tuple:
+    """One DTensor placement per dim of ``device_mesh`` for ``spec``:
+    ``Shard(d)`` on each mesh dim that entry d names (a tuple entry such as
+    ("pod", "data") shards d over each of its dims, in mesh order, as jax
+    splits a dim over a tuple of axes, major first), else ``Replicate()``.
+    A mesh dim of size 1 splits nothing and is ``Replicate()`` too (the same
+    layout; it spares DTensor's planner a trivial shard). A spec that names
+    an axis the mesh does not have raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = device_mesh.mesh_dim_names
+    named = {a: d for d, e in enumerate(spec) for a in axes_of(e)}
+    missing = sorted(set(named) - set(names))
+    if missing:
+        raise ValueError(f"spec {spec!r} names axes {missing} that the mesh "
+                         f"{names} does not have")
+    return tuple(Shard(named[a]) if a in named and device_mesh.size(i) > 1
+                 else Replicate() for i, a in enumerate(names))
+
+
+def _stacked_meta(tree: PyTree, n: int) -> PyTree:
+    """A tree of ``meta`` stand-ins with a leading axis of n (the
+    reference's stacked peer layout); scalars stay scalars."""
+    def one(_path, x):
+        if not torch.is_tensor(x) or x.dim() == 0:
+            return torch.empty((), device="meta")
+        return torch.empty((n, *x.shape), dtype=x.dtype, device="meta")
+    return tree_map_with_path(one, tree)
+
+
+def _distribute(x: torch.Tensor, spec, device_mesh) -> torch.Tensor:
+    """``x`` (the same full value on every rank of ``device_mesh``) as a
+    DTensor placed by ``spec``: each rank keeps its own shard, in storage
+    of its own (``x`` is left as it was, and may be freed), and nothing is
+    sent."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    out = distribute_tensor(x.detach(), device_mesh,
+                            placements(spec, device_mesh), src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+        out = DTensor.from_local(local.clone(), device_mesh, out.placements,
+                                 run_check=False, shape=out.shape,
+                                 stride=out.stride())
+    return out.requires_grad_(x.requires_grad)
+
+
+def _state_specs(state, mesh, n: int):
+    """(one peer?, the specs of ``{"params", "opt": {"m", "v"}}`` of the
+    reference's stacked state of n peers on ``mesh``). ``state.params`` is
+    one peer's tree (a pod that holds one peer: the pod axis must have n
+    devices, and ``param_spec`` puts the peer axis on it) or the list of n
+    peers (one pod: ``param_spec`` leaves the peer axis unplaced)."""
+    one_peer = not isinstance(state.params, list)
+    on_pods = mesh.shape.get("pod") == n
+    if one_peer != on_pods:
+        raise ValueError(
+            f"{'one peer' if one_peer else 'a list of peers'} on a mesh "
+            f"{mesh.shape} for {n} models: one peer a pod needs a pod axis "
+            "of n, a peer list a pod axis of another size or none")
+    take = (lambda t: t) if one_peer else (lambda t: t[0])
+    opt = state.opt
+    stacked = {"params": _stacked_meta(take(state.params), n),
+               "opt": {f: (_stacked_meta(take(getattr(opt, f)), n)
+                           if getattr(opt, f) is not None else None)
+                       for f in ("m", "v")}}
+    return one_peer, state_shardings(stacked, mesh, stacked=True)
+
+
+def distribute_state(state, mesh, device_mesh, n: int):
+    """A codist state's parameter and optimizer leaves as DTensors on
+    ``device_mesh`` (the pod's ("data", "model") sub-mesh), placed by
+    ``state_shardings`` of the reference's stacked state of n peers on
+    ``mesh``: one peer's tree (a ``TrainState`` of a pod that holds one
+    peer) or the list of the n peers (a ``CodistState`` on one pod). The
+    peer axis's entry only says where the peer lives and is dropped. The
+    step and any other field pass through; ``requires_grad`` is kept."""
+    one_peer, specs = _state_specs(state, mesh, n)
+
+    def place(tree, spec_tree):
+        flat = dict(tree_flatten_with_path(spec_tree))
+
+        def one(path, x):
+            return _distribute(x, P(*flat[path_str(path)][1:]), device_mesh)
+        if one_peer:
+            return tree_map_with_path(one, tree)
+        return [tree_map_with_path(one, t) for t in tree]
+
+    opt = state.opt._replace(**{
+        f: place(getattr(state.opt, f), specs["opt"][f])
+        for f in ("m", "v") if getattr(state.opt, f) is not None})
+    return state._replace(params=place(state.params, specs["params"]),
+                          opt=opt)
+
+
+def distribute_batch(batch_all: Dict[str, torch.Tensor], mesh, device_mesh,
+                     peer: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A codist batch (every leaf ``(n, B, ...)``) as DTensors on
+    ``device_mesh``, placed by ``batch_shardings(..., stacked=True)`` on
+    ``mesh``: the batch dim over "data" where it divides. With ``peer`` (a
+    pod that holds one peer) the leaves are that peer's rows ``(B, ...)``;
+    without, the stacked leaves stay whole on the one pod (the peer axis
+    replicated)."""
+    specs = batch_shardings({k: _stacked_meta(v[0], v.shape[0])
+                             for k, v in batch_all.items()}, mesh,
+                            stacked=True)
+    if peer is None:
+        return {k: _distribute(v, P(None, *specs[k][1:]), device_mesh)
+                for k, v in batch_all.items()}
+    return {k: _distribute(v[peer], P(*specs[k][1:]), device_mesh)
+            for k, v in batch_all.items()}

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models.common import apply_rope
+from repro_torch.models.sharding_hints import current_hint_spec, hint
 
 NEG_INF = -1e30
 
@@ -96,16 +97,57 @@ def attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     q, k, v = _project_qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    scores = _gqa_scores(q, k)                                       # b h s s
+    attend = _attend_placed if hasattr(q, "device_mesh") else _attend
+    o = attend(q, k, v, causal, cfg.sliding_window, x.dtype)
+    return _out_proj(p, o), ({"k": k, "v": v} if return_cache else None)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, dtype) -> torch.Tensor:
+    """The attention core over whole sequences: q (B,S,H,hd), k, v
+    (B,S,KV,hd) -> (B,S,H,hd); the softmax weights in ``dtype``."""
+    s = q.shape[1]
+    scores = hint(_gqa_scores(q, k), "scores")                       # b h s s
     if causal:
-        i = torch.arange(s, device=x.device)
+        i = torch.arange(s, device=q.device)
         mask = i[None, :] <= i[:, None]
-        if cfg.sliding_window > 0:
-            mask = mask & (i[:, None] - i[None, :] < cfg.sliding_window)
+        if window > 0:
+            mask = mask & (i[:, None] - i[None, :] < window)
         scores = scores.masked_fill(~mask, NEG_INF)
-    w = _softmax(scores).to(x.dtype)
-    out = _out_proj(p, _gqa_combine(w, v))
-    return out, ({"k": k, "v": v} if return_cache else None)
+    w = _softmax(scores).to(dtype)
+    return _gqa_combine(w, v)
+
+
+def _attend_placed(q, k, v, causal: bool, window: int, dtype):
+    """``_attend`` on each rank's own batch rows and heads of the DTensors
+    q, k, v (a peer on its pod's mesh), through ``local_map``, placed as
+    the "scores" hint places the scores: the batch over its axes where it
+    divides, the heads over TP where the KV heads divide. (The hint's
+    fallback, the queries over TP, needs each rank's causal offsets: the
+    heads then stay whole on every rank, as they do without a hint.)"""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.sharding import axes_of
+    mesh = q.device_mesh
+    b, s, h, _ = q.shape
+    kvh = k.shape[2]
+    spec = current_hint_spec("scores", (b, h, s, k.shape[1])) or (None, None)
+    pl = []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        ways = mesh.size(i)
+        if ways > 1 and name in axes_of(spec[0]) and b % ways == 0:
+            pl.append(Shard(0))
+        elif ways > 1 and name in axes_of(spec[1]) and kvh % ways == 0:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    pl = tuple(pl)
+    q, k, v = (x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+               for x in (q, k, v))
+    return local_map(lambda a, b_, c: _attend(a, b_, c, causal, window,
+                                              dtype),
+                     out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _cross(p: Dict[str, torch.Tensor], x: torch.Tensor, k: torch.Tensor,

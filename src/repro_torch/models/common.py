@@ -155,14 +155,42 @@ def embedding_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
 
 def embed_tokens(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
-    return params["tokens"].to(dtype)[tokens]
+    """The rows of the token table, in ``dtype``. A DTensor table (a peer
+    on its pod's mesh) is gathered whole, as FSDP gathers a weight before
+    its use, and each rank reads the rows of its own tokens; the table's
+    gradient is then a sum over the ranks that split the tokens."""
+    table = params["tokens"].to(dtype)
+    if type(table) is torch.Tensor or not hasattr(table, "device_mesh"):
+        return table[tokens]
+    return _embed_local(table, tokens)
+
+
+def _embed_local(table, tokens: torch.Tensor):
+    """``table[tokens]`` for a DTensor ``table`` through ``local_map``:
+    the table replicated, ``tokens`` (a DTensor, or a plain tensor taken
+    as replicated) read on each rank, the rows placed as the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    tok = tuple(tokens.placements)
+    if any(p.is_partial() for p in tok):
+        raise ValueError(f"token ids placed as {tok}")
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in tok)
+    return local_map(lambda t, i: t[i], out_placements=(tok,),
+                     in_placements=(rep, tok), in_grad_placements=(grad, tok),
+                     device_mesh=mesh)(table.redistribute(mesh, rep), tokens)
 
 
 def lm_head(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Logits in the activation dtype, ``padded_vocab`` wide (tied archs use
     the token table transposed)."""
+    from repro_torch.models.sharding_hints import hint
     w = params["head"] if "head" in params else params["tokens"].t()
-    return x @ w.to(x.dtype)
+    return hint(x @ w.to(x.dtype), "btv")
 
 
 # ----------------------------------------------------------------------------

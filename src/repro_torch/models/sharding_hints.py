@@ -2,14 +2,23 @@
 
 The reference steers XLA's partitioner with ``with_sharding_constraint`` at
 a few named places of its model code (``hint(x, kind)``) while a launcher's
-``activation_sharding`` context is active. PyTorch has no partitioner, so
-the port's counterpart is a pure function: ``hint_spec(kind, shape,
-batch_axes, tp_axis, tp_size)`` returns the spec ``hint`` would apply to an
-activation of that shape, or None where ``hint`` leaves it alone. The cost
-model (``launch/cost.py``) reads it for the bytes of the activations a
-device holds (``btd_carry``, ``scores``, ``btv``) and for the split of the
+``activation_sharding`` context is active. ``hint_spec(kind, shape,
+batch_axes, tp_axis, tp_size)`` returns the spec ``hint`` applies to an
+activation of that shape, or None where it leaves it alone. The cost model
+(``launch/cost.py``) reads it for the bytes of the activations a device
+holds (``btd_carry``, ``scores``, ``btv``) and for the split of the
 attention core (``scores``) and of the loss rows (``btv``) over tp; its
 collectives come from the weights' placements.
+
+``hint(x, kind)`` is called where the reference calls it (the logits, the
+attention scores, the residual stream, the top-k wire). Inside the context
+it redistributes a DTensor ``x`` (a peer's activation on its pod's
+("data", "model") mesh) to ``current_hint_spec``'s placements; on a plain
+tensor, or outside the context, it returns ``x``. The scores are computed
+on each rank's own heads (``models/attention.py``), so there the spec
+places the attention core's inputs instead. A port's wire is one peer's,
+without the reference's stacked model axis: its spec is the stacked
+wire's with the "pod" entry dropped.
 
 Kinds: ``btd`` (batch, seq, d_model), ``btd_carry`` (the residual stream
 between layers: d_model over tp when divisible), ``btv`` (batch, seq,
@@ -88,3 +97,27 @@ def current_hint_spec(kind: str, shape: Sequence[int]
     if ctx is None or (ctx[0] is None and ctx[1] is None):
         return None
     return hint_spec(kind, shape, *ctx)
+
+
+def hint(x, kind: str):
+    """``x`` redistributed to the placements of ``current_hint_spec(kind,
+    x.shape)`` on its own mesh where ``x`` is a DTensor and the spec is not
+    None; else ``x`` itself (the reference's ``hint`` outside a context is
+    a no-op, and a plain tensor has no placement to steer)."""
+    if getattr(_state, "ctx", None) is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    if kind == "wire":
+        spec = current_hint_spec(kind, (1, *x.shape))
+        spec = None if spec is None else P(*spec[1:])
+    else:
+        spec = current_hint_spec(kind, x.shape)
+    if spec is None:
+        return x
+    from repro_torch.launch.sharding import placements
+    want = placements(spec, x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)

@@ -51,6 +51,7 @@ from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        stacked_const, stacked_dense)
 from repro_torch.models.ffn import ffn_forward, init_stacked_ffn
 from repro_torch.models.moe import init_stacked_moe, moe_forward
+from repro_torch.models.sharding_hints import hint
 
 PyTree = Any
 
@@ -238,7 +239,7 @@ def embed(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     if "embed_norm" in params:
         x = apply_norm(params["embed_norm"], x, cfg.norm_eps)
-    return x
+    return hint(x, "btd")
 
 
 # ----------------------------------------------------------------------------
@@ -358,6 +359,7 @@ class LM:
                     _layer_fwd, lp, x, cfg, positions, use_reentrant=False)
             else:
                 x, a = _layer_fwd(lp, x, cfg, positions)
+            x = hint(x, "btd")
             auxs.append(a)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         if patches is not None:

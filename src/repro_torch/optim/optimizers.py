@@ -13,6 +13,13 @@ The math is the reference's: fp32 inside, cast back to the parameter's
 The update is elementwise, so a large leaf (an expert stack of 1.6 G
 values) is updated in flat slices of ``_SLICE`` values: its fp32
 temporaries stay bounded, and the numbers are those of one pass.
+
+A DTensor leaf (a peer's state on its pod's mesh, ``launch/sharding.py``)
+is updated on its local shard: its gradient is first redistributed to the
+parameter's placements (a ``Partial`` sum over "data" becomes a
+reduce-scatter or an all-reduce), and the parameter, the gradient and the
+moments then share placements, so the elementwise arithmetic on their
+local tensors is the update of the whole.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ def _leaf_triples(params, grads, state_trees, trainable):
     slice). A leaf that is not contiguous, or whose mask has another shape,
     goes whole."""
     for *ts, mask in _whole_leaves(params, grads, state_trees, trainable):
+        ts, mask = _local_shards(ts, mask)
         if not all(x.is_contiguous() for x in ts) \
                 or (torch.is_tensor(mask) and mask.shape != ts[0].shape):
             yield (*ts, mask)
@@ -56,6 +64,25 @@ def _leaf_triples(params, grads, state_trees, trainable):
         for i in range(0, flat[0].numel(), _SLICE):
             yield (*(x[i:i + _SLICE] for x in flat),
                    mask[i:i + _SLICE] if torch.is_tensor(mask) else mask)
+
+
+def _local_shards(ts, mask):
+    """(param, grad, *state) as the local tensors of the parameter's
+    placements where the parameter is a DTensor (the gradient
+    redistributed to them first), else as given; a DTensor mask likewise."""
+    p = ts[0]
+    if type(p) is torch.Tensor:
+        return ts, mask
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return ts, mask
+    g = ts[1]
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    ts = [p.to_local(), g.to_local(), *(x.to_local() for x in ts[2:])]
+    if isinstance(mask, DTensor):
+        mask = mask.redistribute(p.device_mesh, p.placements).to_local()
+    return ts, mask
 
 
 def _whole_leaves(params, grads, state_trees, trainable):

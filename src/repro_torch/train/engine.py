@@ -19,6 +19,18 @@ The port runs eagerly: a step variant is a Python function (forward,
 ``torch.autograd.grad``, in-place optimizer update), not a compiled one.
 Metrics stay tensors on the device until the loop logs them.
 
+A state whose parameters are DTensors (``launch/sharding.py``'s
+``distribute_state``: a peer placed on its pod's ("data", "model") mesh,
+FSDP over "data", TP over "model") runs the same step on that mesh
+(``on_mesh``): plain tensors made inside the step (positions, masks,
+constants) count as replicated, the model's ``hint`` calls place the
+activations as the reference's ``activation_sharding`` context does, the
+loss kernels run on local rows (``kernels/ops.py``) and the optimizer on
+local shards; the metrics come back as plain tensors, the same on every
+rank. ``PredictionExchange`` takes such a state of n peers on one pod and
+its batch from ``distribute_batch``; ``ShardMapCompressed`` on a mesh
+holds one peer a pod and places its state and batch itself.
+
 Strategies: ``AllReduce`` (the gradient-sync baseline: one model),
 ``PredictionExchange`` (Algorithm 1 with coordinated sampling, "on" and
 "off" variants), ``CheckpointExchange`` (Anil et al.'s stale replicas,
@@ -41,10 +53,11 @@ from repro_torch.core import codistillation as cd
 from repro_torch.core import comm_model as cm
 from repro_torch.core import schedules as sched
 from repro_torch.core.exchange import StepPlan
-from repro_torch.optim import make_optimizer
+from repro_torch.optim import OptState, make_optimizer
 from repro_torch.train.state import (CodistState, TrainState,
                                      init_codist_state, init_peer_state,
-                                     init_train_state, snapshot_params)
+                                     init_train_state, snapshot_params,
+                                     trainable_params)
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -157,6 +170,39 @@ def _grads_metrics_aux(loss_fn, params: PyTree, batch: Dict, k: int,
             m_acc[name] = m_acc.get(name, 0.0) + v / k
         auxs.append(aux)
     return _unflatten(params, g_acc), m_acc, auxs
+
+
+def mesh_of(params: PyTree):
+    """The DeviceMesh of a state's parameters, or None for plain tensors."""
+    from repro_torch.kernels.ops import is_dtensor
+    leaves = tree_leaves(params)
+    return leaves[0].device_mesh if leaves and is_dtensor(leaves[0]) else None
+
+
+def on_mesh(params: PyTree):
+    """The context a step over ``params`` runs in: on a mesh (DTensor
+    parameters) plain tensors count as replicated and the hints place the
+    activations (batch over "data", TP over "model", as the reference's
+    codist launchers set ``activation_sharding``); else no context."""
+    import contextlib
+    mesh = mesh_of(params)
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models.sharding_hints import activation_sharding
+    stack = contextlib.ExitStack()
+    stack.enter_context(implicit_replication())
+    stack.enter_context(activation_sharding(
+        ("data",), "model", mesh.size(mesh.mesh_dim_names.index("model"))))
+    return stack
+
+
+def plain_metrics(metrics: Dict) -> Dict:
+    """Every DTensor metric as its full value (a collective, in the dict's
+    order on every rank); the rest as given."""
+    from repro_torch.kernels.ops import is_dtensor
+    return {k: (v.full_tensor() if is_dtensor(v) else v)
+            for k, v in metrics.items()}
 
 
 def _unflatten(tree: PyTree, flat) -> PyTree:
@@ -632,7 +678,18 @@ class ShardMapCompressed(PredictionExchange):
     model.
     Every pod is handed the whole (n, ...) batch and takes its own slice.
     ``comm_bytes`` is ``PredictionExchange``'s accounting; the bytes that
-    actually crossed are ``pods.wire_bytes``."""
+    actually crossed are ``pods.wire_bytes``.
+
+    On a mesh (a ``PodGroup`` of ``spawn_pods(..., mesh=)``, one process a
+    device of a (pod, data, model) mesh) each pod's peer is placed on the
+    pod's ("data", "model") devices: ``init_state`` / ``ensure_state``
+    distribute it (``distribute_state``: FSDP over "data", TP over
+    "model") and ``prepare`` its rows of the batch (``distribute_batch``).
+    The wire is gathered shard by shard over the mesh's "pod" group, each
+    rank sending its local shard of its pod's wire to the ranks that hold
+    the same shard of the other pods' peers, and each received shard is
+    re-wrapped with the placements it left with. Microbatches are not
+    placed on a mesh (k > 1 raises there)."""
 
     name = "shardmap"
     stacked = False
@@ -652,14 +709,48 @@ class ShardMapCompressed(PredictionExchange):
     def init_state(self, model, tc, generator, opt_init, example_batch=None,
                    device="cuda"):
         """This pod's peer, drawn as ``init_codist_state`` draws peer
-        ``rank``: the inits of the pods before it are drawn and dropped."""
+        ``rank``: the inits of the pods before it are drawn and dropped.
+        On a mesh the parameters are placed first and the optimizer's
+        moments made from the placed ones (no device holds a whole peer's
+        moments)."""
         for _ in range(self.pods.rank):
             model.init(generator, device=device)
-        return init_train_state(model, generator, opt_init, device=device)
+        if self.pods.mesh is None:
+            return init_train_state(model, generator, opt_init, device=device)
+        params = trainable_params(model.init(generator, device=device))
+        state = self.ensure_state(TrainState(params, OptState(0, None, None),
+                                             0), model, tc)
+        return state._replace(opt=opt_init(state.params))
+
+    def ensure_state(self, state, model, tc, example_batch=None):
+        """On a mesh, a state of plain tensors placed on this pod's
+        devices."""
+        if self.pods.mesh is None or mesh_of(state.params) is not None:
+            return state
+        from repro_torch.launch.sharding import distribute_state
+        return distribute_state(state, self.mesh, self.pods.sub_mesh,
+                                self.codist.n_models)
+
+    @property
+    def mesh(self):
+        """The logical (pod, data, model) mesh of the pods' devices."""
+        from repro_torch.launch.mesh import logical_mesh
+        return logical_mesh(self.pods.mesh)
+
+    def _own_rows(self, batch_all: Dict) -> Dict:
+        """This pod's rows of an (n, ...) batch, placed on its devices on
+        a mesh."""
+        if self.pods.mesh is None:
+            return _peer_batch(batch_all, self.pods.rank)
+        from repro_torch.launch.sharding import distribute_batch
+        return distribute_batch(batch_all, self.mesh, self.pods.sub_mesh,
+                                peer=self.pods.rank)
 
     def prepare(self, state, batch_all, k):
         # (n, [k,] B, ...) -> this pod's ([k,] B, ...)
-        return tree_map(lambda v: v[self.pods.rank], batch_all)
+        if k > 1 and self.pods.mesh is not None:
+            raise ValueError("microbatches are not placed on a mesh")
+        return self._own_rows(batch_all)
 
     def make_eval(self, model, tc):
         """The codist eval of ``make_codist_eval_step``, gathered."""
@@ -667,15 +758,17 @@ class ShardMapCompressed(PredictionExchange):
 
         @torch.no_grad()
         def eval_step(params, batch_all: Dict) -> Dict:
-            b = _peer_batch(batch_all, self.pods.rank)
-            logits, _ = _task_forward(model, params, b, False)
-            rows = cd.pod_rows(self.pods, torch.stack([
-                cd.cross_entropy(logits, b["labels"], fused=fused),
-                cd.accuracy(logits, b["labels"])]))
-            return {"eval_loss": rows[:, 0].mean(),
+            with on_mesh(params):
+                b = self._own_rows(batch_all)
+                logits, _ = _task_forward(model, params, b, False)
+                rows = cd.pod_rows(self.pods, torch.stack([
+                    cd.cross_entropy(logits, b["labels"], fused=fused),
+                    cd.accuracy(logits, b["labels"])]))
+                return plain_metrics({
+                    "eval_loss": rows[:, 0].mean(),
                     "eval_loss_per_model": rows[:, 0],
                     "eval_accuracy": rows[:, 1].mean(),
-                    "eval_accuracy_per_model": rows[:, 1]}
+                    "eval_accuracy_per_model": rows[:, 1]})
         return eval_step
 
     def loss(self, model, tc, sch, state, params, batch, variant):
@@ -769,18 +862,20 @@ def build_train_step(model, tc: TrainConfig, codist: Optional[CodistConfig],
 
     def make_variant(variant: str) -> Callable:
         def step(state, batch_all: Dict):
-            operand = strategy.prepare(state, batch_all, tc.microbatch)
+            with on_mesh(state.params):
+                operand = strategy.prepare(state, batch_all, tc.microbatch)
 
-            def loss_fn(params, b):
-                total, metrics, aux = strategy.loss(model, tc, sch, state,
-                                                    params, b, variant)
-                return total, (metrics, aux)
+                def loss_fn(params, b):
+                    total, metrics, aux = strategy.loss(
+                        model, tc, sch, state, params, b, variant)
+                    return total, (metrics, aux)
 
-            grads, metrics, aux = _grads_metrics_aux(
-                loss_fn, state.params, operand, tc.microbatch, accum)
-            lr, wd = sch.lr(state.step), sch.wd(state.step)
-            params, opt = opt_update(state.params, grads, state.opt, lr, wd,
-                                     trainable)
+                grads, metrics, aux = _grads_metrics_aux(
+                    loss_fn, state.params, operand, tc.microbatch, accum)
+                lr, wd = sch.lr(state.step), sch.wd(state.step)
+                params, opt = opt_update(state.params, grads, state.opt, lr,
+                                         wd, trainable)
+                metrics = plain_metrics(metrics)
             metrics.update(lr=lr, wd=wd)
             return strategy.post_update(state, params, opt, batch_all, aux,
                                         tc.microbatch), metrics
