@@ -267,15 +267,19 @@ exits non-zero:
                 (PredictionExchange) and the metered wire bytes equal to
                 ``comm_bytes``; last the CLI itself on the card (reduced
                 config).
- 20. mesh     — the codist step over DTensors on a 1-rank NCCL mesh (1, 1,
-                1) (``spawn_pods(..., mesh=)``): qwen1.5-0.5b at full width
-                and 4 of 24 layers, fp32 (TF32 off), both peers placed on
-                the pod's (data, model) devices by the sharding rules,
-                ``PredictionExchange`` 3 steps against the plain step on the
-                same card from the same weights and Markov batches: losses
-                and every leaf within 1e-6 relative, rows 12 and 13 launched
-                once a peer a step, every launch through the loss kernels'
-                DTensor entry.
+ 20. mesh     — the codist and all-reduce steps over DTensors on a 1-rank
+                NCCL mesh (1, 1, 1) (``spawn_pods(..., mesh=)``):
+                qwen1.5-0.5b at full width and 4 of 24 layers, fp32 (TF32
+                off). Both peers placed on the pod's (data, model) devices
+                by the sharding rules, ``PredictionExchange`` 3 steps
+                against the plain step on the same card from the same
+                weights and Markov batches: losses and every leaf within
+                1e-6 relative, rows 12 and 13 launched once a peer a step.
+                One model over the whole mesh, ``AllReduce`` 3 steps:
+                losses and leaves bit-equal to the plain step's, rows 6 and
+                7 once a step. One step of 2 microbatches of each against
+                its plain step (1e-6), the rows once a microbatch. Every
+                launch through the loss kernels' DTensor entry.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -293,7 +297,18 @@ exact, the pod gathers' bytes equal to ``comm_bytes``; then deepseek-67b at
 full width and 4 of 95 layers (bf16 over fp32 masters, AdamW, 2 peers of 4
 x 512 tokens on (2, 1, 2)), which one card cannot hold: finite moving
 losses, wall and device ms a step, the NCCL gather's share of a step and
-its bytes, each rank's peak memory.
+its bytes, each rank's peak memory. Then the all-reduce baseline and
+microbatches: qwen1.5-0.5b's one model of 4 x 512 on (2, 2, 1) and (2, 1,
+2), and 2 microbatches of both strategies (twice the rows) on (2, 2, 1),
+each held to its single-card step (losses 1e-5 relative, shards 1e-4),
+every rank's metered cross-pod bytes (the optimizer's reduction over
+"pod", or the gather of the fp32 none wire) equal to ``launch/cost.py``'s
+a step, as are the none-wire parity runs'; deepseek-67b's ``AllReduce`` of
+8 x 512 rows on (2, 1, 2) with the cross-pod gradient all-reduce's ms and
+bytes beside the codist step's; and rwkv6-1.6b at full width and depth
+(remat) and internvl2-76b at full width and 2 of 80 layers with 256
+numpy patches (plain SGD), codist on (2, 1, 2) in fp32, held to the
+single card.
 
 The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
 (H = KVh = 20, hd 128, the fleet's slots and lengths: the kernel's head
@@ -417,10 +432,10 @@ PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs",
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
                                        "async", "obs", "paper", "families",
-                                       "rwkv", "shardmap", "mesh4"),
+                                       "rwkv", "shardmap", "mesh", "mesh4"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
                                       "async", "obs", "paper", "families",
-                                      "rwkv", "shardmap", "mesh4"),
+                                      "rwkv", "shardmap", "mesh", "mesh4"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
                                     "paper", "families", "rwkv", "shardmap",
                                     "mesh", "mesh4"),
@@ -6368,6 +6383,16 @@ MESH4_TOL = 1e-4
 # BIG_LAYERS of 95, bf16 over fp32 masters, AdamW, 2 peers on (2, 1, 2)
 BIG_ARCH, BIG_LAYERS, BIG_B, BIG_S, BIG_MESH = "deepseek-67b", 4, 4, 512, \
     (2, 1, 2)
+# mesh4's microbatched runs (k 2, both strategies) and the bound on their
+# and the all-reduce baseline's losses against the single card (relative)
+MESH4_K2 = (2, 2, 1)
+MESH4_NEW_TOL = 1e-5
+# mesh4's other families, codist on FAMILY_MESH in fp32 against the single
+# card: rwkv6-1.6b at full width and depth (remat), internvl2-76b at full
+# width and 2 of 80 layers with its 256 patches (plain SGD: both peers'
+# fp32 weights and gradients, 61 GB, on the single card)
+FAMILY_MESH4 = (("rwkv6-1.6b", 0), ("internvl2-76b", 2))
+FAMILY_MESH = (2, 1, 2)
 
 
 def mesh_data(cfg, b: int, s: int, steps: int, seed: int = 7) -> list:
@@ -6381,23 +6406,43 @@ def mesh_data(cfg, b: int, s: int, steps: int, seed: int = 7) -> list:
             for k in range(steps)]
 
 
+def one_model(batches: list) -> list:
+    """The all-reduce baseline's batches: each codist batch's (2, b, ...)
+    rows as one model's (2 b, ...)."""
+    return [{k: v.reshape(-1, *v.shape[2:]) for k, v in b.items()}
+            for b in batches]
+
+
+def micro(batches: list, k: int, lead: int) -> list:
+    """Each leaf's batch dim (after ``lead`` leading axes) split into (k,
+    B/k): the step's microbatched layout."""
+    def one(v):
+        return v.reshape(*v.shape[:lead], k, v.shape[lead] // k,
+                         *v.shape[lead + 1:])
+    return [{n: one(v) for n, v in b.items()} for b in batches]
+
+
 def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
-             profile_rank0: bool = False) -> dict:
-    """One mesh run through ``train_codist`` (the peers drawn from
-    ``tc.seed`` on this rank's card, placed by the strategy or by
-    ``place``), with the launch counts and the DTensor entry's calls set to
-    0 just before and read just after; per step (from one step's start to
-    the next's) the wall and the pod gather's seconds; rank 0's steps 1..
-    under torch.profiler where asked (``device_ms``: their kernels' device
-    time)."""
+             profile_rank0: bool = False, state=None,
+             timed: bool = False) -> dict:
+    """One mesh run through ``train`` (the state drawn from ``tc.seed`` on
+    this rank's card, or ``state``, placed by the strategy), with the
+    launch counts, the DTensor entry's calls and the optimizer's pod meter
+    set to 0 just before and read just after; per step (from one step's
+    start to the next's) the wall, the pod gather's seconds and, with
+    ``timed``, the optimizer's cross-pod reduction's (each reduction
+    between two device syncs); rank 0's steps 1.. under torch.profiler
+    where asked (``device_ms``: their kernels' device time)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.ops import local_rows_calls
     from repro_torch.models import build_model
-    from repro_torch.train import train_codist
+    from repro_torch.optim import optimizers
+    from repro_torch.train import train
     dev = pods.device
     model = build_model(cfg)
     marks: list = []
+    meter = optimizers.pod_sync
 
     prof = (profile(activities=[ProfilerActivity.CUDA])
             if profile_rank0 and dist_rank() == 0 else None)
@@ -6406,7 +6451,7 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
         if k == 1 and prof is not None:
             sync(dev)          # steps 1.. (after the init and step 0)
             prof.__enter__()
-        marks.append((time.perf_counter(), pods.wire_s))
+        marks.append((time.perf_counter(), pods.wire_s, meter.seconds))
         return batches[k]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6414,11 +6459,16 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
     reset_launch_counts()
     for k in local_rows_calls:
         local_rows_calls[k] = 0
+    meter.reset()
+    meter.timed = timed
     t0 = time.perf_counter()
-    state, hist = train_codist(model, codist, tc, data, log_every=1,
-                               strategy=strategy, device=dev)
+    try:
+        state, hist = train(model, tc, data, strategy, codist=codist,
+                            log_every=1, state=state, device=dev)
+    finally:
+        meter.timed = False
     sync(dev)
-    marks.append((time.perf_counter(), pods.wire_s))
+    marks.append((time.perf_counter(), pods.wire_s, meter.seconds))
     device_ms = None
     if prof is not None:
         prof.__exit__(None, None, None)
@@ -6432,7 +6482,9 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
             "seconds": time.perf_counter() - t0,
             "step_s": [b[0] - a[0] for a, b in zip(marks, marks[1:])],
             "wire_s": [b[1] - a[1] for a, b in zip(marks, marks[1:])],
+            "pod_s": [b[2] - a[2] for a, b in zip(marks, marks[1:])],
             "wire_bytes": pods.wire_bytes - bytes0,
+            "pod_bytes": meter.bytes, "pod_reductions": meter.reductions,
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "launches": dict(launch_counts), "entry": dict(local_rows_calls),
             "device_ms": device_ms}
@@ -6472,28 +6524,13 @@ def mesh_tc(**kw):
                                  optimizer="sgdm"), **kw})
 
 
-def mesh_smoke_rank(pods) -> dict:
-    """The mesh phase's one rank (a (1, 1, 1) mesh, NCCL on card 0):
-    qwen1.5-0.5b at MESH_LAYERS in fp32 (TF32 off), both peers DTensors on
-    the pod's (data, model) devices (the pod axis is not 2, so the peer
-    axis stays unplaced), ``PredictionExchange`` over them against the
-    plain step from the same weights and batches."""
-    from repro_torch.configs import CodistConfig, get_config
+def placed_pe(mesh, pods):
+    """``PredictionExchange`` whose drawn state and batches (microbatched
+    ones too) are placed on this pod's devices, both peers on them."""
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.mesh import logical_mesh
     from repro_torch.train import PredictionExchange
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
-                  dtype="float32")
-    codist = CodistConfig(n_models=2)
-    batches = mesh_data(cfg, MESH_B, MESH_S, MESH_STEPS)
-    mesh = logical_mesh(pods.mesh)
 
     class Placed(PredictionExchange):
-        """PredictionExchange whose drawn state and batches are placed on
-        this pod's devices."""
-
         def ensure_state(self, state, model, tc, example_batch=None):
             return sh.distribute_state(state, mesh, pods.sub_mesh, 2)
 
@@ -6504,67 +6541,122 @@ def mesh_smoke_rank(pods) -> dict:
                 model, tc)
 
         def prepare(self, state, batch_all, k):
-            return sh.distribute_batch(batch_all, mesh, pods.sub_mesh)
+            return super().prepare(state, sh.distribute_batch(
+                batch_all, mesh, pods.sub_mesh, microbatched=k > 1), k)
+    return Placed
 
-    plain = mesh_job(pods, "mesh plain", cfg, codist, mesh_tc(), batches,
-                     PredictionExchange(codist))
-    placed = mesh_job(pods, "mesh", cfg, codist, mesh_tc(), batches,
-                      Placed(codist))
-    err = shard_errors(placed["state"].params, plain["state"].params,
-                       pods.sub_mesh)
-    for run in (plain, placed):
-        del run["state"]
-    return {"plain": plain, "placed": placed, "leaf_err": err}
+
+def mesh_smoke_rank(pods) -> dict:
+    """The mesh phase's one rank (a (1, 1, 1) mesh, NCCL on card 0):
+    qwen1.5-0.5b at MESH_LAYERS in fp32 (TF32 off). Both peers DTensors on
+    the pod's (data, model) devices (the pod axis is not 2, so the peer
+    axis stays unplaced), ``PredictionExchange`` over them against the
+    plain step from the same weights and batches; one model over the whole
+    mesh, ``AllReduce``, against the plain ``AllReduce``; then one step of
+    2 microbatches of each against its plain step."""
+    from repro_torch.configs import CodistConfig, get_config
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.train import AllReduce, PredictionExchange
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
+                  dtype="float32")
+    codist = CodistConfig(n_models=2)
+    batches = mesh_data(cfg, MESH_B, MESH_S, MESH_STEPS)
+    Placed = placed_pe(logical_mesh(pods.mesh), pods)
+    out = {}
+
+    def pair(name, codist, tc, batches, plain, placed, mesh):
+        a = mesh_job(pods, f"mesh {name} plain", cfg, codist, tc, batches,
+                     plain)
+        b = mesh_job(pods, f"mesh {name}", cfg, codist, tc, batches, placed)
+        err = shard_errors(b["state"].params, a["state"].params, mesh)
+        for run in (a, b):
+            del run["state"]
+        out[name] = {"plain": a, "placed": b, "leaf_err": err}
+    pair("codist", codist, mesh_tc(), batches, PredictionExchange(codist),
+         Placed(codist), pods.sub_mesh)
+    pair("allreduce", None, mesh_tc(), one_model(batches), AllReduce(),
+         AllReduce(mesh=pods), pods.mesh)
+    k2 = mesh_tc(microbatch=2, total_steps=1)
+    pair("allreduce k2", None, k2, micro(one_model(batches[:1]), 2, 0),
+         AllReduce(), AllReduce(mesh=pods), pods.mesh)
+    pair("codist k2", codist, k2, micro(batches[:1], 2, 1),
+         PredictionExchange(codist), Placed(codist), pods.sub_mesh)
+    return out
+
+
+# the mesh phase's runs: (name, steps, combined loss rows, DTensor entry,
+# loss-row launches a step, bound on the relative difference to the plain
+# step: 0 is bit-equal)
+MESH_RUNS = (("codist", MESH_STEPS, True, "_CEDistillTokens", 2, 1e-6),
+             ("allreduce", MESH_STEPS, False, "_CEParts", 1, 0.0),
+             ("allreduce k2", 1, False, "_CEParts", 2, 1e-6),
+             ("codist k2", 1, True, "_CEDistillTokens", 4, 1e-6))
 
 
 def phase_mesh(dev: torch.device) -> dict:
-    """The codist step over DTensors on one card (module docstring, phase
-    20): a 1-rank NCCL mesh (1, 1, 1), both peers placed on it,
-    ``PredictionExchange`` 3 steps against the plain step on the same card
-    from the same weights and batches: losses and every leaf within 1e-6
-    relative; rows 12 and 13 launched once a peer a step, every launch
-    through the loss kernels' DTensor entry. Returns the placed run's
-    launches."""
+    """The codist and all-reduce steps over DTensors on one card (module
+    docstring, phase 20): a 1-rank NCCL mesh (1, 1, 1). Both peers placed
+    on it, ``PredictionExchange`` 3 steps against the plain step on the
+    same card from the same weights and Markov batches: losses and every
+    leaf within 1e-6 relative, rows 12 and 13 launched once a peer a step.
+    One model over it, ``AllReduce`` 3 steps: losses and every leaf
+    bit-equal to the plain step's, rows 6 and 7 once a step. One step of 2
+    microbatches of each: within 1e-6, the rows once a microbatch (a peer).
+    Every launch through the loss kernels' DTensor entry. Returns the
+    placed runs' launches."""
     from repro_torch.launch.mesh import make_codist_mesh, spawn_pods
     t0 = time.perf_counter()
     (out,) = spawn_pods(mesh_smoke_rank, 1, (), device=str(dev),
                         timeout_s=600.0, mesh=make_codist_mesh(1, 1, 1))
-    plain, placed = out["plain"], out["placed"]
-    want = expected_launches(2, "mse", MESH_STEPS, combined=True,
-                             task_ce=False, standalone=0)
-    got = {k: placed["launches"][k] for k in ALL_LOSS_KERNELS}
-    require(got == want, f"mesh: launches {got} != {want}")
-    require(placed["entry"]["_CEDistillTokens"]
-            == want["fused_ce_distill_parts"]
-            and sum(placed["entry"].values())
-            == placed["entry"]["_CEDistillTokens"],
-            f"mesh: DTensor entry calls {placed['entry']} for launches {got}")
-    worst = 0.0
-    for a, b in zip(plain["records"], placed["records"]):
-        for m in ("loss", "task_loss", "distill_loss", "task_loss_per_model_0",
-                  "task_loss_per_model_1"):
-            rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
-            worst = max(worst, rel)
-            require(rel <= 1e-6, f"mesh step {a['step']} {m}: {b[m]} vs "
-                    f"the plain step's {a[m]}")
-    require(out["leaf_err"][1] <= 1e-6, f"mesh: a leaf differs from the "
-            f"plain step's by {out['leaf_err']} (absolute, relative, leaf)")
-    moved = abs(plain["records"][-1]["loss"] - plain["records"][0]["loss"])
-    wall = [x * 1e3 for x in placed["step_s"][1:]]
-    log(f"mesh: {MESH_ARCH} {MESH_LAYERS} of 24 layers fp32, 2 peers of "
-        f"{MESH_B} x {MESH_S} on a (1, 1, 1) NCCL mesh: losses "
-        f"{[round(r['loss'], 6) for r in placed['records']]} (moved "
-        f"{moved:.4f}), within {worst:.2e} relative of the plain step, "
-        f"leaves within {out['leaf_err'][0]:.2e} absolute "
-        f"({out['leaf_err'][1]:.2e} relative, at {out['leaf_err'][2]}); "
-        "launches "
-        f"{ {k: v for k, v in got.items() if v} }, all through the DTensor "
-        f"entry ({placed['entry']}); wall a step (steps 1-2) "
-        + ", ".join(f"{w:.1f}" for w in wall) + " ms placed, "
-        + ", ".join(f"{x * 1e3:.1f}" for x in plain["step_s"][1:])
-        + f" ms plain; peak {placed['peak_bytes'] / 2**30:.2f} GiB; "
-        f"{time.perf_counter() - t0:.1f} s with the spawn")
-    return got
+    total = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    for name, steps, combined, entry, per_step, tol in MESH_RUNS:
+        plain, placed = out[name]["plain"], out[name]["placed"]
+        want = expected_launches(per_step, "mse", steps, combined=combined,
+                                 task_ce=not combined, standalone=0)
+        got = {k: placed["launches"][k] for k in ALL_LOSS_KERNELS}
+        require(got == want, f"mesh {name}: launches {got} != {want}")
+        calls = placed["entry"]
+        require(calls[entry] == steps * per_step
+                and sum(calls.values()) == calls[entry],
+                f"mesh {name}: DTensor entry calls {calls} for launches "
+                f"{got}")
+        for k, v in got.items():
+            total[k] += v
+        worst = 0.0
+        for a, b in zip(plain["records"], placed["records"]):
+            for m in ("loss", "task_loss", "distill_loss"):
+                if m not in a:
+                    continue
+                rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
+                worst = max(worst, rel)
+                require(rel <= tol, f"mesh {name} step {a['step']} {m}: "
+                        f"{b[m]} vs the plain step's {a[m]}")
+        err = out[name]["leaf_err"]
+        require(err[1] <= tol, f"mesh {name}: a leaf differs from the "
+                f"plain step's by {err} (absolute, relative, leaf)")
+        moved = abs(plain["records"][-1]["loss"] - plain["records"][0]["loss"])
+        wall = [x * 1e3 for x in placed["step_s"][1:] or placed["step_s"]]
+        log(f"mesh {name}: {MESH_ARCH} {MESH_LAYERS} of 24 layers fp32, "
+            f"{'2 peers of' if combined else 'one model of'} "
+            f"{MESH_B if combined else 2 * MESH_B} x {MESH_S}, {steps} "
+            f"step(s) of {per_step // (2 if combined else 1)} "
+            "microbatch(es) on a (1, 1, 1) NCCL mesh: losses "
+            f"{[round(r['loss'], 6) for r in placed['records']]} (moved "
+            f"{moved:.4f}), within {worst:.2e} relative of the plain step "
+            f"({'' if worst == 0 and err[0] == 0 else 'not '}bit-equal"
+            f"), leaves within {err[0]:.2e} absolute ({err[1]:.2e} relative, "
+            f"at {err[2]}); launches {({k: v for k, v in got.items() if v})}, "
+            f"all through the DTensor entry ({calls}); wall a step "
+            + ", ".join(f"{w:.1f}" for w in wall)
+            + (" ms placed (with the init), " if steps == 1
+               else " ms placed, ")
+            + ", ".join(f"{x * 1e3:.1f}" for x in
+                        plain["step_s"][1:] or plain["step_s"])
+            + f" ms plain; peak {placed['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"mesh: {time.perf_counter() - t0:.1f} s with the spawn")
+    return total
 
 
 def big_peer_bytes(cfg) -> tuple:
@@ -6590,11 +6682,12 @@ def mesh4_rank(pods) -> dict:
     from repro_torch.configs import CodistConfig, get_config
     from repro_torch.launch.mesh import (device_mesh, make_codist_mesh,
                                          mesh_pod_group)
-    from repro_torch.train import PredictionExchange, ShardMapCompressed
+    from repro_torch.train import (AllReduce, PredictionExchange,
+                                   ShardMapCompressed)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     groups = {MESH4_PARITY[0]: pods}
-    for shape in MESH4_PARITY[1:] + (BIG_MESH,):
+    for shape in MESH4_PARITY[1:] + (BIG_MESH, MESH4_K2, FAMILY_MESH):
         if shape not in groups:
             m = make_codist_mesh(*shape)
             groups[shape] = mesh_pod_group(
@@ -6619,17 +6712,104 @@ def mesh4_rank(pods) -> dict:
             out["parity"].append(run)
         del plain["state"]
         out["parity"].append({**plain, "shape": None, "wire": wire})
+    codist = CodistConfig(n_models=2)
+    out["held"] = []
+
+    def held(name, cfg_, codist_, tc, data, plain_strategy, placed, shapes,
+             draw=None):
+        """``placed(g)`` on each mesh of ``shapes`` held to
+        ``plain_strategy`` on this rank's card (``draw(i)``: the plain
+        state (i None) or pod i's peer's, plain SGD; else drawn from
+        ``tc.seed`` by the strategies)."""
+        plain = mesh_job(pods, f"mesh4 {name} plain", cfg_, codist_, tc,
+                         data, plain_strategy,
+                         state=None if draw is None else draw(None))
+        for shape in shapes:
+            g = groups[shape]
+            run = mesh_job(g, f"mesh4 {name} {shape}", cfg_, codist_, tc,
+                           data, placed(g),
+                           state=None if draw is None else draw(g.rank))
+            one = codist_ is None
+            run["leaf_err"] = shard_errors(
+                run["state"].params,
+                plain["state"].params if one else
+                plain["state"].params[g.rank],
+                g.mesh if one else g.sub_mesh)
+            del run["state"]
+            run.update(name=name, shape=shape, pod=g.rank, cfg=cfg_,
+                       plain=plain["records"])
+            out["held"].append(run)
+        del plain["state"]
+        torch.cuda.empty_cache()
+
+    held("allreduce", cfg, None, mesh_tc(), one_model(batches), AllReduce(),
+         lambda g: AllReduce(mesh=g), MESH4_PARITY)
+    # 2 microbatches of twice the rows: each splits over pod x data (one
+    # model) or over data (a peer), as the step's batch does
+    k2, wide = mesh_tc(microbatch=2), mesh_data(cfg, 2 * MESH_B, MESH_S,
+                                                MESH_STEPS)
+    held("allreduce k2", cfg, None, k2, micro(one_model(wide), 2, 0),
+         AllReduce(), lambda g: AllReduce(mesh=g), (MESH4_K2,))
+    held("codist k2", cfg, codist, k2, micro(wide, 2, 1),
+         PredictionExchange(codist), lambda g: ShardMapCompressed(codist, g),
+         (MESH4_K2,))
     big = replace(get_config(BIG_ARCH), num_layers=BIG_LAYERS)
     g = groups[BIG_MESH]
-    codist = CodistConfig(n_models=2)
-    run = mesh_job(g, "mesh4 deepseek", big, codist,
-                   mesh_tc(optimizer="adamw", lr=1e-4, lr_schedule="constant"),
-                   mesh_data(big, BIG_B, BIG_S, MESH_STEPS),
+    big_tc = mesh_tc(optimizer="adamw", lr=1e-4, lr_schedule="constant")
+    big_data = mesh_data(big, BIG_B, BIG_S, MESH_STEPS)
+    run = mesh_job(g, "mesh4 deepseek", big, codist, big_tc, big_data,
                    ShardMapCompressed(codist, g), profile_rank0=True)
     del run["state"]
     run.update(pod=g.rank)
     out["big"] = run
+    run = mesh_job(g, "mesh4 deepseek allreduce", big, None, big_tc,
+                   one_model(big_data), AllReduce(mesh=g),
+                   profile_rank0=True, timed=True)
+    del run["state"]
+    out["big_ar"] = run
+    for arch, layers in FAMILY_MESH4:
+        fcfg = replace(get_config(arch), dtype="float32",
+                       **({"num_layers": layers} if layers else {}))
+        data = mesh_data(fcfg, MESH_B, MESH_S, MESH_STEPS)
+        if fcfg.num_patches:
+            rng = np.random.default_rng(11)
+            for b in data:
+                b["patches"] = torch.from_numpy((0.1 * rng.standard_normal(
+                    (2, MESH_B, fcfg.num_patches, fcfg.d_model))).astype(
+                        np.float32))
+        draw = None
+        tc = mesh_tc(lr=0.01, remat=fcfg.family == "ssm")
+        if fcfg.num_patches:       # plain SGD: both peers fit on one card
+            tc = mesh_tc(lr=0.01, momentum=0.0)
+            draw = plain_sgd_draw(fcfg, tc, pods.device)
+        held(arch, fcfg, codist, tc, data, PredictionExchange(codist),
+             lambda g: ShardMapCompressed(codist, g), (FAMILY_MESH,), draw)
     return out
+
+
+def plain_sgd_draw(cfg, tc, dev):
+    """``draw(i)``: the codist state of both peers (i None) or pod i's
+    peer's ``TrainState``, drawn as the strategies draw them from
+    ``tc.seed`` on ``dev``, with plain SGD's empty optimizer state (no
+    buffer: the two peers' fp32 weights and gradients then fit one card)."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptState
+    from repro_torch.train.state import (CodistState, TrainState,
+                                         trainable_params)
+    model = build_model(cfg)
+
+    def draw(i):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tc.seed)
+        if i is None:
+            peers = [trainable_params(model.init(gen, device=dev))
+                     for _ in range(2)]
+            return CodistState(peers, OptState(0, None, None), 0)
+        for _ in range(i):
+            model.init(gen, device=dev)
+        return TrainState(trainable_params(model.init(gen, device=dev)),
+                          OptState(0, None, None), 0)
+    return draw
 
 
 def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
@@ -6645,9 +6825,7 @@ def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
     step and its bytes against the comm model at the wire's 16 bits (and
     the History's ``comm_bytes``, which prices fp32 logits), each rank's
     peak memory beside the bytes of the two peers' training state.
-    Returns the placed runs' launches."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import comm_model as cm
+    Then ``mesh4_baseline``'s runs. Returns the placed runs' launches."""
     from repro_torch.launch.mesh import make_codist_mesh, spawn_pods
     have = torch.cuda.device_count()
     require(have >= 4, f"mesh4 needs 4 cards, one a rank; this host has "
@@ -6657,6 +6835,14 @@ def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
                        mesh=make_codist_mesh(*MESH4_PARITY[0]))
     log(f"mesh4: 4 ranks on 4 cards ({torch.cuda.get_device_name(0)}), "
         f"{time.perf_counter() - t0:.1f} s with the spawn")
+    return mesh4_checks(ranks, smi_line)
+
+
+def mesh4_checks(ranks: list, smi_line: str) -> dict:
+    """``phase_mesh4``'s checks of its ranks' results; returns the placed
+    runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm_model as cm
     cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
                   dtype="float32")
     launches = dict.fromkeys(ALL_LOSS_KERNELS, 0)
@@ -6750,7 +6936,144 @@ def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
         "(one 80 GB card cannot hold them); peak a rank "
         + ", ".join(f"{run['peak_bytes'] / 1e9:.1f}" for run in runs)
         + f" GB; {smi_line}")
+    mesh4_baseline(ranks, cfg, big_cfg, launches, smi_line)
     return launches
+
+
+def cross_pod_cost(cfg, mode: str, shape, rows: int, seq: int,
+                   k: int = 1) -> int:
+    """``launch/cost.py``'s cross-pod bytes a device of one step of
+    ``mode`` on the (pod, data, model) mesh ``shape`` over ``rows``
+    sequences of ``seq`` positions (a VLM's patches among them) in k
+    microbatches."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.cost import step_cost
+    from repro_torch.launch.mesh import make_codist_mesh
+    return step_cost(cfg, InputShape("mesh4", seq, rows, "train"), mode,
+                     microbatch=k, mesh=make_codist_mesh(*shape)
+                     ).collectives.cross_pod_bytes
+
+
+def mesh4_baseline(ranks, cfg, big_cfg, launches: dict, smi_line: str
+                   ) -> None:
+    """mesh4's checks of the all-reduce baseline, the microbatched runs and
+    the other families (``mesh4_rank``'s ``held`` runs and deepseek's
+    ``AllReduce``): each rank's losses within MESH4_NEW_TOL relative of
+    its single-card step and its shards of every leaf within MESH4_TOL;
+    launches exact (rows 6 and 7, or 12 and 13, once a rank a microbatch),
+    each through the DTensor entry; the cross-pod bytes each rank metered
+    (the optimizer's reduction over "pod", or the pod gather of the fp32
+    none wire) equal to ``launch/cost.py``'s a step. The parity runs of
+    the none wire are held to the cost model the same way."""
+    for job in ranks[0]["parity"]:
+        if job["shape"] is None or job["wire"] != "none":
+            continue
+        want = MESH_STEPS * cross_pod_cost(cfg, "codist", job["shape"],
+                                           2 * MESH_B, MESH_S)
+        got = [j["wire_bytes"] for r in ranks for j in r["parity"]
+               if j["label"] == job["label"]]
+        require(got == [want] * len(ranks), f"{job['label']}: the ranks "
+                f"metered {got} bytes, the cost model {want}")
+        log(f"{job['label']}: each rank's pod gather {want // MESH_STEPS} "
+            "bytes a step == launch/cost.py's cross-pod bytes")
+    for j, job in enumerate(ranks[0]["held"]):
+        runs = [r["held"][j] for r in ranks]
+        label = job["label"]
+        one = "allreduce" in job["name"]
+        arch_cfg = job["cfg"]
+        k = 2 if job["name"].endswith("k2") else 1
+        per = k * MESH_STEPS
+        want = expected_launches(1, "mse", per, combined=not one,
+                                 task_ce=one, standalone=0)
+        entry = "_CEParts" if one else "_CEDistillTokens"
+        seq = MESH_S + arch_cfg.num_patches
+        bytes_a_step = cross_pod_cost(arch_cfg, "allreduce" if one
+                                      else "codist", job["shape"],
+                                      2 * MESH_B * k, seq, k)
+        worst = 0.0
+        for r, run in enumerate(runs):
+            got = {n: run["launches"][n] for n in ALL_LOSS_KERNELS}
+            require(got == want, f"{label} rank {r}: launches {got} != "
+                    f"{want}")
+            require(run["entry"][entry] == per
+                    and sum(run["entry"].values()) == per,
+                    f"{label} rank {r}: DTensor entry calls {run['entry']}")
+            for n, v in got.items():
+                launches[n] += v
+            for a, b in zip(run["plain"], run["records"]):
+                for m in ("loss", "task_loss", "distill_loss"):
+                    if m not in a:
+                        continue
+                    rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
+                    worst = max(worst, rel)
+                    require(rel <= MESH4_NEW_TOL, f"{label} rank {r} step "
+                            f"{a['step']} {m}: {b[m]} vs the single card's "
+                            f"{a[m]}")
+            require(run["leaf_err"][0] <= MESH4_TOL, f"{label} rank {r}: a "
+                    f"leaf differs by {run['leaf_err'][0]:.3e} absolute")
+            metered = run["pod_bytes"] if one else run["wire_bytes"]
+            require(metered == MESH_STEPS * bytes_a_step, f"{label} rank {r}:"
+                    f" metered {metered} cross-pod bytes, the cost model "
+                    f"{MESH_STEPS * bytes_a_step}")
+        first, last = runs[0]["plain"][0]["loss"], runs[0]["plain"][-1]["loss"]
+        wall = [float(np.mean(run["step_s"][1:])) * 1e3 for run in runs]
+        losses = [round(x["loss"], 6) for x in runs[0]["records"]]
+        log(f"{label}: losses {losses} within {worst:.2e} relative of the "
+            f"single card (tol {MESH4_NEW_TOL:g}), leaves within "
+            f"{max(run['leaf_err'][0] for run in runs):.2e} absolute, the "
+            f"loss moved {abs(last - first) / abs(first):.2e} relative; "
+            f"cross-pod bytes a rank a step {bytes_a_step} "
+            f"({'gradient reduction over pod' if one else 'pod gather'}) == "
+            f"launch/cost.py's; wall a step (steps 1-2) "
+            + ", ".join(f"{w:.1f}" for w in wall) + " ms; peak "
+            + ", ".join(f"{run['peak_bytes'] / 2**30:.2f}" for run in runs)
+            + " GiB")
+    runs = [r["big_ar"] for r in ranks]
+    recs = runs[0]["records"]
+    require(all(len(run["records"]) == MESH_STEPS for run in runs),
+            "mesh4 deepseek allreduce: short Histories")
+    require(recs[-1]["loss"] != recs[0]["loss"], "mesh4 deepseek allreduce: "
+            f"the loss did not move ({recs[0]['loss']})")
+    want = expected_launches(1, "mse", MESH_STEPS, combined=False,
+                             task_ce=True, standalone=0)
+    sync_b = cross_pod_cost(big_cfg, "allreduce", BIG_MESH, 2 * BIG_B, BIG_S)
+    for r, run in enumerate(runs):
+        got = {k: run["launches"][k] for k in ALL_LOSS_KERNELS}
+        require(got == want, f"mesh4 deepseek allreduce rank {r}: launches "
+                f"{got}")
+        require(run["entry"]["_CEParts"] == MESH_STEPS,
+                f"mesh4 deepseek allreduce rank {r}: entry {run['entry']}")
+        for k, v in got.items():
+            launches[k] += v
+        require(run["pod_bytes"] == MESH_STEPS * sync_b, f"mesh4 deepseek "
+                f"allreduce rank {r}: the gradient reduction over pod metered "
+                f"{run['pod_bytes']} bytes, the cost model "
+                f"{MESH_STEPS * sync_b}")
+    cd = ranks[0]["big"]
+    wall = float(np.mean(runs[0]["step_s"][1:])) * 1e3
+    pod = float(np.mean(runs[0]["pod_s"][1:])) * 1e3
+    dev_ms = runs[0]["device_ms"]
+    cd_wall = float(np.mean(cd["step_s"][1:])) * 1e3
+    cd_wire = float(np.mean(cd["wire_s"][1:])) * 1e3
+    cd_dev = cd["device_ms"]
+    log(f"mesh4 deepseek allreduce: {BIG_ARCH} {BIG_LAYERS} of 95 layers, "
+        f"full width, bf16 over fp32 masters, AdamW, one model of "
+        f"{2 * BIG_B} x {BIG_S} on {BIG_MESH} (rows over pod, TP 2): losses "
+        f"{[round(x['loss'], 5) for x in recs]}; rank 0 wall a step (steps "
+        f"1-2, under torch.profiler, a device sync around each leaf's "
+        f"reduction over pod) {wall:.1f} ms, device "
+        + (f"{dev_ms / (MESH_STEPS - 1):.1f} ms a step" if dev_ms
+           else "not measured")
+        + f"; the cross-pod gradient all-reduce (NCCL) {pod:.2f} ms a step "
+        f"({pod / wall:.1%}), {runs[0]['pod_bytes'] // MESH_STEPS} bytes a "
+        f"rank a step (== launch/cost.py's), "
+        f"{runs[0]['pod_reductions'] // MESH_STEPS} leaves; peak a rank "
+        + ", ".join(f"{run['peak_bytes'] / 1e9:.1f}" for run in runs)
+        + f" GB. Beside it, codist on the same mesh in this run: rank 0 wall "
+        f"{cd_wall:.1f} ms, device "
+        + (f"{cd_dev / (MESH_STEPS - 1):.1f} ms" if cd_dev else "not measured")
+        + f" a step, the pod gather {cd_wire:.2f} ms, "
+        f"{cd['wire_bytes'] // MESH_STEPS} bytes a rank a step; {smi_line}")
 
 
 # ----------------------------------------------------------------------------

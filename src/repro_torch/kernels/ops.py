@@ -29,8 +29,10 @@ reference's ``_flatten_pad`` passes ``v = logits.shape[-1]``, which counts
 the config's vocab-padding columns as real).
 
 The three differentiable entries also take DTensor logits (a peer's on
-its pod's ("data", "model") mesh, ``launch/sharding.py``): every (T, V)
-and (T,) operand is redistributed to rows over "data" with V whole (an
+its pod's ("data", "model") mesh, or one model's on the whole (pod, data,
+model) mesh, ``launch/sharding.py``): every (T, V) and (T,) operand is
+redistributed to the rows the logits hold (over "data"; over "pod" and
+"data", pod outer, for one model over the whole mesh) with V whole (an
 all-gather over "model"), and the same autograd function runs on each
 rank's local rows through ``local_map`` with those placements in and out,
 the kernel on the card and the plain version on the CPU. The masked means
@@ -88,13 +90,13 @@ def whole(x: torch.Tensor) -> torch.Tensor:
         Replicate() if p.is_partial() else p for p in x.placements))
 
 
-def _row_placements(mesh, t: int) -> tuple:
-    """Rows over "data" where they divide over it, every other mesh dim
-    (and an indivisible row count) replicated."""
+def _row_placements(x) -> tuple:
+    """The placements of the DTensor ``x``'s rows as they are (each
+    ``Shard(0)`` kept: a batch's rows over "data", or over "pod" and
+    "data" for one model over the whole mesh), every other mesh dim
+    replicated: V whole."""
     from torch.distributed.tensor import Replicate, Shard
-    return tuple(Shard(0) if name == "data" and t % mesh.size(i) == 0
-                 else Replicate()
-                 for i, name in enumerate(mesh.mesh_dim_names))
+    return tuple(p if p == Shard(0) else Replicate() for p in x.placements)
 
 
 # calls of the DTensor entry by the function it ran on local rows (a
@@ -108,7 +110,8 @@ local_rows_calls: Dict[str, int] = {"_CEParts": 0, "_DistillTokens": 0,
 def _on_local_rows(name: str, fn, rows, n_out: int):
     """``fn`` (``name``'s autograd function over (T, V) / (T,) operands,
     its other arguments bound) on each rank's local rows of the DTensor
-    ``rows``: each redistributed to ``_row_placements`` (V whole), ``fn``'s
+    ``rows``: each redistributed to the first's ``_row_placements`` (V
+    whole), ``fn``'s
     n_out per-token outputs DTensors of the same rows."""
     from torch.distributed.tensor.experimental import local_map
     local_rows_calls[name] += 1
@@ -117,7 +120,7 @@ def _on_local_rows(name: str, fn, rows, n_out: int):
         if not is_dtensor(x) or x.device_mesh != mesh:
             raise TypeError("DTensor logits take DTensor targets and labels "
                             "on the same mesh")
-    pl = _row_placements(mesh, rows[0].shape[0])
+    pl = _row_placements(rows[0])
     rows = [x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
             for x in rows]
     return local_map(fn, out_placements=(pl,) * n_out,

@@ -50,13 +50,15 @@ the same placements, their groups from the mesh's device ids:
   of the input gradient in the backward;
 * the all-reduce baseline's gradient sync over (pod, data);
 * the codist wire: an all-gather over "pod" of the peers' predictions, at
-  ``comm_model.prediction_bits_lm`` for the wire's compression;
+  ``comm_model.prediction_bits_lm`` for the wire's compression, of the V /
+  tp columns a device holds of a logits-shaped wire (the top-k wire is
+  whole on each device);
 * expert parallelism: an all-to-all of the routed rows each way.
 
 An op's ``operand_bytes`` is per device (the wire's: what a device
-receives, as ``comm_model`` bills it). ``StepCost.bound_s`` is the larger
-of the FLOPs over the peak and the bytes over the HBM rate;
-``launch/roofline.py`` adds the collective term.
+receives, as ``comm_model`` bills it, over the columns the device holds).
+``StepCost.bound_s`` is the larger of the FLOPs over the peak and the bytes
+over the HBM rate; ``launch/roofline.py`` adds the collective term.
 """
 from __future__ import annotations
 
@@ -637,7 +639,10 @@ def step_cost(cfg, shape: InputShape, mode: str, codist_n: int = 2,
         p, full(shp), mesh, stacked, sh._scanned(p), fsdp, tp,
         variant.get("moe_expert_axis"), two_d_ffn=ds == "2d" and not train))
         for p, (shp, _) in leaves.items()}
-    bshape = (n_models, b // n_models, s) if stacked else (b, s)
+    # a microbatch's rows are placed as a batch's (the reference's
+    # ``batch_shardings(..., microbatched=True)`` of (k, B/k, ...))
+    bshape = ((n_models, b // n_models // k, s) if stacked
+              else (b // k, s))
     bspec = sh.batch_shardings({"x": torch.empty(bshape, device="meta")},
                                mesh, stacked=stacked)["x"]
     if ds == "repl-batch" and shape.kind == "decode":
@@ -876,13 +881,22 @@ def _collectives(out, cfg, shape, mode, mesh, specs, leaves, batch_axes,
            * act, "moe dispatch / combine",
            reps=2 * (3 if train else 1) * n_moe)
     # the codist wire: each device receives the other pods' predictions of
-    # its rows
+    # its rows, in the layout the wire has on it: a logits-shaped wire
+    # (none, bf16, subsample) keeps the logits' V over tp (the "btv" hint),
+    # so a device sends and receives its V / tp columns; the top-k wire is
+    # whole on every device of a pod (the "wire" hint)
     if train and mode == "codist" and "pod" in batch_axes:
         comp = extra.get("compression", "none")
         text = shape.seq_len - cfg.num_patches
         b_pred = cm.prediction_bits_lm(cfg, text, 32, comp,
                                        extra.get("topk", 64),
                                        extra.get("subsample", 0))
+        if comp != "topk":
+            v = cfg.padded_vocab
+            ways = _tp_ways("btv", (shape.global_batch, text, v),
+                            "model" if "model" in sizes else None,
+                            sizes.get("model", 1))
+            b_pred = b_pred * math.ceil(v / ways) / v
         rows = shape.global_batch // batch_ways
         op("all-gather", ("pod",), (n_models - 1) * b_pred * rows / 8,
            f"codist wire ({comp})")

@@ -23,9 +23,11 @@ The rules are executed on a ``torch.distributed`` ``DeviceMesh``
 (``launch/mesh.py``'s ``device_mesh``): ``placements`` turns a spec into
 one DTensor placement per mesh dim, and ``distribute_state`` /
 ``distribute_batch`` place a peer's state and batch on its pod's
-("data", "model") sub-mesh. The reference's stacked peer axis is not a
-dim of a port's tree (a list of peers, or one peer a pod): its spec entry
-("pod" or None) says which pod holds the peer and is never a placement.
+("data", "model") sub-mesh, or one model's (the all-reduce baseline's) on
+the whole (pod, data, model) mesh. The reference's stacked peer axis is
+not a dim of a port's tree (a list of peers, or one peer a pod): its spec
+entry ("pod" or None) says which pod holds the peer and is never a
+placement.
 """
 from __future__ import annotations
 
@@ -439,12 +441,19 @@ def _distribute(x: torch.Tensor, spec, device_mesh) -> torch.Tensor:
     return out.requires_grad_(x.requires_grad)
 
 
-def _state_specs(state, mesh, n: int):
-    """(one peer?, the specs of ``{"params", "opt": {"m", "v"}}`` of the
-    reference's stacked state of n peers on ``mesh``). ``state.params`` is
+def _state_specs(state, mesh, n: Optional[int]):
+    """(one peer?, the specs of ``{"params", "opt": {"m", "v"}}``). With n
+    None the state is one model's (``AllReduce``), placed by
+    ``state_shardings(..., stacked=False)``. Else the specs are those of the
+    reference's stacked state of n peers on ``mesh``: ``state.params`` is
     one peer's tree (a pod that holds one peer: the pod axis must have n
     devices, and ``param_spec`` puts the peer axis on it) or the list of n
     peers (one pod: ``param_spec`` leaves the peer axis unplaced)."""
+    opt = state.opt
+    if n is None:
+        tree = {"params": state.params,
+                "opt": {f: getattr(opt, f) for f in ("m", "v")}}
+        return True, state_shardings(tree, mesh)
     one_peer = not isinstance(state.params, list)
     on_pods = mesh.shape.get("pod") == n
     if one_peer != on_pods:
@@ -453,7 +462,6 @@ def _state_specs(state, mesh, n: int):
             f"{mesh.shape} for {n} models: one peer a pod needs a pod axis "
             "of n, a peer list a pod axis of another size or none")
     take = (lambda t: t) if one_peer else (lambda t: t[0])
-    opt = state.opt
     stacked = {"params": _stacked_meta(take(state.params), n),
                "opt": {f: (_stacked_meta(take(getattr(opt, f)), n)
                            if getattr(opt, f) is not None else None)
@@ -461,21 +469,29 @@ def _state_specs(state, mesh, n: int):
     return one_peer, state_shardings(stacked, mesh, stacked=True)
 
 
-def distribute_state(state, mesh, device_mesh, n: int):
-    """A codist state's parameter and optimizer leaves as DTensors on
-    ``device_mesh`` (the pod's ("data", "model") sub-mesh), placed by
-    ``state_shardings`` of the reference's stacked state of n peers on
-    ``mesh``: one peer's tree (a ``TrainState`` of a pod that holds one
-    peer) or the list of the n peers (a ``CodistState`` on one pod). The
-    peer axis's entry only says where the peer lives and is dropped. The
-    step and any other field pass through; ``requires_grad`` is kept."""
+def distribute_state(state, mesh, device_mesh, n: Optional[int] = None):
+    """A state's parameter and optimizer leaves as DTensors on
+    ``device_mesh``.
+
+    With n None the state is one model's (``AllReduce``'s ``TrainState``)
+    on the whole (pod, data, model) mesh, placed by ``state_shardings(...,
+    stacked=False)``: FSDP over "data", TP over "model", replicated over
+    "pod". With n it is a codist state on a pod's ("data", "model")
+    sub-mesh, placed by ``state_shardings`` of the reference's stacked
+    state of n peers on ``mesh``: one peer's tree (a ``TrainState`` of a
+    pod that holds one peer) or the list of the n peers (a ``CodistState``
+    on one pod); the peer axis's entry only says where the peer lives and
+    is dropped. The step and any other field pass through;
+    ``requires_grad`` is kept."""
     one_peer, specs = _state_specs(state, mesh, n)
+    lead = 0 if n is None else 1
 
     def place(tree, spec_tree):
         flat = dict(tree_flatten_with_path(spec_tree))
 
         def one(path, x):
-            return _distribute(x, P(*flat[path_str(path)][1:]), device_mesh)
+            return _distribute(x, P(*flat[path_str(path)][lead:]),
+                               device_mesh)
         if one_peer:
             return tree_map_with_path(one, tree)
         return [tree_map_with_path(one, t) for t in tree]
@@ -487,19 +503,31 @@ def distribute_state(state, mesh, device_mesh, n: int):
                           opt=opt)
 
 
-def distribute_batch(batch_all: Dict[str, torch.Tensor], mesh, device_mesh,
-                     peer: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """A codist batch (every leaf ``(n, B, ...)``) as DTensors on
-    ``device_mesh``, placed by ``batch_shardings(..., stacked=True)`` on
-    ``mesh``: the batch dim over "data" where it divides. With ``peer`` (a
-    pod that holds one peer) the leaves are that peer's rows ``(B, ...)``;
-    without, the stacked leaves stay whole on the one pod (the peer axis
-    replicated)."""
+def distribute_batch(batch: Dict[str, torch.Tensor], mesh, device_mesh,
+                     peer: Optional[int] = None, stacked: bool = True,
+                     microbatched: bool = False) -> Dict[str, torch.Tensor]:
+    """A batch as DTensors on ``device_mesh``, placed by ``batch_shardings``
+    on ``mesh`` (every leaf: tokens, labels, mask, a VLM's patches).
+
+    ``stacked`` (codist): every leaf is ``(n, [k,] B, ...)`` and its batch
+    dim goes over "data" where it divides. With ``peer`` (a pod that holds
+    one peer) the leaves are that peer's rows ``([k,] B, ...)``; without,
+    the stacked leaves stay whole on the one pod (the peer axis
+    replicated). Not ``stacked`` (one model, ``AllReduce``): every leaf is
+    ``([k,] B, ...)`` and its batch dim goes over ("pod", "data"), pod
+    outer, where it divides. ``microbatched``: the leaves carry the
+    microbatch axis k in front of the batch dim (never placed), so that
+    each microbatch's rows are split as a whole batch's are."""
+    if not stacked:
+        specs = batch_shardings({k: v.to("meta") for k, v in batch.items()},
+                                mesh, microbatched=microbatched)
+        return {k: _distribute(v, specs[k], device_mesh)
+                for k, v in batch.items()}
     specs = batch_shardings({k: _stacked_meta(v[0], v.shape[0])
-                             for k, v in batch_all.items()}, mesh,
-                            stacked=True)
+                             for k, v in batch.items()}, mesh,
+                            stacked=True, microbatched=microbatched)
     if peer is None:
         return {k: _distribute(v, P(None, *specs[k][1:]), device_mesh)
-                for k, v in batch_all.items()}
+                for k, v in batch.items()}
     return {k: _distribute(v[peer], P(*specs[k][1:]), device_mesh)
-            for k, v in batch_all.items()}
+            for k, v in batch.items()}

@@ -36,8 +36,45 @@ def attention_shapes(cfg) -> Dict[str, tuple]:
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk')."""
+    if _heads_off_tp(x, w.shape[1]):
+        return _on_local_rows(_proj, x, w)
     d, n, k = w.shape
     return (x @ w.reshape(d, n * k).to(x.dtype)).unflatten(-1, (n, k))
+
+
+def _heads_off_tp(x, heads: int) -> bool:
+    """Whether ``x`` is a DTensor on a mesh whose "model" dim the
+    ``heads`` do not divide. DTensor then splits a projection's (B, S,
+    heads * hd) output over "model" and cannot unflatten the heads (nor
+    flatten them again for the output projection), where the reference's
+    rules leave the head dims whole on every device (``param_spec``:
+    ``slide=False``)."""
+    mesh = getattr(x, "device_mesh", None)
+    if mesh is None or type(x) is torch.Tensor:
+        return False
+    names = mesh.mesh_dim_names
+    return "model" in names and heads % mesh.size(names.index("model")) != 0
+
+
+def _on_local_rows(fn, x, w):
+    """``fn(x, w)`` on each rank's own batch rows of the DTensor ``x``,
+    with ``w`` whole (``common.whole_weight``) through ``local_map``: the
+    rows stay split as ``x``'s batch dim is, every other dim of ``x`` and
+    of the result is whole; ``w``'s gradient is a ``Partial`` sum over the
+    dims that split the rows, placed by the optimizer."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models.common import whole_weight
+    mesh = x.device_mesh
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in x.placements)
+    w_grad = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    whole = (Replicate(),) * mesh.ndim
+    if tuple(x.placements) != rows:
+        x = x.redistribute(mesh, rows)
+    return local_map(fn, out_placements=(rows,), in_placements=(rows, whole),
+                     in_grad_placements=(rows, w_grad),
+                     device_mesh=mesh)(x, whole_weight(w))
 
 
 def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor):
@@ -50,8 +87,14 @@ def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor):
 
 
 def _out_proj(p: Dict[str, torch.Tensor], o: torch.Tensor) -> torch.Tensor:
+    if _heads_off_tp(o, o.shape[2]):
+        return _on_local_rows(_out_product, o, p["wo"])
+    return _out_product(o, p["wo"])
+
+
+def _out_product(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     b, s, h, hd = o.shape
-    return o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype)
+    return o.reshape(b, s, h * hd) @ wo.to(o.dtype)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -121,21 +164,25 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def _attend_placed(q, k, v, causal: bool, window: int, dtype):
     """``_attend`` on each rank's own batch rows and heads of the DTensors
     q, k, v (a peer on its pod's mesh), through ``local_map``, placed as
-    the "scores" hint places the scores: the batch over its axes where it
-    divides, the heads over TP where the KV heads divide. (The hint's
+    the "scores" hint places the scores: the batch over the axes it
+    divides over (``sharding_hints.dividing_spec``), the heads over TP
+    where the KV heads divide. (The hint's
     fallback, the queries over TP, needs each rank's causal offsets: the
     heads then stay whole on every rank, as they do without a hint.)"""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.launch.sharding import axes_of
+    from repro_torch.models.sharding_hints import dividing_spec
     mesh = q.device_mesh
     b, s, h, _ = q.shape
     kvh = k.shape[2]
-    spec = current_hint_spec("scores", (b, h, s, k.shape[1])) or (None, None)
+    shape = (b, h, s, k.shape[1])
+    spec = current_hint_spec("scores", shape)
+    spec = (None, None) if spec is None else dividing_spec(spec, shape, mesh)
     pl = []
     for i, name in enumerate(mesh.mesh_dim_names):
         ways = mesh.size(i)
-        if ways > 1 and name in axes_of(spec[0]) and b % ways == 0:
+        if ways > 1 and name in axes_of(spec[0]):
             pl.append(Shard(0))
         elif ways > 1 and name in axes_of(spec[1]) and kvh % ways == 0:
             pl.append(Shard(2))

@@ -165,10 +165,45 @@ def embed_tokens(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     return _embed_local(table, tokens)
 
 
+def whole_weight(w, placements=None):
+    """A DTensor weight in ``placements`` (default: replicated on every
+    mesh dim) for a read on each rank (``_Gathered``), or a plain one as
+    given."""
+    if type(w) is torch.Tensor or not hasattr(w, "device_mesh"):
+        return w
+    from torch.distributed.tensor import Replicate
+    want = tuple(placements or (Replicate(),) * w.device_mesh.ndim)
+    return w if tuple(w.placements) == want else _Gathered.apply(w, want)
+
+
+class _Gathered(torch.autograd.Function):
+    """A DTensor weight gathered to ``placements`` for a read on each rank
+    (as FSDP gathers a weight before its use). Its gradient goes back to
+    the weight's placements on every mesh dim but "pod": a sum over the
+    pods (the all-reduce baseline's rows span them) stays ``Partial``
+    there, and the optimizer reduces it over "pod" with every other
+    gradient (``optim/optimizers.py`` ``placed_grad``)."""
+
+    @staticmethod
+    def forward(ctx, w, placements):
+        ctx.placements = tuple(w.placements)
+        return w.redistribute(w.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = g.device_mesh
+        want = tuple(gp if name == "pod" and gp.is_partial() else wp
+                     for name, gp, wp in zip(mesh.mesh_dim_names,
+                                             g.placements, ctx.placements))
+        return (g if tuple(g.placements) == want
+                else g.redistribute(mesh, want)), None
+
+
 def _embed_local(table, tokens: torch.Tensor):
     """``table[tokens]`` for a DTensor ``table`` through ``local_map``:
-    the table replicated, ``tokens`` (a DTensor, or a plain tensor taken
-    as replicated) read on each rank, the rows placed as the tokens."""
+    the table replicated (``whole_weight``), ``tokens`` (a DTensor, or a plain
+    tensor taken as replicated) read on each rank, the rows placed as the
+    tokens."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
@@ -182,7 +217,7 @@ def _embed_local(table, tokens: torch.Tensor):
                  for p in tok)
     return local_map(lambda t, i: t[i], out_placements=(tok,),
                      in_placements=(rep, tok), in_grad_placements=(grad, tok),
-                     device_mesh=mesh)(table.redistribute(mesh, rep), tokens)
+                     device_mesh=mesh)(whole_weight(table), tokens)
 
 
 def lm_head(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

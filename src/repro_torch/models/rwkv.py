@@ -207,6 +207,44 @@ def rwkv_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(ys, dim=1), s
 
 
+def _wkv_placed(r, k, v, w, u, s0=None):
+    """``rwkv_wkv_chunked`` on each rank's own batch rows and heads of the
+    DTensors r, k, v, w (B, L, H, hd) through ``local_map``: the rows split
+    as r's batch dim is, the heads over "model" where they divide over it
+    (the bonus u (H, hd) and the state (B, H, hd, hd) split with them),
+    every other dim whole. The recurrence mixes nothing across rows or
+    heads, so each rank's fp32 scan is the whole one's on its part, and
+    no product flattens a split head dim (which the DTensor of some torch
+    versions refuses)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models.common import whole_weight
+    mesh = r.device_mesh
+    names = mesh.mesh_dim_names
+    h = r.shape[2]
+    rows = [pl == Shard(0) for pl in r.placements]
+    heads = [not rows[i] and name == "model" and mesh.size(i) > 1
+             and h % mesh.size(i) == 0 for i, name in enumerate(names)]
+
+    def pl(head_dim, row=Shard(0)):
+        return tuple(row if rows[i] else Shard(head_dim) if heads[i]
+                     else Replicate() for i in range(mesh.ndim))
+    x_pl, u_pl, s_pl = pl(2), pl(0, Replicate()), pl(1)
+    ins = [x if tuple(x.placements) == x_pl else x.redistribute(mesh, x_pl)
+           for x in (r, k, v, w)] + [whole_weight(u, u_pl)]
+    in_pl = [x_pl] * 4 + [u_pl]
+    grad_pl = [x_pl] * 4 + [pl(0, Partial())]
+    if s0 is not None:
+        ins.append(s0 if tuple(s0.placements) == s_pl
+                   else s0.redistribute(mesh, s_pl))
+        in_pl.append(s_pl)
+        grad_pl.append(s_pl)
+    return local_map(
+        lambda *a: rwkv_wkv_chunked(*a[:5], s0=a[5] if len(a) > 5 else None),
+        out_placements=(x_pl, s_pl), in_placements=tuple(in_pl),
+        in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*ins)
+
+
 def _decay(p: Dict, xw: torch.Tensor) -> torch.Tensor:
     """The data-dependent decay w_t in (0, 1): exp(-exp(base + lora(xw))),
     summed in fp32."""
@@ -234,8 +272,8 @@ def time_mix_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     g = F.silu(xg @ p["w_g"].to(x.dtype))
     w = heads(_decay(p, xw))
     u = p["bonus"].float()
-    y, s_fin = rwkv_wkv_chunked(r.float(), k.float(), v.float(), w, u,
-                                s0=s0)
+    wkv = _wkv_placed if hasattr(r, "device_mesh") else rwkv_wkv_chunked
+    y, s_fin = wkv(r.float(), k.float(), v.float(), w, u, s0=s0)
     y = _group_norm(y, p["ln_x_scale"].float(),
                     p["ln_x_bias"].float()).to(x.dtype)
     return (y * g) @ p["w_o"].to(x.dtype), (x[:, -1:], s_fin)

@@ -13,8 +13,10 @@ collectives come from the weights' placements.
 ``hint(x, kind)`` is called where the reference calls it (the logits, the
 attention scores, the residual stream, the top-k wire). Inside the context
 it redistributes a DTensor ``x`` (a peer's activation on its pod's
-("data", "model") mesh) to ``current_hint_spec``'s placements; on a plain
-tensor, or outside the context, it returns ``x``. The scores are computed
+("data", "model") mesh, or one model's on the whole mesh) to
+``current_hint_spec``'s placements, each entry cut to the axes its dim
+divides over; on a plain tensor, or outside the context, it returns
+``x``. The scores are computed
 on each rank's own heads (``models/attention.py``), so there the spec
 places the attention core's inputs instead. A port's wire is one peer's,
 without the reference's stacked model axis: its spec is the stacked
@@ -29,6 +31,7 @@ fall back to the query axis).
 """
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
 from typing import Optional, Sequence, Tuple
@@ -117,7 +120,27 @@ def hint(x, kind: str):
     if spec is None:
         return x
     from repro_torch.launch.sharding import placements
-    want = placements(spec, x.device_mesh)
+    mesh = x.device_mesh
+    want = placements(dividing_spec(spec, x.shape, mesh), mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def dividing_spec(spec, shape, mesh) -> PartitionSpec:
+    """``spec`` with each entry cut to the mesh axes its dim divides over:
+    a tuple of axes loses its outer ones until the dim divides (a batch
+    whose rows do not split over ("pod", "data") goes over "data", as
+    ``launch/sharding.py`` ``batch_shardings`` places it), and an entry
+    whose dim divides over none of them is None. The reference's
+    constraint pads an uneven dim; DTensor's uneven shards do not survive
+    the step's views."""
+    from repro_torch.launch.sharding import axes_of
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    out = []
+    for dim, entry in enumerate(spec):
+        axes = list(axes_of(entry))
+        while axes and shape[dim] % math.prod(int(sizes[a]) for a in axes):
+            axes.pop(0)
+        out.append(tuple(axes))
+    return P(*out)

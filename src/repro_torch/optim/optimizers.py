@@ -14,15 +14,22 @@ The update is elementwise, so a large leaf (an expert stack of 1.6 G
 values) is updated in flat slices of ``_SLICE`` values: its fp32
 temporaries stay bounded, and the numbers are those of one pass.
 
-A DTensor leaf (a peer's state on its pod's mesh, ``launch/sharding.py``)
-is updated on its local shard: its gradient is first redistributed to the
-parameter's placements (a ``Partial`` sum over "data" becomes a
-reduce-scatter or an all-reduce), and the parameter, the gradient and the
-moments then share placements, so the elementwise arithmetic on their
-local tensors is the update of the whole.
+A DTensor leaf (a peer's state on its pod's mesh, or one model's on the
+whole (pod, data, model) mesh, ``launch/sharding.py``) is updated on its
+local shard: its gradient is first redistributed to the parameter's
+placements (a ``Partial`` sum over "data" becomes a reduce-scatter or an
+all-reduce), and the parameter, the gradient and the moments then share
+placements, so the elementwise arithmetic on their local tensors is the
+update of the whole. A sum over "pod" (the all-reduce baseline's rows
+span the pods) is reduced last, after every other mesh dim has placed the
+gradient, so the cross-pod all-reduce carries the parameter's own shard:
+``pod_sync`` meters it, the baseline's counterpart of the pod group's
+wire meter (``launch/mesh.py`` ``PodGroup``).
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -66,10 +73,65 @@ def _leaf_triples(params, grads, state_trees, trainable):
                    mask[i:i + _SLICE] if torch.is_tensor(mask) else mask)
 
 
+@dataclass
+class PodSync:
+    """The meter of the cross-pod gradient reduction: ``bytes`` counts the
+    operand bytes a device sends into each reduction over "pod" (its local
+    shard of the gradient, as ``launch/cost.py`` ``CollectiveOp.
+    operand_bytes`` counts an all-reduce), ``reductions`` the leaves so
+    reduced; with ``timed`` set, ``seconds`` the host seconds of those
+    reductions from a synchronised device to the reduced gradient on it."""
+    bytes: int = 0
+    reductions: int = 0
+    seconds: float = 0.0
+    timed: bool = False
+
+    def reset(self) -> None:
+        self.bytes, self.reductions, self.seconds = 0, 0, 0.0
+
+    def reduce(self, g, placements):
+        """``g`` redistributed to ``placements``: the reduction over
+        "pod", metered."""
+        local = g.to_local()
+        if self.timed and local.device.type == "cuda":
+            torch.cuda.synchronize(local.device)
+        t0 = time.perf_counter()
+        out = g.redistribute(g.device_mesh, placements)
+        if self.timed:
+            if local.device.type == "cuda":
+                torch.cuda.synchronize(local.device)
+            self.seconds += time.perf_counter() - t0
+        self.bytes += local.numel() * local.element_size()
+        self.reductions += 1
+        return out
+
+
+pod_sync = PodSync()
+
+
+def placed_grad(g, p):
+    """The DTensor gradient ``g`` on the DTensor parameter ``p``'s
+    placements: first on every mesh dim but "pod", then, where ``g`` is a
+    sum over the pods (``Partial`` on a "pod" dim of more than one
+    device), reduced over "pod" through ``pod_sync``."""
+    mesh = p.device_mesh
+    want = tuple(p.placements)
+    names = mesh.mesh_dim_names or ()
+    if "pod" in names:
+        i = names.index("pod")
+        if mesh.size(i) > 1 and g.placements[i].is_partial():
+            inner = want[:i] + (g.placements[i],) + want[i + 1:]
+            if tuple(g.placements) != inner:
+                g = g.redistribute(mesh, inner)
+            return pod_sync.reduce(g, want)
+    return g.redistribute(mesh, want)
+
+
 def _local_shards(ts, mask):
     """(param, grad, *state) as the local tensors of the parameter's
-    placements where the parameter is a DTensor (the gradient
-    redistributed to them first), else as given; a DTensor mask likewise."""
+    placements where the parameter is a DTensor (the gradient placed on
+    them first, ``placed_grad``), else as given; a DTensor mask
+    likewise."""
     p = ts[0]
     if type(p) is torch.Tensor:
         return ts, mask
@@ -78,7 +140,7 @@ def _local_shards(ts, mask):
         return ts, mask
     g = ts[1]
     if tuple(g.placements) != tuple(p.placements):
-        g = g.redistribute(p.device_mesh, p.placements)
+        g = placed_grad(g, p)
     ts = [p.to_local(), g.to_local(), *(x.to_local() for x in ts[2:])]
     if isinstance(mask, DTensor):
         mask = mask.redistribute(p.device_mesh, p.placements).to_local()

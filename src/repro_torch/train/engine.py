@@ -146,7 +146,10 @@ def _grads_metrics_aux(loss_fn, params: PyTree, batch: Dict, k: int,
     (k, ...) axis, each microbatch's gradient is added in ``accum_dtype``
     divided by k, and metrics are averaged over microbatches; ``aux`` is the
     list of the microbatches' aux values. ``batch`` may nest dicts (the
-    pipelined operand)."""
+    pipelined operand). On a mesh the accumulators are DTensors in the
+    placements of the first microbatch's gradients (a ``Partial`` sum over
+    the batch axes stays one until the optimizer places it), so a step
+    reduces each gradient over "pod" once, not once a microbatch."""
     leaves = tree_leaves(params)
     if k <= 1:
         total, (metrics, aux) = loss_fn(params, batch)
@@ -155,20 +158,26 @@ def _grads_metrics_aux(loss_fn, params: PyTree, batch: Dict, k: int,
                  for p, g in zip(leaves, grads)]
         return _unflatten(params, grads), _detach_metrics(metrics), aux
 
-    g_acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-             for p in leaves]
+    g_acc = [None] * len(leaves)
     m_acc: Dict = {}
     auxs = []
     for j in range(k):
         mb = tree_map(lambda v: v[j], batch)
         total, (m, aux) = loss_fn(params, mb)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        for acc, g in zip(g_acc, grads):
-            if g is not None:
-                acc.add_(g.to(accum_dtype) / k)
+        for i, g in enumerate(grads):
+            if g is None:
+                continue
+            g = g.to(accum_dtype) / k
+            if g_acc[i] is None:
+                g_acc[i] = g
+            else:
+                g_acc[i].add_(g)
         for name, v in _detach_metrics(m).items():
             m_acc[name] = m_acc.get(name, 0.0) + v / k
         auxs.append(aux)
+    g_acc = [torch.zeros_like(p, dtype=accum_dtype) if g is None else g
+             for p, g in zip(leaves, g_acc)]
     return _unflatten(params, g_acc), m_acc, auxs
 
 
@@ -182,8 +191,10 @@ def mesh_of(params: PyTree):
 def on_mesh(params: PyTree):
     """The context a step over ``params`` runs in: on a mesh (DTensor
     parameters) plain tensors count as replicated and the hints place the
-    activations (batch over "data", TP over "model", as the reference's
-    codist launchers set ``activation_sharding``); else no context."""
+    activations (TP over "model"; the batch over ("pod", "data") for one
+    model over the whole mesh, over "data" for a peer on its pod's ("data",
+    "model") devices, as the reference's dry run sets
+    ``activation_sharding``); else no context."""
     import contextlib
     mesh = mesh_of(params)
     if mesh is None:
@@ -192,8 +203,10 @@ def on_mesh(params: PyTree):
     from repro_torch.models.sharding_hints import activation_sharding
     stack = contextlib.ExitStack()
     stack.enter_context(implicit_replication())
+    names = mesh.mesh_dim_names
     stack.enter_context(activation_sharding(
-        ("data",), "model", mesh.size(mesh.mesh_dim_names.index("model"))))
+        ("pod", "data") if "pod" in names else ("data",), "model",
+        mesh.size(names.index("model"))))
     return stack
 
 
@@ -328,14 +341,61 @@ class ExchangeStrategy:
 
 class AllReduce(ExchangeStrategy):
     """Data-parallel baseline: the gradient all-reduce crosses the pod links
-    every step (C_AR = 2 * b_model bits/iter, Section 3). One model."""
+    every step (C_AR = 2 * b_model bits/iter, Section 3). One model.
+
+    On a mesh (``mesh``: this process's ``PodGroup`` of ``spawn_pods(...,
+    mesh=)``, or its ``DeviceMesh``; one process a device of a (pod, data,
+    model) mesh) the one model spans every device, as the reference's dry
+    run places it: ``init_state`` / ``ensure_state`` distribute its state
+    (``distribute_state`` with no peer count: FSDP over "data", TP over
+    "model", replicated over "pod"), ``prepare`` and the eval its batch
+    (rows over ("pod", "data"), each microbatch's as a batch's). The
+    gradient comes out of the backward as a ``Partial`` sum over the batch
+    axes; the optimizer places it on its parameter's shards, reducing over
+    "pod" last, and meters that cross-pod all-reduce
+    (``optim/optimizers.py`` ``pod_sync``)."""
 
     name = "all_reduce"
     stacked = False
 
+    def __init__(self, codist: Optional[CodistConfig] = None, mesh=None):
+        super().__init__(codist)
+        from repro_torch.launch.mesh import PodGroup
+        self.device_mesh = mesh.mesh if isinstance(mesh, PodGroup) else mesh
+
+    @property
+    def mesh(self):
+        """The logical (pod, data, model) mesh of the devices, or None."""
+        if self.device_mesh is None:
+            return None
+        from repro_torch.launch.mesh import logical_mesh
+        return logical_mesh(self.device_mesh)
+
     def init_state(self, model, tc, generator, opt_init, example_batch=None,
                    device="cuda"):
-        return init_train_state(model, generator, opt_init, device=device)
+        """``init_train_state``'s draw; on a mesh the parameters are placed
+        first and the optimizer's moments made from the placed ones."""
+        if self.device_mesh is None:
+            return init_train_state(model, generator, opt_init,
+                                    device=device)
+        params = trainable_params(model.init(generator, device=device))
+        state = self.ensure_state(TrainState(params, OptState(0, None, None),
+                                             0), model, tc)
+        return state._replace(opt=opt_init(state.params))
+
+    def ensure_state(self, state, model, tc, example_batch=None):
+        """On a mesh, a state of plain tensors placed on its devices."""
+        if self.device_mesh is None or mesh_of(state.params) is not None:
+            return state
+        from repro_torch.launch.sharding import distribute_state
+        return distribute_state(state, self.mesh, self.device_mesh)
+
+    def _placed(self, batch: Dict, k: int) -> Dict:
+        if self.device_mesh is None:
+            return batch
+        from repro_torch.launch.sharding import distribute_batch
+        return distribute_batch(batch, self.mesh, self.device_mesh,
+                                stacked=False, microbatched=k > 1)
 
     def plan(self, step: int) -> StepPlan:
         return StepPlan(distill=False, exchange=True)
@@ -344,7 +404,14 @@ class AllReduce(ExchangeStrategy):
         return 2.0 * _param_bits(state.params) / 8.0
 
     def make_eval(self, model, tc):
-        return make_eval_step(model, tc)
+        plain = make_eval_step(model, tc)
+        if self.device_mesh is None:
+            return plain
+
+        def eval_step(params, batch: Dict) -> Dict:
+            with on_mesh(params):
+                return plain_metrics(plain(params, self._placed(batch, 1)))
+        return eval_step
 
     def loss(self, model, tc, sch, state, params, batch, variant):
         logits, aux = _task_forward(model, params, batch, tc.remat)
@@ -357,7 +424,7 @@ class AllReduce(ExchangeStrategy):
 
     def prepare(self, state, batch_all, k):
         # single-model batches already carry the (k, B/k, ...) layout
-        return batch_all
+        return self._placed(batch_all, k)
 
     def post_update(self, state, params, opt, batch_all, aux, k):
         return TrainState(params, opt, state.step + 1)
@@ -688,8 +755,9 @@ class ShardMapCompressed(PredictionExchange):
     The wire is gathered shard by shard over the mesh's "pod" group, each
     rank sending its local shard of its pod's wire to the ranks that hold
     the same shard of the other pods' peers, and each received shard is
-    re-wrapped with the placements it left with. Microbatches are not
-    placed on a mesh (k > 1 raises there)."""
+    re-wrapped with the placements it left with. Microbatches ``(n, k,
+    B/k, ...)`` are placed as the reference's ``batch_shardings(...,
+    microbatched=True)`` places them: each microbatch's rows over "data"."""
 
     name = "shardmap"
     stacked = False
@@ -737,20 +805,18 @@ class ShardMapCompressed(PredictionExchange):
         from repro_torch.launch.mesh import logical_mesh
         return logical_mesh(self.pods.mesh)
 
-    def _own_rows(self, batch_all: Dict) -> Dict:
-        """This pod's rows of an (n, ...) batch, placed on its devices on
-        a mesh."""
+    def _own_rows(self, batch_all: Dict, k: int = 1) -> Dict:
+        """This pod's rows of an (n, [k,] B, ...) batch, placed on its
+        devices on a mesh."""
         if self.pods.mesh is None:
             return _peer_batch(batch_all, self.pods.rank)
         from repro_torch.launch.sharding import distribute_batch
         return distribute_batch(batch_all, self.mesh, self.pods.sub_mesh,
-                                peer=self.pods.rank)
+                                peer=self.pods.rank, microbatched=k > 1)
 
     def prepare(self, state, batch_all, k):
         # (n, [k,] B, ...) -> this pod's ([k,] B, ...)
-        if k > 1 and self.pods.mesh is not None:
-            raise ValueError("microbatches are not placed on a mesh")
-        return self._own_rows(batch_all)
+        return self._own_rows(batch_all, k)
 
     def make_eval(self, model, tc):
         """The codist eval of ``make_codist_eval_step``, gathered."""
@@ -809,12 +875,13 @@ class ShardMapCompressed(PredictionExchange):
 def resolve_strategy(codist: Optional[CodistConfig],
                      mesh=None) -> ExchangeStrategy:
     """CodistConfig -> strategy, as the reference dispatches: None ->
-    AllReduce; a ``mesh`` (this process's ``PodGroup``) ->
-    ShardMapCompressed; ``pipelined`` -> PipelinedPredictions;
+    AllReduce (over the ``mesh``'s devices where one is given); a
+    ``mesh`` (this process's ``PodGroup``) -> ShardMapCompressed;
+    ``pipelined`` -> PipelinedPredictions;
     ``mode="checkpoints"`` -> CheckpointExchange; else
     PredictionExchange."""
     if codist is None:
-        return AllReduce()
+        return AllReduce(mesh=mesh)
     if mesh is not None:
         return ShardMapCompressed(codist, mesh)
     if codist.pipelined:

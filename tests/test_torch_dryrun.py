@@ -25,7 +25,8 @@
   §6's bound column, rows 1-4 at the main shapes ``chip_smoke.py``'s own
   bounds;
 * collectives: the codist wire's cross-pod bytes equal ``comm_model``'s
-  (none, top-k), the all-reduce baseline's equal its gradient sync;
+  over the columns a device holds (none: V / tp, as the logits are placed;
+  top-k: whole), the all-reduce baseline's equal its gradient sync;
 * the CLI: ``--all`` on each mesh writes 39 ok records with the
   reference's keys and a useful share of at most 1, a second run resumes
   and says so, ``--fresh`` counts again, and the peak RSS stays under 4 GB.
@@ -425,8 +426,11 @@ def test_codist_cross_pod_bytes_are_the_comm_models_wire(arch, comp):
     want = cm.codist_cost(cfg, CodistConfig(n_models=2, compression=comp,
                                             topk=64), per_device,
                           shape.seq_len - cfg.num_patches)
+    # a device holds V / tp columns of the none wire (the logits' "btv"
+    # placement) and the whole top-k wire
+    cols = 1 if comp == "topk" else mesh.shape["model"]
     assert c.collectives.cross_pod_bytes == int(
-        want.bits_per_iter_per_device / 8)
+        want.bits_per_iter_per_device / 8 / cols)
     assert [o.kind for o in c.collectives.ops if o.cross_pod] == \
         ["all-gather"]
     # on one pod the codist wire never leaves the device's own pod
