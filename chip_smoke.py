@@ -278,7 +278,12 @@ exits non-zero:
                 One model over the whole mesh, ``AllReduce`` 3 steps:
                 losses and leaves bit-equal to the plain step's, rows 6 and
                 7 once a step. One step of 2 microbatches of each against
-                its plain step (1e-6), the rows once a microbatch. Every
+                its plain step (1e-6), the rows once a microbatch. Then the
+                paper's models, one step of each strategy bit-equal to its
+                plain step: resnet50 at full size (2 peers of 8 images of
+                224^2; the baseline's one model of 16) and transformer-big
+                at full width and 2 of 6 encoder and decoder layers (2
+                peers of 14 x 256 source and target tokens), lr 1e-3. Every
                 launch through the loss kernels' DTensor entry.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
@@ -308,7 +313,19 @@ a step, as are the none-wire parity runs'; deepseek-67b's ``AllReduce`` of
 bytes beside the codist step's; and rwkv6-1.6b at full width and depth
 (remat) and internvl2-76b at full width and 2 of 80 layers with 256
 numpy patches (plain SGD), codist on (2, 1, 2) in fp32, held to the
-single card.
+single card. Last the paper's models at full size in fp32, each held to
+its single-card step the same way (losses 1e-5 relative, shards 1e-4,
+launches, metered cross-pod bytes equal to ``launch/cost.py``'s): resnet50
+(2 peers of 16 images of 224^2, lr 1e-3) and wrn28x10 (2 peers of 128 of
+32^2, stem and stage 0 frozen by ``freeze_mask``, lr 1e-4) as codist and
+as the baseline on (2, 2, 1); transformer-big (2 peers of 14 x 256) as
+codist on (2, 1, 2) and (2, 2, 1) and as the baseline on (2, 1, 2);
+whisper-tiny (2 peers of 4 x 64 over 1500 numpy frames) as codist on (2,
+2, 1); with rank 0 under torch.profiler each prints its wall and device ms
+a step, the cross-pod ms and bytes of both strategies and their ratio
+(resnet50's beside the paper's b_model / b_pred) and each rank's peak;
+then transformer-big in bf16 over fp32 masters with AdamW, both
+strategies on (2, 1, 2), timed.
 
 The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
 (H = KVh = 20, hd 128, the fleet's slots and lengths: the kernel's head
@@ -6393,6 +6410,70 @@ MESH4_NEW_TOL = 1e-5
 # fp32 weights and gradients, 61 GB, on the single card)
 FAMILY_MESH4 = (("rwkv6-1.6b", 0), ("internvl2-76b", 2))
 FAMILY_MESH = (2, 1, 2)
+# mesh4's paper models at full size in fp32 (TF32 off), SGD-momentum, each
+# held to the single card: (arch, rows a peer, target tokens, lr, frozen
+# prefixes, codist meshes, all-reduce meshes). resnet50 2 x 16 images of
+# 224^2, wrn28x10 2 x 128 of 32^2 with its stem and stage 0 frozen,
+# transformer-big 2 x 14 x 256 source and target tokens, whisper-tiny 2 x 4
+# x 64 target tokens over 1500 numpy frames; the baseline's one model takes
+# both peers' rows
+PAPER_MESH4 = (("resnet50", 16, 0, 1e-3, None, ((2, 2, 1),), ((2, 2, 1),)),
+               ("wrn28x10", 128, 0, 1e-4, ("stem", "s0"), ((2, 2, 1),),
+                ((2, 2, 1),)),
+               ("transformer-big", 14, 256, 1e-2, None,
+                ((2, 1, 2), (2, 2, 1)), ((2, 1, 2),)),
+               ("whisper-tiny", 4, 64, 1e-2, None, ((2, 2, 1),), ()))
+# transformer-big as it trains (bf16 over fp32 masters, AdamW), timed
+PAPER_BF16 = ("transformer-big", 14, 256, (2, 1, 2))
+# the paper's own models on the mesh phase's 1-rank mesh in fp32 (TF32
+# off), one codist and one all-reduce step each at the paper phase's lr
+# 1e-3: (arch, rows a peer, target tokens, overrides) of resnet50 at full
+# size (8 images of 224^2 a peer) and transformer-big at full width and 2
+# of its 6 encoder and 6 decoder layers (14 x 256 source and target tokens
+# a peer)
+MESH_PAPER = (("resnet50", 8, 0, {}),
+              ("transformer-big", 14, 256, {"num_layers": 2,
+                                            "encoder_layers": 2}))
+MESH_PAPER_LR = 1e-3
+
+
+def paper_mesh_cfg(arch: str, overrides: dict, dtype: str = "float32"):
+    """``get_config(arch)`` with ``overrides``; an LM's activations in
+    ``dtype`` (a conv net is fp32 throughout)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if hasattr(cfg, "kind"):
+        return cfg
+    return replace(cfg, dtype=dtype, **overrides)
+
+
+def paper_mesh_data(cfg, b: int, s: int, steps: int, seed: int = 7) -> list:
+    """``steps`` host batches of 2 peers' own rows (2, b, ...): a conv
+    net's images of ``cfg.image_size``^2 and labels (``classification_batch``
+    of a generator seeded by step and peer), an enc-dec LM's Markov tokens
+    of ``mesh_data`` with numpy source tokens (s of them) or its
+    ``num_audio_frames`` numpy frames."""
+    from repro_torch.data import classification_batch
+    from repro_torch.train import stack_batches
+    if hasattr(cfg, "kind"):
+        def one(k, g):
+            gen = torch.Generator().manual_seed(seed * 1000 + 10 * k + g)
+            return classification_batch(gen, b, 3072, cfg.num_classes,
+                                        image=True,
+                                        image_size=cfg.image_size)
+        return [stack_batches([one(k, g) for g in range(2)])
+                for k in range(steps)]
+    out = mesh_data(cfg, b, s, steps, seed)
+    rng = np.random.default_rng(seed)
+    for batch in out:
+        if cfg.num_audio_frames:
+            batch["frames"] = torch.from_numpy((0.5 * rng.standard_normal(
+                (2, b, cfg.num_audio_frames, cfg.d_model))).astype(
+                    np.float32))
+        else:
+            batch["src_tokens"] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, b, s)).astype(np.int32))
+    return out
 
 
 def mesh_data(cfg, b: int, s: int, steps: int, seed: int = 7) -> list:
@@ -6424,7 +6505,7 @@ def micro(batches: list, k: int, lead: int) -> list:
 
 def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
              profile_rank0: bool = False, state=None,
-             timed: bool = False) -> dict:
+             timed: bool = False, trainable=None) -> dict:
     """One mesh run through ``train`` (the state drawn from ``tc.seed`` on
     this rank's card, or ``state``, placed by the strategy), with the
     launch counts, the DTensor entry's calls and the optimizer's pod meter
@@ -6432,7 +6513,8 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
     start to the next's) the wall, the pod gather's seconds and, with
     ``timed``, the optimizer's cross-pod reduction's (each reduction
     between two device syncs); rank 0's steps 1.. under torch.profiler
-    where asked (``device_ms``: their kernels' device time)."""
+    where asked (``device_ms``: their kernels' device time). ``trainable``
+    is the step's mask (``freeze_mask``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.ops import local_rows_calls
@@ -6464,7 +6546,8 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
     t0 = time.perf_counter()
     try:
         state, hist = train(model, tc, data, strategy, codist=codist,
-                            log_every=1, state=state, device=dev)
+                            log_every=1, state=state, trainable=trainable,
+                            device=dev)
     finally:
         meter.timed = False
     sync(dev)
@@ -6553,12 +6636,17 @@ def mesh_smoke_rank(pods) -> dict:
     axis stays unplaced), ``PredictionExchange`` over them against the
     plain step from the same weights and batches; one model over the whole
     mesh, ``AllReduce``, against the plain ``AllReduce``; then one step of
-    2 microbatches of each against its plain step."""
+    2 microbatches of each against its plain step; then one step of each
+    strategy of the paper's models (MESH_PAPER) against its plain step."""
     from repro_torch.configs import CodistConfig, get_config
     from repro_torch.launch.mesh import logical_mesh
     from repro_torch.train import AllReduce, PredictionExchange
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's default convolution backward may sum in any order (a weight
+    # gradient 3e-8 apart between two runs of one step): the bit-equality
+    # of the conv steps needs its deterministic algorithms
+    torch.backends.cudnn.deterministic = True
     cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
                   dtype="float32")
     codist = CodistConfig(n_models=2)
@@ -6566,7 +6654,7 @@ def mesh_smoke_rank(pods) -> dict:
     Placed = placed_pe(logical_mesh(pods.mesh), pods)
     out = {}
 
-    def pair(name, codist, tc, batches, plain, placed, mesh):
+    def pair(name, codist, tc, batches, plain, placed, mesh, cfg=cfg):
         a = mesh_job(pods, f"mesh {name} plain", cfg, codist, tc, batches,
                      plain)
         b = mesh_job(pods, f"mesh {name}", cfg, codist, tc, batches, placed)
@@ -6583,6 +6671,14 @@ def mesh_smoke_rank(pods) -> dict:
          AllReduce(), AllReduce(mesh=pods), pods.mesh)
     pair("codist k2", codist, k2, micro(batches[:1], 2, 1),
          PredictionExchange(codist), Placed(codist), pods.sub_mesh)
+    one = mesh_tc(lr=MESH_PAPER_LR, total_steps=1)
+    for arch, b, s, kw in MESH_PAPER:
+        pcfg = paper_mesh_cfg(arch, kw)
+        data = paper_mesh_data(pcfg, b, s, 1)
+        pair(f"{arch} codist", codist, one, data, PredictionExchange(codist),
+             Placed(codist), pods.sub_mesh, pcfg)
+        pair(f"{arch} allreduce", None, one, one_model(data), AllReduce(),
+             AllReduce(mesh=pods), pods.mesh, pcfg)
     return out
 
 
@@ -6592,7 +6688,29 @@ def mesh_smoke_rank(pods) -> dict:
 MESH_RUNS = (("codist", MESH_STEPS, True, "_CEDistillTokens", 2, 1e-6),
              ("allreduce", MESH_STEPS, False, "_CEParts", 1, 0.0),
              ("allreduce k2", 1, False, "_CEParts", 2, 1e-6),
-             ("codist k2", 1, True, "_CEDistillTokens", 4, 1e-6))
+             ("codist k2", 1, True, "_CEDistillTokens", 4, 1e-6),
+             ("resnet50 codist", 1, True, "_CEDistillTokens", 2, 0.0),
+             ("resnet50 allreduce", 1, False, "_CEParts", 1, 0.0),
+             ("transformer-big codist", 1, True, "_CEDistillTokens", 2, 0.0),
+             ("transformer-big allreduce", 1, False, "_CEParts", 1, 0.0))
+
+
+def mesh_run_what(name: str, combined: bool, per_step: int,
+                  steps: int) -> str:
+    """What a mesh phase run trained, for its log line."""
+    peers = "2 peers of" if combined else "one model of"
+    for arch, b, s, kw in MESH_PAPER:
+        if name.startswith(arch):
+            rows = b if combined else 2 * b
+            side = paper_mesh_cfg(arch, kw).image_size if not s else 0
+            size = (f"{rows} images of {side}^2" if not s else
+                    f"{rows} x {s} tokens ({kw['num_layers']} of 6 layers "
+                    "a stack)")
+            return f"{arch} fp32, {peers} {size}, lr {MESH_PAPER_LR:g}, 1 step"
+    rows = MESH_B if combined else 2 * MESH_B
+    return (f"{MESH_ARCH} {MESH_LAYERS} of 24 layers fp32, {peers} {rows} x "
+            f"{MESH_S}, {steps} step(s) of "
+            f"{per_step // (2 if combined else 1)} microbatch(es)")
 
 
 def phase_mesh(dev: torch.device) -> dict:
@@ -6638,11 +6756,8 @@ def phase_mesh(dev: torch.device) -> dict:
                 f"plain step's by {err} (absolute, relative, leaf)")
         moved = abs(plain["records"][-1]["loss"] - plain["records"][0]["loss"])
         wall = [x * 1e3 for x in placed["step_s"][1:] or placed["step_s"]]
-        log(f"mesh {name}: {MESH_ARCH} {MESH_LAYERS} of 24 layers fp32, "
-            f"{'2 peers of' if combined else 'one model of'} "
-            f"{MESH_B if combined else 2 * MESH_B} x {MESH_S}, {steps} "
-            f"step(s) of {per_step // (2 if combined else 1)} "
-            "microbatch(es) on a (1, 1, 1) NCCL mesh: losses "
+        log(f"mesh {name}: {mesh_run_what(name, combined, per_step, steps)}"
+            " on a (1, 1, 1) NCCL mesh: losses "
             f"{[round(r['loss'], 6) for r in placed['records']]} (moved "
             f"{moved:.4f}), within {worst:.2e} relative of the plain step "
             f"({'' if worst == 0 and err[0] == 0 else 'not '}bit-equal"
@@ -6682,12 +6797,15 @@ def mesh4_rank(pods) -> dict:
     from repro_torch.configs import CodistConfig, get_config
     from repro_torch.launch.mesh import (device_mesh, make_codist_mesh,
                                          mesh_pod_group)
+    from repro_torch.models import build_model
+    from repro_torch.models.conv import freeze_mask
     from repro_torch.train import (AllReduce, PredictionExchange,
                                    ShardMapCompressed)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     groups = {MESH4_PARITY[0]: pods}
-    for shape in MESH4_PARITY[1:] + (BIG_MESH, MESH4_K2, FAMILY_MESH):
+    for shape in MESH4_PARITY[1:] + (BIG_MESH, MESH4_K2, FAMILY_MESH) + tuple(
+            m for case in PAPER_MESH4 for m in case[5] + case[6]):
         if shape not in groups:
             m = make_codist_mesh(*shape)
             groups[shape] = mesh_pod_group(
@@ -6716,20 +6834,30 @@ def mesh4_rank(pods) -> dict:
     out["held"] = []
 
     def held(name, cfg_, codist_, tc, data, plain_strategy, placed, shapes,
-             draw=None):
+             draw=None, trainable=None, profile=False):
         """``placed(g)`` on each mesh of ``shapes`` held to
         ``plain_strategy`` on this rank's card (``draw(i)``: the plain
         state (i None) or pod i's peer's, plain SGD; else drawn from
-        ``tc.seed`` by the strategies)."""
+        ``tc.seed`` by the strategies), both with the mask ``trainable``;
+        with ``profile`` rank 0's runs under torch.profiler and the
+        baseline's cross-pod reduction timed. Each run keeps the rows and
+        positions of its step for the cost model."""
+        one = codist_ is None
+        labels = data[0]["labels"]
+        lm = not hasattr(cfg_, "kind")
+        rows = labels.numel() // (labels.shape[-1] if lm else 1)
+        seq = labels.shape[-1] + cfg_.num_patches if lm else 1
         plain = mesh_job(pods, f"mesh4 {name} plain", cfg_, codist_, tc,
                          data, plain_strategy,
-                         state=None if draw is None else draw(None))
+                         state=None if draw is None else draw(None),
+                         trainable=trainable, profile_rank0=profile)
         for shape in shapes:
             g = groups[shape]
             run = mesh_job(g, f"mesh4 {name} {shape}", cfg_, codist_, tc,
                            data, placed(g),
-                           state=None if draw is None else draw(g.rank))
-            one = codist_ is None
+                           state=None if draw is None else draw(g.rank),
+                           trainable=trainable, profile_rank0=profile,
+                           timed=profile and one)
             run["leaf_err"] = shard_errors(
                 run["state"].params,
                 plain["state"].params if one else
@@ -6737,7 +6865,9 @@ def mesh4_rank(pods) -> dict:
                 g.mesh if one else g.sub_mesh)
             del run["state"]
             run.update(name=name, shape=shape, pod=g.rank, cfg=cfg_,
-                       plain=plain["records"])
+                       plain=plain["records"], rows=rows, seq=seq,
+                       plain_run={k: plain[k] for k in (
+                           "step_s", "device_ms", "peak_bytes")})
             out["held"].append(run)
         del plain["state"]
         torch.cuda.empty_cache()
@@ -6784,6 +6914,37 @@ def mesh4_rank(pods) -> dict:
             draw = plain_sgd_draw(fcfg, tc, pods.device)
         held(arch, fcfg, codist, tc, data, PredictionExchange(codist),
              lambda g: ShardMapCompressed(codist, g), (FAMILY_MESH,), draw)
+    for arch, b, s, lr, frozen, cd_meshes, ar_meshes in PAPER_MESH4:
+        pcfg = paper_mesh_cfg(arch, {})
+        data = paper_mesh_data(pcfg, b, s, MESH_STEPS)
+        tc = mesh_tc(lr=lr)
+        mask = None if frozen is None else freeze_mask(
+            build_model(pcfg).init(None, device="meta"), frozen)
+        held(f"{arch} codist", pcfg, codist, tc, data,
+             PredictionExchange(codist), lambda g: ShardMapCompressed(codist, g),
+             cd_meshes, trainable=mask, profile=True)
+        if ar_meshes:
+            held(f"{arch} allreduce", pcfg, None, tc, one_model(data),
+                 AllReduce(), lambda g: AllReduce(mesh=g), ar_meshes,
+                 trainable=mask, profile=True)
+    # transformer-big as it trains: bf16 activations over fp32 masters,
+    # AdamW, both strategies on PAPER_BF16's mesh, timed (not held)
+    arch, b, s, shape = PAPER_BF16
+    pcfg = paper_mesh_cfg(arch, {}, dtype=get_config(arch).dtype)
+    data = paper_mesh_data(pcfg, b, s, MESH_STEPS)
+    adam = mesh_tc(optimizer="adamw", lr=1e-4)
+    g = groups[shape]
+    out["paper_bf16"] = {}
+    for mode, cd_, d, strategy in (
+            ("codist", codist, data, ShardMapCompressed(codist, g)),
+            ("allreduce", None, one_model(data), AllReduce(mesh=g))):
+        run = mesh_job(g, f"mesh4 {arch} bf16 {mode}", pcfg, cd_, adam, d,
+                       strategy, profile_rank0=True, timed=cd_ is None)
+        del run["state"]
+        run.update(pod=g.rank, cfg=pcfg, shape=shape,
+                   rows=d[0]["labels"].numel() // s, seq=s)
+        out["paper_bf16"][mode] = run
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6937,6 +7098,7 @@ def mesh4_checks(ranks: list, smi_line: str) -> dict:
         + ", ".join(f"{run['peak_bytes'] / 1e9:.1f}" for run in runs)
         + f" GB; {smi_line}")
     mesh4_baseline(ranks, cfg, big_cfg, launches, smi_line)
+    mesh4_paper(ranks, launches, smi_line)
     return launches
 
 
@@ -6986,10 +7148,9 @@ def mesh4_baseline(ranks, cfg, big_cfg, launches: dict, smi_line: str
         want = expected_launches(1, "mse", per, combined=not one,
                                  task_ce=one, standalone=0)
         entry = "_CEParts" if one else "_CEDistillTokens"
-        seq = MESH_S + arch_cfg.num_patches
         bytes_a_step = cross_pod_cost(arch_cfg, "allreduce" if one
                                       else "codist", job["shape"],
-                                      2 * MESH_B * k, seq, k)
+                                      job["rows"], job["seq"], k)
         worst = 0.0
         for r, run in enumerate(runs):
             got = {n: run["launches"][n] for n in ALL_LOSS_KERNELS}
@@ -7074,6 +7235,114 @@ def mesh4_baseline(ranks, cfg, big_cfg, launches: dict, smi_line: str
         + (f"{cd_dev / (MESH_STEPS - 1):.1f} ms" if cd_dev else "not measured")
         + f" a step, the pod gather {cd_wire:.2f} ms, "
         f"{cd['wire_bytes'] // MESH_STEPS} bytes a rank a step; {smi_line}")
+
+
+def mean_ms(xs) -> float:
+    """The mean of steps 1.. of a run's per-step seconds, in ms."""
+    return float(np.mean(xs[1:] or xs)) * 1e3
+
+
+def mesh4_paper(ranks, launches: dict, smi_line: str) -> None:
+    """mesh4's paper models side by side (their parity, launches and bytes
+    are checked with the other ``held`` runs): for each, on one mesh, the
+    codist step and the baseline's, rank 0's wall and device ms a step
+    (steps 1-2, under torch.profiler; the baseline with a device sync
+    around each leaf's reduction over "pod"), the cross-pod ms and bytes a
+    rank a step, their ratio (resnet50's beside the paper's b_model /
+    b_pred), each rank's peak, the single card's step beside them. Then
+    transformer-big in bf16 over fp32 masters with AdamW, both strategies
+    on PAPER_BF16's mesh: finite, moving losses, launches exact, the
+    baseline's bytes equal to ``launch/cost.py``'s, the bf16 wire's half
+    its count (the cost model prices fp32 logits)."""
+    from repro_torch.core import comm_model as cm
+    held = [r["held"] for r in ranks]
+
+    def runs(name, shape):
+        i = next((j for j, job in enumerate(held[0])
+                  if job["name"] == name and job["shape"] == shape), None)
+        return None if i is None else [h[i] for h in held]
+
+    def desc(rs, one):
+        r0 = rs[0]
+        steps = len(r0["records"])
+        meter = "pod_s" if one else "wire_s"
+        b = (r0["pod_bytes"] if one else r0["wire_bytes"]) // steps
+        dev = r0["device_ms"]
+        plain = r0["plain_run"]
+        return b, (
+            f"wall {mean_ms(r0['step_s']):.1f} ms, device "
+            + (f"{dev / (steps - 1):.1f} ms" if dev else "not measured")
+            + f" a step; cross-pod {mean_ms(r0[meter]):.2f} ms for {b} bytes "
+            f"a rank a step ({'the gradient reduction over pod' if one else 'the pod gather'}); "
+            "peak " + ", ".join(f"{x['peak_bytes'] / 2**30:.2f}" for x in rs)
+            + " GiB; single card wall "
+            + f"{mean_ms(plain['step_s']):.1f} ms, device "
+            + (f"{plain['device_ms'] / (steps - 1):.1f} ms"
+               if plain["device_ms"] else "not measured"))
+
+    for arch, b, s, _lr, frozen, cd_meshes, ar_meshes in PAPER_MESH4:
+        for shape in cd_meshes:
+            cd = runs(f"{arch} codist", shape)
+            ar = runs(f"{arch} allreduce", shape)
+            cd_b, cd_txt = desc(cd, False)
+            line = (f"mesh4 paper {arch} on {shape}, fp32, "
+                    f"{'2 peers x ' + str(b) + (' x ' + str(s) if s else ' images')}"
+                    f"{', stem + s0 frozen' if frozen else ''}: codist {cd_txt}")
+            if ar is not None:
+                ar_b, ar_txt = desc(ar, True)
+                line += (f"; allreduce (one model of {2 * b} rows) {ar_txt};"
+                         f" bytes allreduce / codist {ar_b / cd_b:.1f}")
+                if arch == "resnet50":
+                    b_model, b_pred = 8e8, 3.2e4    # Section 3's numbers
+                    rows = b // shape[1]
+                    line += (f" (the paper's b_model / b_pred {b_model / b_pred:.0f}"
+                             f" a sample, {b_model / (b_pred * rows):.1f} over "
+                             f"the {rows} rows a device holds; its C_AR / "
+                             "C_pred at 256 samples, T 1: "
+                             f"{cm.paper_resnet50_numbers()['pred_T1_ratio']:.1f})")
+            log(line + f"; {smi_line}")
+    bf = [r["paper_bf16"] for r in ranks]
+    arch, b, s, shape = PAPER_BF16
+    parts = []
+    for mode in ("codist", "allreduce"):
+        rs = [x[mode] for x in bf]
+        one = mode == "allreduce"
+        recs = rs[0]["records"]
+        require(all(len(x["records"]) == MESH_STEPS for x in rs),
+                f"mesh4 {arch} bf16 {mode}: short Histories")
+        require(recs[-1]["loss"] != recs[0]["loss"], f"mesh4 {arch} bf16 "
+                f"{mode}: the loss did not move ({recs[0]['loss']})")
+        want = expected_launches(1, "mse", MESH_STEPS, combined=not one,
+                                 task_ce=one, standalone=0)
+        cost = cross_pod_cost(rs[0]["cfg"], mode, shape, rs[0]["rows"], s)
+        for r, x in enumerate(rs):
+            got = {k: x["launches"][k] for k in ALL_LOSS_KERNELS}
+            require(got == want, f"mesh4 {arch} bf16 {mode} rank {r}: "
+                    f"launches {got}")
+            for k, v in got.items():
+                launches[k] += v
+            metered = x["pod_bytes"] if one else 2 * x["wire_bytes"]
+            require(metered == MESH_STEPS * cost, f"mesh4 {arch} bf16 {mode} "
+                    f"rank {r}: metered {metered} cross-pod bytes "
+                    f"({'' if one else 'twice the bf16 wire; '}the cost model "
+                    f"{MESH_STEPS * cost})")
+        r0 = rs[0]
+        meter = "pod_s" if one else "wire_s"
+        by = (r0["pod_bytes"] if one else r0["wire_bytes"]) // MESH_STEPS
+        dev = r0["device_ms"]
+        parts.append((by, f"{mode} losses {[round(x['loss'], 5) for x in recs]}"
+                      f", wall {mean_ms(r0['step_s']):.1f} ms, device "
+                      + (f"{dev / (MESH_STEPS - 1):.1f} ms"
+                         if dev else "not measured")
+                      + f" a step, cross-pod {mean_ms(r0[meter]):.2f} ms for "
+                      f"{by} bytes a rank a step, peak "
+                      + ", ".join(f"{x['peak_bytes'] / 2**30:.2f}" for x in rs)
+                      + " GiB"))
+    log(f"mesh4 paper {arch} bf16 over fp32 masters, AdamW lr 1e-4, 2 peers "
+        f"x {b} x {s} (the baseline one model of {2 * b} x {s}) on {shape}: "
+        + "; ".join(p for _b, p in parts)
+        + f"; bytes allreduce / codist {parts[1][0] / parts[0][0]:.1f}; "
+        + smi_line)
 
 
 # ----------------------------------------------------------------------------

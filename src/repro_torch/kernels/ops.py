@@ -30,7 +30,8 @@ the config's vocab-padding columns as real).
 
 The three differentiable entries also take DTensor logits (a peer's on
 its pod's ("data", "model") mesh, or one model's on the whole (pod, data,
-model) mesh, ``launch/sharding.py``): every (T, V) and (T,) operand is
+model) mesh, ``launch/sharding.py``; an LM's tokens or a classifier's
+(B, classes) rows): every (T, V) and (T,) operand is
 redistributed to the rows the logits hold (over "data"; over "pod" and
 "data", pod outer, for one model over the whole mesh) with V whole (an
 all-gather over "model"), and the same autograd function runs on each

@@ -52,7 +52,8 @@ the same placements, their groups from the mesh's device ids:
 * the codist wire: an all-gather over "pod" of the peers' predictions, at
   ``comm_model.prediction_bits_lm`` for the wire's compression, of the V /
   tp columns a device holds of a logits-shaped wire (the top-k wire is
-  whole on each device);
+  whole on each device); a classifier's at
+  ``comm_model.prediction_bits_classifier``, one row an example;
 * expert parallelism: an all-to-all of the routed rows each way.
 
 An op's ``operand_bytes`` is per device (the wire's: what a device
@@ -884,20 +885,40 @@ def _collectives(out, cfg, shape, mode, mesh, specs, leaves, batch_axes,
     # its rows, in the layout the wire has on it: a logits-shaped wire
     # (none, bf16, subsample) keeps the logits' V over tp (the "btv" hint),
     # so a device sends and receives its V / tp columns; the top-k wire is
-    # whole on every device of a pod (the "wire" hint)
+    # whole on every device of a pod (the "wire" hint). A classifier's
+    # wire is one row an example, its classes whole on every device (the
+    # conv nets' logits come off local rows, the MLP's off replicated
+    # weights)
     if train and mode == "codist" and "pod" in batch_axes:
         comp = extra.get("compression", "none")
-        text = shape.seq_len - cfg.num_patches
-        b_pred = cm.prediction_bits_lm(cfg, text, 32, comp,
-                                       extra.get("topk", 64),
-                                       extra.get("subsample", 0))
-        if comp != "topk":
-            v = cfg.padded_vocab
-            ways = _tp_ways("btv", (shape.global_batch, text, v),
-                            "model" if "model" in sizes else None,
-                            sizes.get("model", 1))
-            b_pred = b_pred * math.ceil(v / ways) / v
+        sub = extra.get("subsample", 0)
+        if small:
+            b_pred = _classifier_wire_bits(cfg.num_classes, comp,
+                                           extra.get("topk", 64))
+            peer_rows = shape.global_batch // n_models
+            if comp == "subsample" and sub:
+                b_pred = b_pred * min(sub, peer_rows) / peer_rows
+        else:
+            text = shape.seq_len - cfg.num_patches
+            b_pred = cm.prediction_bits_lm(cfg, text, 32, comp,
+                                           extra.get("topk", 64), sub)
+            if comp != "topk":
+                v = cfg.padded_vocab
+                ways = _tp_ways("btv", (shape.global_batch, text, v),
+                                "model" if "model" in sizes else None,
+                                sizes.get("model", 1))
+                b_pred = b_pred * math.ceil(v / ways) / v
         rows = shape.global_batch // batch_ways
         op("all-gather", ("pod",), (n_models - 1) * b_pred * rows / 8,
            f"codist wire ({comp})")
 
+
+def _classifier_wire_bits(num_classes: int, comp: str, topk: int) -> float:
+    """A classifier's wire a row (one logit vector an example,
+    ``comm_model.prediction_bits_classifier``): fp32 logits for none and
+    subsample, bf16 for bf16, and for top-k the k largest (at most the
+    classes) with their int32 indices."""
+    if comp == "topk":
+        return min(topk, num_classes) * (32 + 32)
+    return cm.prediction_bits_classifier(num_classes,
+                                         16 if comp == "bf16" else 32)

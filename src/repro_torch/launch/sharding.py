@@ -507,7 +507,9 @@ def distribute_batch(batch: Dict[str, torch.Tensor], mesh, device_mesh,
                      peer: Optional[int] = None, stacked: bool = True,
                      microbatched: bool = False) -> Dict[str, torch.Tensor]:
     """A batch as DTensors on ``device_mesh``, placed by ``batch_shardings``
-    on ``mesh`` (every leaf: tokens, labels, mask, a VLM's patches).
+    on ``mesh`` (every leaf: tokens, labels, mask, a VLM's patches, an
+    enc-dec LM's frames or source tokens, a classifier's images or
+    features and its one label a row).
 
     ``stacked`` (codist): every leaf is ``(n, [k,] B, ...)`` and its batch
     dim goes over "data" where it divides. With ``peer`` (a pod that holds

@@ -18,7 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.models.common import apply_rope
+from repro_torch.models.common import apply_rope, on_local_rows
 from repro_torch.models.sharding_hints import current_hint_spec, hint
 
 NEG_INF = -1e30
@@ -37,7 +37,7 @@ def attention_shapes(cfg) -> Dict[str, tuple]:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk')."""
     if _heads_off_tp(x, w.shape[1]):
-        return _on_local_rows(_proj, x, w)
+        return on_local_rows(_proj, x, w)
     d, n, k = w.shape
     return (x @ w.reshape(d, n * k).to(x.dtype)).unflatten(-1, (n, k))
 
@@ -56,27 +56,6 @@ def _heads_off_tp(x, heads: int) -> bool:
     return "model" in names and heads % mesh.size(names.index("model")) != 0
 
 
-def _on_local_rows(fn, x, w):
-    """``fn(x, w)`` on each rank's own batch rows of the DTensor ``x``,
-    with ``w`` whole (``common.whole_weight``) through ``local_map``: the
-    rows stay split as ``x``'s batch dim is, every other dim of ``x`` and
-    of the result is whole; ``w``'s gradient is a ``Partial`` sum over the
-    dims that split the rows, placed by the optimizer."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    from repro_torch.models.common import whole_weight
-    mesh = x.device_mesh
-    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
-                 for p in x.placements)
-    w_grad = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
-    whole = (Replicate(),) * mesh.ndim
-    if tuple(x.placements) != rows:
-        x = x.redistribute(mesh, rows)
-    return local_map(fn, out_placements=(rows,), in_placements=(rows, whole),
-                     in_grad_placements=(rows, w_grad),
-                     device_mesh=mesh)(x, whole_weight(w))
-
-
 def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
@@ -88,7 +67,7 @@ def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor):
 
 def _out_proj(p: Dict[str, torch.Tensor], o: torch.Tensor) -> torch.Tensor:
     if _heads_off_tp(o, o.shape[2]):
-        return _on_local_rows(_out_product, o, p["wo"])
+        return on_local_rows(_out_product, o, p["wo"])
     return _out_product(o, p["wo"])
 
 
@@ -199,11 +178,15 @@ def _attend_placed(q, k, v, causal: bool, window: int, dtype):
 
 def _cross(p: Dict[str, torch.Tensor], x: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor) -> torch.Tensor:
+    """Queries of x against the memory's k, v, every key: ``_attend``
+    without a mask, on a mesh on each rank's own rows and heads
+    (``_attend_placed``), as self-attention runs."""
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    w = _softmax(_gqa_scores(q, k.to(x.dtype))).to(x.dtype)
-    return _out_proj(p, _gqa_combine(w, v.to(x.dtype)))
+    attend = _attend_placed if hasattr(q, "device_mesh") else _attend
+    o = attend(q, k.to(x.dtype), v.to(x.dtype), False, 0, x.dtype)
+    return _out_proj(p, o)
 
 
 def cross_attention_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,

@@ -176,6 +176,28 @@ def whole_weight(w, placements=None):
     return w if tuple(w.placements) == want else _Gathered.apply(w, want)
 
 
+def on_local_rows(fn, x, *weights):
+    """``fn(x, *weights)`` on each rank's own batch rows of the DTensor
+    ``x``, every weight whole (``whole_weight``), through ``local_map``:
+    the rows stay split as ``x``'s batch dim is, every other dim of ``x``
+    and of the result is whole; a weight's gradient is a ``Partial`` sum
+    over the mesh dims that split the rows, placed by the optimizer."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in x.placements)
+    w_grad = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    whole = (Replicate(),) * mesh.ndim
+    if tuple(x.placements) != rows:
+        x = x.redistribute(mesh, rows)
+    n = len(weights)
+    return local_map(fn, out_placements=(rows,),
+                     in_placements=(rows,) + (whole,) * n,
+                     in_grad_placements=(rows,) + (w_grad,) * n,
+                     device_mesh=mesh)(x, *(whole_weight(w) for w in weights))
+
+
 class _Gathered(torch.autograd.Function):
     """A DTensor weight gathered to ``placements`` for a read on each rank
     (as FSDP gathers a weight before its use). Its gradient goes back to

@@ -169,25 +169,54 @@ class ConvNet:
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch["images"] (B, H, W, 3) -> (fp32 logits (B, classes), aux 0).
         ``split=(i, n)`` keeps only the i-th of n channel groups after stage
-        0. ``remat`` is accepted and ignored, as in the reference."""
-        cfg = self.cfg
-        x = batch["images"].permute(0, 3, 1, 2)     # NCHW view of NHWC bytes
-        x = F.relu(_gn(_conv(x, params["stem"]), params["stem_gn_scale"],
-                       params["stem_gn_bias"], cfg.groups))
-        for s, depth in enumerate(cfg.depths):
-            for b in range(depth):
-                stride = 2 if (s > 0 and b == 0) else 1
-                x = _block_fwd(params[f"s{s}b{b}"], x, stride, cfg)
-            if s == 0 and split is not None:
-                i, n = split
-                c = x.shape[1]
-                w = c // n
-                mask = torch.zeros(c, dtype=x.dtype, device=x.device)
-                mask[i * w:(i + 1) * w] = 1.0
-                x = x * mask[:, None, None]
-        x = x.mean(dim=(2, 3))
-        logits = x.float() @ params["head"].float()
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        0. ``remat`` is accepted and ignored, as in the reference. DTensor
+        images (a batch placed on a mesh) run on each rank's own rows
+        (``_forward_placed``)."""
+        images = batch["images"]
+        if type(images) is not torch.Tensor and hasattr(images,
+                                                        "device_mesh"):
+            logits = _forward_placed(self.cfg, params, images, split)
+        else:
+            logits = _forward(self.cfg, params, images, split)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+
+def _forward(cfg: ConvConfig, params: PyTree, images: torch.Tensor,
+             split: Optional[Tuple[int, int]]) -> torch.Tensor:
+    x = images.permute(0, 3, 1, 2)              # NCHW view of NHWC bytes
+    x = F.relu(_gn(_conv(x, params["stem"]), params["stem_gn_scale"],
+                   params["stem_gn_bias"], cfg.groups))
+    for s, depth in enumerate(cfg.depths):
+        for b in range(depth):
+            stride = 2 if (s > 0 and b == 0) else 1
+            x = _block_fwd(params[f"s{s}b{b}"], x, stride, cfg)
+        if s == 0 and split is not None:
+            i, n = split
+            c = x.shape[1]
+            w = c // n
+            mask = torch.zeros(c, dtype=x.dtype, device=x.device)
+            mask[i * w:(i + 1) * w] = 1.0
+            x = x * mask[:, None, None]
+    x = x.mean(dim=(2, 3))
+    return x.float() @ params["head"].float()
+
+
+def _forward_placed(cfg: ConvConfig, params: PyTree, images,
+                    split: Optional[Tuple[int, int]]):
+    """``_forward`` on each rank's own rows of the DTensor ``images``
+    (``common.on_local_rows``): every parameter whole (the rules replicate
+    a conv net), the logits (B, classes) on the images' rows. Every layer
+    acts on each example alone (the group norm's statistics are per
+    example), so a rank's rows are the whole batch's; DTensor's own
+    group-norm backward fails on split rows."""
+    from repro_torch.models.common import on_local_rows
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def fn(x, *ws):
+        it = iter(ws)
+        return _forward(cfg, tree_map(lambda _: next(it), params), x, split)
+    return on_local_rows(fn, images, *tree_leaves(params))
 
 
 def freeze_mask(params: PyTree, prefixes: Tuple[str, ...]) -> PyTree:

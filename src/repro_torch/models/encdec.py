@@ -9,7 +9,9 @@ full transformer-big). Self-attention in both stacks uses RoPE, the
 encoder's without a mask; cross-attention has neither. Per-layer
 parameters are stacked on a leading axis (``enc_layers``, ``dec_layers``),
 the reference's scanned tree leaf for leaf, and the forward loops over
-that axis, as ``LM`` does.
+that axis, as ``LM`` does. On a mesh (DTensors, ``launch/sharding.py``)
+every attention core, the cross-attention's too, runs on each rank's own
+rows and heads (``models/attention.py`` ``_attend_placed``).
 
 API (the reference's):
     init(generator, device, weight_dtype) -> params

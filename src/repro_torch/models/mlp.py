@@ -2,7 +2,9 @@
 experiments (each codistilling model sees one VIEW of the features).
 
 The tree is the reference's: ``w{i}`` (in, out) and ``b{i}`` (out,) per
-layer, fp32; relu between layers, fp32 logits.
+layer, fp32; relu between layers, fp32 logits. On a mesh (features placed
+by rows, the weights replicated by the rules) the products run through
+DTensor's own dispatch, each rank on its own rows.
 """
 from __future__ import annotations
 
