@@ -283,8 +283,15 @@ exits non-zero:
                 plain step: resnet50 at full size (2 peers of 8 images of
                 224^2; the baseline's one model of 16) and transformer-big
                 at full width and 2 of 6 encoder and decoder layers (2
-                peers of 14 x 256 source and target tokens), lr 1e-3. Every
-                launch through the loss kernels' DTensor entry.
+                peers of 14 x 256 source and target tokens), lr 1e-3. Then
+                jamba at full width and 2 of 32 layers (Mamba + dense FFN,
+                then attention + a 16-expert MoE), every weight in bf16,
+                plain SGD: one step of each strategy (2 peers of 1 x 512,
+                the baseline's one model of 2 x 512), the placed step
+                first, bit-equal to the plain step from the same draw
+                (the MoE routes each rank's rows, the Mamba mixer runs on
+                them). Every launch through the loss kernels' DTensor
+                entry.
 
 On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
@@ -325,7 +332,20 @@ whisper-tiny (2 peers of 4 x 64 over 1500 numpy frames) as codist on (2,
 a step, the cross-pod ms and bytes of both strategies and their ratio
 (resnet50's beside the paper's b_model / b_pred) and each rank's peak;
 then transformer-big in bf16 over fp32 masters with AdamW, both
-strategies on (2, 1, 2), timed.
+strategies on (2, 1, 2), timed. Then the MoE and hybrid families at full
+width (``mesh4moe``, which also runs alone: ``--phases
+device,build,mesh4moe``), every weight in bf16, plain SGD, 2 peers of 2 x
+512 (the baseline's one model of 4 x 512), 3 steps: grok-1 at 2 of 64
+layers as codist on (2, 2, 1) with the experts over "data" (4 a rank,
+rows to them by an all-to-all of capacity buffers) and without (FSDP
+inside each expert), and as the baseline with them; arctic at 1 of 35 (128
+experts, 64 a rank) as codist with them; jamba at 2 of 32 as codist on (2,
+2, 1) with them and on (2, 1, 2) (TP), and as the baseline with them.
+Each prints its wall and device ms a step, each rank's peak, and its
+metered all-to-all and cross-pod bytes, both equal to ``launch/cost.py``'s;
+grok-1's two codist placements agree within bf16's unit roundoff. In fp32
+(remat), jamba as codist and as the baseline and grok-1's baseline at 1
+layer, each held to the single card (losses 1e-5 relative, shards 1e-4).
 
 The kernels phase also holds the decode (rows 1, 1q) at qwen1.5-4b's heads
 (H = KVh = 20, hd 128, the fleet's slots and lengths: the kernel's head
@@ -374,8 +394,9 @@ PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them;
-# "mesh4" needs a host with 4 cards
-ON_REQUEST = ("rows", "parent", "mesh4")
+# "mesh4" needs a host with 4 cards, and so does "mesh4moe" (mesh4's MoE
+# and hybrid cases alone, which "mesh4" runs too)
+ON_REQUEST = ("rows", "parent", "mesh4", "mesh4moe")
 PARENT = os.path.join(ROOT, "build", "parent")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
@@ -449,16 +470,18 @@ PATHS = {"paged_scatter": ("fleet", "spec", "fleet_codist", "obs",
          "fused_cross_entropy": ("ops",), "flash_attention": ("ops",),
          "fused_cross_entropy_parts": ("train", "train_peers", "sweep",
                                        "async", "obs", "paper", "families",
-                                       "rwkv", "shardmap", "mesh", "mesh4"),
+                                       "rwkv", "shardmap", "mesh", "mesh4",
+                                       "mesh4moe"),
          "fused_cross_entropy_grad": ("train", "train_peers", "sweep",
                                       "async", "obs", "paper", "families",
-                                      "rwkv", "shardmap", "mesh", "mesh4"),
+                                      "rwkv", "shardmap", "mesh", "mesh4",
+                                      "mesh4moe"),
          "fused_ce_distill_parts": ("train", "train_peers", "sweep", "obs",
                                     "paper", "families", "rwkv", "shardmap",
-                                    "mesh", "mesh4"),
+                                    "mesh", "mesh4", "mesh4moe"),
          "fused_ce_distill_grad": ("train", "train_peers", "sweep", "obs",
                                    "paper", "families", "rwkv", "shardmap",
-                                   "mesh", "mesh4"),
+                                   "mesh", "mesh4", "mesh4moe"),
          "fused_distill_loss": ("train_peers", "sweep", "fleet_codist"),
          "fused_distill_kl_parts": ("train_peers", "async", "obs", "paper"),
          "fused_distill_mse_grad": ("train_peers", "sweep"),
@@ -6435,6 +6458,58 @@ MESH_PAPER = (("resnet50", 8, 0, {}),
               ("transformer-big", 14, 256, {"num_layers": 2,
                                             "encoder_layers": 2}))
 MESH_PAPER_LR = 1e-3
+# the mesh phase's hybrid MoE step: jamba at full width cut to 2 layers in
+# reduced()'s pattern (Mamba + dense FFN, then attention + MoE; ~3.7 B
+# parameters a model), every weight in bf16, plain SGD at lr 1e-3 (no
+# buffer: both peers' weights and gradients are ~29 GB): (arch, layers,
+# rows a peer, tokens); one step of each strategy, the placed one first
+MESH_MOE = ("jamba-v0.1-52b", 2, 1, 512)
+# mesh4's MoE and hybrid cases at full width, every weight in bf16, plain
+# SGD at lr 1e-3, 2 peers of MOE4_B x MOE4_S tokens (the baseline's one
+# model of both peers' rows): (label, arch, layers, strategy, mesh, expert
+# axis). grok-1 at 2 of 64 layers (8 experts) with and without the expert
+# axis (4 experts a rank, or FSDP inside each expert), arctic at 1 of 35
+# (128 experts, 64 a rank, and the dense residual), jamba in MESH_MOE's
+# 2-layer pattern (16 experts)
+MOE4_B, MOE4_S = 2, 512
+MOE4_CASES = (
+    ("grok-1 codist fsdp", "grok-1-314b", 2, "codist", (2, 2, 1), None),
+    ("grok-1 codist ep", "grok-1-314b", 2, "codist", (2, 2, 1), "data"),
+    ("grok-1 allreduce ep", "grok-1-314b", 2, "allreduce", (2, 2, 1),
+     "data"),
+    ("arctic codist ep", "arctic-480b", 1, "codist", (2, 2, 1), "data"),
+    ("jamba codist ep", "jamba-v0.1-52b", 2, "codist", (2, 2, 1), "data"),
+    ("jamba codist tp", "jamba-v0.1-52b", 2, "codist", (2, 1, 2), None),
+    ("jamba allreduce ep", "jamba-v0.1-52b", 2, "allreduce", (2, 2, 1),
+     "data"))
+# the two placements of grok-1's codist step against each other: bf16's
+# unit roundoff, relative, on every loss of every step
+MOE4_BF16_TOL = 2.0 ** -8
+# mesh4's MoE parity in fp32 (TF32 off) against the single card, at a
+# depth one card holds for the strategy: jamba's 2 layers as codist (both
+# peers, ~59 GB of weights and gradients) and as the baseline, grok-1's
+# baseline at 1 of 64 layers (one model, ~52 GB); grok-1's codist peers
+# and arctic's one layer (~14 B parameters) exceed a card in fp32. Each
+# recomputes its layers in the backward (remat), which bounds the Mamba
+# scan's saved states to one layer's and runs each all-to-all a third time
+MOE4_PARITY = (
+    ("jamba codist ep fp32", "jamba-v0.1-52b", 2, "codist", (2, 2, 1),
+     "data"),
+    ("jamba allreduce ep fp32", "jamba-v0.1-52b", 2, "allreduce", (2, 2, 1),
+     "data"),
+    ("grok-1 allreduce ep fp32", "grok-1-314b", 1, "allreduce", (2, 2, 1),
+     "data"))
+
+
+def moe_mesh_cfg(arch: str, layers: int, dtype: str = "bfloat16"):
+    """``get_config(arch)`` at ``layers`` layers (a hybrid in reduced()'s
+    pattern: attention every 2nd layer), its activations and every weight
+    in ``dtype``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = {"attn_layer_period": 2} if cfg.attn_layer_period else {}
+    return replace(cfg, num_layers=layers, dtype=dtype, param_dtype=dtype,
+                   **kw)
 
 
 def paper_mesh_cfg(arch: str, overrides: dict, dtype: str = "float32"):
@@ -6513,11 +6588,13 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
     start to the next's) the wall, the pod gather's seconds and, with
     ``timed``, the optimizer's cross-pod reduction's (each reduction
     between two device syncs); rank 0's steps 1.. under torch.profiler
-    where asked (``device_ms``: their kernels' device time). ``trainable``
+    where asked (``device_ms``: their kernels' device time); the expert
+    all-to-all's meter (``a2a_bytes``, ``a2a``) likewise. ``trainable``
     is the step's mask (``freeze_mask``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.ops import local_rows_calls
+    from repro_torch.launch.mesh import expert_exchange
     from repro_torch.models import build_model
     from repro_torch.optim import optimizers
     from repro_torch.train import train
@@ -6543,6 +6620,7 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
         local_rows_calls[k] = 0
     meter.reset()
     meter.timed = timed
+    expert_exchange.reset()
     t0 = time.perf_counter()
     try:
         state, hist = train(model, tc, data, strategy, codist=codist,
@@ -6568,6 +6646,8 @@ def mesh_job(pods, label: str, cfg, codist, tc, batches, strategy,
             "pod_s": [b[2] - a[2] for a, b in zip(marks, marks[1:])],
             "wire_bytes": pods.wire_bytes - bytes0,
             "pod_bytes": meter.bytes, "pod_reductions": meter.reductions,
+            "a2a_bytes": expert_exchange.bytes,
+            "a2a": expert_exchange.exchanges,
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "launches": dict(launch_counts), "entry": dict(local_rows_calls),
             "device_ms": device_ms}
@@ -6654,10 +6734,19 @@ def mesh_smoke_rank(pods) -> dict:
     Placed = placed_pe(logical_mesh(pods.mesh), pods)
     out = {}
 
-    def pair(name, codist, tc, batches, plain, placed, mesh, cfg=cfg):
-        a = mesh_job(pods, f"mesh {name} plain", cfg, codist, tc, batches,
-                     plain)
-        b = mesh_job(pods, f"mesh {name}", cfg, codist, tc, batches, placed)
+    def pair(name, codist, tc, batches, plain, placed, mesh, cfg=cfg,
+             draw=None):
+        """The plain run, then the placed one, each drawn from
+        ``tc.seed``; with ``draw`` the placed run first, then the plain
+        one, each from ``draw()`` (the same weights)."""
+        if draw is None:
+            a = mesh_job(pods, f"mesh {name} plain", cfg, codist, tc,
+                         batches, plain)
+        b = mesh_job(pods, f"mesh {name}", cfg, codist, tc, batches, placed,
+                     state=None if draw is None else draw())
+        if draw is not None:
+            a = mesh_job(pods, f"mesh {name} plain", cfg, codist, tc,
+                         batches, plain, state=draw())
         err = shard_errors(b["state"].params, a["state"].params, mesh)
         for run in (a, b):
             del run["state"]
@@ -6679,6 +6768,15 @@ def mesh_smoke_rank(pods) -> dict:
              Placed(codist), pods.sub_mesh, pcfg)
         pair(f"{arch} allreduce", None, one, one_model(data), AllReduce(),
              AllReduce(mesh=pods), pods.mesh, pcfg)
+    arch, layers, b, s = MESH_MOE
+    mcfg = moe_mesh_cfg(arch, layers)
+    sgd = mesh_tc(lr=1e-3, momentum=0.0, total_steps=1)
+    draw = plain_sgd_draw(mcfg, sgd, pods.device)
+    data = mesh_data(mcfg, b, s, 1)
+    pair(f"{arch} codist", codist, sgd, data, PredictionExchange(codist),
+         Placed(codist), pods.sub_mesh, mcfg, draw=lambda: draw(None))
+    pair(f"{arch} allreduce", None, sgd, one_model(data), AllReduce(),
+         AllReduce(mesh=pods), pods.mesh, mcfg, draw=lambda: draw(0))
     return out
 
 
@@ -6692,13 +6790,21 @@ MESH_RUNS = (("codist", MESH_STEPS, True, "_CEDistillTokens", 2, 1e-6),
              ("resnet50 codist", 1, True, "_CEDistillTokens", 2, 0.0),
              ("resnet50 allreduce", 1, False, "_CEParts", 1, 0.0),
              ("transformer-big codist", 1, True, "_CEDistillTokens", 2, 0.0),
-             ("transformer-big allreduce", 1, False, "_CEParts", 1, 0.0))
+             ("transformer-big allreduce", 1, False, "_CEParts", 1, 0.0),
+             (f"{MESH_MOE[0]} codist", 1, True, "_CEDistillTokens", 2, 0.0),
+             (f"{MESH_MOE[0]} allreduce", 1, False, "_CEParts", 1, 0.0))
 
 
 def mesh_run_what(name: str, combined: bool, per_step: int,
                   steps: int) -> str:
     """What a mesh phase run trained, for its log line."""
     peers = "2 peers of" if combined else "one model of"
+    arch, layers, b, s = MESH_MOE
+    if name.startswith(arch):
+        return (f"{arch} {layers} of 32 layers (Mamba + dense FFN, attention "
+                f"+ 16-expert MoE) bf16, plain SGD, {peers} "
+                f"{b if combined else 2 * b} x {s}, lr 1e-3, 1 step (the "
+                "placed step first)")
     for arch, b, s, kw in MESH_PAPER:
         if name.startswith(arch):
             rows = b if combined else 2 * b
@@ -6973,6 +7079,225 @@ def plain_sgd_draw(cfg, tc, dev):
     return draw
 
 
+def mesh4_moe_rank(pods) -> dict:
+    """One of mesh4's 4 ranks for the MoE and hybrid cases (cuda:rank,
+    NCCL): each of MOE4_CASES 3 steps in bf16 (``ShardMapCompressed`` of
+    this rank's pod's peer, or ``AllReduce`` of the one model, placed with
+    the case's expert axis), rank 0 under torch.profiler; then each of
+    MOE4_PARITY in fp32 (TF32 off), held to the single-card step on this
+    rank's card from the same draw."""
+    from repro_torch.configs import CodistConfig
+    from repro_torch.launch.mesh import (device_mesh, make_codist_mesh,
+                                         mesh_pod_group)
+    from repro_torch.train import (AllReduce, PredictionExchange,
+                                   ShardMapCompressed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    groups = {}
+    for case in MOE4_CASES + MOE4_PARITY:
+        shape = case[4]
+        if shape not in groups:
+            m = make_codist_mesh(*shape)
+            groups[shape] = mesh_pod_group(
+                m, device_mesh(m, pods.device.type), pods.device)
+    codist = CodistConfig(n_models=2)
+    out = {"runs": [], "parity": []}
+
+    def placed(label, cfg, mode, shape, ep, data, draw, profile, tc):
+        g = groups[shape]
+        one = mode == "allreduce"
+        strategy = (AllReduce(mesh=g, moe_expert_axis=ep) if one else
+                    ShardMapCompressed(codist, g, moe_expert_axis=ep))
+        # placed before the run, so that the drawn whole model is freed
+        # (grok-1's fp32 one is 26 GB) before its step's gradients exist
+        state = strategy.ensure_state(draw(0 if one else g.rank), None, tc)
+        run = mesh_job(g, f"mesh4 {label}", cfg, None if one else codist,
+                       tc, one_model(data) if one else data, strategy,
+                       state=state, profile_rank0=profile,
+                       timed=profile and one)
+        del state
+        run.update(label=label, cfg=cfg, mode=mode, shape=shape, ep=ep,
+                   pod=g.rank, remat=tc.remat)
+        if dist_rank() == 0:
+            log(f"mesh4 {label}: rank 0 ran {run['seconds']:.1f} s, peak "
+                f"{run['peak_bytes'] / 2**30:.2f} GiB")
+        return g, run
+
+    for label, arch, layers, mode, shape, ep in MOE4_CASES:
+        cfg = moe_mesh_cfg(arch, layers)
+        data = mesh_data(cfg, MOE4_B, MOE4_S, MESH_STEPS)
+        tc = mesh_tc(lr=1e-3, momentum=0.0)
+        _g, run = placed(label, cfg, mode, shape, ep, data,
+                         plain_sgd_draw(cfg, tc, pods.device), True, tc)
+        del run["state"]
+        out["runs"].append(run)
+        torch.cuda.empty_cache()
+    for label, arch, layers, mode, shape, ep in MOE4_PARITY:
+        cfg = moe_mesh_cfg(arch, layers, "float32")
+        data = mesh_data(cfg, MOE4_B, MOE4_S, MESH_STEPS)
+        tc = mesh_tc(lr=1e-3, momentum=0.0, remat=True)
+        draw = plain_sgd_draw(cfg, tc, pods.device)
+        one = mode == "allreduce"
+        plain = mesh_job(pods, f"mesh4 {label} plain", cfg,
+                         None if one else codist, tc,
+                         one_model(data) if one else data,
+                         AllReduce() if one else PredictionExchange(codist),
+                         state=draw(0 if one else None))
+        g, run = placed(label, cfg, mode, shape, ep, data, draw, False, tc)
+        run["leaf_err"] = shard_errors(
+            run["state"].params, plain["state"].params if one else
+            plain["state"].params[g.rank], g.mesh if one else g.sub_mesh)
+        del run["state"], plain["state"]
+        run["plain"] = plain["records"]
+        out["parity"].append(run)
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_cost(cfg, mode: str, shape, ep, remat: bool = False,
+             steps: int = MESH_STEPS) -> tuple:
+    """(all-to-all bytes, cross-pod bytes) a device of ``steps`` steps of
+    ``mode`` on the mesh ``shape`` with the expert axis ``ep`` (and
+    ``remat``), 2 peers of MOE4_B x MOE4_S tokens (the baseline's one
+    model of both), by ``launch/cost.py``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.cost import step_cost
+    from repro_torch.launch.mesh import make_codist_mesh
+    ops = step_cost(cfg, InputShape("mesh4", MOE4_S, 2 * MOE4_B, "train"),
+                    mode, remat=remat, mesh=make_codist_mesh(*shape),
+                    variant={"moe_expert_axis": ep},
+                    codist_extra={"compression": "none"}).collectives
+    a2a = sum(o.operand_bytes for o in ops.ops if o.kind == "all-to-all")
+    return steps * a2a, steps * ops.cross_pod_bytes
+
+
+def mesh4_moe_checks(ranks: list, smi_line: str) -> dict:
+    """``phase_mesh4_moe``'s checks of its ranks' results: every run's
+    losses finite and moving, launches exact through the DTensor entry
+    (rows 12 and 13 a peer a step over the none wire, 6 and 7 the
+    baseline's), each rank's metered all-to-all bytes (zero without the
+    expert axis) and cross-pod bytes equal to ``launch/cost.py``'s; grok-1's
+    two codist placements within MOE4_BF16_TOL of each other; the fp32
+    parity runs within MESH4_NEW_TOL (losses, relative) and MESH4_TOL
+    (shards, absolute) of the single card. Returns the launches."""
+    from repro_torch.configs import get_config
+    launches = dict.fromkeys(ALL_LOSS_KERNELS, 0)
+    by_label = {}
+    for j, job in enumerate(ranks[0]["runs"] + ranks[0]["parity"]):
+        runs = [(r["runs"] + r["parity"])[j] for r in ranks]
+        label, mode, cfg = job["label"], job["mode"], job["cfg"]
+        one = mode == "allreduce"
+        want = expected_launches(1, "mse", MESH_STEPS, combined=not one,
+                                 task_ce=one, standalone=0)
+        entry = "_CEParts" if one else "_CEDistillTokens"
+        a2a, pod_b = moe_cost(cfg, mode, job["shape"], job["ep"],
+                              job["remat"])
+        for r, run in enumerate(runs):
+            recs = run["records"]
+            require(len(recs) == MESH_STEPS and recs[-1]["loss"]
+                    != recs[0]["loss"], f"mesh4 {label} rank {r}: losses "
+                    f"{[x['loss'] for x in recs]}")
+            require(all(x["aux_loss"] > 0 for x in recs),
+                    f"mesh4 {label} rank {r}: aux losses "
+                    f"{[x['aux_loss'] for x in recs]}")
+            got = {k: run["launches"][k] for k in ALL_LOSS_KERNELS}
+            require(got == want, f"mesh4 {label} rank {r}: launches {got}")
+            require(run["entry"][entry] == MESH_STEPS
+                    and sum(run["entry"].values()) == MESH_STEPS,
+                    f"mesh4 {label} rank {r}: DTensor entry {run['entry']}")
+            for k, v in got.items():
+                launches[k] += v
+            require(run["a2a_bytes"] == a2a, f"mesh4 {label} rank {r}: "
+                    f"metered {run['a2a_bytes']} all-to-all bytes, the cost "
+                    f"model {a2a}")
+            metered = run["pod_bytes"] if one else run["wire_bytes"]
+            require(metered == pod_b, f"mesh4 {label} rank {r}: metered "
+                    f"{metered} cross-pod bytes, the cost model {pod_b}")
+        worst = 0.0
+        for r, run in enumerate(runs):
+            for a, b in zip(run.get("plain", ()), run["records"]):
+                for m in ("loss", "task_loss", "distill_loss", "aux_loss"):
+                    if m not in a:
+                        continue
+                    # the single card's PredictionExchange logs its codist
+                    # loss without the aux term, the placed step with it
+                    want_m = a[m] + (a["aux_loss"] if m == "loss" and not one
+                                     else 0.0)
+                    rel = abs(b[m] - want_m) / max(abs(want_m), 1e-12)
+                    worst = max(worst, rel)
+                    require(rel <= MESH4_NEW_TOL, f"mesh4 {label} rank {r} "
+                            f"step {a['step']} {m}: {b[m]} vs the single "
+                            f"card's {want_m}")
+            if "leaf_err" in run:
+                require(run["leaf_err"][0] <= MESH4_TOL, f"mesh4 {label} "
+                        f"rank {r}: a leaf differs by {run['leaf_err']}")
+        by_label[label] = runs
+        r0 = runs[0]
+        dev = r0["device_ms"]
+        log(f"mesh4 {label}: {cfg.name} {cfg.num_layers} of "
+            f"{get_config(cfg.name).num_layers} layers at full width, "
+            f"{'fp32' if cfg.dtype == 'float32' else 'bf16'}, plain SGD, "
+            + (f"one model of {2 * MOE4_B} x {MOE4_S}" if one else
+               f"2 peers of {MOE4_B} x {MOE4_S}")
+            + f" on {job['shape']}, experts over {job['ep'] or 'no axis'}"
+            + (", remat" if job["remat"] else "") + ": "
+            f"losses {[round(x['loss'], 5) for x in r0['records']]}"
+            + (f" within {worst:.2e} relative of the single card (tol "
+               f"{MESH4_NEW_TOL:g}), leaves within "
+               f"{max(run['leaf_err'][0] for run in runs):.2e} absolute"
+               if "plain" in r0 else "")
+            + f"; wall a step {mean_ms(r0['step_s']):.1f} ms"
+            + (f", device {dev / (MESH_STEPS - 1):.1f} ms" if dev else "")
+            + f" (rank 0, steps 1-2); all-to-all {a2a // MESH_STEPS} bytes a "
+            f"rank a step ({r0['a2a'] // MESH_STEPS} exchanges), cross-pod "
+            f"{pod_b // MESH_STEPS} ({'gradient reduction over pod' if one else 'pod gather of the bf16 wire' if cfg.dtype != 'float32' else 'pod gather'}), "
+            "both == launch/cost.py's; peak a rank "
+            + ", ".join(f"{run['peak_bytes'] / 2**30:.2f}" for run in runs)
+            + f" GiB; {smi_line}")
+    fsdp, ep = by_label["grok-1 codist fsdp"], by_label["grok-1 codist ep"]
+    worst = 0.0
+    for a_run, b_run in zip(fsdp, ep):
+        for a, b in zip(a_run["records"], b_run["records"]):
+            for m in ("loss", "task_loss", "distill_loss", "aux_loss"):
+                rel = abs(b[m] - a[m]) / max(abs(a[m]), 1e-12)
+                worst = max(worst, rel)
+                require(rel <= MOE4_BF16_TOL, f"mesh4 grok-1: step "
+                        f"{a['step']} {m} {b[m]} with the expert axis, "
+                        f"{a[m]} without (tol {MOE4_BF16_TOL:g})")
+    log(f"mesh4 grok-1 codist: the expert axis and FSDP inside each expert "
+        f"agree within {worst:.2e} relative on every loss of every step "
+        f"(bf16's unit roundoff {MOE4_BF16_TOL:.2e})")
+    return launches
+
+
+def phase_mesh4_moe(dev: torch.device, smi_line: str) -> dict:
+    """mesh4's MoE and hybrid cases alone, on a host with 4 cards: one
+    spawn of 4 ranks (``mesh4_moe_rank``), their checks
+    (``mesh4_moe_checks``). Returns the runs' launches."""
+    from repro_torch.launch.mesh import make_codist_mesh, spawn_pods
+    have = torch.cuda.device_count()
+    require(have >= 4, f"mesh4 needs 4 cards, one a rank; this host has "
+            f"{have}")
+    t0 = time.perf_counter()
+    # the fp32 parity runs hold both jamba peers' weights and gradients
+    # (~59 GB) on one card: the ranks' allocator maps its blocks in
+    # expandable segments, so that freed blocks stay usable (with fixed
+    # ones 11 GiB sat reserved but unallocated when the backward ran out)
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_pods(mesh4_moe_rank, 4, (), device=str(dev),
+                           timeout_s=1500.0, mesh=make_codist_mesh(2, 2, 1))
+    finally:
+        if before is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+    log(f"mesh4 moe: 4 ranks on 4 cards, {time.perf_counter() - t0:.1f} s "
+        "with the spawn")
+    return mesh4_moe_checks(ranks, smi_line)
+
+
 def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
     """On request, on a host with 4 cards: one spawn of 4 ranks,
     one card each, NCCL (``mesh4_rank``). Parity: each rank's losses
@@ -6983,10 +7308,12 @@ def phase_mesh4(dev: torch.device, smi_line: str) -> dict:
     through the DTensor entry); the pod gathers' bytes (each shard once a
     pod) equal to ``comm_bytes``. deepseek-67b: finite, moving losses,
     wall and device ms a step on rank 0, the pod gather's share of a
-    step and its bytes against the comm model at the wire's 16 bits (and
-    the History's ``comm_bytes``, which prices fp32 logits), each rank's
+    step and each rank's bytes against ``launch/cost.py``'s (the bf16
+    wire; the History's ``comm_bytes`` prices fp32 logits), each rank's
     peak memory beside the bytes of the two peers' training state.
-    Then ``mesh4_baseline``'s runs. Returns the placed runs' launches."""
+    Then ``mesh4_baseline``'s runs (``run_phases`` then runs
+    ``phase_mesh4_moe``, a spawn of its own). Returns the placed runs'
+    launches."""
     from repro_torch.launch.mesh import make_codist_mesh, spawn_pods
     have = torch.cuda.device_count()
     require(have >= 4, f"mesh4 needs 4 cards, one a rank; this host has "
@@ -7003,7 +7330,6 @@ def mesh4_checks(ranks: list, smi_line: str) -> dict:
     """``phase_mesh4``'s checks of its ranks' results; returns the placed
     runs' launches."""
     from repro_torch.configs import get_config
-    from repro_torch.core import comm_model as cm
     cfg = replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS,
                   dtype="float32")
     launches = dict.fromkeys(ALL_LOSS_KERNELS, 0)
@@ -7071,13 +7397,13 @@ def mesh4_checks(ranks: list, smi_line: str) -> dict:
         require(got == want, f"mesh4 deepseek rank {r}: launches {got}")
         for k, v in got.items():
             launches[k] += v
-    bits = cm.prediction_bits_lm(big_cfg, BIG_S, 16, "none")
-    want_b = MESH_STEPS * bits * BIG_B / 8
+    want_b = MESH_STEPS * cross_pod_cost(big_cfg, "codist", BIG_MESH,
+                                         2 * BIG_B, BIG_S)
     comm = recs[-1]["comm_bytes"]
-    for pod in (0, 1):
-        got_b = sum(run["wire_bytes"] for run in runs if run["pod"] == pod)
-        require(got_b == want_b, f"mesh4 deepseek pod {pod}: the gather "
-                f"metered {got_b} bytes, the bf16 wire is {want_b:.0f}")
+    for r, run in enumerate(runs):
+        require(run["wire_bytes"] == want_b, f"mesh4 deepseek rank {r}: the "
+                f"gather metered {run['wire_bytes']} bytes, the cost model "
+                f"{want_b} (the bf16 wire)")
     n_par, state_b = big_peer_bytes(big_cfg)
     wall = float(np.mean(runs[0]["step_s"][1:])) * 1e3
     wire = float(np.mean(runs[0]["wire_s"][1:])) * 1e3
@@ -7089,9 +7415,9 @@ def mesh4_checks(ranks: list, smi_line: str) -> dict:
         + (f"{dev_ms / (MESH_STEPS - 1):.1f} ms a step (steps 1-2)"
            if dev_ms else "not measured")
         + f"; the pod gather (NCCL) {wire:.2f} ms a step ({wire / wall:.1%}),"
-        f" {runs[0]['wire_bytes'] // MESH_STEPS} bytes a step on rank 0, "
-        f"{want_b:.0f} bytes a pod in {MESH_STEPS} steps (bf16 wire; "
-        f"comm_bytes {comm:.0f} at fp32); a peer {n_par / 1e9:.3f} B "
+        f" {runs[0]['wire_bytes'] // MESH_STEPS} bytes a step on rank 0 "
+        f"(the bf16 wire, == launch/cost.py's; comm_bytes {comm:.0f} a pod "
+        f"in {MESH_STEPS} steps at fp32); a peer {n_par / 1e9:.3f} B "
         f"parameters, {state_b / 1e9:.1f} GB of master, gradient and AdamW "
         f"moments at 16 B a parameter, {2 * state_b / 1e9:.1f} GB for both "
         "(one 80 GB card cannot hold them); peak a rank "
@@ -7252,8 +7578,8 @@ def mesh4_paper(ranks, launches: dict, smi_line: str) -> None:
     b_pred), each rank's peak, the single card's step beside them. Then
     transformer-big in bf16 over fp32 masters with AdamW, both strategies
     on PAPER_BF16's mesh: finite, moving losses, launches exact, the
-    baseline's bytes equal to ``launch/cost.py``'s, the bf16 wire's half
-    its count (the cost model prices fp32 logits)."""
+    baseline's bytes and the bf16 wire's equal to ``launch/cost.py``'s
+    (which prices the wire at the logits' own bits)."""
     from repro_torch.core import comm_model as cm
     held = [r["held"] for r in ranks]
 
@@ -7321,11 +7647,10 @@ def mesh4_paper(ranks, launches: dict, smi_line: str) -> None:
                     f"launches {got}")
             for k, v in got.items():
                 launches[k] += v
-            metered = x["pod_bytes"] if one else 2 * x["wire_bytes"]
+            metered = x["pod_bytes"] if one else x["wire_bytes"]
             require(metered == MESH_STEPS * cost, f"mesh4 {arch} bf16 {mode} "
-                    f"rank {r}: metered {metered} cross-pod bytes "
-                    f"({'' if one else 'twice the bf16 wire; '}the cost model "
-                    f"{MESH_STEPS * cost})")
+                    f"rank {r}: metered {metered} cross-pod bytes (the cost "
+                    f"model {MESH_STEPS * cost})")
         r0 = rs[0]
         meter = "pod_s" if one else "wire_s"
         by = (r0["pod_bytes"] if one else r0["wire_bytes"]) // MESH_STEPS
@@ -7579,6 +7904,10 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         t0 = time.perf_counter()
         launches["mesh4"] = phase_mesh4(dev, smi_line)
         log(f"phase mesh4: {time.perf_counter() - t0:.1f} s")
+    if "mesh4moe" in phases or "mesh4" in phases:
+        t0 = time.perf_counter()
+        launches["mesh4moe"] = phase_mesh4_moe(dev, smi_line)
+        log(f"phase mesh4moe: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         row = kernel_rows.get(name, {})

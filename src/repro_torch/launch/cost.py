@@ -50,11 +50,14 @@ the same placements, their groups from the mesh's device ids:
   of the input gradient in the backward;
 * the all-reduce baseline's gradient sync over (pod, data);
 * the codist wire: an all-gather over "pod" of the peers' predictions, at
-  ``comm_model.prediction_bits_lm`` for the wire's compression, of the V /
+  ``comm_model.prediction_bits_lm`` for the wire's compression at the
+  logits' own bits (the activation dtype's; top-k indices at 32), of the V /
   tp columns a device holds of a logits-shaped wire (the top-k wire is
   whole on each device); a classifier's at
   ``comm_model.prediction_bits_classifier``, one row an example;
-* expert parallelism: an all-to-all of the routed rows each way.
+* expert parallelism: an all-to-all of each device's (G, E, C, d)
+  capacity buffers each way, the layout the reference's partitioner
+  exchanges (C the GShard capacity of a train step; no drops in serving).
 
 An op's ``operand_bytes`` is per device (the wire's: what a device
 receives, as ``comm_model`` bills it, over the columns the device holds).
@@ -873,14 +876,22 @@ def _collectives(out, cfg, shape, mode, mesh, specs, leaves, batch_axes,
             if len(spec) >= 2 and "model" in sh.axes_of(spec[-2]):
                 op("all-reduce", ("model",), g.c / batch_ways,
                    f"{g.part} tp", reps=reps * g.count)
-    # expert parallelism: the routed rows to their experts and back
+    # expert parallelism: each device's capacity buffers (G, E, C, d) to
+    # the experts' devices and back (``models/moe.py`` ``_moe_experts``),
+    # a routing group a batch row of s tokens (one token a slot in a
+    # decode step): C the GShard capacity of a train step, s (no drops)
+    # in serving; two exchanges a forward, two a backward, two more in
+    # the remat forward, a microbatch's groups at a time
     if expert_axis and getattr(cfg, "moe", None) is not None:
-        rows = shape.global_batch * (1 if shape.kind == "decode"
-                                     else shape.seq_len) / batch_ways
+        from repro_torch.models.moe import _capacity
+        s = 1 if shape.kind == "decode" else shape.seq_len
+        groups_l = shape.global_batch // batch_ways // (k if train else 1)
+        cap = _capacity(cfg.moe, s, 1.25 if train else 0.0)
         n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
-        op("all-to-all", expert_axis, rows * cfg.moe.top_k * cfg.d_model
-           * act, "moe dispatch / combine",
-           reps=2 * (3 if train else 1) * n_moe)
+        per_mb = 2 * (2 + (1 if remat else 0)) if train else 2
+        op("all-to-all", expert_axis, groups_l * cfg.moe.num_experts * cap
+           * cfg.d_model * act, "moe dispatch / combine",
+           reps=per_mb * n_moe * (k if train else 1))
     # the codist wire: each device receives the other pods' predictions of
     # its rows, in the layout the wire has on it: a logits-shaped wire
     # (none, bf16, subsample) keeps the logits' V over tp (the "btv" hint),
@@ -899,8 +910,10 @@ def _collectives(out, cfg, shape, mode, mesh, specs, leaves, batch_axes,
             if comp == "subsample" and sub:
                 b_pred = b_pred * min(sub, peer_rows) / peer_rows
         else:
+            # the logits' own bits (a bf16 model sends bf16 logits); the
+            # top-k wire's values at those bits, its indices at 32
             text = shape.seq_len - cfg.num_patches
-            b_pred = cm.prediction_bits_lm(cfg, text, 32, comp,
+            b_pred = cm.prediction_bits_lm(cfg, text, 8 * act, comp,
                                            extra.get("topk", 64), sub)
             if comp != "topk":
                 v = cfg.padded_vocab

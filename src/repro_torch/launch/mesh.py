@@ -140,6 +140,57 @@ class PodGroup:
         return got
 
 
+@dataclass
+class ExpertExchange:
+    """The meter of the expert all-to-all (``all_to_all``): ``bytes``
+    counts the operand bytes a device sends into each exchange (its whole
+    buffer, the block it keeps included, as ``launch/cost.py``
+    ``CollectiveOp.operand_bytes`` counts an all-to-all), ``exchanges``
+    the exchanges, forward and backward."""
+    bytes: int = 0
+    exchanges: int = 0
+
+    def reset(self) -> None:
+        self.bytes, self.exchanges = 0, 0
+
+
+expert_exchange = ExpertExchange()
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    expert_exchange.bytes += x.numel() * x.element_size()
+    expert_exchange.exchanges += 1
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` with its gradient: the exchange is its own
+    adjoint (block j of rank i becomes block i of rank j), so the backward
+    sends the gradient back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x (ways, ...) -> (ways, ...): block j of x goes to rank j of
+    ``group`` (``ways`` ranks), block i of the result came from rank i;
+    differentiable and metered (``expert_exchange``)."""
+    if x.shape[0] != group.size():
+        raise ValueError(f"{x.shape[0]} blocks for a group of "
+                         f"{group.size()}")
+    return _AllToAll.apply(x, group)
+
+
 def _metering_replica(t) -> bool:
     """Whether this rank holds the metered copy of a DTensor's local shard:
     its coordinate is 0 along every mesh dim that does not shard ``t``."""

@@ -441,7 +441,8 @@ def _distribute(x: torch.Tensor, spec, device_mesh) -> torch.Tensor:
     return out.requires_grad_(x.requires_grad)
 
 
-def _state_specs(state, mesh, n: Optional[int]):
+def _state_specs(state, mesh, n: Optional[int],
+                 moe_expert_axis: Optional[str] = None):
     """(one peer?, the specs of ``{"params", "opt": {"m", "v"}}``). With n
     None the state is one model's (``AllReduce``), placed by
     ``state_shardings(..., stacked=False)``. Else the specs are those of the
@@ -453,7 +454,8 @@ def _state_specs(state, mesh, n: Optional[int]):
     if n is None:
         tree = {"params": state.params,
                 "opt": {f: getattr(opt, f) for f in ("m", "v")}}
-        return True, state_shardings(tree, mesh)
+        return True, state_shardings(tree, mesh,
+                                     moe_expert_axis=moe_expert_axis)
     one_peer = not isinstance(state.params, list)
     on_pods = mesh.shape.get("pod") == n
     if one_peer != on_pods:
@@ -466,10 +468,12 @@ def _state_specs(state, mesh, n: Optional[int]):
                "opt": {f: (_stacked_meta(take(getattr(opt, f)), n)
                            if getattr(opt, f) is not None else None)
                        for f in ("m", "v")}}
-    return one_peer, state_shardings(stacked, mesh, stacked=True)
+    return one_peer, state_shardings(stacked, mesh, stacked=True,
+                                     moe_expert_axis=moe_expert_axis)
 
 
-def distribute_state(state, mesh, device_mesh, n: Optional[int] = None):
+def distribute_state(state, mesh, device_mesh, n: Optional[int] = None,
+                     moe_expert_axis: Optional[str] = None):
     """A state's parameter and optimizer leaves as DTensors on
     ``device_mesh``.
 
@@ -481,9 +485,11 @@ def distribute_state(state, mesh, device_mesh, n: Optional[int] = None):
     state of n peers on ``mesh``: one peer's tree (a ``TrainState`` of a
     pod that holds one peer) or the list of the n peers (a ``CodistState``
     on one pod); the peer axis's entry only says where the peer lives and
-    is dropped. The step and any other field pass through;
-    ``requires_grad`` is kept."""
-    one_peer, specs = _state_specs(state, mesh, n)
+    is dropped. ``moe_expert_axis`` places the expert stacks' E dim over
+    that axis (``param_spec``: expert parallelism), as the reference's dry
+    run passes it to ``state_shardings``. The step and any other field
+    pass through; ``requires_grad`` is kept."""
+    one_peer, specs = _state_specs(state, mesh, n, moe_expert_axis)
     lead = 0 if n is None else 1
 
     def place(tree, spec_tree):

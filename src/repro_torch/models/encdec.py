@@ -41,6 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, embed_tokens, lm_head,
                                        stacked_const)
 from repro_torch.models.ffn import ffn_forward, init_stacked_ffn
+from repro_torch.models.sharding_hints import remat_context
 from repro_torch.models.transformer import (init_embedding,
                                             init_stacked_attention,
                                             layer_params, unbind_layers)
@@ -135,7 +136,7 @@ class EncDecLM:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     _dec_layer_fwd, lp, x, memory, cfg, positions,
-                    use_reentrant=False)
+                    use_reentrant=False, context_fn=remat_context)
             else:
                 x = _dec_layer_fwd(lp, x, memory, cfg, positions)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)

@@ -158,7 +158,21 @@ def _forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, chunk: int):
 
 def mamba_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                   chunk: int = CHUNK) -> torch.Tensor:
-    """x (B, L, d) -> (B, L, d)."""
+    """x (B, L, d) -> (B, L, d). A DTensor x (a model on its mesh) runs on
+    each rank's own rows with every weight whole
+    (``common.on_local_rows``): the scan mixes nothing across rows, so
+    this is exact, and no pad, concatenation or scan einsum runs on a
+    DTensor. d_inner is not split over "model" (``xz.chunk`` of a split
+    in_proj output would hand one rank x and the other z, and x_proj
+    contracts over d_inner mid-mixer), so each "model" rank computes the
+    whole mixer."""
+    if type(x) is not torch.Tensor and hasattr(x, "device_mesh"):
+        from repro_torch.models.common import on_local_rows
+        names = list(p)
+
+        def fn(xl, *ws):
+            return _forward(dict(zip(names, ws)), xl, cfg, chunk)[0]
+        return on_local_rows(fn, x, *(p[n] for n in names))
     return _forward(p, x, cfg, chunk)[0]
 
 

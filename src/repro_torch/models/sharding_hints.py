@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.launch.sharding import P, PartitionSpec
@@ -52,6 +52,37 @@ def activation_sharding(batch_axes: Optional[Tuple[str, ...]],
         yield
     finally:
         _state.ctx = None
+
+
+def remat_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint``: the layer recomputed
+    in the backward sees the context the forward ran in, this module's
+    placements and, on a mesh, DTensor's implicit replication (``on_mesh``
+    in ``train/engine.py`` enters both). A CUDA backward runs on the
+    autograd engine's device thread, where a thread-local context is not
+    set: there the hints would place nothing, and the recomputed layer's
+    tensors would not be the ones its forward saved. Each is restored on
+    exit, so a recomputation on the forward's own thread leaves it as it
+    was."""
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None:
+        return nullcontext(), nullcontext()
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    implicit = dispatcher._allow_implicit_replication
+
+    @contextmanager
+    def recompute():
+        before = getattr(_state, "ctx", None), \
+            dispatcher._allow_implicit_replication
+        _state.ctx = ctx
+        dispatcher._allow_implicit_replication = implicit
+        try:
+            yield
+        finally:
+            _state.ctx = before[0]
+            dispatcher._allow_implicit_replication = before[1]
+    return nullcontext(), recompute()
 
 
 def hint_spec(kind: str, shape: Sequence[int],

@@ -51,7 +51,7 @@ from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        stacked_const, stacked_dense)
 from repro_torch.models.ffn import ffn_forward, init_stacked_ffn
 from repro_torch.models.moe import init_stacked_moe, moe_forward
-from repro_torch.models.sharding_hints import hint
+from repro_torch.models.sharding_hints import hint, remat_context
 
 PyTree = Any
 
@@ -345,8 +345,9 @@ class LM:
         (B,P,d) -> (logits (B,S,V) over the text tokens in the activation
         dtype, aux). ``aux`` is the MoE load-balance loss summed over
         sub-layers and layers (0 without MoE sub-layers). ``remat``
-        recomputes each layer in the backward (``torch.utils.checkpoint``),
-        the reference's ``jax.checkpoint`` around its scan body."""
+        recomputes each layer in the backward (``torch.utils.checkpoint``,
+        under the forward's hint context: ``remat_context``), the
+        reference's ``jax.checkpoint`` around its scan body."""
         cfg = self.cfg
         patches = self._patches(batch)
         x = embed(params, batch["tokens"], cfg, patches)
@@ -356,7 +357,8 @@ class LM:
         for lp in unbind_layers(params["layers"], _n_scan(cfg)):
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    _layer_fwd, lp, x, cfg, positions, use_reentrant=False)
+                    _layer_fwd, lp, x, cfg, positions, use_reentrant=False,
+                    context_fn=remat_context)
             else:
                 x, a = _layer_fwd(lp, x, cfg, positions)
             x = hint(x, "btd")

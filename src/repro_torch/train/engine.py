@@ -353,15 +353,20 @@ class AllReduce(ExchangeStrategy):
     gradient comes out of the backward as a ``Partial`` sum over the batch
     axes; the optimizer places it on its parameter's shards, reducing over
     "pod" last, and meters that cross-pod all-reduce
-    (``optim/optimizers.py`` ``pod_sync``)."""
+    (``optim/optimizers.py`` ``pod_sync``). ``moe_expert_axis`` places the
+    expert stacks' E dim over that axis (expert parallelism, the rows
+    exchanged by an all-to-all in ``models/moe.py``); an expert's gradient
+    is then whole on its rank but for the sum over "pod"."""
 
     name = "all_reduce"
     stacked = False
 
-    def __init__(self, codist: Optional[CodistConfig] = None, mesh=None):
+    def __init__(self, codist: Optional[CodistConfig] = None, mesh=None,
+                 *, moe_expert_axis: Optional[str] = None):
         super().__init__(codist)
         from repro_torch.launch.mesh import PodGroup
         self.device_mesh = mesh.mesh if isinstance(mesh, PodGroup) else mesh
+        self.moe_expert_axis = moe_expert_axis
 
     @property
     def mesh(self):
@@ -388,7 +393,8 @@ class AllReduce(ExchangeStrategy):
         if self.device_mesh is None or mesh_of(state.params) is not None:
             return state
         from repro_torch.launch.sharding import distribute_state
-        return distribute_state(state, self.mesh, self.device_mesh)
+        return distribute_state(state, self.mesh, self.device_mesh,
+                                moe_expert_axis=self.moe_expert_axis)
 
     def _placed(self, batch: Dict, k: int) -> Dict:
         if self.device_mesh is None:
@@ -757,14 +763,19 @@ class ShardMapCompressed(PredictionExchange):
     the same shard of the other pods' peers, and each received shard is
     re-wrapped with the placements it left with. Microbatches ``(n, k,
     B/k, ...)`` are placed as the reference's ``batch_shardings(...,
-    microbatched=True)`` places them: each microbatch's rows over "data"."""
+    microbatched=True)`` places them: each microbatch's rows over "data".
+    ``moe_expert_axis`` places the peer's expert stacks' E dim over that
+    axis of its pod (expert parallelism), as the reference's dry run's
+    ``--moe-experts``."""
 
     name = "shardmap"
     stacked = False
 
-    def __init__(self, codist: CodistConfig, mesh=None):
+    def __init__(self, codist: CodistConfig, mesh=None, *,
+                 moe_expert_axis: Optional[str] = None):
         super().__init__(codist)
         from repro_torch.launch.mesh import PodGroup
+        self.moe_expert_axis = moe_expert_axis
         if not isinstance(mesh, PodGroup):
             raise ValueError("ShardMapCompressed needs a pod group, one "
                              "process per model (repro_torch.launch.mesh."
@@ -797,7 +808,8 @@ class ShardMapCompressed(PredictionExchange):
             return state
         from repro_torch.launch.sharding import distribute_state
         return distribute_state(state, self.mesh, self.pods.sub_mesh,
-                                self.codist.n_models)
+                                self.codist.n_models,
+                                moe_expert_axis=self.moe_expert_axis)
 
     @property
     def mesh(self):

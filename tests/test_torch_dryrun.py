@@ -423,9 +423,10 @@ def test_codist_cross_pod_bytes_are_the_comm_models_wire(arch, comp):
     c = pc.step_cost(cfg, shape, "codist", 2, microbatch=4, mesh=mesh,
                      codist_extra=extra)
     per_device = shape.global_batch // 2 // mesh.shape["data"]
+    # the production configs train in bf16: the wire carries bf16 logits
     want = cm.codist_cost(cfg, CodistConfig(n_models=2, compression=comp,
                                             topk=64), per_device,
-                          shape.seq_len - cfg.num_patches)
+                          shape.seq_len - cfg.num_patches, logit_bits=16)
     # a device holds V / tp columns of the none wire (the logits' "btv"
     # placement) and the whole top-k wire
     cols = 1 if comp == "topk" else mesh.shape["model"]
@@ -437,6 +438,78 @@ def test_codist_cross_pod_bytes_are_the_comm_models_wire(arch, comp):
     single = pc.step_cost(cfg, shape, "codist", 2, microbatch=4,
                           mesh=make_production_mesh(), codist_extra=extra)
     assert single.collectives.cross_pod_bytes == 0
+
+
+@pytest.mark.parametrize("comp", ["none", "topk"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-67b"])
+def test_bf16_codist_wire_is_priced_at_the_logits_bits(arch, comp):
+    """A bf16 model sends bf16 logits: on the multi-pod production mesh the
+    codist wire's cross-pod bytes are ``comm_model``'s at 16 bits (the
+    top-k values at 16, their indices at 32), and the same model in fp32
+    sends twice the none wire's bytes and (32 + 32) / (16 + 32) times the
+    top-k wire's."""
+    cfg, shape = _dry(arch), INPUT_SHAPES["train_4k"]
+    mesh = make_production_mesh(multi_pod=True)
+    extra = {"compression": comp, "topk": 64}
+
+    def wire(c):
+        return pc.step_cost(c, shape, "codist", 2, mesh=mesh,
+                            codist_extra=extra).collectives.cross_pod_bytes
+    per_device = shape.global_batch // 2 // mesh.shape["data"]
+    cols = 1 if comp == "topk" else mesh.shape["model"]
+    bits = {}
+    for width in (16, 32):
+        bits[width] = cm.codist_cost(
+            cfg, CodistConfig(n_models=2, compression=comp, topk=64),
+            per_device, shape.seq_len - cfg.num_patches,
+            logit_bits=width).bits_per_iter_per_device / 8 / cols
+    assert wire(cfg) == int(bits[16]) > 0
+    fp32 = wire(replace(cfg, dtype="float32"))
+    assert fp32 == int(bits[32])
+    assert fp32 * (16 + 32 if comp == "topk" else 1) == wire(cfg) * (
+        64 if comp == "topk" else 2)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "jamba-v0.1-52b"])
+def test_expert_all_to_all_is_the_capacity_buffers(arch, kind):
+    """With ``moe_expert_axis="data"`` (the E dim over "data", which 8 and
+    16 experts divide on (2, 8, 16)) every MoE layer exchanges each
+    device's (G, E, C, d) capacity buffers each way: a routing group a
+    batch row (a token a slot in decode), C the GShard capacity of a train
+    step or the group's tokens in decode; 2 exchanges a forward, 2 a
+    backward and 2 in the remat forward, each microbatch's groups at a
+    time; no exchange without the expert axis."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import _capacity
+    cfg = _dry(arch)
+    mesh = Mesh((2, 8, 16), ("pod", "data", "model"))
+    shape = INPUT_SHAPES["train_4k" if kind == "train" else "decode_32k"]
+    m = cfg.moe
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    for mode, k in (("allreduce", 1), ("codist", 2)):
+        kw = dict(microbatch=k, mesh=mesh) if kind == "train" else dict(
+            mesh=mesh)
+        c = pc.step_cost(cfg, shape, mode if kind == "train" else "decode",
+                         variant={"moe_expert_axis": "data"}, **kw)
+        ops = [o for o in c.collectives.ops if o.kind == "all-to-all"]
+        if kind == "train":
+            # rows over (pod, data) for one model, over data a peer
+            groups = shape.global_batch // 16 // k
+            per_op = groups * m.num_experts * _capacity(
+                m, shape.seq_len, 1.25) * cfg.d_model * 2
+            reps = 2 * 3 * n_moe * k
+        else:     # one model's slots over (pod, data)
+            groups = shape.global_batch // 16
+            per_op = groups * m.num_experts * 1 * cfg.d_model * 2
+            reps = 2 * n_moe
+        assert len(ops) == reps, (mode, len(ops))
+        assert {o.operand_bytes for o in ops} == {per_op}, mode
+        assert all(len(g) == 8 and not o.cross_pod
+                   for o in ops for g in o.groups)
+        plain = pc.step_cost(cfg, shape, mode if kind == "train" else
+                             "decode", **kw)
+        assert not any(o.kind == "all-to-all" for o in plain.collectives.ops)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "grok-1-314b"])
