@@ -297,7 +297,10 @@ On request only (not in the default run): ``rows`` times rows 1, 1q, 2
 and 4 at the main shapes and saves their outputs (``--dump``), and
 ``parent`` runs ``rows`` in four processes — a copy of the parent commit
 in ``build/parent``, this tree twice, the parent —
-requiring bit-equal outputs and printing the times side by side.
+requiring bit-equal outputs and printing the times side by side;
+``bwd_rows`` and ``bwd_parent`` do the same for rows 7, 10, 11 and 13 (mse,
+kl) through their public wrappers at the main path's shape (T 4096 / V
+152064 bf16, a digest of each output's bits) and at the classifier rows.
 ``mesh4`` needs a host with 4 cards (``python3 chip_smoke.py --phases
 device,build,mesh4``; fewer fail the phase) and spawns 4 ranks,
 one card each, NCCL: qwen1.5-0.5b at 4 layers in fp32 on (2, 2, 1) (pod x
@@ -366,7 +369,12 @@ are held and timed at T = 1 (fp32, bf16), 16, 128, 512 and 4096 (V =
 152064): at the plan's split count and forced to each cluster size 1-16
 (1 is the parent's one CTA a row), two calls bit-equal; a mutant copy of
 the kernel whose fold skips the rescale of each rank's sums, built beside
-the kernels, must fail the check at the canary's shape in kl mode.
+the kernels, must fail the check at the canary's shape in kl mode. Rows 7,
+10, 11 and 13 (mse, kl), the backward, run at the paper's classifier rows
+(T 8 / V 1000, T 64 / V 10 and T 256 / V 10 fp32, T 256 / V 1000 bf16):
+each against the plain version, the wrapper's call equal to the
+launcher's, one kernel a call and nothing else on the device
+(torch.profiler), each timed beside the launch floor (a one-CTA ``zero_``).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of the JAX reference.
@@ -394,9 +402,12 @@ PHASES = ("device", "build", "kernels", "fleet", "parity", "ops", "train",
 # run only when named: "rows" times rows 1, 1q, 2 and 4 at the main shapes
 # and saves their outputs (--dump); "parent" runs "rows" in turns on a copy
 # of the parent commit in PARENT and on this tree, and compares them;
-# "mesh4" needs a host with 4 cards, and so does "mesh4moe" (mesh4's MoE
-# and hybrid cases alone, which "mesh4" runs too)
-ON_REQUEST = ("rows", "parent", "mesh4", "mesh4moe")
+# "bwd_rows" and "bwd_parent" do the same for the loss backward (rows 7,
+# 10, 11, 13) at the main shape and the classifiers' rows; "mesh4" needs a
+# host with 4 cards, and so does "mesh4moe" (mesh4's MoE and hybrid cases
+# alone, which "mesh4" runs too)
+ON_REQUEST = ("rows", "parent", "bwd_rows", "bwd_parent", "mesh4",
+              "mesh4moe")
 PARENT = os.path.join(ROOT, "build", "parent")
 
 # main-path shapes (qwen2-7b fleet: FleetConfig(max_slots=16, block_size=16,
@@ -2253,6 +2264,220 @@ def phase_distill_splits(dev: torch.device, flush: torch.Tensor, mutant):
         del x, tg
     torch.cuda.empty_cache()
     return out
+
+
+# ----------------------------------------------------------------------------
+# the loss backward (rows 7, 10, 11, 13) at the classifiers' rows
+# ----------------------------------------------------------------------------
+
+# the paper's classifier rows, one an example: resnet50's 1000 classes at 8
+# images a peer, wrn28x10's 10 at a rank's 64 (mesh4) and the MLP's 10 at 256
+# samples, all fp32; and 1000 classes in bf16
+BWD_NARROW_SHAPES = [("T8 V1000 fp32", 8, 1000, torch.float32),
+                     ("T64 V10 fp32", 64, 10, torch.float32),
+                     ("T256 V10 fp32", 256, 10, torch.float32),
+                     ("T256 V1000 bf16", 256, 1000, torch.bfloat16)]
+# the main path's shape
+BWD_MAIN = ("T4096 V152064 bf16", TRAIN_T, TRAIN_V, torch.bfloat16)
+# rows 11 and 13 at the fp32 classifier rows: about 1.3x the launch floor
+BWD_NARROW_TARGET_MS = 0.0065
+
+
+def bwd_forward_rows(x, tg, lb) -> dict:
+    """The residual rows of rows 7, 11 and 13 by backward mode, as the paths
+    hand them over: views of the kernel forwards' (K, T) outputs (public
+    wrappers only)."""
+    from repro_torch.kernels import (fused_ce_distill_parts,
+                                     fused_cross_entropy_parts,
+                                     fused_distill_kl_parts)
+    return {"ce": (fused_cross_entropy_parts(x, lb)[2],),
+            "mse": fused_ce_distill_parts(x, tg, lb, "mse")[1],
+            "kl": fused_ce_distill_parts(x, tg, lb, "kl")[1],
+            "distill_mse": (),
+            "distill_kl": fused_distill_kl_parts(x, tg)[1:]}
+
+
+def bwd_wrapper_calls(x, tg, lb, g, res: dict, need_dt: bool) -> list:
+    """(kernel, backward mode, call) of rows 7, 10, 11 and 13 (mse, kl)
+    through their public wrappers, the target's gradient as ``need_dt``
+    says (row 7 has none)."""
+    from repro_torch.kernels import (fused_ce_distill_grad,
+                                     fused_cross_entropy_grad,
+                                     fused_distill_kl_grad,
+                                     fused_distill_mse_grad)
+    return [
+        ("fused_cross_entropy_grad", "ce", lambda: fused_cross_entropy_grad(
+            x, lb, *res["ce"], g[0], g[1])),
+        ("fused_distill_mse_grad", "distill_mse",
+         lambda: fused_distill_mse_grad(x, tg, g[2],
+                                        need_target_grad=need_dt)),
+        ("fused_distill_kl_grad", "distill_kl", lambda: fused_distill_kl_grad(
+            x, tg, *res["distill_kl"], g[2], need_target_grad=need_dt)),
+        ("fused_ce_distill_grad", "mse", lambda: fused_ce_distill_grad(
+            x, tg, lb, res["mse"], g[0], g[1], g[2], "mse",
+            need_target_grad=need_dt)),
+        ("fused_ce_distill_grad", "kl", lambda: fused_ce_distill_grad(
+            x, tg, lb, res["kl"], g[0], g[1], g[2], "kl",
+            need_target_grad=need_dt))]
+
+
+def bwd_key(label: str, mode: str) -> str:
+    """A shape's label, with row 13's distillation mode."""
+    return f"{label} {mode}" if mode in ("mse", "kl") else label
+
+
+def phase_bwd_narrow(dev: torch.device, flush: torch.Tensor) -> dict:
+    """Rows 7, 10, 11 and 13 (mse, kl) at BWD_NARROW_SHAPES through
+    ``launch_bwd`` from the kernel forwards' residual rows: ds and dt within
+    ``check_loss_output``'s tolerance of the plain version, the public
+    wrapper's call bit-equal to the launcher's; one kernel a call and no
+    other device work (torch.profiler); each call's time beside the launch
+    floor (a one-CTA ``zero_`` timed the same way), the plain version's and
+    the bound. Returns {kernel: {shape: record}}."""
+    from repro_torch.kernels import (fused_ce_distill_grad_plain,
+                                     fused_cross_entropy_grad_plain,
+                                     fused_distill_kl_grad_plain,
+                                     fused_distill_mse_grad_plain)
+    from repro_torch.kernels.fused_ce import launch_bwd
+    floor_buf = torch.zeros(1, device=dev)
+    out = {}
+    for si, (label, t, v, dtype) in enumerate(BWD_NARROW_SHAPES):
+        x, tg, lb, g = loss_inputs(t, v, dtype, dev, 400 + si)
+        es, fp32 = x.element_size(), dtype == torch.float32
+        res = bwd_forward_rows(x, tg, lb)
+        grads = {"ce": (g[0], g[1]), "mse": (g[0], g[1], g[2]),
+                 "kl": (g[0], g[1], g[2]), "distill_mse": (g[2],),
+                 "distill_kl": (g[2],)}
+
+        def launch(mode, need_dt):
+            ce = mode in ("ce", "mse", "kl")
+            return launch_bwd(mode, x, None if mode == "ce" else tg,
+                              lb if ce else None, res[mode], grads[mode], v,
+                              need_dt and mode != "ce")
+
+        def plain(mode, need_dt):
+            if mode == "ce":
+                return fused_cross_entropy_grad_plain(x, lb, *res["ce"], g[0],
+                                                      g[1]), None
+            if mode == "distill_mse":
+                return fused_distill_mse_grad_plain(
+                    x, tg, g[2], need_target_grad=need_dt)
+            if mode == "distill_kl":
+                return fused_distill_kl_grad_plain(
+                    x, tg, *res[mode], g[2], need_target_grad=need_dt)
+            return fused_ce_distill_grad_plain(
+                x, tg, lb, res[mode], *grads[mode], mode,
+                need_target_grad=need_dt)
+
+        floor = time_ms(floor_buf.zero_, flush)
+        calls = []
+        for name, mode, wrapper in bwd_wrapper_calls(x, tg, lb, g, res,
+                                                     need_dt=False):
+            key = bwd_key(label, mode)
+            ds, dt = launch(mode, True)
+            ds_p, dt_p = plain(mode, True)
+            err = check_loss_output(name, key, ds, ds_p, True, fp32, {})
+            if dt_p is not None:
+                err = max(err, check_loss_output(name, key, dt, dt_p, True,
+                                                 fp32, {}))
+            # the wrapper asks for no dt, as the paths do: held to the
+            # launcher called so (without dt, mse's ds = ce + dd may fuse
+            # dd's product into an fma; with dt, dd is rounded to be stored)
+            w = wrapper()
+            require(bits_equal(w if isinstance(w, torch.Tensor) else w[0],
+                               launch(mode, False)[0]),
+                    f"{name} {key}: the wrapper's call differs from the "
+                    "launcher's")
+            b_ms, b_by = loss_bound(name, t, v, es, mode)
+            r = {"ms": time_ms(lambda: launch(mode, False), flush),
+                 "plain_ms": time_ms(lambda: plain(mode, False), flush,
+                                     iters=5, warmup=1),
+                 "floor_ms": floor, "bound_ms": b_ms, "bound_by": b_by,
+                 "max_abs_err": err}
+            out.setdefault(name, {})[key] = r
+            calls.append(lambda m=mode: launch(m, False))
+            target = ""
+            if fp32 and name in ("fused_distill_kl_grad",
+                                 "fused_ce_distill_grad"):
+                target = (f"; target <= {BWD_NARROW_TARGET_MS} ms "
+                          + ("met" if r["ms"] <= BWD_NARROW_TARGET_MS
+                             else "not met"))
+            log(f"  bwd narrow {key}: {name} {r['ms']:.4f} ms  launch floor "
+                f"{floor:.4f} ms ({r['ms'] / floor:.2f}x)  plain "
+                f"{r['plain_ms']:.4f} ms  bound {b_ms:.3e} ms ({b_by}); "
+                f"max|kernel-plain| {err:.2e}{target}")
+        kt = step_kernels(lambda: [c() for c in calls])
+        require(bool(kt), f"bwd narrow {label}: the profiler saw no device "
+                "work")
+        n_bwd = sum(n for n, k in kt if "bwd_kernel<" in k)
+        n_all = sum(n for n, _k in kt)
+        require(n_bwd == n_all == len(calls),
+                f"bwd narrow {label}: {len(calls)} calls launched {n_bwd} "
+                f"backward and {n_all} device kernels in all: "
+                f"{[(n, k[:60]) for n, k in kt]}")
+        log(f"  bwd narrow {label}: {len(calls)} calls, one kernel each "
+            "(nothing else on the device; torch.profiler)")
+        del x, tg, res, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_kernels(fn) -> list:
+    """[(calls, name)] of the device work (kernels, copies, memsets) of one
+    call of ``fn``: torch.profiler's third step, after a wait and a warm-up
+    step (a profile's first launches can go unrecorded)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [(e.count, e.key) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def bits_digest(x: torch.Tensor) -> list:
+    """Two wrapping int64 sums of ``x``'s bits, plain and weighted by
+    position: equal tensors give equal digests (for outputs too large to
+    keep)."""
+    w = x.contiguous().view(torch.int16 if x.element_size() == 2
+                            else torch.int32).reshape(-1)
+    s0 = s1 = 0
+    for c in w.split(1 << 24):
+        c = c.long()
+        pos = torch.arange(c.numel(), device=c.device) % 65521 + 1
+        s0 += int(c.sum())
+        s1 += int((c * pos).sum())
+    return [s0, s1]
+
+
+def phase_bwd_rows(dev: torch.device, dump: str) -> None:
+    """Rows 7, 10, 11 and 13 (mse, kl) through their public wrappers at the
+    main path's shape (BWD_MAIN) and at BWD_NARROW_SHAPES,
+    from the kernel forwards' residual rows, the target's gradient skipped
+    as on the paths: each ds (a digest of its bits at the main shape) and
+    each call's time (``time_ms``) saved to ``dump``. Public API only, so
+    the same phase runs on an older tree's package (``--src``)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    out, ms = {}, {}
+    for si, (label, t, v, dtype) in enumerate([BWD_MAIN, *BWD_NARROW_SHAPES]):
+        x, tg, lb, g = loss_inputs(t, v, dtype, dev, 500 + si)
+        res = bwd_forward_rows(x, tg, lb)
+        for name, mode, call in bwd_wrapper_calls(x, tg, lb, g, res, False):
+            key = f"{name} {bwd_key(label, mode)}"
+            ds = call()
+            ds = ds if isinstance(ds, torch.Tensor) else ds[0]
+            out[key] = bits_digest(ds) if t == TRAIN_T else ds.cpu()
+            del ds
+            ms[key] = time_ms(call, flush, iters=20 if t == TRAIN_T else 30)
+        del x, tg, res
+        torch.cuda.empty_cache()
+    sync(dev)
+    torch.save({"out": out, "ms": ms}, dump)
+    log("bwd_rows: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
 
 
 # ----------------------------------------------------------------------------
@@ -7718,31 +7943,33 @@ def phase_rows(dev: torch.device, dump: str) -> None:
     log("rows: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
 
 
-def phase_parent() -> None:
-    """``rows`` in four processes, in turns: the parent's tree (``PARENT``,
-    a ``git archive`` of the parent commit whose kernels build into its own
-    ``build/``), this tree, this tree, the parent. Every output must be bit
-    for bit the same in all four; prints each launch's time in the four
-    runs and this tree's mean over the parent's."""
+def phase_parent(child: str = "rows") -> None:
+    """``child`` (``rows`` or ``bwd_rows``) in four processes, in turns: the
+    parent's tree (``PARENT``, a ``git archive`` of the parent commit whose
+    kernels build into its own ``build/``), this tree, this tree, the
+    parent. Every output (or its digest) must be bit for bit the same in
+    all four; prints each launch's time in the four runs and this tree's
+    mean over the parent's."""
     runs = [("parent", PARENT), ("this", ROOT), ("this", ROOT),
             ("parent", PARENT)]
     got = []
     for i, (who, root) in enumerate(runs):
-        dump = os.path.join(ROOT, "build", f"rows_{i}.pt")
+        dump = os.path.join(ROOT, "build", f"{child}_{i}.pt")
         os.makedirs(os.path.dirname(dump), exist_ok=True)
         proc = subprocess.run(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--phases",
-             "device,rows", "--src", os.path.join(root, "src"), "--dump",
+             f"device,{child}", "--src", os.path.join(root, "src"), "--dump",
              dump], capture_output=True, text=True, timeout=900)
         require(proc.returncode == 0, f"parent: the {who} run {i} failed:\n"
                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         got.append(torch.load(dump))
-    for key in got[0]["out"]:
-        require(all(bits_equal(g["out"][key], got[0]["out"][key])
-                    for g in got[1:]),
+    for key, want in got[0]["out"].items():
+        same = bits_equal if isinstance(want, torch.Tensor) else (
+            lambda a, b: a == b)
+        require(all(same(g["out"][key], want) for g in got[1:]),
                 f"parent: {key} differs between the parent and this tree")
-    log(f"parent: {len(got[0]['out'])} outputs bit for bit equal in the four "
-        "runs (parent, this, this, parent)")
+    log(f"parent: {len(got[0]['out'])} outputs of {child} bit for bit equal "
+        "in the four runs (parent, this, this, parent)")
     for key in got[0]["ms"]:
         t = [g["ms"][key] for g in got]
         base, mine = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
@@ -7758,7 +7985,7 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the package tree to import (rows: an older tree's)")
     ap.add_argument("--dump", default="",
-                    help="rows: write the outputs and times here")
+                    help="rows, bwd_rows: write the outputs and times here")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     bad = sorted(set(phases) - set(PHASES + ON_REQUEST))
@@ -7772,11 +7999,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi_line = phase_device()
-    if "rows" in phases or "parent" in phases:
+    if any(p in phases for p in ("rows", "parent", "bwd_rows", "bwd_parent")):
         if "rows" in phases:
             phase_rows(dev, args.dump)
+        if "bwd_rows" in phases:
+            phase_bwd_rows(dev, args.dump)
         if "parent" in phases:
-            phase_parent()
+            phase_parent("rows")
+        if "bwd_parent" in phases:
+            phase_parent("bwd_rows")
         log(smi_line)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7813,6 +8044,8 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
         kernel_rows.update(phase_distill_kernels(dev, flush))
         for name, recs in phase_distill_splits(dev, flush, mutant).items():
             kernel_rows[name]["by_shape"] = recs
+        for name, recs in phase_bwd_narrow(dev, flush).items():
+            kernel_rows.setdefault(name, {})["bwd_narrow"] = recs
         del flush
         log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     launches = {}          # path -> {kernel: launches on that path's run}
@@ -7926,7 +8159,7 @@ def run_phases(phases, dev, t_start, smi_line, mutant) -> int:
             "library_ms": row.get("library_ms"),
             **{k: v for k, v in row.items()
                if k.startswith(("verify_", "canary_", "by_shape",
-                                "paper_", "rwkv_", "heads"))}})
+                                "paper_", "rwkv_", "heads", "bwd_"))}})
     log(f"total: {time.perf_counter() - t_start:.1f} s; launch counts "
         f"{dict(_build.launch_counts)}")
     log(smi_line)

@@ -52,9 +52,12 @@
 // without the real-column sum and the smooth and logZ rows. A label
 // outside [0, V) hits no column, so its nll is logZ, as in the reference.
 //
-// Backward. Elementwise given the (T,) residuals and the (T,) cotangents:
-// grid (T, ceil(V / chunk)), chunk = 256 threads x one 16-byte vector.
-// Each thread rebuilds softmax(x) = exp(x - logZ_s) and, for kl,
+// Backward. Elementwise given the (T,) residuals and the (T,) cotangents,
+// each handed over by a pointer of its own (logZ_s, logZ_t, E; g_nll,
+// g_smooth, g_dist; null where the mode has none), so the forward's (K, T)
+// rows and autograd's cotangents go in as they are and a call is one
+// launch: grid (T, ceil(V / chunk)), chunk = 256 threads x one 16-byte
+// vector. Each thread rebuilds softmax(x) = exp(x - logZ_s) and, for kl,
 // p = exp(t - logZ_t), and writes ds (and dt unless its pointer is null)
 // in the logits' dtype, rounded once from fp32:
 //   ds = (g_nll + g_smooth) q - g_nll onehot - g_smooth [c < v_real] / v_real
@@ -74,7 +77,10 @@
 // canary's one, a subsampled wire's hundreds) would leave most SMs idle at
 // one CTA a row, so modes 3 and 4 split each row over a cluster of up to 16
 // CTAs there, and a split mse row keeps 4 vector loads in flight a thread.
-// Not yet done: cp.async/TMA staging, and more loads in flight on the
+// At the classifiers' rows (one row an example, V 10 or 1000, fp32) a call
+// moves a few kB and costs about one launch; a flat grid over the T x V
+// elements, with no CTA of idle threads, measured no faster there. Not yet
+// done: cp.async/TMA staging, and more loads in flight on the
 // one-CTA-a-row path.
 //
 // Each entry point launches on the caller's stream and returns
@@ -423,6 +429,12 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
 // backward
 // ---------------------------------------------------------------------------
 
+// the per-token fp32 rows of the backward, one pointer each, null where the
+// mode has none
+struct BwdRows {
+  const float *logzs, *logzt, *e, *gn, *gs, *gd;
+};
+
 struct Row {
   float logzs, logzt, e, gn, gs, gd, inv_v, two_inv_v;
   int label, v_real;
@@ -473,9 +485,9 @@ __device__ __forceinline__ void grad_scalar(const Row& r, const T* xr,
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kBwdThreads)
 bwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
-           const int* __restrict__ labels, const float* __restrict__ res,
-           const float* __restrict__ g, T* __restrict__ ds, T* __restrict__ dt,
-           int n_tok, int V, int v_real, float inv_v, float two_inv_v, int vec) {
+           const int* __restrict__ labels, BwdRows rows, T* __restrict__ ds,
+           T* __restrict__ dt, int V, int v_real, float inv_v, float two_inv_v,
+           int vec) {
   constexpr int N = Vec<T>::n;
   const int row = blockIdx.x;
   const size_t base = (size_t)row * V;
@@ -483,14 +495,13 @@ bwd_kernel(const T* __restrict__ x, const T* __restrict__ tg,
   const T* tr = MODE == kCE ? nullptr : tg + base;
   T* dsr = ds + base;
   T* dtr = (MODE == kCE || dt == nullptr) ? nullptr : dt + base;
-  const size_t n = (size_t)n_tok;
   Row r;
-  r.logzs = has_lse(MODE) ? res[row] : 0.f;
-  r.logzt = is_kl(MODE) ? res[n + row] : 0.f;
-  r.e = is_kl(MODE) ? res[2 * n + row] : 0.f;
-  r.gn = has_ce(MODE) ? g[row] : 0.f;
-  r.gs = has_ce(MODE) ? g[n + row] : 0.f;
-  r.gd = MODE == kCE ? 0.f : g[(has_ce(MODE) ? 2 * n : 0) + row];
+  r.logzs = has_lse(MODE) ? rows.logzs[row] : 0.f;
+  r.logzt = is_kl(MODE) ? rows.logzt[row] : 0.f;
+  r.e = is_kl(MODE) ? rows.e[row] : 0.f;
+  r.gn = has_ce(MODE) ? rows.gn[row] : 0.f;
+  r.gs = has_ce(MODE) ? rows.gs[row] : 0.f;
+  r.gd = MODE == kCE ? 0.f : rows.gd[row];
   r.inv_v = inv_v;
   r.two_inv_v = two_inv_v;
   r.label = has_ce(MODE) ? labels[row] : -1;
@@ -603,9 +614,16 @@ int launch_fwd(int mode, const void* x, const void* t, const int* labels,
 
 template <typename T>
 int launch_bwd(int mode, const void* x, const void* t, const int* labels,
-               const float* res, const float* g, void* ds, void* dt,
-               int n_tok, int V, int v_real, float inv_v, float two_inv_v,
-               cudaStream_t st) {
+               const BwdRows& rows, void* ds, void* dt, int n_tok, int V,
+               int v_real, float inv_v, float two_inv_v, cudaStream_t st) {
+  // every operand the mode reads must be there
+  const bool ok = mode >= kCE && mode <= kDistKL &&
+                  (!has_lse(mode) || rows.logzs != nullptr) &&
+                  (!is_kl(mode) || (rows.logzt != nullptr && rows.e != nullptr)) &&
+                  (!has_ce(mode) || (labels != nullptr && rows.gn != nullptr &&
+                                     rows.gs != nullptr)) &&
+                  (mode == kCE || (t != nullptr && rows.gd != nullptr));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const T* xp = static_cast<const T*>(x);
   const T* tp = static_cast<const T*>(t);
   T* dsp = static_cast<T*>(ds);
@@ -617,11 +635,11 @@ int launch_bwd(int mode, const void* x, const void* t, const int* labels,
   const int chunks = V > 0 ? (V + per_chunk - 1) / per_chunk : 1;
   const dim3 grid(n_tok, chunks);
   switch (mode) {
-    case kCE: bwd_kernel<T, kCE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
-    case kMSE: bwd_kernel<T, kMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
-    case kKL: bwd_kernel<T, kKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
-    case kDistMSE: bwd_kernel<T, kDistMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
-    case kDistKL: bwd_kernel<T, kDistKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, res, g, dsp, dtp, n_tok, V, v_real, inv_v, two_inv_v, vec); break;
+    case kCE: bwd_kernel<T, kCE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, rows, dsp, dtp, V, v_real, inv_v, two_inv_v, vec); break;
+    case kMSE: bwd_kernel<T, kMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, rows, dsp, dtp, V, v_real, inv_v, two_inv_v, vec); break;
+    case kKL: bwd_kernel<T, kKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, rows, dsp, dtp, V, v_real, inv_v, two_inv_v, vec); break;
+    case kDistMSE: bwd_kernel<T, kDistMSE><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, rows, dsp, dtp, V, v_real, inv_v, two_inv_v, vec); break;
+    case kDistKL: bwd_kernel<T, kDistKL><<<grid, kBwdThreads, 0, st>>>(xp, tp, labels, rows, dsp, dtp, V, v_real, inv_v, two_inv_v, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -655,20 +673,27 @@ int repro_fused_loss_fwd(const void* x, const void* t, const int* labels,
   }
 }
 
-// res (R, T) fp32: [logZ_s] (modes 0, 1), [logZ_s, logZ_t, E] (modes 2, 4)
-// or unused (mode 3, may be null); g (G, T) fp32: [g_nll, g_smooth] (mode
-// 0), [g_nll, g_smooth, g_dist] (modes 1, 2) or [g_dist] (modes 3, 4).
-// ds (T, V) in x's dtype; dt (T, V) or null (not written) in modes 1-4.
-// two_inv_v is 2 / v_real (modes 1, 3: 2 / v_total).
+// One launch. logzs, logzt, e: the forward's fp32 (T,) residual rows,
+// logZ_s in modes 0, 1, 2 and 4, logZ_t and E in modes 2 and 4; g_nll,
+// g_smooth, g_dist: the fp32 (T,) cotangent rows, g_nll and g_smooth in
+// modes 0-2, g_dist in modes 1-4. Each is a contiguous row of its own, null
+// where the mode has none. ds (T, V) in x's dtype; dt (T, V) or null (not
+// written) in modes 1-4. two_inv_v is 2 / v_real (modes 1, 3: 2 / v_total).
+// An operand the mode needs that is null returns cudaErrorInvalidValue
+// without a launch.
 int repro_fused_loss_bwd(const void* x, const void* t, const int* labels,
-                         const float* res, const float* g, void* ds, void* dt,
-                         int n_tok, int V, int v_real, int mode, int dtype,
-                         float inv_v, float two_inv_v, void* stream) {
+                         const float* logzs, const float* logzt,
+                         const float* e, const float* g_nll,
+                         const float* g_smooth, const float* g_dist, void* ds,
+                         void* dt, int n_tok, int V, int v_real, int mode,
+                         int dtype, float inv_v, float two_inv_v,
+                         void* stream) {
   if (n_tok == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdRows rows = {logzs, logzt, e, g_nll, g_smooth, g_dist};
   switch (dtype) {
-    case 0: return launch_bwd<float>(mode, x, t, labels, res, g, ds, dt, n_tok, V, v_real, inv_v, two_inv_v, st);
-    case 1: return launch_bwd<__nv_bfloat16>(mode, x, t, labels, res, g, ds, dt, n_tok, V, v_real, inv_v, two_inv_v, st);
+    case 0: return launch_bwd<float>(mode, x, t, labels, rows, ds, dt, n_tok, V, v_real, inv_v, two_inv_v, st);
+    case 1: return launch_bwd<__nv_bfloat16>(mode, x, t, labels, rows, ds, dt, n_tok, V, v_real, inv_v, two_inv_v, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -68,12 +68,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "repro_fused_loss_fwd": [c_void_p, c_void_p, c_void_p, c_void_p,
                                  c_void_p, c_int, c_int, c_int, c_int, c_int,
                                  c_int, c_int, c_void_p],
-        # x, t, labels, res, g, ds, dt, T, V, v_real, mode, dtype, inv_v,
-        # two_inv_v, stream
-        "repro_fused_loss_bwd": [c_void_p, c_void_p, c_void_p, c_void_p,
-                                 c_void_p, c_void_p, c_void_p, c_int, c_int,
-                                 c_int, c_int, c_int, c_float, c_float,
-                                 c_void_p],
+        # x, t, labels, logZ_s, logZ_t, E, g_nll, g_smooth, g_dist, ds, dt,
+        # T, V, v_real, mode, dtype, inv_v, two_inv_v, stream
+        "repro_fused_loss_bwd": [c_void_p] * 11 + [c_int] * 5
+                                + [c_float, c_float, c_void_p],
     },
     "flash_attention": {
         # q, k, v, out, B, S, T, H, KVh, hd, causal, window, scale, dtype,

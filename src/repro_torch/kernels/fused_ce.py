@@ -154,27 +154,39 @@ def launch_fwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
     return out
 
 
+def _f32_row(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``x`` itself when it is an fp32 contiguous row, as every path hands
+    one; a copy otherwise (a strided local shard, a bf16 cotangent)."""
+    return None if x is None else x.float().contiguous()
+
+
 def launch_bwd(mode: str, logits: torch.Tensor, target: Optional[torch.Tensor],
                labels: Optional[torch.Tensor],
                residuals: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], v_real: int,
-               need_target_grad: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The backward kernel; returns (ds, dt or None) in the logits' dtype."""
+               need_target_grad: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward kernel, one launch; returns (ds, dt or None) in the
+    logits' dtype. ``residuals`` are the mode's (T,) rows (logZ_s; logZ_s,
+    logZ_t, E; or none) and ``grads`` its cotangents (g_nll, g_smooth and,
+    but in mode ``ce``, g_dist; or g_dist alone), each passed by its own
+    pointer."""
     dev = logits.device
     t, v = logits.shape
-    res = (torch.stack([r.float() for r in residuals]).contiguous()
-           if residuals else None)
-    g = torch.stack([x.float() for x in grads]).contiguous()
     ds = torch.empty_like(logits)
     dt = torch.empty_like(target) if need_target_grad else None
     if t == 0:
         return ds, dt
+    res = [_f32_row(r) for r in residuals] + [None] * (3 - len(residuals))
+    g = [_f32_row(x) for x in grads]
+    g = [None, None, *g] if len(g) == 1 else g + [None] * (3 - len(g))
     lib = _build.load("fused_losses")
     with torch.cuda.device(dev):
         rc = lib.repro_fused_loss_bwd(
-            logits.data_ptr(), _ptr(target), _ptr(labels), _ptr(res),
-            g.data_ptr(), ds.data_ptr(), _ptr(dt), t, v, v_real, MODES[mode],
-            _DTYPE_CODES[logits.dtype], 1.0 / v_real, 2.0 / v_real,
+            logits.data_ptr(), _ptr(target), _ptr(labels),
+            *(_ptr(x) for x in res), *(_ptr(x) for x in g), ds.data_ptr(),
+            _ptr(dt), t, v, v_real, MODES[mode], _DTYPE_CODES[logits.dtype],
+            1.0 / v_real, 2.0 / v_real,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"fused loss backward ({mode})")
     return ds, dt
